@@ -1,0 +1,119 @@
+"""Inverse-CDF resampling of bin edges (the PDF sampler's core).
+
+Replaces ``uncertainty_nerf_gs_tpu/ops/pdf_pallas.py::resample_edges_tpu``
+(Pallas kernel ``_resample_kernel``). On a CUDA tensor ``resample_edges``
+launches the hand-written kernel ``csrc/pdf_resample.cu``; on a CPU tensor it
+runs ``resample_edges_reference``, the plain version of the same function,
+written after the XLA branch of the JAX ``sample_pdf`` (``sampling.py``,
+lines 175-196). Neither is differentiable: the nerfacto path never takes a
+gradient through the sampler.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from uncertainty_nerf_gs_torch.ops import backend
+
+KERNEL = "pdf_resample"
+MAX_BINS = 4096  # shared memory holds 2 (S + 1) floats per block: 32 KB
+
+
+@torch.no_grad()
+def resample_edges_reference(
+    weights: torch.Tensor,
+    s_edges: torch.Tensor,
+    u: torch.Tensor,
+    histogram_padding: float = 0.01,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """Plain PyTorch version: (R, S) weights + (R, S+1) sorted edges + (R, N)
+    sorted queries in [0, 1) -> (R, N) new edges."""
+    num_rays, num_bins = weights.shape
+    weights = weights + histogram_padding
+    w_sum = torch.sum(weights, dim=-1, keepdim=True)
+    padding = torch.clamp(eps - w_sum, min=0.0)
+    weights = weights + padding / num_bins
+    w_sum = w_sum + padding
+
+    pdf = weights / w_sum
+    cdf = torch.cat(
+        [torch.zeros_like(pdf[:, :1]), torch.cumsum(pdf, dim=-1)], dim=-1
+    )
+    cdf = torch.clamp(cdf, 0.0, 1.0)
+
+    idx = torch.sum(cdf[:, :, None] <= u[:, None, :], dim=1) - 1
+    idx = torch.clamp(idx, 0, num_bins - 1)
+    c0 = torch.gather(cdf, -1, idx)
+    c1 = torch.gather(cdf, -1, idx + 1)
+    e0 = torch.gather(s_edges, -1, idx)
+    e1 = torch.gather(s_edges, -1, idx + 1)
+    frac = torch.where(
+        c1 > c0, (u - c0) / torch.clamp(c1 - c0, min=1e-12), torch.zeros_like(u)
+    )
+    return e0 + frac * (e1 - e0)
+
+
+def _check(weights, s_edges, u) -> None:
+    for name, t in (("weights", weights), ("s_edges", s_edges), ("u", u)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dim() != 2:
+            raise ValueError(f"{name} must be 2-D, got shape {tuple(t.shape)}")
+        if t.device != weights.device:
+            raise ValueError(f"{name} is on {t.device}, weights on {weights.device}")
+    r, s = weights.shape
+    if not 1 <= s <= MAX_BINS:
+        raise ValueError(f"bins per ray must be in [1, {MAX_BINS}], got {s}")
+    if tuple(s_edges.shape) != (r, s + 1):
+        raise ValueError(f"s_edges must be {(r, s + 1)}, got {tuple(s_edges.shape)}")
+    if u.shape[0] != r or u.shape[1] < 1:
+        raise ValueError(f"u must be ({r}, N>=1), got {tuple(u.shape)}")
+
+
+def _kernel_entry():
+    """The kernel's C entry point, built and loaded at first use."""
+    fn = backend.load_library(KERNEL).pdf_resample_f32
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+            ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def resample_edges(
+    weights: torch.Tensor,
+    s_edges: torch.Tensor,
+    u: torch.Tensor,
+    histogram_padding: float = 0.01,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """Checked entry point: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors. Raises on what the kernel does not take."""
+    _check(weights, s_edges, u)
+    if not backend.use_kernel(weights):
+        return resample_edges_reference(
+            weights, s_edges, u, histogram_padding, eps
+        )
+    for name, t in (("weights", weights), ("s_edges", s_edges), ("u", u)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    r, s = weights.shape
+    n = u.shape[1]
+    out = torch.empty((r, n), dtype=torch.float32, device=weights.device)
+    if r == 0:
+        return out
+    fn = _kernel_entry()
+    with torch.cuda.device(weights.device):
+        err = fn(
+            weights.data_ptr(), s_edges.data_ptr(), u.data_ptr(), out.data_ptr(),
+            r, s, n, histogram_padding, eps,
+            backend.current_stream_handle(weights.device),
+        )
+    if err != 0:
+        raise RuntimeError(f"pdf_resample launch failed: CUDA error {err}")
+    backend.count_launch(KERNEL)
+    return out
