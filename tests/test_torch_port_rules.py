@@ -11,10 +11,15 @@ import pytest
 import torch
 
 from uncertainty_nerf_gs_torch.data.synthetic import hemisphere_cameras
+from uncertainty_nerf_gs_torch.engine.splat_trainer import SplatfactoTrainer
 from uncertainty_nerf_gs_torch.engine.trainer import NerfactoTrainer
 from uncertainty_nerf_gs_torch.models.nerfacto import NerfactoConfig, NerfactoModel
+from uncertainty_nerf_gs_torch.models.splatfacto import SplatfactoConfig
 from uncertainty_nerf_gs_torch.ops import backend
+from uncertainty_nerf_gs_torch.ops.composite import MAX_CHANNELS, composite_bwd, composite_fwd
+from uncertainty_nerf_gs_torch.ops.gaussians import Projection
 from uncertainty_nerf_gs_torch.ops.pdf_resample import MAX_BINS, resample_edges
+from uncertainty_nerf_gs_torch.ops.rasterize import rasterize_gaussians
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "uncertainty_nerf_gs_torch").rglob("*.py")) + [
@@ -45,6 +50,9 @@ def test_trainer_without_cuda_raises(monkeypatch):
         NerfactoTrainer(NerfactoConfig(num_images=2), cams, device=None)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         NerfactoModel(NerfactoConfig(num_images=2))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SplatfactoTrainer(SplatfactoConfig(capacity=8, num_random=4), cams,
+                          torch.zeros(2, 4, 4, 3).numpy(), device=None)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         backend.resolve_device(None)
     assert backend.resolve_device("cpu") == torch.device("cpu")
@@ -95,11 +103,78 @@ def test_resample_wrapper_refuses(case, error):
         resample_edges(w, e, u)
 
 
-def test_kernel_build_is_keyed_by_source():
-    path = backend.library_path("pdf_resample")
+def _composite_inputs(t=3, k=5, c=4, dtype=torch.float32):
+    packed = torch.rand(t, k, 6 + c, dtype=dtype)
+    pix = torch.rand(t, 256, 2, dtype=dtype)
+    counts = torch.full((t,), k, dtype=torch.int32)
+    return packed, pix, counts, torch.rand(t, 256, c, dtype=dtype), torch.rand(t, 256, dtype=dtype)
+
+
+@pytest.mark.parametrize(
+    "case,error",
+    [
+        ("float64", TypeError),
+        ("counts_int64", TypeError),
+        ("too_many_channels", ValueError),
+        ("no_channels", ValueError),
+        ("packed_2d", ValueError),
+        ("pix_shape", ValueError),
+        ("counts_shape", ValueError),
+        ("g_img_channels", ValueError),
+        ("g_alpha_shape", ValueError),
+        ("not_contiguous", ValueError),
+        ("mixed_devices", ValueError),
+    ],
+)
+def test_composite_wrappers_refuse(case, error):
+    packed, pix, counts, g_img, g_alpha = _composite_inputs()
+    if case == "float64":
+        packed, pix, counts, g_img, g_alpha = _composite_inputs(dtype=torch.float64)
+    elif case == "counts_int64":
+        counts = counts.long()
+    elif case == "too_many_channels":
+        packed, pix, counts, g_img, g_alpha = _composite_inputs(c=MAX_CHANNELS + 1)
+    elif case == "no_channels":
+        packed = packed[:, :, :6].contiguous()
+    elif case == "packed_2d":
+        packed = packed[0]
+    elif case == "pix_shape":
+        pix = pix[:, :128].contiguous()
+    elif case == "counts_shape":
+        counts = counts[:2]
+    elif case == "g_img_channels":
+        g_img = g_img[:, :, :3].contiguous()
+    elif case == "g_alpha_shape":
+        g_alpha = g_alpha[:2]
+    elif case == "not_contiguous":
+        packed = packed.transpose(0, 1).contiguous().transpose(0, 1)
+    elif case == "mixed_devices":
+        pix = pix.to("meta")
+    if not case.startswith("g_"):
+        with pytest.raises(error):
+            composite_fwd(packed, pix, counts)
+    with pytest.raises(error):
+        composite_bwd(packed, pix, counts, g_img, g_alpha)
+
+
+@pytest.mark.parametrize("backend_name", ["xla", "matmul"])
+def test_rasterize_refuses_tpu_backends(backend_name):
+    n = 4
+    proj = Projection(torch.rand(n, 2) * 16, torch.ones(n), torch.ones(n, 3), torch.ones(n),
+                      torch.ones(n), torch.ones(n, dtype=torch.bool))
+    with pytest.raises(ValueError, match="backend"):
+        rasterize_gaussians(proj, torch.ones(n), torch.ones(n, 3), 16, 16, backend=backend_name)
+    with pytest.raises(ValueError, match="pack_via"):
+        rasterize_gaussians(proj, torch.ones(n), torch.ones(n, 3), 16, 16, pack_via="onehot")
+
+
+@pytest.mark.parametrize("name", backend.KERNELS)
+def test_kernel_build_is_keyed_by_source(name):
+    path = backend.library_path(name)
     assert path.parent == backend.BUILD_DIR and path.suffix == ".so"
-    assert path == backend.library_path("pdf_resample")
-    assert (backend.CSRC_DIR / "pdf_resample.cu").exists()
+    assert path == backend.library_path(name)
+    assert (backend.CSRC_DIR / f"{name}.cu").exists()
+    assert set(backend.launch_counts) == set(backend.LAUNCH_COUNTERS)
 
 
 def test_chip_smoke_refuses_without_a_card():

@@ -1,4 +1,6 @@
-"""Shared inputs and rules for the port's parity tests (tests/test_torch_*.py).
+"""Shared inputs and rules for the port's parity tests (tests/test_torch_*.py)
+and the tolerances chip_smoke.py holds the kernels to (it imports this module
+on a machine without JAX, so JAX is imported only inside functions).
 
 Inputs are drawn with numpy from a seed and handed to both packages as
 arrays; weights are drawn by ``interop.draw_params`` at scales that give
@@ -33,12 +35,7 @@ peaked compositing weights. Tolerances:
 
 from __future__ import annotations
 
-import jax.numpy as jnp
 import numpy as np
-
-from uncertainty_nerf_gs_tpu.ops import encodings as jenc
-from uncertainty_nerf_gs_tpu.ops import sampling as jsamp
-from uncertainty_nerf_gs_tpu.ops import spatial as jsp
 
 from uncertainty_nerf_gs_torch.interop import draw_params  # noqa: F401
 
@@ -56,6 +53,62 @@ OUTPUT_TOLS = {
     "rgb_std": MOMENT_TOL,
 }
 MAX_FLIPPED_RAY_SHARE = 0.1
+
+# The splat path (tests/test_torch_splat_*.py and chip_smoke.py). The
+# compositor's bars are the JAX package's own Pallas-vs-XLA bars
+# (tests/test_splat.py:374-396): images and alphas atol 2e-5, gradients
+# through the analytic backward atol 1e-4, rtol 1e-3; its suffix
+# total - prefix cancels, and float32 sums in another order move it by more
+# than the forward moves.
+SPLAT_FWD_ATOL = 2e-5
+SPLAT_FWD_TOL = dict(atol=SPLAT_FWD_ATOL, rtol=1e-4)
+SPLAT_GRAD_TOL = dict(atol=1e-4, rtol=1e-3)
+# render_splat's outputs: depth_std = sqrt(depth_var) with depth_var floored
+# at 1e-5, where sqrt's slope is 1 / (2 sqrt(1e-5)) = 158: depth_var's bar
+# carried through the root
+SPLAT_OUTPUT_TOLS = {"depth_std": dict(atol=SPLAT_FWD_ATOL / (2 * 1e-5**0.5), rtol=1e-4)}
+# Loss terms and the parameters after two trainer steps, port against JAX:
+# the report measures at most 1.3e-6 relative on the loss terms and 9.5e-7
+# absolute on the parameters (opacity logits near -2), so these bars keep a
+# margin of about ten.
+SPLAT_LOSS_RTOL = 1e-5
+SPLAT_STEP_PARAM_TOL = dict(atol=1e-6, rtol=1e-5)
+# Gradients whose magnitudes span decades are held to SPLAT_GRAD_TOL relative
+# to the largest entry of their own family (grad_mismatch): each parameter's
+# gradient is one family, and g_packed's columns form four, PACKED_FAMILIES.
+# K3 and the plain backward sum each row over the tile's pixels in another
+# order, and the suffix total - prefix magnifies the difference where it
+# cancels, most in the conic entries, whose magnitudes reach 1e3 where the
+# mean entries stay near 1e-2; a family's bar is therefore its own.
+PACKED_FAMILIES = {
+    "mean": slice(0, 2),
+    "conic": slice(2, 5),
+    "opacity": slice(5, 6),
+    "payload": slice(6, None),
+}
+
+
+def family_scale(want, families=None):
+    """The largest ``|want|`` of each entry's family, broadcastable against
+    ``want``: one family for the whole tensor, or one per named slice of its
+    last dimension."""
+    mag = want.abs()
+    if families is None:
+        return mag.amax()
+    scale = mag.new_zeros(mag.shape[-1])
+    for cols in families.values():
+        scale[cols] = mag[..., cols].amax()
+    return scale
+
+
+def grad_mismatch(got, want, tol=SPLAT_GRAD_TOL, families=None):
+    """Torch tensors -> bool tensor of entries where ``|got - want|`` exceeds
+    ``atol * s + rtol * |want|``, s the largest ``|want|`` of the entry's
+    family (``family_scale``). Where a saturated tile drives the suffix
+    total - prefix to cancel, both float32 versions (the JAX kernel's and the
+    port's) miss a float64 evaluation by about 1e-5 of the family's largest
+    entry."""
+    return (got - want).abs() > tol["atol"] * family_scale(want, families) + tol["rtol"] * want.abs()
 
 
 def small_config_kwargs(**overrides) -> dict:
@@ -92,6 +145,14 @@ def lookup_cells_jax(config, ray_bundle, sdist_list) -> np.ndarray:
     own functions: (R, K) cell index of every hash-grid lookup of the eval
     forward (scene contraction on), given its per-field spacing edges
     (``apply(train=True)["sdist_list"]``)."""
+    # imported here: chip_smoke.py reads this module's tolerances on a
+    # machine without JAX
+    import jax.numpy as jnp
+
+    from uncertainty_nerf_gs_tpu.ops import encodings as jenc
+    from uncertainty_nerf_gs_tpu.ops import sampling as jsamp
+    from uncertainty_nerf_gs_tpu.ops import spatial as jsp
+
     rb = ray_bundle._replace(
         nears=jnp.full_like(ray_bundle.nears, config.near_plane),
         fars=jnp.full_like(ray_bundle.fars, config.far_plane),

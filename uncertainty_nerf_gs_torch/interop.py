@@ -11,6 +11,10 @@ the flax module names, so a tree path maps to a dotted key leaf by leaf:
 * ``cells`` is copied as is, in the JAX package's (L, n_rows, 128) layout.
 
 Both directions only copy and transpose, so the round trip is bit-exact.
+
+The splat models' parameters are a flat dict with the same names in both
+packages (``SPLAT_PARAM_NAMES``); ``splat_params_from_jax`` and
+``splat_params_to_jax`` copy them leaf by leaf, also bit-exact.
 """
 
 from __future__ import annotations
@@ -93,3 +97,29 @@ def params_to_jax(state: Mapping[str, torch.Tensor]) -> dict[str, Any]:
             node = node.setdefault(m, {})
         node[name] = np.ascontiguousarray(leaf)
     return tree
+
+
+SPLAT_PARAM_NAMES = (
+    "means", "scales", "quats", "opacities", "features_dc", "features_rest",
+    "log_uncertainties",
+)
+
+
+def splat_params_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Splat parameter dict of numpy arrays -> dict of CPU tensors."""
+    out = {}
+    for key, value in params.items():
+        if key not in SPLAT_PARAM_NAMES:
+            raise KeyError(f"no splat parameter named {key}")
+        out[key] = torch.from_numpy(np.ascontiguousarray(np.asarray(value)))
+    return out
+
+
+def splat_params_to_jax(params: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """Splat parameter dict of tensors -> dict of numpy arrays."""
+    out = {}
+    for key, value in params.items():
+        if key not in SPLAT_PARAM_NAMES:
+            raise KeyError(f"no splat parameter named {key}")
+        out[key] = np.ascontiguousarray(value.detach().cpu().numpy())
+    return out

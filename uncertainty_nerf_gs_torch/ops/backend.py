@@ -29,7 +29,7 @@ import torch
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNELS = ("pdf_resample",)
+KERNELS = ("pdf_resample", "composite_tiles")  # sources in csrc/
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -37,7 +37,8 @@ NVCC_FLAGS = (
 
 # kernel name -> launches since the last reset; each wrapper adds one where
 # it launches its kernel and nowhere else
-launch_counts: dict[str, int] = {name: 0 for name in KERNELS}
+LAUNCH_COUNTERS = ("pdf_resample", "composite_fwd", "composite_bwd")
+launch_counts: dict[str, int] = {name: 0 for name in LAUNCH_COUNTERS}
 _libraries: dict[str, ctypes.CDLL] = {}
 
 
