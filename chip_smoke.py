@@ -7,8 +7,10 @@ csrc`` with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, all started
 together) and holds each against its plain PyTorch version on the card:
 the PDF resampler (K1), and the tile compositor's forward (K2) and backward
 (K3) on the full-width splat scene's packed tiles, a saturated scene, a
-tile the saturation exit cuts short, a tile with no rows and a one-channel
-payload. Then it drives both slices of the port at full width with random
+tile the saturation exit cuts short, a tile with no rows, a one-channel
+payload, and hand-built tiles whose row counts end ragged against K3's
+row groups and K2/K3's 128-row batches at 1, 5, 6 and 16 channels; K3
+twice on the same full-width inputs, bit for bit. Then it drives both slices of the port at full width with random
 weights from a seed: two 256x256 images of active-nerfacto through
 ``NerfactoTrainer.render_image``, and two 640x480 images and five training
 steps of active-splatfacto (65,536 Gaussian slots) through
@@ -42,6 +44,7 @@ from torch_parity import (  # noqa: E402  (the tolerances the CPU tests hold)
     SPLAT_GRAD_TOL,
     SPLAT_OUTPUT_TOLS,
     TOL,
+    composite_vjp_float64,
     grad_mismatch,
 )
 
@@ -214,25 +217,32 @@ def check_resampler(device) -> dict:
 
 # -- K2 / K3: the tile compositor against its plain versions -------------------
 
-# float32 operations per live row x pixel pair (csrc/composite_tiles.cu):
-# forward, the Gaussian and its exp, the gates and the blend; backward, both
-# passes' recomputed forward, the six partials, w g_img and the row sums
+# float32 operations per composited row x pixel pair (csrc/composite_tiles.cu).
+# Forward: the Gaussian and its exp, the gates and the blend. Backward, the
+# least work of this VJP given the forward's outputs: the recomputed
+# Gaussian with its exp and gates (16), 1 - alpha, w and T (4), g_w (2C + 1),
+# the prefix (2), the gradient's gate (3), g_alpha (5), g_sigma (1), the six
+# partials added into the row sums (24) and w g_img added likewise (2C)
 FWD_OPS_PER_PAIR = lambda c: 22 + 2 * c  # noqa: E731
-BWD_OPS_PER_PAIR = lambda c: 78 + 6 * c  # noqa: E731
+BWD_OPS_PER_PAIR = lambda c: 56 + 4 * c  # noqa: E731
+# row counts of the ragged-end tiles: 1 row, one either side of K3's row
+# groups (4 rows at 16 channels, else 8), and of the 128-row batches, K - 1, K
+RAGGED_COUNTS = (1, 3, 5, 7, 9, 127, 128, 129, 383, 384)
+RAGGED_CHANNELS = (1, 5, 6, 16)
 
 
 def composite_bound_ms(rows: int, packed, backward: bool) -> tuple[float, str, int, float]:
     """Least time for one K2 (or K3) call on these inputs and what sets it:
     the bytes of the composited rows, pix, counts and outputs (K3 also reads
-    the output gradients and writes every row of g_packed) against the
-    float32 operations of the composited row x pixel pairs. Returns (ms,
-    "bytes" or "operations", bytes, operations)."""
+    the forward's outputs and their gradients and writes every row of
+    g_packed) against the float32 operations of the composited row x pixel
+    pairs. Returns (ms, "bytes" or "operations", bytes, operations)."""
     t, k, d = packed.shape
     c = d - 6
     nbytes = 4 * (rows * d + t * 256 * 2 + t)
     pairs = rows * 256
     if backward:
-        nbytes += 4 * (t * 256 * (c + 1) + t * k * d)
+        nbytes += 4 * (2 * t * 256 * (c + 1) + t * k * d)
         ops = pairs * BWD_OPS_PER_PAIR(c)
     else:
         nbytes += 4 * t * 256 * (c + 1)
@@ -274,6 +284,25 @@ def exit_case(device, gen, pix):
     packed[0, :300, 5] = 0.5 + 0.49 * torch.rand(300, generator=gen, device=device)
     packed[0, :300, 6:] = torch.rand(300, 6, generator=gen, device=device)
     return packed, pix[:2].contiguous(), torch.tensor([300, 0], dtype=torch.int32, device=device)
+
+
+def ragged_case(device, gen, pix, c):
+    """Tiles of capacity 384 whose counts are RAGGED_COUNTS, with c payload
+    channels: faint (opacity 0.01-0.1), anisotropic Gaussians spread over
+    and around each tile, so that every live row is composited."""
+    t, k = len(RAGGED_COUNTS), 384
+    origin = pix[:t, :1, :]  # the first pixel center of each tile
+    packed = torch.zeros(t, k, 6 + c, device=device)
+    u = lambda *shape: torch.rand(*shape, generator=gen, device=device)  # noqa: E731
+    packed[:, :, :2] = origin + u(t, k, 2) * 24.0 - 4.0
+    packed[:, :, 2] = 0.01 + 0.3 * u(t, k)
+    packed[:, :, 4] = 0.01 + 0.3 * u(t, k)
+    packed[:, :, 3] = (u(t, k) - 0.5) * torch.sqrt(packed[:, :, 2] * packed[:, :, 4])
+    packed[:, :, 5] = 0.01 + 0.09 * u(t, k)
+    packed[:, :, 6:] = u(t, k, c)
+    counts = torch.tensor(RAGGED_COUNTS, dtype=torch.int32, device=device)
+    packed[torch.arange(k, device=device)[None, :] >= counts[:, None].long()] = 0.0  # dead rows
+    return packed, pix[:t].contiguous(), counts
 
 
 def print_families(g, ref_g, exact) -> None:
@@ -332,6 +361,8 @@ def check_compositor(trainer, device) -> dict:
         "exit": exit_case(device, gen, full.pix),
         "zero_count": (zero_packed, full.pix, zero_counts),
     }
+    for c in RAGGED_CHANNELS:
+        cases[f"ragged_c{c}"] = ragged_case(device, gen, full.pix, c)
     fwd_err = bwd_err = 0.0
     failed = []
     for name, (packed, pix, counts) in cases.items():
@@ -340,13 +371,12 @@ def check_compositor(trainer, device) -> dict:
         g_alpha = torch.randn(t, 256, generator=gen, device=device)
         img, alpha = tc.composite_fwd(packed, pix, counts)
         ref_img, ref_alpha = tc.composite_tiles_reference(packed, pix, counts)
-        g = tc.composite_bwd(packed, pix, counts, g_img, g_alpha)
-        ref_g = tc.composite_tiles_vjp_reference(packed, pix, counts, g_img, g_alpha)
-        # the plain backward's arithmetic in float64, to see which float32
+        # both backwards read their total from K2's outputs, as the main path's
+        g = tc.composite_bwd(packed, pix, counts, img, alpha, g_img, g_alpha)
+        ref_g = tc.composite_tiles_vjp_reference(packed, pix, counts, img, alpha, g_img, g_alpha)
+        # the plain forward and backward in float64, to see which float32
         # version is the closer
-        exact = tc.composite_tiles_vjp_reference(
-            packed.double(), pix.double(), counts, g_img.double(), g_alpha.double()
-        ).float()
+        exact = composite_vjp_float64(packed, pix, counts, g_img, g_alpha)
         rows = tc.executed_rows(packed, pix, counts)
         torch.cuda.synchronize()
         e_f = max((img - ref_img).abs().max().item(), (alpha - ref_alpha).abs().max().item())
@@ -364,6 +394,17 @@ def check_compositor(trainer, device) -> dict:
             failed.append(f"exit: rows {rows.tolist()}, expected [128, 0]")
         if name == "zero_count" and (img[0].abs().max() != 0 or g[0].abs().max() != 0):
             failed.append("zero_count: the empty tile is not zero")
+        if name.startswith("ragged"):
+            dead = torch.arange(k, device=device)[None, :] >= counts[:, None].long()
+            if rows.tolist() != list(RAGGED_COUNTS) or g[dead].abs().max() != 0:
+                failed.append(f"{name}: rows {rows.tolist()}, or a dead row has a gradient")
+        if name == "full_width":
+            # no atomics: a second launch gives the same bits
+            again = tc.composite_bwd(packed, pix, counts, img, alpha, g_img, g_alpha)
+            same = torch.equal(g, again)
+            print(f"composite {name}: a second K3 launch is bit-identical: {same}")
+            if not same:
+                failed.append("full_width: two K3 launches on the same inputs differ")
         fwd_err, bwd_err = max(fwd_err, e_f), max(bwd_err, e_b)
     # K2 evaluates each Gaussian as the plain version does, so that both take
     # the same gate decisions: on one-row tiles w = alpha exactly, and K2's
@@ -388,12 +429,13 @@ def check_compositor(trainer, device) -> dict:
     for name in ("full_width", "full_width_c1"):
         packed, pix, counts = cases[name]
         t, k, d = packed.shape
-        per_set = 4 * (packed.numel() * 2 + pix.numel() + t * 256 * (d - 5) * 2)
+        per_set = 4 * (packed.numel() * 2 + pix.numel() + t * 256 * (d - 5) * 4)
         sets = []
         for _ in range(-(-MIN_SET_BYTES // per_set)):
             p = packed.clone()
             p[:, :, 6:] += 1e-3 * torch.rand(p[:, :, 6:].shape, generator=gen, device=device)
-            sets.append((p, pix.clone(), counts.clone(),
+            pix_, counts_ = pix.clone(), counts.clone()
+            sets.append((p, pix_, counts_, *tc.composite_fwd(p, pix_, counts_),
                          torch.randn(t, 256, d - 6, generator=gen, device=device),
                          torch.randn(t, 256, generator=gen, device=device)))
         rows = int(tc.executed_rows(packed, pix, counts).sum())

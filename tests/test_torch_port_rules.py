@@ -104,10 +104,12 @@ def test_resample_wrapper_refuses(case, error):
 
 
 def _composite_inputs(t=3, k=5, c=4, dtype=torch.float32):
+    """packed, pix, counts, and the backward's img, alpha, g_img, g_alpha."""
     packed = torch.rand(t, k, 6 + c, dtype=dtype)
     pix = torch.rand(t, 256, 2, dtype=dtype)
     counts = torch.full((t,), k, dtype=torch.int32)
-    return packed, pix, counts, torch.rand(t, 256, c, dtype=dtype), torch.rand(t, 256, dtype=dtype)
+    return (packed, pix, counts, torch.rand(t, 256, c, dtype=dtype), torch.rand(t, 256, dtype=dtype),
+            torch.rand(t, 256, c, dtype=dtype), torch.rand(t, 256, dtype=dtype))
 
 
 @pytest.mark.parametrize(
@@ -122,18 +124,22 @@ def _composite_inputs(t=3, k=5, c=4, dtype=torch.float32):
         ("counts_shape", ValueError),
         ("g_img_channels", ValueError),
         ("g_alpha_shape", ValueError),
+        ("out_img_channels", ValueError),
+        ("out_alpha_shape", ValueError),
+        ("out_img_float64", TypeError),
+        ("out_alpha_device", ValueError),
         ("not_contiguous", ValueError),
         ("mixed_devices", ValueError),
     ],
 )
 def test_composite_wrappers_refuse(case, error):
-    packed, pix, counts, g_img, g_alpha = _composite_inputs()
+    packed, pix, counts, img, alpha, g_img, g_alpha = _composite_inputs()
     if case == "float64":
-        packed, pix, counts, g_img, g_alpha = _composite_inputs(dtype=torch.float64)
+        packed, pix, counts, img, alpha, g_img, g_alpha = _composite_inputs(dtype=torch.float64)
     elif case == "counts_int64":
         counts = counts.long()
     elif case == "too_many_channels":
-        packed, pix, counts, g_img, g_alpha = _composite_inputs(c=MAX_CHANNELS + 1)
+        packed, pix, counts, img, alpha, g_img, g_alpha = _composite_inputs(c=MAX_CHANNELS + 1)
     elif case == "no_channels":
         packed = packed[:, :, :6].contiguous()
     elif case == "packed_2d":
@@ -146,15 +152,23 @@ def test_composite_wrappers_refuse(case, error):
         g_img = g_img[:, :, :3].contiguous()
     elif case == "g_alpha_shape":
         g_alpha = g_alpha[:2]
+    elif case == "out_img_channels":
+        img = img[:, :, :3].contiguous()
+    elif case == "out_alpha_shape":
+        alpha = alpha[:, :128].contiguous()
+    elif case == "out_img_float64":
+        img = img.double()
+    elif case == "out_alpha_device":
+        alpha = alpha.to("meta")
     elif case == "not_contiguous":
         packed = packed.transpose(0, 1).contiguous().transpose(0, 1)
     elif case == "mixed_devices":
         pix = pix.to("meta")
-    if not case.startswith("g_"):
+    if not case.startswith(("g_", "out_")):  # the backward's own arguments
         with pytest.raises(error):
             composite_fwd(packed, pix, counts)
     with pytest.raises(error):
-        composite_bwd(packed, pix, counts, g_img, g_alpha)
+        composite_bwd(packed, pix, counts, img, alpha, g_img, g_alpha)
 
 
 @pytest.mark.parametrize("backend_name", ["xla", "matmul"])

@@ -15,6 +15,7 @@ from torch_parity import (
     SPLAT_FWD_ATOL,
     SPLAT_GRAD_TOL,
     TOL,
+    composite_vjp_float64,
     grad_mismatch,
 )
 
@@ -217,7 +218,9 @@ def test_composite_matches_jax_pallas(rng, case):
     img, alpha = tc.composite_fwd(tp, tpix, tcount)
     np.testing.assert_allclose(img.numpy(), np.asarray(j_img), atol=SPLAT_FWD_ATOL)
     np.testing.assert_allclose(alpha.numpy(), np.asarray(j_alpha), atol=SPLAT_FWD_ATOL)
-    g = tc.composite_bwd(tp, tpix, tcount, torch.from_numpy(g_img), torch.from_numpy(g_alpha))
+    # the backward reads its per-pixel total from the forward's outputs
+    g = tc.composite_bwd(tp, tpix, tcount, img, alpha, torch.from_numpy(g_img),
+                         torch.from_numpy(g_alpha))
     if case == "exit":
         # the conic entries span 1e-8 to 1e2, and both float32 versions miss
         # a float64 evaluation of the largest by about 1e-3: each column
@@ -248,8 +251,48 @@ def test_composite_vjp_matches_autograd(rng):
     g_img = torch.from_numpy(rng.normal(size=img.shape).astype(np.float32))
     g_alpha = torch.from_numpy(rng.normal(size=alpha.shape).astype(np.float32))
     (img * g_img).sum().add((alpha * g_alpha).sum()).backward()
-    got = tc.composite_tiles_vjp_reference(tp.detach(), tpix, tcount, g_img, g_alpha)
+    got = tc.composite_tiles_vjp_reference(tp.detach(), tpix, tcount, img.detach(),
+                                           alpha.detach(), g_img, g_alpha)
     np.testing.assert_allclose(got.numpy(), tp.grad.numpy(), **SPLAT_GRAD_TOL)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_composite_vjp_total_from_outputs_matches_float64(rng, case):
+    """The plain backward, its total taken from the float32 forward's
+    outputs, against the same arithmetic in float64, each column family of
+    g_packed relative to its own largest entry: where rows saturate, the
+    suffix total - prefix cancels, and a total read from img and alpha
+    rounds otherwise than a running sum of the same terms."""
+    packed, pix, counts = _packed_case(rng, case)
+    t, _, d = packed.shape
+    tp, tpix, tcount = (torch.from_numpy(x) for x in (packed, pix, counts))
+    g_img = torch.from_numpy(rng.normal(size=(t, 256, d - 6)).astype(np.float32))
+    g_alpha = torch.from_numpy(rng.normal(size=(t, 256)).astype(np.float32))
+    img, alpha = tc.composite_fwd(tp, tpix, tcount)
+    got = tc.composite_bwd(tp, tpix, tcount, img, alpha, g_img, g_alpha)
+    exact = composite_vjp_float64(tp, tpix, tcount, g_img, g_alpha)
+    assert float(exact.abs().max()) > 0
+    assert not grad_mismatch(got, exact, families=PACKED_FAMILIES).any()
+
+
+@pytest.mark.parametrize("case", ["plain", "saturated", "exit"])
+def test_composite_autograd_uses_saved_outputs(rng, case):
+    """Autograd through composite_tiles gives, bit for bit, what
+    composite_bwd gives with the forward's own img and alpha."""
+    packed, pix, counts = _packed_case(rng, case)
+    tp = torch.from_numpy(packed).requires_grad_(True)
+    tpix, tcount = torch.from_numpy(pix), torch.from_numpy(counts)
+    img, alpha = tc.composite_tiles(tp, tpix, tcount)
+    g_img = torch.from_numpy(rng.normal(size=img.shape).astype(np.float32))
+    g_alpha = torch.from_numpy(rng.normal(size=alpha.shape).astype(np.float32))
+    torch.autograd.backward((img, alpha), (g_img, g_alpha))
+    want = tc.composite_bwd(tp.detach(), tpix, tcount, img.detach(), alpha.detach(), g_img,
+                            g_alpha)
+    assert torch.equal(tp.grad, want)
+    # other outputs give another gradient: the saved ones are what it read
+    other = tc.composite_bwd(tp.detach(), tpix, tcount, img.detach() * 0.5,
+                             alpha.detach() * 0.5, g_img, g_alpha)
+    assert not torch.equal(tp.grad, other)
 
 
 def test_rasterize_matches_jax_and_reference(rng):

@@ -111,6 +111,17 @@ def grad_mismatch(got, want, tol=SPLAT_GRAD_TOL, families=None):
     return (got - want).abs() > tol["atol"] * family_scale(want, families) + tol["rtol"] * want.abs()
 
 
+def composite_vjp_float64(packed, pix, counts, g_img, g_alpha):
+    """The plain compositor's VJP in float64, its total taken from the plain
+    forward's float64 outputs: the witness both float32 versions are held
+    beside. Torch tensors in, float32 (T, K, 6 + C) out."""
+    from uncertainty_nerf_gs_torch.ops import composite as tc
+
+    p64, pix64, gi64, ga64 = (x.double() for x in (packed, pix, g_img, g_alpha))
+    img, alpha = tc.composite_tiles_reference(p64, pix64, counts)
+    return tc.composite_tiles_vjp_reference(p64, pix64, counts, img, alpha, gi64, ga64).float()
+
+
 def small_config_kwargs(**overrides) -> dict:
     """A small active-nerfacto config: 4 main levels at 2^10 (levels with
     res^3 > 1024 are hashed), two 3-level proposal fields."""

@@ -107,7 +107,7 @@ def composite() -> None:
     import torch
 
     import test_torch_splat_ops as o
-    from torch_parity import PACKED_FAMILIES, SPLAT_GRAD_TOL
+    from torch_parity import PACKED_FAMILIES, SPLAT_GRAD_TOL, composite_vjp_float64
 
     for case in o.CASES:
         rng = np.random.default_rng(0)  # the tests' rng fixture
@@ -118,10 +118,11 @@ def composite() -> None:
         _, vjp = jax.vjp(lambda p: o.j_composite(p, jnp.asarray(pix), jnp.asarray(counts)),
                          jnp.asarray(packed))
         want = torch.from_numpy(np.asarray(vjp((jnp.asarray(g_img), jnp.asarray(g_alpha)))[0]))
-        args = [torch.from_numpy(x) for x in (packed, pix, counts, g_img, g_alpha)]
-        got = o.tc.composite_bwd(*args)
-        exact = o.tc.composite_tiles_vjp_reference(
-            *(x if x.dtype == torch.int32 else x.double() for x in args))
+        tp, tpix, tcount, tg_img, tg_alpha = (
+            torch.from_numpy(x) for x in (packed, pix, counts, g_img, g_alpha))
+        got = o.tc.composite_bwd(tp, tpix, tcount, *o.tc.composite_fwd(tp, tpix, tcount),
+                                 tg_img, tg_alpha)
+        exact = composite_vjp_float64(tp, tpix, tcount, tg_img, tg_alpha)
         print(f"composite VJP {case}, port against JAX Pallas (interpret):")
         for fam, cols in PACKED_FAMILIES.items():
             g, w, e = got[..., cols], want[..., cols], exact[..., cols]

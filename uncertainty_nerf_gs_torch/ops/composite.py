@@ -15,7 +15,10 @@ where sigma < 0 or alpha < 1/255; ``w = alpha * T`` with T the exclusive
 transmittance; the tile image is ``sum w * payload`` and the alpha
 ``sum w``. The kernels work through a tile's rows in batches of 128 and stop
 once the tile's largest T is at most 1e-8, as the Pallas kernels do, so the
-backward is exact for what the forward computed.
+backward is exact for what the forward computed. The backward takes the
+forward's outputs: the per-pixel total of ``w * dL/dw`` that its suffix
+needs is ``img . g_img + alpha * g_alpha``, so it does not composite the
+tile a second time to find it.
 """
 
 from __future__ import annotations
@@ -99,23 +102,28 @@ def composite_tiles_vjp_reference(
     packed: torch.Tensor,
     pix: torch.Tensor,
     counts: torch.Tensor,
+    img: torch.Tensor,
+    alpha: torch.Tensor,
     g_img: torch.Tensor,
     g_alpha: torch.Tensor,
 ) -> torch.Tensor:
     """Plain analytic backward: ``_bwd_kernel``'s formulas over the rows the
-    kernels process. With g_w = payload . g_img + g_alpha, the suffix
-    S_k = total - prefix_k of w * g_w gives dL/dalpha_k = T_k g_w,k -
-    S_k / (1 - alpha_k), gated by sigma >= 0 and 1/255 <= raw < 0.999 and
-    carried to the means, the conic, the opacity and ``w * g_img``.
-    Returns (T, K, 6 + C)."""
-    dx, dy, sigma, raw, alpha = _alphas(packed, pix, counts)
-    one_minus = torch.clamp(1.0 - alpha, min=1.0 - ALPHA_CLAMP)
+    kernels process, given the forward's outputs ``img`` (T, P, C) and
+    ``alpha`` (T, P). With g_w = payload . g_img + g_alpha and total =
+    img . g_img + alpha * g_alpha (the sum of w * g_w over the composited
+    rows), the suffix S_k = total - prefix_k of w * g_w gives dL/dalpha_k =
+    T_k g_w,k - S_k / (1 - alpha_k), gated by sigma >= 0 and
+    1/255 <= raw < 0.999 and carried to the means, the conic, the opacity
+    and ``w * g_img``. Returns (T, K, 6 + C)."""
+    total = (img * g_img).sum(dim=-1) + alpha * g_alpha  # (T, P)
+    dx, dy, sigma, raw, a = _alphas(packed, pix, counts)
+    one_minus = torch.clamp(1.0 - a, min=1.0 - ALPHA_CLAMP)
     trans = _exclusive_cumprod(one_minus)
     rows = _executed(trans, counts)[..., None]  # (T, K, 1)
-    w = torch.where(rows, alpha * trans, torch.zeros_like(alpha))
+    w = torch.where(rows, a * trans, torch.zeros_like(a))
     g_w = torch.einsum("tkc,tpc->tkp", packed[:, :, 6:], g_img) + g_alpha[:, None, :]
     wg = w * g_w
-    suffix = wg.sum(dim=1, keepdim=True) - torch.cumsum(wg, dim=1)
+    suffix = total[:, None, :] - torch.cumsum(wg, dim=1)
     g_a = trans * g_w - suffix / one_minus
     live = rows & (sigma >= 0.0) & (raw >= ALPHA_MIN) & (raw < ALPHA_CLAMP)
     g_a = torch.where(live, g_a, torch.zeros_like(g_a))
@@ -133,12 +141,14 @@ def composite_tiles_vjp_reference(
     return torch.cat([torch.stack(cols, dim=-1), g_pv], dim=-1)
 
 
-def _check(packed, pix, counts, g_img=None, g_alpha=None) -> None:
-    """Raises on what the kernels do not take."""
+def _check(packed, pix, counts, img=None, alpha=None, g_img=None, g_alpha=None) -> None:
+    """Raises on what the kernels do not take: the forward's inputs, and the
+    backward's forward outputs and output gradients when given."""
     named = [("packed", packed, torch.float32), ("pix", pix, torch.float32),
              ("counts", counts, torch.int32)]
-    if g_img is not None:
-        named += [("g_img", g_img, torch.float32), ("g_alpha", g_alpha, torch.float32)]
+    if img is not None:
+        named += [(name, x, torch.float32) for name, x in
+                  (("img", img), ("alpha", alpha), ("g_img", g_img), ("g_alpha", g_alpha))]
     for name, x, dtype in named:
         if x.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
@@ -152,8 +162,9 @@ def _check(packed, pix, counts, g_img=None, g_alpha=None) -> None:
     if not 1 <= d - 6 <= MAX_CHANNELS:
         raise ValueError(f"payload channels must be in [1, {MAX_CHANNELS}], got {d - 6}")
     want = {"pix": (tiles, PIXELS, 2), "counts": (tiles,)}
-    if g_img is not None:
-        want.update(g_img=(tiles, PIXELS, d - 6), g_alpha=(tiles, PIXELS))
+    if img is not None:
+        want.update(img=(tiles, PIXELS, d - 6), alpha=(tiles, PIXELS),
+                    g_img=(tiles, PIXELS, d - 6), g_alpha=(tiles, PIXELS))
     for name, x, _ in named:
         if name in want and tuple(x.shape) != want[name]:
             raise ValueError(f"{name} must be {want[name]}, got {tuple(x.shape)}")
@@ -195,24 +206,27 @@ def composite_bwd(
     packed: torch.Tensor,
     pix: torch.Tensor,
     counts: torch.Tensor,
+    img: torch.Tensor,
+    alpha: torch.Tensor,
     g_img: torch.Tensor,
     g_alpha: torch.Tensor,
 ) -> torch.Tensor:
     """K3, checked: the CUDA kernel for CUDA tensors, the plain backward for
-    CPU tensors. Returns g_packed (T, K, 6 + C); rows the forward did not
+    CPU tensors. ``img`` and ``alpha`` are the forward's outputs for these
+    inputs. Returns g_packed (T, K, 6 + C); rows the forward did not
     composite get 0."""
-    _check(packed, pix, counts, g_img, g_alpha)
+    _check(packed, pix, counts, img, alpha, g_img, g_alpha)
     if not backend.use_kernel(packed):
-        return composite_tiles_vjp_reference(packed, pix, counts, g_img, g_alpha)
+        return composite_tiles_vjp_reference(packed, pix, counts, img, alpha, g_img, g_alpha)
     t, k, d = packed.shape
     g_packed = torch.empty_like(packed)
     if t == 0:
         return g_packed
-    fn = _entry("composite_bwd_f32", 6)
+    fn = _entry("composite_bwd_f32", 8)
     with torch.cuda.device(packed.device):
-        err = fn(packed.data_ptr(), pix.data_ptr(), counts.data_ptr(), g_img.data_ptr(),
-                 g_alpha.data_ptr(), g_packed.data_ptr(), t, k, d - 6,
-                 backend.current_stream_handle(packed.device))
+        err = fn(packed.data_ptr(), pix.data_ptr(), counts.data_ptr(), img.data_ptr(),
+                 alpha.data_ptr(), g_img.data_ptr(), g_alpha.data_ptr(), g_packed.data_ptr(),
+                 t, k, d - 6, backend.current_stream_handle(packed.device))
     if err != 0:
         raise RuntimeError(f"{BWD} launch failed: CUDA error {err}")
     backend.count_launch(BWD)
@@ -226,25 +240,29 @@ class CompositeTiles(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, packed, pix, counts, plain):
-        ctx.save_for_backward(packed, pix, counts)
         ctx.plain = plain
         if plain:
             _check(packed, pix, counts)
-            return composite_tiles_reference(packed, pix, counts)
-        return composite_fwd(packed, pix, counts)
+            img, alpha = composite_tiles_reference(packed, pix, counts)
+        else:
+            img, alpha = composite_fwd(packed, pix, counts)
+        # the backward reads its per-pixel total from the outputs
+        ctx.save_for_backward(packed, pix, counts, img, alpha)
+        return img, alpha
 
     @staticmethod
     def backward(ctx, g_img, g_alpha):
-        packed, pix, counts = ctx.saved_tensors
+        packed, pix, counts, img, alpha = ctx.saved_tensors
         g_img = torch.zeros((*pix.shape[:2], packed.shape[2] - 6), dtype=packed.dtype,
                             device=packed.device) if g_img is None else g_img.contiguous()
         g_alpha = torch.zeros(pix.shape[:2], dtype=packed.dtype,
                               device=packed.device) if g_alpha is None else g_alpha.contiguous()
         if ctx.plain:
-            _check(packed, pix, counts, g_img, g_alpha)
-            g_packed = composite_tiles_vjp_reference(packed, pix, counts, g_img, g_alpha)
+            _check(packed, pix, counts, img, alpha, g_img, g_alpha)
+            g_packed = composite_tiles_vjp_reference(packed, pix, counts, img, alpha, g_img,
+                                                     g_alpha)
         else:
-            g_packed = composite_bwd(packed, pix, counts, g_img, g_alpha)
+            g_packed = composite_bwd(packed, pix, counts, img, alpha, g_img, g_alpha)
         return g_packed, None, None, None
 
 
