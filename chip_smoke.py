@@ -5,18 +5,23 @@
 Builds the port's hand-written CUDA kernels from ``uncertainty_nerf_gs_torch/
 csrc`` with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, all started
 together) and holds each against its plain PyTorch version on the card:
-the PDF resampler (K1), and the tile compositor's forward (K2) and backward
+the PDF resampler (K1) on dense and ragged rays, on the render's rows
+shared by every ray (stride 0), at one bin, one query, 4,096 bins and all
+weights zero, timed beside its launch floor (an empty kernel with its grid);
+and the tile compositor's forward (K2) and backward
 (K3) on the full-width splat scene's packed tiles, a saturated scene, a
 tile the saturation exit cuts short, a tile with no rows, a one-channel
 payload, and hand-built tiles whose row counts end ragged against K3's
 row groups and K2/K3's 128-row batches at 1, 5, 6 and 16 channels; K3
-twice on the same full-width inputs, bit for bit. Then it drives both slices of the port at full width with random
+twice on the same full-width inputs, bit for bit. Then it drives both
+slices of the port at full width with random
 weights from a seed: two 256x256 images of active-nerfacto through
 ``NerfactoTrainer.render_image``, and two 640x480 images and five training
 steps of active-splatfacto (65,536 Gaussian slots) through
 ``SplatfactoTrainer``, checks from the launch counters that each went
 through its kernels, holds each against the same work on the plain
-versions, and profiles one image and one step. Exits non-zero, with no
+versions (inside ``backend.plain_versions()``, where no kernel may
+launch), and profiles one image and one step. Exits non-zero, with no
 result line, when there is no card or any phase fails. The last line of
 standard output is a JSON object naming the device; the line before it the
 card's name and power limit; before that a ``{"kernels": [...]}`` line with
@@ -25,6 +30,7 @@ each kernel's launches, error, times and bound.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -145,33 +151,79 @@ def profile_top(label, fn, port_symbols, top=15) -> dict:
 # -- K1: the PDF resampler against its plain version --------------------------
 
 
-def resample_inputs(num_rays, num_bins, num_queries, gen, device):
-    """Weights rand**4 with two all-zero rows, sorted random edges, and the
-    eval path's queries u = clip((arange(N) + 0.5) / N, 0, 1 - 1e-6)."""
+def resample_inputs(num_rays, num_bins, num_queries, gen, device, shared_u=False,
+                    shared_edges=False, all_zero=False):
+    """Weights rand**4 with two all-zero rows (every row with ``all_zero``),
+    sorted random edges, and the eval path's queries u = clip((arange(N) +
+    0.5) / N, 0, 1 - 1e-6). ``shared_u`` and ``shared_edges`` hand them over
+    as the render does: one row expanded over every ray (stride 0)."""
     w = torch.rand(num_rays, num_bins, generator=gen, device=device) ** 4
     w[0] = 0.0
     w[num_rays // 2] = 0.0
+    if all_zero:
+        w.zero_()
     e = torch.sort(
-        torch.rand(num_rays, num_bins + 1, generator=gen, device=device), dim=1
-    ).values
+        torch.rand(1 if shared_edges else num_rays, num_bins + 1, generator=gen, device=device),
+        dim=1,
+    ).values.expand(num_rays, num_bins + 1)
     u = (torch.arange(num_queries, dtype=torch.float32, device=device) + 0.5) / num_queries
-    u = torch.clamp(u, 0.0, 1.0 - 1e-6).expand(num_rays, num_queries).contiguous()
-    return w, e, u
+    u = torch.clamp(u, 0.0, 1.0 - 1e-6).expand(num_rays, num_queries)
+    return w, e, u if shared_u else u.contiguous()
 
 
-def resample_bytes(num_rays, num_bins, num_queries) -> int:
-    """Bytes one call must move: each input read once, the output written once."""
-    return 4 * num_rays * (num_bins + (num_bins + 1) + 2 * num_queries)
+def resample_bytes(num_rays, num_bins, num_queries, shared_u=False, shared_edges=False) -> int:
+    """Bytes one call must move: each input read once (a shared row once),
+    the output written once."""
+    edge_rows = 1 if shared_edges else num_rays
+    u_rows = 1 if shared_u else num_rays
+    return 4 * (num_rays * num_bins + edge_rows * (num_bins + 1) + (u_rows + num_rays) * num_queries)
 
 
-def resample_bound_ms(num_rays, num_bins, num_queries) -> tuple[float, str]:
+def resample_bound_ms(num_rays, num_bins, num_queries, **layout) -> tuple[float, str]:
     """Least time for one call and what sets it: its bytes against the
     float32 work (padding, normalising and scanning each bin; a binary search
     and the interpolation per query)."""
-    nbytes = resample_bytes(num_rays, num_bins, num_queries)
+    nbytes = resample_bytes(num_rays, num_bins, num_queries, **layout)
     ops = num_rays * (4 * num_bins + num_queries * (np.log2(num_bins + 1) + 6))
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def floor_times(num_rays, num_bins, device, reps: int = 50) -> dict:
+    """K1's launch floor: the empty kernel with K1's grid, block and shared
+    memory, by the profiler's device time (and CUDA events back to back)."""
+    from uncertainty_nerf_gs_torch.ops.pdf_resample import launch_floor
+
+    event_ms = time_ms(launch_floor, [(num_rays, num_bins, device)], reps)
+    traced, _ = device_kernels(lambda: [launch_floor(num_rays, num_bins, device)
+                                        for _ in range(reps)])
+    own = [v for k, v in traced.items() if "pdf_resample_floor" in k]
+    ms = 1e-3 * own[0][1] / own[0][0] if own else event_ms
+    return dict(ms=ms, event_ms=event_ms, ms_from="profiler" if own else "events")
+
+
+# (name, rays, bins, queries, layout): the dense shapes of PR 1-3's checks,
+# ragged R, the render's layouts (u shared at both stages, the first stage's
+# edges shared too), one bin, one query, MAX_BINS, every row zero; two bins
+# and 600 bins (several 256-bin tiles, a cdf padded past the last tile)
+RESAMPLE_CASES = [
+    ("dense", 4096, 256, 97, {}), ("dense", 4096, 96, 49, {}),
+    ("dense", 4099, 256, 97, {}), ("dense", 4099, 96, 49, {}),
+    ("shared_u", 4096, 96, 49, dict(shared_u=True)),
+    ("shared_edges", 4096, 256, 97, dict(shared_edges=True)),
+    ("render_stage1", 4096, 256, 97, dict(shared_u=True, shared_edges=True)),
+    ("one_bin", 4096, 1, 49, {}), ("one_query", 4096, 96, 1, {}),
+    ("max_bins", 7, 4096, 97, dict(shared_u=True)),
+    ("all_zero", 4096, 96, 49, dict(all_zero=True)),
+    ("two_bins", 4096, 2, 97, {}), ("tiles", 512, 600, 33, {}),
+]
+# the timed shapes: the dense ones compare with PR 1-3; the render's layouts
+# are what the main path launches, stage 1 then stage 2 of a chunk
+RESAMPLE_TIMED = [
+    ("dense", (4096, 256, 97), {}), ("dense", (4096, 96, 49), {}),
+    ("render", (4096, 256, 97), dict(shared_u=True, shared_edges=True)),
+    ("render", (4096, 96, 49), dict(shared_u=True)),
+]
 
 
 def check_resampler(device) -> dict:
@@ -180,38 +232,46 @@ def check_resampler(device) -> dict:
         resample_edges_reference,
     )
 
-    cases = [(4096, 256, 97), (4096, 96, 49), (4099, 256, 97), (4099, 96, 49)]
-    main_path = {(4096, 256, 97), (4096, 96, 49)}
-    worst, per_launch = 0.0, []
-    for i, shape in enumerate(cases):
+    worst, failed = 0.0, []
+    for i, (name, *shape, layout) in enumerate(RESAMPLE_CASES):
         gen = torch.Generator(device=device).manual_seed(SEED + i)
-        w, e, u = resample_inputs(*shape, gen, device)
+        w, e, u = resample_inputs(*shape, gen, device, **layout)
         got = resample_edges(w, e, u)
         want = resample_edges_reference(w, e, u)
         # both float32 versions against the same arithmetic in float64
         exact = resample_edges_reference(w.double(), e.double(), u.double())
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        step = torch.diff(got, dim=1).min().item()
-        print(f"resample {shape}: max_abs_err {err:.3e} (kernel to float64 "
-              f"{(got - exact).abs().max().item():.3e}, plain to float64 "
-              f"{(want - exact).abs().max().item():.3e}), least step {step:.3e}")
+        step = torch.diff(got, dim=1).min().item() if shape[2] > 1 else 0.0
+        print(f"resample {name} {tuple(shape)} strides u {u.stride()} edges {e.stride()}: "
+              f"max_abs_err {err:.3e} (kernel to float64 {(got - exact).abs().max().item():.3e}, "
+              f"plain to float64 {(want - exact).abs().max().item():.3e}), least step {step:.3e}")
         if not (torch.isclose(got, want, **TOL).all() and torch.isfinite(got).all()):
-            raise AssertionError(f"resample {shape}: kernel disagrees, {err:.3e}")
+            failed.append(f"{name} {tuple(shape)}: kernel disagrees, {err:.3e}")
         if step < -1e-6:
-            raise AssertionError(f"resample {shape}: a row decreases by {step:.3e}")
+            failed.append(f"{name} {tuple(shape)}: a row decreases by {step:.3e}")
         worst = max(worst, err)
-        if shape not in main_path:
-            continue
-        num_sets = -(-MIN_SET_BYTES // resample_bytes(*shape))
-        sets = [resample_inputs(*shape, gen, device) for _ in range(num_sets)]
+    if failed:
+        raise AssertionError("resample " + "; ".join(failed))
+
+    per_launch = []
+    for i, (name, shape, layout) in enumerate(RESAMPLE_TIMED):
+        gen = torch.Generator(device=device).manual_seed(SEED + 100 + i)
+        num_sets = -(-MIN_SET_BYTES // resample_bytes(*shape, **layout))
+        sets = [resample_inputs(*shape, gen, device, **layout) for _ in range(num_sets)]
         times = kernel_times("resample", resample_edges, resample_edges_reference, sets,
                              "pdf_resample_kernel")
-        bound, bound_by = resample_bound_ms(*shape)
-        print(f"resample {shape}: kernel {times['ms']:.4f} ms on the device "
+        floor = floor_times(shape[0], shape[1], device)
+        bound, bound_by = resample_bound_ms(*shape, **layout)
+        nbytes = resample_bytes(*shape, **layout)
+        print(f"resample {name} {shape} {layout}: kernel {times['ms']:.4f} ms on the device "
               f"({times['event_ms']:.4f} ms a call back to back), plain {times['plain_ms']:.4f} ms "
-              f"({times['plain_event_ms']:.4f}), bound {bound:.4f} ms ({bound_by})")
-        per_launch.append(dict(shape=list(shape), bound_ms=bound, bound_by=bound_by, **times))
+              f"({times['plain_event_ms']:.4f}), bound {bound:.4f} ms ({bound_by}: "
+              f"{nbytes / 1e6:.2f} MB), launch floor {floor['ms']:.4f} ms "
+              f"({floor['event_ms']:.4f} back to back)")
+        per_launch.append(dict(layout=name, shape=list(shape), bound_ms=bound, bound_by=bound_by,
+                               bytes=nbytes, floor_ms=floor["ms"], floor_event_ms=floor["event_ms"],
+                               **times))
     return dict(max_abs_err=worst, per_launch=per_launch)
 
 
@@ -503,9 +563,12 @@ def render_nerfacto(trainer, num_images: int = 2) -> dict:
 
 
 def check_nerfacto_plain_chunk(trainer) -> dict:
-    """One chunk again with the plain resampler; every output within the CPU
-    tests' tolerances on every ray whose lookups stayed in the same cells."""
+    """One chunk again on the plain path (``backend.plain_versions()``, no K1
+    launch); every output within the CPU tests' tolerances on every ray
+    whose lookups stayed in the same cells."""
     from uncertainty_nerf_gs_torch.cameras.cameras import generate_rays, pixel_grid
+
+    from uncertainty_nerf_gs_torch.ops import backend
 
     dev = trainer.device
     chunk = trainer.config.eval_num_rays_per_chunk
@@ -514,7 +577,11 @@ def check_nerfacto_plain_chunk(trainer) -> dict:
     rb = generate_rays(trainer.cameras, idx, px[:chunk], py[:chunk])
     model = trainer.model
     kern = model(rb, return_intermediates=True)
-    plain = model(rb, return_intermediates=True, plain=True)
+    backend.reset_launch_counts()
+    with backend.plain_versions():
+        plain = model(rb, return_intermediates=True)
+    if backend.launch_counts["pdf_resample"]:
+        raise AssertionError("K1 launched inside backend.plain_versions()")
     # the first resampler call sees identical inputs on both paths
     edge_err = (kern["sdist_list"][1] - plain["sdist_list"][1]).abs().max().item()
     flipped = (
@@ -546,7 +613,9 @@ def gather_bytes(trainer) -> int:
     return total
 
 
-def profile_nerfacto(trainer, idx: int = 1) -> None:
+def profile_nerfacto(trainer, idx: int = 1) -> dict:
+    """One image under the profiler: the top kernels, K1, the gather's rate,
+    and the launches of every kernel and of the copy kernels."""
     kernels = profile_top(f"nerfacto image {idx}", lambda: trainer.render_image(idx),
                           {"pdf_resample": "pdf_resample_kernel"})
     for name, (count, us) in kernels.items():
@@ -554,6 +623,19 @@ def profile_nerfacto(trainer, idx: int = 1) -> None:
             gb = gather_bytes(trainer)
             print(f"  {name[:40]}: {count} launches, {1e-3 * us:.3f} ms; the lookups read "
                   f"{gb / 1e6:.1f} MB of cells, {gb / (us * 1e-6) / 1e12:.3f} TB/s")
+    # device copies between tensors (.contiguous() of a strided view); the
+    # image's Memcpy to the host is not one
+    copies = {k: v for k, v in kernels.items() if "copy" in k.lower() and "memcpy" not in k.lower()}
+    counts = dict(
+        launches=sum(c for c, _ in kernels.values()),
+        copy_launches=sum(c for c, _ in copies.values()),
+        copy_ms=1e-3 * sum(us for _, us in copies.values()),
+    )
+    print(f"  nerfacto image {idx}: {counts['launches']} device activities, of them "
+          f"{counts['copy_launches']} copy kernels taking {counts['copy_ms']:.3f} ms")
+    for name, (count, us) in sorted(copies.items(), key=lambda kv: -kv[1][0]):
+        print(f"    x{count:<5d} {1e-3 * us:8.3f} ms {name[:110]}")
+    return counts
 
 
 # -- active-splatfacto at full width -------------------------------------------
@@ -635,19 +717,23 @@ def run_splat(trainer, name) -> dict:
 
 def splat_grads(trainer, cam_idx: int, plain: bool) -> tuple[dict, dict]:
     """One step's loss terms and gradients (parameters and the screen-space
-    tap) at the trainer's state, without updating it."""
+    tap) at the trainer's state, without updating it. With ``plain`` the
+    forward runs inside ``backend.plain_versions()`` and autograd runs the
+    backward after the block has closed: it follows the forward's path."""
     from uncertainty_nerf_gs_torch.models import splatfacto as sf
+    from uncertainty_nerf_gs_torch.ops import backend
 
     cfg = trainer.config
     params = {k: v.detach().clone().requires_grad_(True) for k, v in trainer.params.items()}
     tap = torch.zeros((cfg.capacity, 2), device=trainer.device, requires_grad=True)
-    out = sf.render_splat(
-        params, trainer.splat_state.alive, *trainer.camera(cam_idx),
-        trainer.cameras.width, trainer.cameras.height, cfg,
-        sh_deg=sf.active_sh_degree(trainer.step, cfg),
-        background=sf.fixed_background(cfg, trainer.device), means2d_tap=tap, plain=plain,
-    )
-    total, losses = sf.splatfacto_loss(out, trainer.images[cam_idx], params, cfg)
+    with backend.plain_versions() if plain else contextlib.nullcontext():
+        out = sf.render_splat(
+            params, trainer.splat_state.alive, *trainer.camera(cam_idx),
+            trainer.cameras.width, trainer.cameras.height, cfg,
+            sh_deg=sf.active_sh_degree(trainer.step, cfg),
+            background=sf.fixed_background(cfg, trainer.device), means2d_tap=tap,
+        )
+        total, losses = sf.splatfacto_loss(out, trainer.images[cam_idx], params, cfg)
     total.backward()
     grads = {k: p.grad for k, p in params.items()}
     grads["means2d_tap"] = tap.grad
@@ -655,13 +741,18 @@ def splat_grads(trainer, cam_idx: int, plain: bool) -> tuple[dict, dict]:
 
 
 def check_splat_plain(trainer) -> dict:
-    """One image and one step's gradients again with the compositor's plain
-    versions: outputs within the CPU tests' forward tolerances, gradients
-    within SPLAT_GRAD_TOL relative to their largest entry."""
+    """One image and one step's gradients again on the compositor's plain
+    path (``backend.plain_versions()``): outputs within the CPU tests'
+    forward tolerances, gradients within SPLAT_GRAD_TOL relative to their
+    largest entry; K2 and K3 launched on the kernel path only."""
     from uncertainty_nerf_gs_torch.ops import backend
 
     kern = trainer.render_image(1)
-    plain = trainer.render_image(1, plain=True)
+    backend.reset_launch_counts()
+    with backend.plain_versions():
+        plain = trainer.render_image(1)
+    if any(backend.launch_counts.values()):
+        raise AssertionError(f"kernels launched inside plain_versions(): {backend.launch_counts}")
     out_err = {}
     for k, v in kern.items():
         tol = SPLAT_OUTPUT_TOLS.get(k, SPLAT_FWD_TOL)
@@ -672,7 +763,10 @@ def check_splat_plain(trainer) -> dict:
     k_losses, k_grads = splat_grads(trainer, 2, plain=False)
     if backend.launch_counts["composite_bwd"] != 1:
         raise AssertionError("the kernel-path gradients did not launch K3")
+    backend.reset_launch_counts()
     p_losses, p_grads = splat_grads(trainer, 2, plain=True)
+    if backend.launch_counts["composite_fwd"] or backend.launch_counts["composite_bwd"]:
+        raise AssertionError(f"the plain-path gradients launched a kernel: {backend.launch_counts}")
     print("splat plain path: outputs max_abs_err " + ", ".join(f"{k} {v:.2e}" for k, v in out_err.items()))
     print("splat plain path: losses " + ", ".join(
         f"{k} {k_losses[k]:.6f} / {p_losses[k]:.6f}" for k in k_losses))
@@ -704,16 +798,19 @@ def profile_splat(trainer) -> None:
 
 def kernel_line(run_nerf, resample, nerf_plain, run_splat_, comp) -> list[dict]:
     per = resample["per_launch"]
+    # one chunk's two launches as the render makes them: 256 -> 97 with u
+    # and edges shared, 96 -> 49 with u shared, at 4096 rays
+    render = [p for p in per if p["layout"] == "render"]
     kernels = [dict(
         name="pdf_resample", route="cuda",
         source="uncertainty_nerf_gs_torch/csrc/pdf_resample.cu",
         replaces="uncertainty_nerf_gs_tpu/ops/pdf_pallas.py:120",
         launches=run_nerf["launches"]["pdf_resample"],
         max_abs_err=max(resample["max_abs_err"], nerf_plain["edge_err"]),
-        # one chunk's two launches: 256 -> 97 and 96 -> 49 at 4096 rays
-        ms=sum(p["ms"] for p in per), plain_ms=sum(p["plain_ms"] for p in per),
-        bound_ms=sum(p["bound_ms"] for p in per), bound_by=per[0]["bound_by"],
+        ms=sum(p["ms"] for p in render), plain_ms=sum(p["plain_ms"] for p in render),
+        bound_ms=sum(p["bound_ms"] for p in render), bound_by=render[0]["bound_by"],
         library_ms=None,  # no single PyTorch call computes this function
+        floor_ms=sum(p["floor_ms"] for p in render),
         per_launch=per,
     )]
     full = comp["times"]["full_width"]

@@ -182,17 +182,18 @@ def test_sample_pdf_eval_queries_match_jax():
         np.testing.assert_allclose(got[0].numpy(), want, atol=1e-7, rtol=0)
 
 
-@pytest.mark.parametrize("s,n", [(256, 97), (96, 49), (24, 13)])
+@pytest.mark.parametrize("s,n", [(256, 97), (96, 49), (24, 13), (1, 13), (24, 1)])
 def test_resample_reference_matches_pallas_interpret(s, n):
     """resample_edges_reference == the JAX Pallas kernel in interpret mode,
-    as tests/test_ops.py runs it, including the all-zero row."""
+    as tests/test_ops.py runs it, including the all-zero row, one bin a ray
+    (S = 1) and one query a ray (N = 1)."""
     rng = np.random.default_rng(0)
     r = 7
     w = (rng.uniform(0, 1, (r, s)).astype(np.float32)) ** 4
     w[2] = 0.0
     edges = np.sort(rng.uniform(0, 1, (r, s + 1)).astype(np.float32), axis=1)
     u = np.clip((np.arange(n, dtype=np.float32)[None] + 0.5) / n, 0, 1 - 1e-6)
-    u = np.broadcast_to(u, (r, n)).astype(np.float32)
+    u = np.ascontiguousarray(np.broadcast_to(u, (r, n)), dtype=np.float32)
     want = np.asarray(
         resample_edges_tpu(jnp.asarray(w), jnp.asarray(edges), jnp.asarray(u))
     )
@@ -201,6 +202,26 @@ def test_resample_reference_matches_pallas_interpret(s, n):
     assert (np.diff(got, axis=1) >= -1e-6).all()
     # on a CPU tensor the checked wrapper runs exactly the plain version
     assert np.array_equal(resample_edges(_t(w), _t(edges), _t(u)).numpy(), got)
+
+
+@pytest.mark.parametrize("shared", ["u", "s_edges", "both"])
+def test_resample_reads_expanded_rows_in_place(rng, shared):
+    """The eval path hands the resampler u, and the first stage's edges, as
+    one row expanded over the rays (stride 0). The CPU branch takes them as
+    they are and gives the same bits as on contiguous copies."""
+    r, s, n = 9, 24, 13
+    w = torch.from_numpy((rng.uniform(0, 1, (r, s)) ** 4).astype(np.float32))
+    w[4] = 0.0
+    edges = torch.from_numpy(np.sort(rng.uniform(0, 1, (r, s + 1)).astype(np.float32), axis=1))
+    u = torch.from_numpy(rng.uniform(0, 1, (r, n)).astype(np.float32))
+    if shared in ("u", "both"):
+        u = u[:1].expand(r, n)
+    if shared in ("s_edges", "both"):
+        edges = edges[:1].expand(r, s + 1)
+    assert 0 in u.stride() + edges.stride()
+    got = resample_edges(w, edges, u)
+    want = resample_edges(w, edges.contiguous(), u.contiguous())
+    assert torch.equal(got, want)
 
 
 # -- encodings ---------------------------------------------------------------

@@ -3,9 +3,11 @@ on the card unless asked for the CPU, and its kernel wrapper refuses what the
 kernel does not take."""
 
 import ast
+import inspect
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -14,12 +16,20 @@ from uncertainty_nerf_gs_torch.data.synthetic import hemisphere_cameras
 from uncertainty_nerf_gs_torch.engine.splat_trainer import SplatfactoTrainer
 from uncertainty_nerf_gs_torch.engine.trainer import NerfactoTrainer
 from uncertainty_nerf_gs_torch.models.nerfacto import NerfactoConfig, NerfactoModel
+from uncertainty_nerf_gs_torch.models import splatfacto
 from uncertainty_nerf_gs_torch.models.splatfacto import SplatfactoConfig
 from uncertainty_nerf_gs_torch.ops import backend
-from uncertainty_nerf_gs_torch.ops.composite import MAX_CHANNELS, composite_bwd, composite_fwd
+from uncertainty_nerf_gs_torch.ops.composite import (
+    MAX_CHANNELS,
+    CompositeTiles,
+    composite_bwd,
+    composite_fwd,
+    composite_tiles,
+)
 from uncertainty_nerf_gs_torch.ops.gaussians import Projection
 from uncertainty_nerf_gs_torch.ops.pdf_resample import MAX_BINS, resample_edges
 from uncertainty_nerf_gs_torch.ops.rasterize import rasterize_gaussians
+from uncertainty_nerf_gs_torch.ops.sampling import sample_pdf
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "uncertainty_nerf_gs_torch").rglob("*.py")) + [
@@ -81,6 +91,10 @@ def _inputs(r=4, s=8, n=5, dtype=torch.float32):
         ("u_empty", ValueError),
         ("too_many_bins", ValueError),
         ("mixed_devices", ValueError),
+        ("u_row_stride", ValueError),
+        ("edges_transposed", ValueError),
+        ("u_expanded_dim1", ValueError),
+        ("weights_not_contiguous", ValueError),
     ],
 )
 def test_resample_wrapper_refuses(case, error):
@@ -99,8 +113,47 @@ def test_resample_wrapper_refuses(case, error):
         w, e, u = _inputs(r=1, s=MAX_BINS + 1)
     elif case == "mixed_devices":
         u = u.to("meta")
+    elif case == "u_row_stride":  # rows neither shared nor packed
+        u = torch.rand(4, 8)[:, :5]
+    elif case == "edges_transposed":
+        e = e.t().contiguous().t()
+    elif case == "u_expanded_dim1":
+        u = u[:, :1].expand(4, 5)
+    elif case == "weights_not_contiguous":
+        w = w[:1].expand(4, 8)
     with pytest.raises(error):
         resample_edges(w, e, u)
+
+
+def test_plain_versions_switch():
+    """``plain_versions()`` makes use_kernel False for every tensor, nests,
+    and restores the kernel path on exit and on an exception."""
+    on_card = SimpleNamespace(device=torch.device("cuda"))  # use_kernel reads .device
+    on_cpu = torch.zeros(1)
+    assert backend.use_kernel(on_card) is True
+    with backend.plain_versions():
+        assert backend.use_kernel(on_card) is False
+        assert backend.use_kernel(on_cpu) is False
+        with backend.plain_versions():
+            assert backend.use_kernel(on_card) is False
+        assert backend.use_kernel(on_card) is False
+    assert backend.use_kernel(on_card) is True
+    with pytest.raises(KeyError):
+        with backend.plain_versions():
+            raise KeyError("inside the block")
+    assert backend.use_kernel(on_card) is True
+    assert backend.use_kernel(on_cpu) is False
+
+
+@pytest.mark.parametrize("fn", [
+    sample_pdf, NerfactoModel.forward, CompositeTiles.forward, composite_tiles,
+    rasterize_gaussians, splatfacto._rasterize, splatfacto.render_splat,
+    SplatfactoTrainer.render_image,
+], ids=lambda f: f.__qualname__)
+def test_no_plain_parameter(fn):
+    """The plain path is chosen by ``backend.plain_versions()``, not by an
+    argument: the model, trainer and op signatures match the JAX package's."""
+    assert "plain" not in inspect.signature(fn).parameters
 
 
 def _composite_inputs(t=3, k=5, c=4, dtype=torch.float32):

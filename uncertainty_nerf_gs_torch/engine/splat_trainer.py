@@ -196,9 +196,7 @@ class SplatfactoTrainer:
 
     # ------------------------------------------------------------- rendering
     @torch.no_grad()
-    def render_image(
-        self, camera_idx: int, background=None, plain: bool = False
-    ) -> dict[str, np.ndarray]:
+    def render_image(self, camera_idx: int, background=None) -> dict[str, np.ndarray]:
         """One full image at the full SH degree, on the config's fixed
         background unless one is given."""
         cfg = self.config
@@ -209,6 +207,6 @@ class SplatfactoTrainer:
         out = sf.render_splat(
             self.params, self.splat_state.alive, *self.camera(camera_idx),
             self.cameras.width, self.cameras.height, cfg,
-            sh_deg=cfg.sh_degree, background=bg, plain=plain,
+            sh_deg=cfg.sh_degree, background=bg,
         )
         return {k: v.cpu().numpy() for k, v in out.items() if k not in ("radii", "visible")}

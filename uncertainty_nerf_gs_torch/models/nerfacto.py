@@ -211,14 +211,10 @@ class NerfactoModel(nn.Module):
         *,
         use_average_appearance: bool = False,
         return_intermediates: bool = False,
-        plain: bool = False,
     ) -> dict[str, torch.Tensor]:
         """Eval forward of one ray batch. ``return_intermediates`` adds the
         field's last-layer inputs, the final samples' geometry and, as
-        ``sdist_list``, the spacing edges each field was queried at.
-        ``plain`` runs the kernels' plain versions even on the card, so a
-        check can hold the two paths against each other; it is never a
-        fallback."""
+        ``sdist_list``, the spacing edges each field was queried at."""
         cfg = self.config
         ray_bundle = self._with_planes(ray_bundle)
 
@@ -233,7 +229,7 @@ class NerfactoModel(nn.Module):
                 if i + 1 < self.num_proposal_levels
                 else cfg.num_nerf_samples
             )
-            rs = sample_pdf(ray_bundle, rs.spacing_edges, w, n_next, plain=plain)
+            rs = sample_pdf(ray_bundle, rs.spacing_edges, w, n_next)
 
         field_out = self.field(
             rs.positions,

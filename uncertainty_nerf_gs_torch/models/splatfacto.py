@@ -187,14 +187,13 @@ def active_sh_degree(step: int, config: SplatfactoConfig) -> int:
     return min(step // config.sh_degree_interval, config.sh_degree)
 
 
-def _rasterize(proj, opac, payload, width, height, config, plain):
+def _rasterize(proj, opac, payload, width, height, config):
     return rasterize_gaussians(
         proj, opac, payload, width, height,
         capacity=config.rasterize_capacity,
         backend=config.rasterize_backend,
         row_capacity=config.rasterize_row_capacity,
         pack_via=config.rasterize_pack_via,
-        plain=plain,
     )
 
 
@@ -212,14 +211,12 @@ def render_splat(
     sh_deg: int | None = None,
     background: torch.Tensor | None = None,
     means2d_tap: torch.Tensor | None = None,
-    plain: bool = False,
 ) -> dict[str, Any]:
     """Render one camera: rgb / depth / depth_var / accumulation (and
     uncertainty for active) in one multi-channel rasterize pass.
 
     ``means2d_tap``: optional (capacity, 2) zeros added to the screen
-    positions; its gradient is the densification signal. ``plain`` runs the
-    compositor's plain versions even on the card (checks only).
+    positions; its gradient is the densification signal.
     """
     proj = project_gaussians(
         params["means"], torch.exp(params["scales"]), params["quats"],
@@ -244,7 +241,7 @@ def render_splat(
     if config.uncertainty_channels:
         unc = F.softplus(params["log_uncertainties"][:, 0]) + config.beta_min
         channels.append(unc[:, None])
-    out = _rasterize(proj, opac, torch.cat(channels, dim=-1), width, height, config, plain)
+    out = _rasterize(proj, opac, torch.cat(channels, dim=-1), width, height, config)
     img, alpha = out.image, out.alpha
     alpha_safe = torch.clamp(alpha, min=1e-10)
 
@@ -269,7 +266,7 @@ def render_splat(
         valid_pix = (xy[:, 0] > 0) & (xy[:, 0] < width) & (xy[:, 1] > 0) & (xy[:, 1] < height)
         fetched = d1[torch.clamp(xy[:, 1], 0, height - 1), torch.clamp(xy[:, 0], 0, width - 1)]
         delta = torch.where(valid_pix, depth - fetched, depth)
-        raw2 = _rasterize(proj, opac, (delta**2)[:, None], width, height, config, plain).image[..., 0]
+        raw2 = _rasterize(proj, opac, (delta**2)[:, None], width, height, config).image[..., 0]
         depth_var = torch.where(covered, raw2 / alpha_safe, torch.max(raw2))
     elif config.depth_var_mode == "moments":
         depth_var = torch.clamp(d2 - d1**2, min=0.0) + 1e-5

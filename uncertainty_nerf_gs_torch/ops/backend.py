@@ -7,9 +7,17 @@ through this module:
 
 * ``resolve_device(None)`` is CUDA, and raises when no card is present. Entry
   points never fall back to the CPU on their own.
-* ``use_kernel(t)`` is True exactly when ``t`` lies on a CUDA device. A CUDA
-  tensor then launches the hand-written kernel or raises; a CPU tensor takes
-  the kernel's plain PyTorch version. Nothing catches a failed launch.
+* ``use_kernel(t)`` is True exactly when ``t`` lies on a CUDA device and no
+  ``plain_versions()`` block is open. A CUDA tensor then launches the
+  hand-written kernel or raises; a CPU tensor takes the kernel's plain
+  PyTorch version. Nothing catches a failed launch.
+* ``with plain_versions():`` makes every wrapper run its plain version on
+  the card too. It exists for checks that hold the kernel path against the
+  plain path on the same card (``chip_smoke.py``). It is never a fallback:
+  nothing in the package opens it, and outside it a failed build or launch
+  still raises. It is a context variable, restored on exit and on an
+  exception; an autograd Function records the forward's decision, so its
+  backward follows the forward's path wherever autograd runs it.
 
 Kernels are CUDA C++ sources in ``uncertainty_nerf_gs_torch/csrc``. Each is
 compiled at first use with ``nvcc`` for ``sm_90a`` into a shared library with
@@ -19,6 +27,8 @@ a plain C interface, keyed by a hash of its source and flags, under
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import hashlib
 import os
@@ -40,6 +50,7 @@ NVCC_FLAGS = (
 LAUNCH_COUNTERS = ("pdf_resample", "composite_fwd", "composite_bwd")
 launch_counts: dict[str, int] = {name: 0 for name in LAUNCH_COUNTERS}
 _libraries: dict[str, ctypes.CDLL] = {}
+_plain = contextvars.ContextVar("plain_versions", default=False)
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -54,13 +65,25 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 
 
 def use_kernel(t: torch.Tensor) -> bool:
-    """True: launch the CUDA kernel. False: the tensor is on the CPU and the
-    plain version runs. Any other device raises."""
+    """True: launch the CUDA kernel. False: the tensor is on the CPU, or a
+    ``plain_versions()`` block is open, and the plain version runs. Any other
+    device raises."""
     if t.device.type == "cuda":
-        return True
+        return not _plain.get()
     if t.device.type == "cpu":
         return False
     raise RuntimeError(f"no kernel or plain version for device {t.device}")
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Within the block every wrapper runs its plain version, on the card
+    too: for checks of the kernel path against the plain path only."""
+    token = _plain.set(True)
+    try:
+        yield
+    finally:
+        _plain.reset(token)
 
 
 def count_launch(name: str) -> None:

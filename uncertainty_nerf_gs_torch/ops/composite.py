@@ -187,6 +187,10 @@ def composite_fwd(
     _check(packed, pix, counts)
     if not backend.use_kernel(packed):
         return composite_tiles_reference(packed, pix, counts)
+    return _launch_fwd(packed, pix, counts)
+
+
+def _launch_fwd(packed, pix, counts):
     t, k, d = packed.shape
     img = torch.empty((t, PIXELS, d - 6), dtype=torch.float32, device=packed.device)
     alpha = torch.empty((t, PIXELS), dtype=torch.float32, device=packed.device)
@@ -218,6 +222,10 @@ def composite_bwd(
     _check(packed, pix, counts, img, alpha, g_img, g_alpha)
     if not backend.use_kernel(packed):
         return composite_tiles_vjp_reference(packed, pix, counts, img, alpha, g_img, g_alpha)
+    return _launch_bwd(packed, pix, counts, img, alpha, g_img, g_alpha)
+
+
+def _launch_bwd(packed, pix, counts, img, alpha, g_img, g_alpha):
     t, k, d = packed.shape
     g_packed = torch.empty_like(packed)
     if t == 0:
@@ -234,18 +242,19 @@ def composite_bwd(
 
 
 class CompositeTiles(torch.autograd.Function):
-    """K2 forward, K3 backward. ``plain`` runs the plain versions even on
-    the card; it exists so that a check can hold the kernels' path against
-    the plain one and is never a fallback."""
+    """K2 forward, K3 backward. The forward records whether it launched K2
+    (``backend.use_kernel``), and the backward takes the same path: K3 after
+    K2, the plain backward after the plain forward, even when autograd runs
+    it after a ``backend.plain_versions()`` block has closed."""
 
     @staticmethod
-    def forward(ctx, packed, pix, counts, plain):
-        ctx.plain = plain
-        if plain:
-            _check(packed, pix, counts)
-            img, alpha = composite_tiles_reference(packed, pix, counts)
+    def forward(ctx, packed, pix, counts):
+        _check(packed, pix, counts)
+        ctx.kernel = backend.use_kernel(packed)
+        if ctx.kernel:
+            img, alpha = _launch_fwd(packed, pix, counts)
         else:
-            img, alpha = composite_fwd(packed, pix, counts)
+            img, alpha = composite_tiles_reference(packed, pix, counts)
         # the backward reads its per-pixel total from the outputs
         ctx.save_for_backward(packed, pix, counts, img, alpha)
         return img, alpha
@@ -257,21 +266,21 @@ class CompositeTiles(torch.autograd.Function):
                             device=packed.device) if g_img is None else g_img.contiguous()
         g_alpha = torch.zeros(pix.shape[:2], dtype=packed.dtype,
                               device=packed.device) if g_alpha is None else g_alpha.contiguous()
-        if ctx.plain:
-            _check(packed, pix, counts, img, alpha, g_img, g_alpha)
+        _check(packed, pix, counts, img, alpha, g_img, g_alpha)
+        if ctx.kernel:
+            g_packed = _launch_bwd(packed, pix, counts, img, alpha, g_img, g_alpha)
+        else:
             g_packed = composite_tiles_vjp_reference(packed, pix, counts, img, alpha, g_img,
                                                      g_alpha)
-        else:
-            g_packed = composite_bwd(packed, pix, counts, img, alpha, g_img, g_alpha)
-        return g_packed, None, None, None
+        return g_packed, None, None
 
 
 def composite_tiles(
-    packed: torch.Tensor, pix: torch.Tensor, counts: torch.Tensor, plain: bool = False
+    packed: torch.Tensor, pix: torch.Tensor, counts: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Composite packed per-tile Gaussians, differentiable in ``packed``.
 
     packed (T, K, 6+C) float32 depth-sorted rows; pix (T, P, 2) float32
     pixel centers; counts (T,) int32 live rows per tile. Returns
     ((T, P, C) tile images, (T, P) tile alphas)."""
-    return CompositeTiles.apply(packed, pix, counts, plain)
+    return CompositeTiles.apply(packed, pix, counts)

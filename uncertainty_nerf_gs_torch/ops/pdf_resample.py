@@ -2,11 +2,11 @@
 
 Replaces ``uncertainty_nerf_gs_tpu/ops/pdf_pallas.py::resample_edges_tpu``
 (Pallas kernel ``_resample_kernel``). On a CUDA tensor ``resample_edges``
-launches the hand-written kernel ``csrc/pdf_resample.cu``; on a CPU tensor it
-runs ``resample_edges_reference``, the plain version of the same function,
-written after the XLA branch of the JAX ``sample_pdf`` (``sampling.py``,
-lines 175-196). Neither is differentiable: the nerfacto path never takes a
-gradient through the sampler.
+launches the hand-written kernel ``csrc/pdf_resample.cu`` (one warp per
+ray); on a CPU tensor it runs ``resample_edges_reference``, the plain version
+of the same function, written after the XLA branch of the JAX ``sample_pdf``
+(``sampling.py``, lines 175-196). Neither is differentiable: the nerfacto
+path never takes a gradient through the sampler.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import torch
 from uncertainty_nerf_gs_torch.ops import backend
 
 KERNEL = "pdf_resample"
-MAX_BINS = 4096  # shared memory holds 2 (S + 1) floats per block: 32 KB
+MAX_BINS = 4096  # a warp stages 2 (S + 1) floats: 32.8 KB, one ray a block
 
 
 @torch.no_grad()
@@ -56,7 +56,23 @@ def resample_edges_reference(
     return e0 + frac * (e1 - e0)
 
 
-def _check(weights, s_edges, u) -> None:
+def _row_stride(name: str, t: torch.Tensor) -> int:
+    """Floats between the rows the kernel reads: the row width for a
+    contiguous tensor, 0 for one contiguous row expanded along dim 0."""
+    width = t.shape[1]
+    if t.is_contiguous():
+        return width
+    if t.stride(0) == 0 and (width == 1 or t.stride(1) == 1):
+        return 0
+    raise ValueError(
+        f"{name} must be contiguous or one contiguous row expanded along dim 0, "
+        f"got strides {t.stride()} for shape {tuple(t.shape)}"
+    )
+
+
+def _check(weights, s_edges, u) -> tuple[int, int]:
+    """Raises on what the kernel does not take; returns the row strides of
+    s_edges and u."""
     for name, t in (("weights", weights), ("s_edges", s_edges), ("u", u)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
@@ -71,17 +87,24 @@ def _check(weights, s_edges, u) -> None:
         raise ValueError(f"s_edges must be {(r, s + 1)}, got {tuple(s_edges.shape)}")
     if u.shape[0] != r or u.shape[1] < 1:
         raise ValueError(f"u must be ({r}, N>=1), got {tuple(u.shape)}")
+    if not weights.is_contiguous():
+        raise ValueError("weights must be contiguous")
+    return _row_stride("s_edges", s_edges), _row_stride("u", u)
 
 
-def _kernel_entry():
-    """The kernel's C entry point, built and loaded at first use."""
-    fn = backend.load_library(KERNEL).pdf_resample_f32
+def _entry(name: str, argtypes: list):
+    """A C entry point of the kernel library, built and loaded at first use."""
+    fn = getattr(backend.load_library(KERNEL), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-            ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-        ]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+_RESAMPLE_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                  ctypes.c_longlong, ctypes.c_void_p] + [ctypes.c_int] * 3 + [
+    ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+_FLOOR_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def resample_edges(
@@ -92,28 +115,39 @@ def resample_edges(
     eps: float = 1e-5,
 ) -> torch.Tensor:
     """Checked entry point: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. Raises on what the kernel does not take."""
-    _check(weights, s_edges, u)
+    version for CPU tensors (or inside ``backend.plain_versions()``).
+    ``weights`` is contiguous; ``s_edges`` and ``u`` are contiguous or one
+    row expanded along dim 0, which the kernel reads in place. Raises on
+    what the kernel does not take."""
+    edges_stride, u_stride = _check(weights, s_edges, u)
     if not backend.use_kernel(weights):
         return resample_edges_reference(
             weights, s_edges, u, histogram_padding, eps
         )
-    for name, t in (("weights", weights), ("s_edges", s_edges), ("u", u)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     r, s = weights.shape
     n = u.shape[1]
     out = torch.empty((r, n), dtype=torch.float32, device=weights.device)
     if r == 0:
         return out
-    fn = _kernel_entry()
+    fn = _entry("pdf_resample_f32", _RESAMPLE_ARGS)
     with torch.cuda.device(weights.device):
         err = fn(
-            weights.data_ptr(), s_edges.data_ptr(), u.data_ptr(), out.data_ptr(),
-            r, s, n, histogram_padding, eps,
+            weights.data_ptr(), s_edges.data_ptr(), edges_stride, u.data_ptr(), u_stride,
+            out.data_ptr(), r, s, n, histogram_padding, eps,
             backend.current_stream_handle(weights.device),
         )
     if err != 0:
         raise RuntimeError(f"pdf_resample launch failed: CUDA error {err}")
     backend.count_launch(KERNEL)
     return out
+
+
+def launch_floor(num_rays: int, num_bins: int, device: torch.device) -> None:
+    """Launches an empty kernel with ``resample_edges``' grid, block and
+    shared memory for (num_rays, num_bins): the launch's own cost, timed
+    beside K1. Not a launch of K1, so it is not counted."""
+    fn = _entry("pdf_resample_floor_f32", _FLOOR_ARGS)
+    with torch.cuda.device(device):
+        err = fn(num_rays, num_bins, backend.current_stream_handle(device))
+    if err != 0:
+        raise RuntimeError(f"pdf_resample_floor launch failed: CUDA error {err}")

@@ -230,15 +230,12 @@ def rasterize_gaussians(
     backend: str = "auto",
     row_capacity: int | None = None,
     pack_via: str = "gather",
-    plain: bool = False,
 ) -> RasterOutputs:
     """Composite (N,) projected Gaussians carrying an (N, C) payload.
 
     opacities: (N,) post-sigmoid opacity (callers fold in the projection's
     ``compensation``). ``backend`` "auto" and "pallas" both composite with
     K2 / K3, as "auto" does on the TPU; "xla" and "matmul" raise.
-    ``plain`` runs the compositor's plain versions even on the card, for
-    checks that hold the kernel path against the plain one.
     """
     if backend not in BACKENDS:
         raise ValueError(
@@ -247,7 +244,7 @@ def rasterize_gaussians(
         )
     sp = select_and_pack(proj, opacities, payload, width, height, capacity,
                          row_capacity=row_capacity, pack_via=pack_via)
-    imgs, alphas = composite_tiles(sp.packed, sp.pix, sp.counts, plain=plain)
+    imgs, alphas = composite_tiles(sp.packed, sp.pix, sp.counts)
     num_tx, num_ty = _num_tiles(width), _num_tiles(height)
     c = payload.shape[-1]
     image = (

@@ -14,10 +14,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from uncertainty_nerf_gs_torch.ops.pdf_resample import (
-    resample_edges,
-    resample_edges_reference,
-)
+from uncertainty_nerf_gs_torch.ops.pdf_resample import resample_edges
 
 
 class RayBundle(NamedTuple):
@@ -138,15 +135,13 @@ def sample_pdf(
     spacing_fn: Callable = spacing_piecewise,
     spacing_fn_inv: Callable = spacing_piecewise_inv,
     eps: float = 1e-5,
-    *,
-    plain: bool = False,
 ) -> RaySamples:
     """Importance-resample new bin edges from a weights histogram.
 
     s_edges: (R, S+1) existing normalized edges; weights: (R, S). Evenly
-    spaced u at eval, stratified u from ``generator`` otherwise. ``plain``
-    runs the plain resampler even on the card; it exists so that a check can
-    hold the kernel's path against the plain one and is never a fallback.
+    spaced u at eval, stratified u from ``generator`` otherwise. The eval
+    queries are one row expanded over the rays, and ``sample_uniform``'s
+    edges one expanded linspace: the resampler reads both in place.
     """
     num_rays = weights.shape[0]
     device = weights.device
@@ -158,12 +153,9 @@ def sample_pdf(
         u = (torch.arange(n_new, dtype=torch.float32, device=device) + draws) / n_new
     else:
         u = (torch.arange(n_new, dtype=torch.float32, device=device) + 0.5) / n_new
-        u = u.expand(num_rays, n_new)
-    u = torch.clamp(u, 0.0, 1.0 - 1e-6).contiguous()
+    u = torch.clamp(u, 0.0, 1.0 - 1e-6).expand(num_rays, n_new)
 
-    resample = resample_edges_reference if plain else resample_edges
-    new_edges = resample(
-        weights.detach().contiguous(), s_edges.detach().contiguous(), u,
-        histogram_padding, eps,
+    new_edges = resample_edges(
+        weights.detach().contiguous(), s_edges.detach(), u, histogram_padding, eps
     )
     return _edges_to_samples(ray_bundle, new_edges, spacing_fn, spacing_fn_inv)
