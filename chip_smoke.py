@@ -42,7 +42,11 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 from torch_parity import (  # noqa: E402  (the tolerances the CPU tests hold)
+    GRID_GRAD_TOL,
+    TRAIN_GRAD_L2,
+    TRAIN_LOSS_RTOL,
     MAX_FLIPPED_RAY_SHARE,
+    MAX_FLIPPED_TRAIN_RAY_SHARE,
     OUTPUT_TOLS,
     PACKED_FAMILIES,
     SPLAT_FWD_ATOL,
@@ -51,6 +55,7 @@ from torch_parity import (  # noqa: E402  (the tolerances the CPU tests hold)
     SPLAT_OUTPUT_TOLS,
     TOL,
     composite_vjp_float64,
+    grad_l2_error,
     grad_mismatch,
 )
 
@@ -98,7 +103,9 @@ def device_kernels(fn) -> tuple[dict[str, tuple[int, float]], float]:
         wall = time.perf_counter() - t0
     kernels = {}
     for e in prof.key_averages():
-        if "CUDA" not in str(getattr(e, "device_type", "")):
+        # a user annotation (Optimizer.step#Adam.step) spans kernels counted
+        # on their own
+        if "CUDA" not in str(getattr(e, "device_type", "")) or getattr(e, "is_user_annotation", False):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -515,12 +522,176 @@ def check_compositor(trainer, device) -> dict:
     return dict(fwd_err=fwd_err, bwd_err=bwd_err, times=times)
 
 
+# -- K4 / K5: the hash-grid cell lookup against its plain versions -------------
+
+# float32 operations per lookup (csrc/hash_grid.cu): scaled, frac, the axis
+# weights and the 8 corner weights (25), then K4's 8 F multiply-adds; K5's
+# 8 F scatter products and, with the position gradient, the 8 F-wide dots
+# and the weight derivatives (3 x 8 x 3), times res
+K4_OPS = lambda f: 25 + 16 * f  # noqa: E731
+K5_OPS = lambda f, pos: 25 + 8 * f + ((16 * f + 75) if pos else 0)  # noqa: E731
+
+
+def grid_shapes(cfg) -> list[tuple]:
+    """(field, levels, max_res, log2 table size, samples per ray) of the
+    main path's three lookups: the proposals', then the main field's."""
+    fields = [(f"proposal_{i}", a["num_levels"], a["max_res"], a["log2_hashmap_size"], n)
+              for i, (a, n) in enumerate(zip(cfg.proposal_net_args, cfg.num_proposal_samples))]
+    return fields + [("field", cfg.num_levels, cfg.max_res, cfg.log2_hashmap_size,
+                      cfg.num_nerf_samples)]
+
+
+def grid_inputs(levels, max_res, log2, n, gen, device, features=2):
+    """Cells uniform in +-2 (interop.draw_params' scale), positions uniform
+    in [0, 1]^3 whose first rows sit on the cube's corners, at 0 and 1, a
+    little outside it, and on cell faces k / res of every level."""
+    from uncertainty_nerf_gs_torch.ops.encodings import hash_grid_resolutions
+
+    res = hash_grid_resolutions(levels, 16, max_res)
+    table = 2**log2
+    n_rows = -(-table // (128 // (8 * features)))
+    cells = torch.rand(levels, n_rows, 128, generator=gen, device=device) * 4.0 - 2.0
+    pos = torch.rand(n, 3, generator=gen, device=device)
+    edge = [[0, 0, 0], [1, 1, 1], [1, 0, 1], [0.5, 1, 0], [-1e-7, 0.5, 1 + 1e-7], [1 + 1e-7, -1e-7, 0.3]]
+    for r in res:
+        k = torch.arange(int(r) + 1, device=device, dtype=torch.float32)
+        faces = (k / float(r))[torch.randint(0, int(r) + 1, (3, 3), generator=gen, device=device)]
+        edge += faces.tolist()
+    edge = torch.tensor(edge, dtype=torch.float32, device=device)[:n]
+    pos[: edge.shape[0]] = edge
+    return cells, pos, tuple(int(r) for r in res), table
+
+
+def encoded_cells(cells, features):
+    """Cells whose corners all hold their own cell index k as (k % 1024,
+    k // 1024, 0, ...): a lookup's features then round to its cell."""
+    levels, n_rows, _ = cells.shape
+    k = torch.arange(n_rows * 128 // (8 * features), device=cells.device, dtype=torch.float32)
+    code = torch.zeros(levels, k.shape[0], 8, features, device=cells.device)
+    code[..., 0] = (k % 1024)[None, :, None]
+    code[..., 1] = torch.div(k, 1024, rounding_mode="floor")[None, :, None]
+    return code.reshape(cells.shape)
+
+
+def grid_lookups(pos, res, table):
+    """(L, n) int64: each lookup's cell, by the plain ``cell_indices``."""
+    from uncertainty_nerf_gs_torch.ops.encodings import cell_indices
+
+    return torch.stack([cell_indices(pos, r, table)[0] for r in res])
+
+
+def level_mismatch(got, want, tol=GRID_GRAD_TOL) -> int:
+    """Entries of a (L, ...) cell gradient outside ``tol`` relative to the
+    largest entry of their own level."""
+    return sum(int(grad_mismatch(g, w, tol).sum()) for g, w in zip(got, want))
+
+
+def grid_bound_ms(n, levels, features, unique_cells, backward) -> tuple[float, str, int, int]:
+    """Least time of one call on these inputs: positions read once, each
+    cell that a lookup reads (K5: adds into) moved once, features (K5: their
+    gradients) once; K5 also reads the touched cells and writes the
+    positions' gradient. Returns (ms, bound_by, bytes, operations)."""
+    lookups = n * levels
+    cell_bytes = unique_cells * 8 * features * 4
+    nbytes = 12 * n + cell_bytes + 4 * features * lookups
+    ops = lookups * K4_OPS(features)
+    if backward:
+        nbytes += cell_bytes + 12 * n
+        ops = lookups * K5_OPS(features, True)
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations"), nbytes, ops
+
+
+def check_hash_grid(cfg, device) -> dict:
+    """K4 and K5 against their plain versions at the main path's three
+    shapes (4,096 rays), a ragged count and F = 4: K4's features within TOL,
+    its cell choice bit for bit (from cells that encode their own index);
+    K5's cell gradient within GRID_GRAD_TOL of each level's largest entry,
+    its position gradient within GRID_GRAD_TOL of its largest entry. Times
+    per launch at the main path's shapes, beside the bound and index_select
+    of the same rows."""
+    from uncertainty_nerf_gs_torch.ops import encodings as enc
+
+    rays = cfg.eval_num_rays_per_chunk
+    cases = [(name, levels, max_res, log2, rays * spr, 2, True)
+             for name, levels, max_res, log2, spr in grid_shapes(cfg)]
+    cases += [("ragged", cfg.num_levels, cfg.max_res, cfg.log2_hashmap_size, 1001, 2, False),
+              ("f4", 4, 512, 12, 777, 4, False)]
+    fwd_err = bwd_err = 0.0
+    failed, per_launch = [], []
+    for i, (name, levels, max_res, log2, n, f, timed) in enumerate(cases):
+        gen = torch.Generator(device=device).manual_seed(SEED + 200 + i)
+        cells, pos, res, table = grid_inputs(levels, max_res, log2, n, gen, device, f)
+        got = enc.cell_lookup_fwd(cells, pos, res, table, f)
+        want = enc.cell_lookup_reference(cells, pos, res, table, f)
+        idx = grid_lookups(pos, res, table)
+        code = enc.cell_lookup_fwd(encoded_cells(cells, f), pos, res, table, f).reshape(n, levels, f)
+        chosen = (torch.round(code[..., 0]) + 1024 * torch.round(code[..., 1])).long().t()
+        g_out = torch.randn(n, levels * f, generator=gen, device=device)
+        g_cells, g_pos = enc.cell_lookup_bwd(cells, pos, res, table, f, g_out, True)
+        ref_cells, ref_pos = enc.cell_lookup_vjp_reference(cells, pos, res, table, f, g_out)
+        g_only, none = enc.cell_lookup_bwd(cells, pos, res, table, f, g_out, False)
+        torch.cuda.synchronize()
+        e_f = (got - want).abs().max().item()
+        e_c = (g_cells - ref_cells).abs().max().item()
+        e_p = (g_pos - ref_pos).abs().max().item()
+        flips = int((chosen != idx).sum())
+        bad_c, bad_p = level_mismatch(g_cells, ref_cells), int(grad_mismatch(g_pos, ref_pos, GRID_GRAD_TOL).sum())
+        print(f"hash_grid {name} n={n} L={levels} F={f} table 2^{log2}: K4 max_abs_err {e_f:.3e}, "
+              f"{flips} of {idx.numel()} cell choices differ; K5 cells max_abs_err {e_c:.3e} "
+              f"(largest |g| {ref_cells.abs().max().item():.3e}, {bad_c} outside the level bar), "
+              f"positions max_abs_err {e_p:.3e} (largest |g| {ref_pos.abs().max().item():.3e}, "
+              f"{bad_p} outside)")
+        if not torch.isclose(got, want, **TOL).all() or not torch.isfinite(got).all():
+            failed.append(f"{name}: K4 features disagree, {e_f:.3e}")
+        if flips:
+            failed.append(f"{name}: K4 chose another cell in {flips} lookups")
+        if bad_c or bad_p or not (torch.isfinite(g_cells).all() and torch.isfinite(g_pos).all()):
+            failed.append(f"{name}: K5 disagrees with the plain backward")
+        if none is not None or level_mismatch(g_only, ref_cells):
+            failed.append(f"{name}: K5 without the position gradient disagrees")
+        fwd_err, bwd_err = max(fwd_err, e_f), max(bwd_err, e_c, e_p)
+        if not timed:
+            continue
+        # timed at the main path's shape, two input sets of positions and
+        # g_out over the same cells, as consecutive steps would see them
+        sets = [(pos, g_out)] + [(torch.rand(n, 3, generator=gen, device=device),
+                                 torch.randn(n, levels * f, generator=gen, device=device))]
+        fwd = kernel_times(f"{name} K4", lambda p, g: enc.cell_lookup_fwd(cells, p, res, table, f),
+                           lambda p, g: enc.cell_lookup_reference(cells, p, res, table, f), sets,
+                           "cell_lookup_fwd_kernel")
+        bwd = kernel_times(f"{name} K5", lambda p, g: enc.cell_lookup_bwd(cells, p, res, table, f, g, True),
+                           lambda p, g: enc.cell_lookup_vjp_reference(cells, p, res, table, f, g), sets,
+                           "cell_lookup_bwd_kernel")
+        blocks = cells.reshape(levels, -1, 8, f)
+        lib_sets = [[grid_lookups(p, res, table)] for p, _ in sets]
+        library_ms = time_ms(lambda ix: [blocks[l].index_select(0, ix[l]) for l in range(levels)], lib_sets)
+        unique = sum(int(torch.unique(row).numel()) for row in idx)
+        for label, tm, backward in (("K4", fwd, False), ("K5", bwd, True)):
+            bound, bound_by, nbytes, ops = grid_bound_ms(n, levels, f, unique, backward)
+            every, _, every_bytes, _ = grid_bound_ms(n, levels, f, n * levels, backward)
+            tm.update(field=name, shape=[n, levels, f, 2**log2], bound_ms=bound, bound_by=bound_by,
+                      bytes=nbytes, operations=ops, unique_cells=unique, every_lookup_bound_ms=every,
+                      library_ms=library_ms if label == "K4" else None)
+            print(f"{label} {name} ({n} samples x {levels} levels): kernel {tm['ms']:.4f} ms on the device "
+                  f"({tm['event_ms']:.4f} ms a call back to back), plain {tm['plain_ms']:.4f} ms "
+                  f"({tm['plain_event_ms']:.4f}), bound {bound:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
+                  f"{unique} distinct cells of {n * levels} lookups; {every:.4f} ms, "
+                  f"{every_bytes / 1e6:.1f} MB counting every lookup's cell); index_select of the "
+                  f"same rows, {levels} calls, {library_ms:.4f} ms")
+        per_launch.append(dict(fwd=fwd, bwd=bwd))
+    if failed:
+        raise AssertionError("hash_grid " + "; ".join(failed))
+    return dict(fwd_err=fwd_err, bwd_err=bwd_err, per_launch=per_launch)
+
+
 # -- active-nerfacto at full width ---------------------------------------------
 
 
 def build_nerfacto(device=None, num_cameras=4, size=256):
-    """Full-width active-nerfacto with random weights drawn from a numpy seed
-    through ``interop.params_from_jax``."""
+    """Full-width active-nerfacto as the method ships it (camera optimizer
+    on), random weights and training images drawn from a numpy seed, the
+    weights through ``interop.params_from_jax``."""
     from uncertainty_nerf_gs_torch.data.synthetic import hemisphere_cameras
     from uncertainty_nerf_gs_torch.engine.trainer import NerfactoTrainer
     from uncertainty_nerf_gs_torch.interop import (
@@ -532,9 +703,14 @@ def build_nerfacto(device=None, num_cameras=4, size=256):
 
     cams = hemisphere_cameras(num_cameras, size, size)
     cfg = NerfactoConfig(uncertainty_channels=1, num_images=num_cameras, background_color="white")
-    trainer = NerfactoTrainer(cfg, cams, seed=SEED, device=device)
+    rng = np.random.default_rng(SEED)
+    images = rng.uniform(size=(num_cameras, size, size, 3)).astype(np.float32)
+    trainer = NerfactoTrainer(cfg, cams, images, seed=SEED, use_camera_optimizer=True,
+                              device=device)
     tree = params_to_jax(trainer.model.state_dict())
-    trainer.restore(params_from_jax(draw_params(tree, np.random.default_rng(SEED))))
+    params = params_from_jax(draw_params(tree, rng))
+    params["camera_opt"] = torch.zeros(num_cameras, 6)
+    trainer.restore({"params": params})
     return trainer
 
 
@@ -555,10 +731,11 @@ def render_nerfacto(trainer, num_images: int = 2) -> dict:
             if v.shape != want or not np.isfinite(v).all():
                 raise AssertionError(f"image {idx}: {k} {v.shape} or not finite")
     launches = dict(backend.launch_counts)
-    want_launches = 2 * chunks * num_images
-    print(f"nerfacto launches {launches}, expected pdf_resample {want_launches}")
-    if launches["pdf_resample"] != want_launches:
-        raise AssertionError("the render did not go through the resampling kernel")
+    # per chunk: two resampler launches and one lookup per field
+    want = dict(pdf_resample=2 * chunks * num_images, cell_lookup_fwd=3 * chunks * num_images)
+    print(f"nerfacto launches {launches}, expected {want}")
+    if any(launches[k] != v for k, v in want.items()) or launches["cell_lookup_bwd"]:
+        raise AssertionError("the render did not go through its kernels")
     return dict(launches=launches, seconds=times, chunks=chunks, rays=h * w)
 
 
@@ -580,8 +757,8 @@ def check_nerfacto_plain_chunk(trainer) -> dict:
     backend.reset_launch_counts()
     with backend.plain_versions():
         plain = model(rb, return_intermediates=True)
-    if backend.launch_counts["pdf_resample"]:
-        raise AssertionError("K1 launched inside backend.plain_versions()")
+    if any(backend.launch_counts.values()):
+        raise AssertionError(f"kernels launched inside plain_versions(): {backend.launch_counts}")
     # the first resampler call sees identical inputs on both paths
     edge_err = (kern["sdist_list"][1] - plain["sdist_list"][1]).abs().max().item()
     flipped = (
@@ -613,16 +790,22 @@ def gather_bytes(trainer) -> int:
     return total
 
 
+NERF_SYMBOLS = {"pdf_resample": "pdf_resample_kernel", "cell_lookup_fwd": "cell_lookup_fwd_kernel",
+                "cell_lookup_bwd": "cell_lookup_bwd_kernel"}
+
+
 def profile_nerfacto(trainer, idx: int = 1) -> dict:
-    """One image under the profiler: the top kernels, K1, the gather's rate,
-    and the launches of every kernel and of the copy kernels."""
-    kernels = profile_top(f"nerfacto image {idx}", lambda: trainer.render_image(idx),
-                          {"pdf_resample": "pdf_resample_kernel"})
+    """One image under the profiler: the top kernels, K1 and K4, the
+    lookups' rate, any index_select gathers left, and the launches of every
+    kernel and of the copy kernels."""
+    kernels = profile_top(f"nerfacto image {idx}", lambda: trainer.render_image(idx), NERF_SYMBOLS)
+    gb = gather_bytes(trainer)
     for name, (count, us) in kernels.items():
-        if "vectorized_gather" in name:  # index_select of the hash-grid cells
-            gb = gather_bytes(trainer)
-            print(f"  {name[:40]}: {count} launches, {1e-3 * us:.3f} ms; the lookups read "
-                  f"{gb / 1e6:.1f} MB of cells, {gb / (us * 1e-6) / 1e12:.3f} TB/s")
+        if "cell_lookup_fwd_kernel" in name:
+            print(f"  K4: {count} launches, {1e-3 * us:.3f} ms; the lookups read {gb / 1e6:.1f} MB "
+                  f"of cells counting every lookup's cell, {gb / (us * 1e-6) / 1e12:.3f} TB/s")
+        if "vectorized_gather" in name:  # index_select / gather; the cells no longer
+            print(f"  {name[:40]}: {count} launches, {1e-3 * us:.3f} ms")
     # device copies between tensors (.contiguous() of a strided view); the
     # image's Memcpy to the host is not one
     copies = {k: v for k, v in kernels.items() if "copy" in k.lower() and "memcpy" not in k.lower()}
@@ -636,6 +819,131 @@ def profile_nerfacto(trainer, idx: int = 1) -> dict:
     for name, (count, us) in sorted(copies.items(), key=lambda kv: -kv[1][0]):
         print(f"    x{count:<5d} {1e-3 * us:8.3f} ms {name[:110]}")
     return counts
+
+
+NERF_STEPS, NERF_RAYS = 5, 4096
+
+
+def train_nerfacto(trainer, name) -> dict:
+    """Five training steps of 4,096 rays with the camera optimizer: every
+    loss and weight finite, every group moved, and per step two K1, three
+    K4 and three K5 launches."""
+    from uncertainty_nerf_gs_torch.ops import backend
+
+    start = {k: v.detach().clone() for k, v in trainer.params().items()}
+    backend.reset_launch_counts()
+    step_s, losses = [], []
+    for _ in range(NERF_STEPS):
+        t0 = time.perf_counter()
+        losses.append(trainer.train_step(NERF_RAYS))  # ends in a copy of the losses to the host
+        step_s.append(time.perf_counter() - t0)
+    launches = dict(backend.launch_counts)
+    want = dict(pdf_resample=2 * NERF_STEPS, cell_lookup_fwd=3 * NERF_STEPS,
+                cell_lookup_bwd=3 * NERF_STEPS)
+    print(f"nerfacto train launches {launches}, expected {want}")
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError("the training step did not go through its kernels")
+    for i, l in enumerate(losses):
+        if not all(np.isfinite(v) for v in l.values()):
+            raise AssertionError(f"nerfacto step {i}: loss not finite {l}")
+    moved = {}
+    for k, v in trainer.params().items():
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"{k} not finite after the steps")
+        moved[k] = not torch.equal(v.detach(), start[k])
+    if not all(moved.values()):
+        raise AssertionError(f"not moved in {NERF_STEPS} steps: {[k for k, m in moved.items() if not m]}")
+    for i, (s_, l) in enumerate(zip(step_s, losses)):
+        print(f"nerfacto step {i}: {1e3 * s_:.1f} ms/step on {name}, " + ", ".join(
+            f"{k} {v:.5f}" for k, v in l.items()))
+    return dict(launches=launches, step_s=step_s, losses=losses)
+
+
+def nerfacto_step(trainer, batch, draws, plain: bool) -> tuple[dict, dict, torch.Tensor, list]:
+    """One step's loss terms, gradients, per-ray cells and spacing edges at the trainer's
+    state, without an update, as ``NerfactoTrainer._loss_fn`` computes
+    them. With ``plain`` the forward runs inside ``backend.plain_versions()``
+    and autograd runs the backward after the block has closed: it follows
+    the forward's path."""
+    from uncertainty_nerf_gs_torch.cameras.cameras import generate_rays
+    from uncertainty_nerf_gs_torch.models.nerfacto import nerfacto_loss, proposal_anneal_factor
+    from uncertainty_nerf_gs_torch.ops import backend
+
+    params = trainer.params()
+    for p in params.values():
+        p.grad = None
+    with backend.plain_versions() if plain else contextlib.nullcontext():
+        rb = generate_rays(trainer.cameras, batch["camera_indices"], batch["pixel_x"],
+                           batch["pixel_y"], pose_adjustment=trainer.camera_opt)
+        out = trainer.model(rb, train=True, draws=draws,
+                            proposal_anneal=proposal_anneal_factor(trainer.step, trainer.config))
+        total, losses = nerfacto_loss(out, batch, trainer.config)
+    total.backward()
+    grads = {k: p.grad.detach().clone() for k, p in params.items()}
+    for p in params.values():
+        p.grad = None
+    losses["total_loss"] = total
+    edges = [e.detach() for e in out["sdist_list"]]
+    cells = trainer.model.lookup_cells(rb, edges)
+    return {k: float(v.detach()) for k, v in losses.items()}, grads, cells, edges
+
+
+def check_nerfacto_train_plain(trainer) -> dict:
+    """One step's loss and gradients through the kernels against the same
+    step on the plain versions, with the same batch and draws, on the rays
+    whose lookups stayed in the same cells on both paths (the others are
+    dropped from the batch and counted): loss terms within
+    TRAIN_LOSS_RTOL, each gradient within TRAIN_GRAD_L2 in relative L2
+    norm (a cell table level by level)."""
+    from uncertainty_nerf_gs_torch.ops import backend
+
+    gen = torch.Generator(device=trainer.device).manual_seed(SEED + 300)
+    batch = trainer.sample_batch(NERF_RAYS)
+    draws = trainer.model.draw(NERF_RAYS, gen)
+    keep = torch.ones(NERF_RAYS, dtype=torch.bool, device=trainer.device)
+    edge_err = None
+    for attempt in range(3):
+        sub_batch = {k: v[keep] for k, v in batch.items()}
+        sub_draws = {k: ([d[keep] for d in v] if isinstance(v, list) else v[keep])
+                     for k, v in draws.items()}
+        backend.reset_launch_counts()
+        k_losses, k_grads, k_cells, k_edges = nerfacto_step(trainer, sub_batch, sub_draws, plain=False)
+        kernel_launches = dict(backend.launch_counts)
+        backend.reset_launch_counts()
+        p_losses, p_grads, p_cells, p_edges = nerfacto_step(trainer, sub_batch, sub_draws, plain=True)
+        # the resampled edges of each stage, kernel path against plain path
+        edge_err = edge_err or [(a - b).abs().max().item() for a, b in zip(k_edges[1:], p_edges[1:])]
+        if any(backend.launch_counts.values()):
+            raise AssertionError(f"kernels launched inside plain_versions(): {backend.launch_counts}")
+        flipped = (k_cells != p_cells).any(dim=1)
+        print(f"nerfacto train plain path, pass {attempt}: {int(flipped.sum())} of "
+              f"{int(keep.sum())} rays flipped a cell; resampled edges max_abs_err "
+              f"{', '.join(f'{e:.3e}' for e in edge_err)}; kernel-path launches {kernel_launches}")
+        if not flipped.any():
+            break
+        keep[keep.clone()] = ~flipped
+    else:
+        raise AssertionError("rays keep flipping cells between the kernel and plain paths")
+    dropped = NERF_RAYS - int(keep.sum())
+    if dropped > MAX_FLIPPED_TRAIN_RAY_SHARE * NERF_RAYS:
+        raise AssertionError(f"{dropped} of {NERF_RAYS} rays flipped a cell")
+    print("nerfacto train plain path: losses " + ", ".join(
+        f"{k} {k_losses[k]:.7f} / {p_losses[k]:.7f}" for k in k_losses))
+    failed = [k for k in k_losses if not np.isclose(k_losses[k], p_losses[k], rtol=TRAIN_LOSS_RTOL, atol=0)]
+    grad_err = {}
+    for k, want in p_grads.items():
+        got = k_grads[k]
+        grad_err[k] = grad_l2_error(k, got, want)
+        if grad_err[k] > TRAIN_GRAD_L2 or not torch.isfinite(got).all():
+            failed.append(k)
+    for k in sorted(grad_err, key=lambda k: -grad_err[k])[:8]:
+        print(f"  gradient {k}: relative L2 error {grad_err[k]:.3e} (largest |g| "
+              f"{p_grads[k].abs().max().item():.3e}, max_abs_err "
+              f"{(k_grads[k] - p_grads[k]).abs().max().item():.3e})")
+    if failed:
+        raise AssertionError(f"nerfacto step: {failed} differ from the plain path")
+    return dict(dropped=dropped, edge_err=edge_err, losses=k_losses, plain_losses=p_losses,
+                max_grad_l2_err=max(grad_err.values()))
 
 
 # -- active-splatfacto at full width -------------------------------------------
@@ -796,7 +1104,7 @@ def profile_splat(trainer) -> None:
     profile_top("splat image 0", lambda: trainer.render_image(0), symbols, top=8)
 
 
-def kernel_line(run_nerf, resample, nerf_plain, run_splat_, comp) -> list[dict]:
+def kernel_line(run_nerf, train_nerf, resample, nerf_plain, run_splat_, comp, grid) -> list[dict]:
     per = resample["per_launch"]
     # one chunk's two launches as the render makes them: 256 -> 97 with u
     # and edges shared, 96 -> 49 with u shared, at 4096 rays
@@ -805,7 +1113,9 @@ def kernel_line(run_nerf, resample, nerf_plain, run_splat_, comp) -> list[dict]:
         name="pdf_resample", route="cuda",
         source="uncertainty_nerf_gs_torch/csrc/pdf_resample.cu",
         replaces="uncertainty_nerf_gs_tpu/ops/pdf_pallas.py:120",
-        launches=run_nerf["launches"]["pdf_resample"],
+        launches=run_nerf["launches"]["pdf_resample"] + train_nerf["launches"]["pdf_resample"],
+        launches_by_path=dict(render=run_nerf["launches"]["pdf_resample"],
+                              train=train_nerf["launches"]["pdf_resample"]),
         max_abs_err=max(resample["max_abs_err"], nerf_plain["edge_err"]),
         ms=sum(p["ms"] for p in render), plain_ms=sum(p["plain_ms"] for p in render),
         bound_ms=sum(p["bound_ms"] for p in render), bound_by=render[0]["bound_by"],
@@ -827,6 +1137,21 @@ def kernel_line(run_nerf, resample, nerf_plain, run_splat_, comp) -> list[dict]:
             library_ms=None,  # no single PyTorch call computes this function
             c1=comp["times"]["full_width_c1"][key],
             event_ms=tm["event_ms"], ms_from=tm["ms_from"], rows=tm["rows"],
+        ))
+    # a chunk's (or a step's) three lookups: proposal 0, proposal 1, field
+    for name, key, err in (("cell_lookup_fwd", "fwd", grid["fwd_err"]),
+                           ("cell_lookup_bwd", "bwd", grid["bwd_err"])):
+        per = [p[key] for p in grid["per_launch"]]
+        by_path = dict(render=run_nerf["launches"][name], train=train_nerf["launches"][name])
+        kernels.append(dict(
+            name=name, route="cuda", source="uncertainty_nerf_gs_torch/csrc/hash_grid.cu",
+            replaces="experiments/jobs/403_pallas_gather_probe.py:96",
+            launches=sum(by_path.values()), launches_by_path=by_path, max_abs_err=err,
+            ms=sum(p["ms"] for p in per), plain_ms=sum(p["plain_ms"] for p in per),
+            bound_ms=sum(p["bound_ms"] for p in per), bound_by=per[-1]["bound_by"],
+            # no single PyTorch call computes this function; index_select of
+            # the same rows, the gather part alone, is in per_launch
+            library_ms=None, per_launch=per,
         ))
     return kernels
 
@@ -861,12 +1186,17 @@ def main() -> int:
     nerf = build_nerfacto()
     n_params = sum(p.numel() for p in nerf.model.parameters())
     print(f"active-nerfacto: {n_params} parameters; set-up {time.perf_counter() - t0:.1f} s")
+    grid = check_hash_grid(nerf.config, device)
+    print(f"hash-grid checks done at {time.perf_counter() - t_start:.1f} s")
     run_nerf = render_nerfacto(nerf)
     for i, s in enumerate(run_nerf["seconds"]):
         print(f"nerfacto image {i}: {1e3 * s:.1f} ms/image, {run_nerf['rays'] / s:.0f} rays/s "
               f"({run_nerf['chunks']} chunks of {nerf.config.eval_num_rays_per_chunk}) on {name}")
     nerf_plain = check_nerfacto_plain_chunk(nerf)
     profile_nerfacto(nerf)
+    train_nerf = train_nerfacto(nerf, name)
+    check_nerfacto_train_plain(nerf)
+    profile_top("nerfacto train step", lambda: nerf.train_step(NERF_RAYS), NERF_SYMBOLS)
     del nerf
     torch.cuda.empty_cache()
     print(f"nerfacto done at {time.perf_counter() - t_start:.1f} s")
@@ -877,7 +1207,7 @@ def main() -> int:
     print(f"splat done at {time.perf_counter() - t_start:.1f} s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
-    kernels = kernel_line(run_nerf, resample, nerf_plain, run, comp)
+    kernels = kernel_line(run_nerf, train_nerf, resample, nerf_plain, run, comp, grid)
     print(json.dumps({"kernels": kernels}))
     print(name)
     print(json.dumps({"ok": True, "device": {

@@ -189,7 +189,7 @@ def test_render_image_matches_jax(rng):
     tree = draw_params(jax.tree_util.tree_map(np.asarray, jtr.state.params), rng)
     jtr.state = jtr.state._replace(params=jax.tree_util.tree_map(jnp.asarray, tree))
     ttr = TTrainer(TConfig(**kw), t_hemisphere(3, height=10, width=12, seed=1), device="cpu")
-    ttr.restore(params_from_jax(tree))
+    ttr.restore({"params": params_from_jax(tree)})
     want = jtr.render_image(1, chunk=chunk)
     got = ttr.render_image(1, chunk=chunk)
     assert set(got) == set(want)

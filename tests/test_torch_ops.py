@@ -10,9 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import TOL
+from torch_parity import GRID_GRAD_TOL, TOL, grad_mismatch
 
 from uncertainty_nerf_gs_tpu.cameras import cameras as jcam
+from uncertainty_nerf_gs_tpu.cameras import lie as jlie
 from uncertainty_nerf_gs_tpu.data.synthetic import hemisphere_cameras as j_hemisphere
 from uncertainty_nerf_gs_tpu.ops import activations as jact
 from uncertainty_nerf_gs_tpu.ops import encodings as jenc
@@ -23,6 +24,7 @@ from uncertainty_nerf_gs_tpu.ops.mlp import MLP as JMLP
 from uncertainty_nerf_gs_tpu.ops.pdf_pallas import resample_edges_tpu
 
 from uncertainty_nerf_gs_torch.cameras import cameras as tcam
+from uncertainty_nerf_gs_torch.cameras import lie as tlie
 from uncertainty_nerf_gs_torch.data.synthetic import hemisphere_cameras as t_hemisphere
 from uncertainty_nerf_gs_torch.interop import params_from_jax
 from uncertainty_nerf_gs_torch.ops import activations as tact
@@ -138,14 +140,35 @@ def test_sample_uniform_eval(rng, num_samples):
 
 
 def test_sample_uniform_stratified_stays_sorted(rng):
-    _, tb = _bundles(rng, 16)
-    gen = torch.Generator().manual_seed(3)
-    rs = tsamp.sample_uniform(tb, 64, generator=gen)
+    """Stratified edges stay sorted in [0, 1]; with the draws of a JAX key
+    (``jax.random.uniform(key, (R, S + 1))``) they are the JAX package's
+    edges for that key, bit for bit."""
+    jb, tb = _bundles(rng, 16)
+    key = jax.random.PRNGKey(3)
+    rs = tsamp.sample_uniform(tb, 64, draws=_t(jax.random.uniform(key, (16, 65))))
     edges = rs.spacing_edges
     assert (edges[:, 0] >= 0).all() and (edges[:, -1] <= 1).all()
     assert (torch.diff(edges, dim=1) >= 0).all()
     centred = tsamp.sample_uniform(tb, 64).spacing_edges
     assert not torch.equal(edges, centred)
+    want = jsamp.sample_uniform(jb, 64, key=key)
+    assert np.array_equal(edges.numpy(), np.asarray(want.spacing_edges))
+    _check_samples(rs, want)
+
+
+def test_sample_pdf_stratified_matches_jax(rng):
+    """Training-time u from the draws of a JAX key, as the JAX package's
+    ``sample_pdf(key=...)`` draws them."""
+    r, s, n = 64, 96, 48
+    jb, tb = _bundles(rng, r)
+    w = (rng.uniform(0, 1, (r, s)) ** 4).astype(np.float32)
+    edges = np.sort(rng.uniform(0, 1, (r, s + 1)).astype(np.float32), axis=1)
+    key = jax.random.PRNGKey(5)
+    want = jsamp.sample_pdf(jb, jnp.asarray(edges), jnp.asarray(w), n, key=key)
+    got = tsamp.sample_pdf(tb, _t(edges), _t(w), n, draws=_t(jax.random.uniform(key, (r, n + 1))))
+    _close(got.spacing_edges, want.spacing_edges)
+    assert not np.array_equal(got.spacing_edges.numpy(),
+                              tsamp.sample_pdf(tb, _t(edges), _t(w), n).spacing_edges.numpy())
 
 
 @pytest.mark.parametrize("s,n", [(256, 96), (96, 48), (24, 12)])
@@ -279,6 +302,48 @@ def test_cell_hash_encoding_matches_jax(rng):
     _close(got.detach().reshape(-1, 12), flat)
 
 
+def _face_positions(rng, res, n):
+    """(n, 3) positions in [0, 1]: the cube's corners, rows on cell faces
+    k / res of every level (in float32, as a caller computes them), and
+    uniform draws."""
+    p = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    rows = [[0, 0, 0], [1, 1, 1], [1, 0, 1], [0.5, 1, 0]]
+    for r in res:
+        k = rng.integers(0, int(r) + 1, (4, 3))
+        rows += (k.astype(np.float32) / np.float32(r)).tolist()
+    p[: len(rows)] = np.float32(rows)
+    return p
+
+
+@pytest.mark.parametrize("log2_size,max_res", [(12, 64), (15, 128), (10, 512)])
+def test_cell_lookup_vjp_matches_jax(rng, log2_size, max_res):
+    """cell_lookup through CellLookup (on the CPU: the plain version, and
+    autograd through it) against jax.vjp of the JAX cell_lookup, on dense
+    levels (res^3 <= table) and hashed ones, positions on corners and cell
+    faces: features at TOL; the cell gradient level by level and the
+    position gradient within GRID_GRAD_TOL of their largest entry."""
+    levels = 4
+    res = jenc.hash_grid_resolutions(levels, 16, max_res)
+    table = 2**log2_size
+    cells = rng.uniform(-2, 2, (levels, table // 8, 128)).astype(np.float32)
+    p = _face_positions(rng, res, 400)
+    g = rng.normal(size=(400, 2 * levels)).astype(np.float32)
+    want, vjp = jax.vjp(
+        lambda c, x: jenc.cell_lookup(c, x, res, table), jnp.asarray(cells), jnp.asarray(p)
+    )
+    want_cells, want_pos = (np.asarray(a) for a in vjp(jnp.asarray(g)))
+    tc, tp = _t(cells).requires_grad_(True), _t(p).requires_grad_(True)
+    got = tenc.cell_lookup(tc, tp, res, table)
+    got.backward(_t(g))
+    _close(got.detach(), want)
+    dense = [int(r) ** 3 <= table for r in res]
+    assert any(dense) or log2_size == 10
+    for lvl in range(levels):
+        assert not grad_mismatch(tc.grad[lvl], _t(want_cells[lvl]), GRID_GRAD_TOL).any(), lvl
+    assert not grad_mismatch(tp.grad, _t(want_pos), GRID_GRAD_TOL).any()
+    assert np.abs(want_pos).max() > 0 and np.abs(want_cells).max() > 0
+
+
 # -- mlp ---------------------------------------------------------------------
 
 
@@ -352,6 +417,67 @@ def test_raymarch_renderers(rng):
     )
 
 
+def _loss_inputs(rng, r=64):
+    """Final s-edges (R, 49) that share some edges with the first
+    proposal's (R, 257), both sorted in [0, 1], and peaked weights."""
+    prop = [np.sort(rng.uniform(0, 1, (r, n + 1)), axis=1).astype(np.float32) for n in (256, 96)]
+    for e in prop:
+        e[:, 0], e[:, -1] = 0.0, 1.0
+    final = np.sort(rng.uniform(0, 1, (r, 49)), axis=1).astype(np.float32)
+    final[:, 0], final[:, -1] = 0.0, 1.0
+    final[:, 10:20] = prop[0][:, 100:110]  # ties: searchsorted's sides matter
+    final = np.sort(final, axis=1)
+    weights = [(rng.uniform(0, 1, (r, e.shape[1] - 1)) ** 4 / 8).astype(np.float32)
+               for e in prop + [final]]
+    return prop + [final], weights
+
+
+def _interlevel_rounding_bar(sdists, weights, eps=1e-7):
+    """Per proposal weight, how far the interlevel gradient moves when each
+    envelope mass w_outer (a difference of two cumsum entries) moves by one
+    rounding of the cumsum, 2^-23 of its largest entry: the gradient of
+    sum_i 2 u / (w_i + eps) / N * w_outer_i. Where a final weight w_i is
+    tiny, a one-ulp difference between two summation orders moves that
+    bin's term by this much in either package."""
+    final, w = _t(sdists[-1]), _t(weights[-1])
+    bars = []
+    for cp, wp in zip(sdists[:-1], weights[:-1]):
+        wp = _t(wp).requires_grad_(True)
+        u = 2.0**-23 * float(wp.detach().sum(-1).max())
+        outer = trm._outer_measure(final, _t(cp), wp)
+        (torch.sum(2 * u / (w + eps) / w.numel() * outer)).backward()
+        bars.append(wp.grad.numpy())
+    return bars
+
+
+def test_interlevel_and_distortion_losses_match_jax(rng):
+    """Values at TOL, on edges with ties. Gradients to every weight (the
+    final weights get none from the interlevel loss) at TOL, the interlevel
+    gradient plus twice its cumsum-rounding bar (one rounding in each
+    package; ``_interlevel_rounding_bar``)."""
+    sdists, weights = _loss_inputs(rng)
+    bars = _interlevel_rounding_bar(sdists, weights) + [0.0]
+
+    def j_losses(ws):
+        inter = jrm.interlevel_loss(jnp.asarray(sdists[-1]), ws[-1], [jnp.asarray(e) for e in sdists[:-1]], ws[:-1])
+        return inter, jrm.distortion_loss(jnp.asarray(sdists[-1]), ws[-1])
+
+    jw = [jnp.asarray(w) for w in weights]
+    want = j_losses(jw)
+    tw = [_t(w).requires_grad_(True) for w in weights]
+    ts = [_t(e) for e in sdists]
+    got = (trm.interlevel_loss(ts[-1], tw[-1], ts[:-1], tw[:-1]), trm.distortion_loss(ts[-1], tw[-1]))
+    for k in range(2):
+        _close(got[k].detach(), want[k])
+        want_g = jax.grad(lambda ws: j_losses(ws)[k])(jw)
+        got_g = torch.autograd.grad(got[k], tw, allow_unused=True, retain_graph=True)
+        for a, b, bar in zip(got_g, want_g, bars if k == 0 else [0.0] * 3):
+            a = np.zeros(b.shape, np.float32) if a is None else a.numpy()
+            b = np.asarray(b)
+            assert (np.abs(a - b) <= TOL["atol"] + TOL["rtol"] * np.abs(b) + 2 * bar).all()
+    assert float(got[0]) > 0 and float(got[1]) > 0
+
+
 def test_render_median_depth(rng):
     """searchsorted side='left' on the cumulative weight at 0.5. A ray whose
     cumulative weight lies within 1e-6 of 0.5 may pick the next bin under
@@ -407,10 +533,62 @@ def test_generate_rays(rng, kind):
     assert np.array_equal(got.camera_indices.numpy(), idx)
 
 
-def test_generate_rays_refuses_pose_adjustment():
-    _, tc = _camera_pair()
-    with pytest.raises(NotImplementedError):
-        tcam.generate_rays(
-            tc, torch.zeros(2, dtype=torch.long), torch.zeros(2), torch.zeros(2),
-            pose_adjustment=torch.zeros(3, 6),
-        )
+def _lie_tangents(rng, kind):
+    if kind == "zero":
+        return np.zeros((5, 6), np.float32)
+    scale = 1e-9 if kind == "tiny" else 0.7  # tiny: the Taylor branches
+    return (rng.normal(size=(5, 6)) * scale).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["zero", "tiny", "random"])
+def test_lie_maps_match_jax(rng, kind):
+    """exp_map_SO3, exp_map_SO3xR3, exp_map_SE3 and compose_poses: values
+    and Jacobians at TOL, at exactly zero (the camera tangents' start, where
+    a bare norm has a NaN gradient), below the Taylor threshold and at random
+    tangents; every Jacobian finite."""
+    x = _lie_tangents(rng, kind)
+    pose = np.concatenate(
+        [np.asarray(jlie.exp_map_SO3(jnp.asarray(rng.normal(size=(5, 3)).astype(np.float32)))),
+         rng.normal(size=(5, 3, 1)).astype(np.float32)], axis=-1)
+    pairs = [
+        (lambda a: jlie.exp_map_SO3(a[:, 3:]), lambda a: tlie.exp_map_SO3(a[:, 3:])),
+        (jlie.exp_map_SO3xR3, tlie.exp_map_SO3xR3),
+        (jlie.exp_map_SE3, tlie.exp_map_SE3),
+        (lambda a: jlie.compose_poses(jlie.exp_map_SO3xR3(a), jnp.asarray(pose)),
+         lambda a: tlie.compose_poses(tlie.exp_map_SO3xR3(a), _t(pose))),
+    ]
+    for jfn, tfn in pairs:
+        _close(tfn(_t(x)), jfn(jnp.asarray(x)))
+        want = np.asarray(jax.jacfwd(jfn)(jnp.asarray(x)))
+        got = torch.autograd.functional.jacobian(tfn, _t(x)).numpy()
+        assert np.isfinite(got).all()
+        _close(got, want)
+
+
+@pytest.mark.parametrize("tangents", ["zero", "random"])
+@pytest.mark.parametrize("mode", ["SO3xR3", "SE3"])
+def test_generate_rays_pose_adjustment_matches_jax(rng, mode, tangents):
+    """Rays from pose-adjusted cameras and the gradient of a random
+    cotangent of origins and directions to the (N, 6) tangents, at TOL."""
+    jc, tc = _camera_pair()
+    adj = _lie_tangents(rng, "zero" if tangents == "zero" else "random")[:3] * 0.1
+    px, py = jcam.pixel_grid(10, 12)
+    idx = rng.integers(0, 3, px.shape[0]).astype(np.int32)
+    go = rng.normal(size=(px.shape[0], 3)).astype(np.float32)
+    gd = rng.normal(size=(px.shape[0], 3)).astype(np.float32)
+
+    def j_rays(a):
+        rb = jcam.generate_rays(jc, jnp.asarray(idx), px, py, pose_adjustment=a,
+                                pose_adjustment_mode=mode)
+        return rb.origins, rb.directions
+
+    want, vjp = jax.vjp(j_rays, jnp.asarray(adj))
+    (want_g,) = vjp((jnp.asarray(go), jnp.asarray(gd)))
+    ta = _t(adj).requires_grad_(True)
+    tpx, tpy = tcam.pixel_grid(10, 12)
+    got = tcam.generate_rays(tc, _t(idx), tpx, tpy, pose_adjustment=ta, pose_adjustment_mode=mode)
+    _close(got.origins.detach(), want[0])
+    _close(got.directions.detach(), want[1])
+    (torch.sum(got.origins * _t(go)) + torch.sum(got.directions * _t(gd))).backward()
+    assert torch.isfinite(ta.grad).all() and ta.grad.abs().max() > 0
+    _close(ta.grad, want_g)

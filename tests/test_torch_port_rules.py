@@ -19,6 +19,12 @@ from uncertainty_nerf_gs_torch.models.nerfacto import NerfactoConfig, NerfactoMo
 from uncertainty_nerf_gs_torch.models import splatfacto
 from uncertainty_nerf_gs_torch.models.splatfacto import SplatfactoConfig
 from uncertainty_nerf_gs_torch.ops import backend
+from uncertainty_nerf_gs_torch.ops.encodings import (
+    MAX_LEVELS,
+    CellLookup,
+    cell_lookup,
+    cell_lookup_bwd,
+)
 from uncertainty_nerf_gs_torch.ops.composite import (
     MAX_CHANNELS,
     CompositeTiles,
@@ -58,6 +64,9 @@ def test_trainer_without_cuda_raises(monkeypatch):
     cams = hemisphere_cameras(2, 4, 4)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         NerfactoTrainer(NerfactoConfig(num_images=2), cams, device=None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        NerfactoTrainer(NerfactoConfig(num_images=2), cams, images=torch.zeros(2, 4, 4, 3).numpy(),
+                        use_camera_optimizer=True)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         NerfactoModel(NerfactoConfig(num_images=2))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -148,12 +157,82 @@ def test_plain_versions_switch():
 @pytest.mark.parametrize("fn", [
     sample_pdf, NerfactoModel.forward, CompositeTiles.forward, composite_tiles,
     rasterize_gaussians, splatfacto._rasterize, splatfacto.render_splat,
-    SplatfactoTrainer.render_image,
+    SplatfactoTrainer.render_image, cell_lookup, CellLookup.forward,
+    NerfactoTrainer.train_step, NerfactoTrainer._loss_fn,
 ], ids=lambda f: f.__qualname__)
 def test_no_plain_parameter(fn):
     """The plain path is chosen by ``backend.plain_versions()``, not by an
     argument: the model, trainer and op signatures match the JAX package's."""
     assert "plain" not in inspect.signature(fn).parameters
+
+
+def _lookup_inputs(levels=3, n=7, dtype=torch.float32):
+    """cells (L, 64, 128) (512 cells a level at F = 2), positions (n, 3),
+    resolutions, table size."""
+    return torch.rand(levels, 64, 128, dtype=dtype), torch.rand(n, 3, dtype=dtype), (4, 8, 16)[:levels], 512
+
+
+@pytest.mark.parametrize(
+    "case,error",
+    [
+        ("cells_float64", TypeError),
+        ("positions_float64", TypeError),
+        ("positions_not_contiguous", ValueError),
+        ("cells_not_contiguous", ValueError),
+        ("positions_2d_wide", ValueError),
+        ("cells_lanes", ValueError),
+        ("resolutions_count", ValueError),
+        ("too_many_levels", ValueError),
+        ("table_too_large", ValueError),
+        ("features", ValueError),
+        ("mixed_devices", ValueError),
+    ],
+)
+def test_cell_lookup_wrapper_refuses(case, error):
+    """The lookup refuses what K4/K5 do not take, on every device, rather
+    than copy or convert."""
+    cells, pos, res, table = _lookup_inputs()
+    feats = 2
+    if case == "cells_float64":
+        cells = cells.double()
+    elif case == "positions_float64":
+        pos = pos.double()
+    elif case == "positions_not_contiguous":
+        pos = torch.rand(3, 7).t()
+    elif case == "cells_not_contiguous":
+        cells = cells.transpose(0, 1).contiguous().transpose(0, 1)
+    elif case == "positions_2d_wide":
+        pos = torch.rand(7, 4)
+    elif case == "cells_lanes":
+        cells = torch.rand(3, 128, 64)
+    elif case == "resolutions_count":
+        res = res[:2]
+    elif case == "too_many_levels":
+        cells, res = torch.rand(MAX_LEVELS + 1, 64, 128), (4,) * (MAX_LEVELS + 1)
+    elif case == "table_too_large":
+        table = 513
+    elif case == "features":
+        feats = 3
+    elif case == "mixed_devices":
+        pos = pos.to("meta")
+    with pytest.raises(error):
+        cell_lookup(cells, pos, res, table, feats)
+
+
+@pytest.mark.parametrize("case", ["float64", "shape", "not_contiguous", "device"])
+def test_cell_lookup_backward_wrapper_refuses_g_out(case):
+    cells, pos, res, table = _lookup_inputs()
+    g_out = torch.rand(7, 6)
+    if case == "float64":
+        g_out = g_out.double()
+    elif case == "shape":
+        g_out = g_out[:, :4].contiguous()
+    elif case == "not_contiguous":
+        g_out = torch.rand(6, 7).t()
+    elif case == "device":
+        g_out = g_out.to("meta")
+    with pytest.raises(ValueError):
+        cell_lookup_bwd(cells, pos, res, table, 2, g_out)
 
 
 def _composite_inputs(t=3, k=5, c=4, dtype=torch.float32):

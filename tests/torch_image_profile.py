@@ -4,9 +4,11 @@ kernels, K1, and the count of device activities and copy kernels.
     python3 tests/torch_image_profile.py [CHECKOUT]
 
 CHECKOUT (default: this one) is the repository whose port is profiled, for
-example an older commit unpacked with ``git archive``; the measurement is
-always this checkout's ``chip_smoke.profile_nerfacto``, so that two commits'
-counts come from one method. Exits non-zero without a card.
+example another commit unpacked with ``git archive`` whose
+``NerfactoTrainer`` takes images and restores ``{"params": ...}``; the
+measurement is always this checkout's ``chip_smoke.profile_nerfacto``, so
+that two commits' counts come from one method. Exits non-zero without a
+card.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """How far the port is from the JAX package on the parity tests' inputs.
 
-    JAX_PLATFORMS=cpu python tests/torch_parity_report.py [nerfacto] [splat] [composite]
+    JAX_PLATFORMS=cpu python tests/torch_parity_report.py [nerfacto] [splat] [composite] [train]
 
-Each named section, or all three. Nerfacto (tests/test_torch_model.py::test_model_eval_forward_matches_jax):
+Each named section, or all four. Nerfacto (tests/test_torch_model.py::test_model_eval_forward_matches_jax):
 the rays whose lookups flipped a hash-grid cell between the port and JAX's
 eager forward, then per output the largest absolute and relative deviation
 on the other rays, beside the JAX package's own jit-vs-eager deviation.
@@ -16,6 +16,11 @@ Composite (tests/test_torch_splat_ops.py::test_composite_matches_jax_pallas):
 per case and per column family of the VJP, the largest entry, the largest
 deviation, the elementwise misses of atol 1e-4 + rtol 1e-3, and each
 float32 version's distance to a float64 evaluation.
+
+Train (tests/test_torch_train.py::test_trainer_loss_and_grads_match_jax):
+per case the loss terms' relative deviation and each gradient's relative L2
+deviation from the jitted JAX trainer, the port's beside the JAX package's
+own eager evaluation's.
 
 The tolerances in tests/torch_parity.py are set from this report.
 """
@@ -132,7 +137,24 @@ def composite() -> None:
                   f"  JAX to float64 {float((w - e).abs().max()):.3e}")
 
 
+def train() -> None:
+    from test_torch_train import train_loss_and_grads
+    from torch_parity import grad_l2_error
+
+    for case in (("zero", "white"), ("random", "last_sample")):
+        want, got, want_g, got_g, replaced = train_loss_and_grads(np.random.default_rng(0), *case)
+        eager, _, eager_g, _, _ = train_loss_and_grads(np.random.default_rng(0), *case, jit=False)
+        print(f"train {case}: {replaced} rays replaced for flipping a cell")
+        for k in want:
+            print(f"  {k:16s} port {abs(got[k] - want[k]) / abs(want[k]):.2e}  "
+                  f"JAX eager {abs(eager[k] - want[k]) / abs(want[k]):.2e}")
+        rows = sorted(((grad_l2_error(k, got_g[k], w), grad_l2_error(k, eager_g[k], w), k)
+                       for k, w in want_g.items()), reverse=True)
+        for port, jax_eager, k in rows[:8]:
+            print(f"  {k:40s} relative L2: port {port:.2e}  JAX eager {jax_eager:.2e}")
+
+
 if __name__ == "__main__":
-    sections = dict(nerfacto=nerfacto, splat=splat, composite=composite)
+    sections = dict(nerfacto=nerfacto, splat=splat, composite=composite, train=train)
     for name in sys.argv[1:] or sections:
         sections[name]()

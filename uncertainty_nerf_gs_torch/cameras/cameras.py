@@ -4,8 +4,9 @@ Counterpart of ``uncertainty_nerf_gs_tpu/cameras/cameras.py``. ``Cameras``
 holds one entry per image; pixel -> ray math follows the OpenGL convention of
 Blender/nerfstudio ``transforms.json`` (x right, y up, camera looks along
 -z). Camera models: perspective (optional Brown-Conrady distortion, inverted
-iteratively) and fisheye (equidistant). Pose adjustment by a camera
-optimizer comes with training.
+iteratively) and fisheye (equidistant). A camera optimizer's (N, 6) pose
+tangents adjust each image's camera-to-world (``cameras/lie.py``), with
+gradients into the tangents.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import dataclasses
 
 import torch
 
+from uncertainty_nerf_gs_torch.cameras.lie import compose_poses, exp_map_SE3, exp_map_SO3xR3
 from uncertainty_nerf_gs_torch.ops.sampling import RayBundle
 
 PERSPECTIVE = 0
@@ -68,14 +70,22 @@ def generate_rays(
     pixel_x: torch.Tensor,
     pixel_y: torch.Tensor,
     pose_adjustment: torch.Tensor | None = None,
+    pose_adjustment_mode: str = "SO3xR3",
 ) -> RayBundle:
     """Rays through pixel centers: (R,) image indices and pixel column/row
     -> RayBundle with unit directions and 0 / 1e10 near/far placeholders
-    (the model overrides them with its planes)."""
-    if pose_adjustment is not None:
-        raise NotImplementedError("pose adjustment comes with the training port")
+    (the model overrides them with its planes). ``pose_adjustment``: (N, 6)
+    camera-optimizer tangents, applied to each ray's camera as nerfstudio's
+    CameraOptimizer does (``"SO3xR3"``, else the SE(3) exponential)."""
     camera_indices = camera_indices.to(torch.int64)
     c2w = cameras.camera_to_worlds[camera_indices]  # (R, 3, 4)
+    if pose_adjustment is not None:
+        tangent = pose_adjustment[camera_indices]
+        if pose_adjustment_mode == "SO3xR3":
+            delta = exp_map_SO3xR3(tangent)
+        else:
+            delta = exp_map_SE3(tangent)
+        c2w = compose_poses(delta, c2w)
     fx = cameras.fx[camera_indices]
     fy = cameras.fy[camera_indices]
     cx = cameras.cx[camera_indices]

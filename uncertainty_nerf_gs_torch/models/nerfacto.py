@@ -1,12 +1,15 @@
 """Nerfacto-family model: proposal-sampled NeRF with uncertainty heads.
 
-Counterpart of ``uncertainty_nerf_gs_tpu/models/nerfacto.py``, eval forward.
-One model covers plain nerfacto (``uncertainty_channels=0``) and
-active-nerfacto (``uncertainty_channels=1``: an aleatoric RGB variance head,
-rendered with squared weights). The forward is the two-level proposal
-hierarchy (uniform 256 -> pdf 96 -> pdf 48 on the main field); each
-``sample_pdf`` runs the resampling kernel on the card. The training losses
-and proposal annealing come with the training port.
+Counterpart of ``uncertainty_nerf_gs_tpu/models/nerfacto.py``. One model
+covers plain nerfacto (``uncertainty_channels=0``) and active-nerfacto
+(``uncertainty_channels=1``: an aleatoric RGB variance head, rendered with
+squared weights). The forward is the two-level proposal hierarchy (uniform
+256 -> pdf 96 -> pdf 48 on the main field); each ``sample_pdf`` runs the
+resampling kernel (K1) and each field's hash grid the cell-lookup kernels
+(K4, K5 in training) on the card. ``forward(train=False)`` is the eval
+forward, under ``torch.no_grad()``; ``forward(train=True)`` is the training
+forward, with autograd, stratified draws and the proposal annealing, and
+``nerfacto_loss`` its loss.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -155,14 +159,42 @@ class NerfactoModel(nn.Module):
             **kw,
         )
 
-    def _background(self, rgbs: torch.Tensor) -> torch.Tensor:
-        """Eval background: random draws only in training, zeros here."""
+    def _background(self, rgbs: torch.Tensor, draw: torch.Tensor | None) -> torch.Tensor:
+        """The background colour: ``draw`` (R, 3) for ``random`` in
+        training, zeros for ``random`` at eval; ``last_sample`` carries no
+        gradient, as in the JAX package."""
         mode = self.config.background_color
         if mode == "white":
             return torch.ones(3, device=rgbs.device)
         if mode == "last_sample":
-            return rgbs[..., -1, :]
+            return rgbs[..., -1, :].detach()
+        if mode == "random" and draw is not None:
+            return draw
         return torch.zeros(3, device=rgbs.device)
+
+    def _next_counts(self) -> list[int]:
+        """Samples each ``sample_pdf`` draws: the next proposal's, then the
+        main field's."""
+        cfg = self.config
+        return list(cfg.num_proposal_samples[1:self.num_proposal_levels]) + [cfg.num_nerf_samples]
+
+    def draw(self, num_rays: int, generator: torch.Generator) -> dict[str, Any]:
+        """The training forward's random draws, uniform in [0, 1), in the JAX
+        package's order: the stratified jitter of ``sample_uniform``
+        (R, S0 + 1), one (R, N + 1) per ``sample_pdf``, and the ``random``
+        background (R, 3)."""
+        cfg = self.config
+
+        def rand(*shape):
+            return torch.rand(shape, generator=generator, device=generator.device)
+
+        draws = {
+            "uniform": rand(num_rays, cfg.num_proposal_samples[0] + 1),
+            "pdf": [rand(num_rays, n + 1) for n in self._next_counts()],
+        }
+        if cfg.background_color == "random":
+            draws["background"] = rand(num_rays, 3)
+        return draws
 
     def _fields(self) -> list[nn.Module]:
         """The fields in the order the forward queries them."""
@@ -204,32 +236,62 @@ class NerfactoModel(nn.Module):
                 cols.append(idx.reshape(num_rays, -1))
         return torch.cat(cols, dim=1)
 
-    @torch.no_grad()
     def forward(
         self,
         ray_bundle: RayBundle,
         *,
+        train: bool = False,
+        proposal_anneal: float = 1.0,
+        generator: torch.Generator | None = None,
+        draws: dict[str, Any] | None = None,
         use_average_appearance: bool = False,
         return_intermediates: bool = False,
     ) -> dict[str, torch.Tensor]:
-        """Eval forward of one ray batch. ``return_intermediates`` adds the
-        field's last-layer inputs, the final samples' geometry and, as
-        ``sdist_list``, the spacing edges each field was queried at."""
+        """One ray batch. ``train=False``: the eval forward, without
+        gradients. ``train=True``: the training forward, with autograd; the
+        proposal weights resample as ``w ** proposal_anneal``; the draws are
+        ``draws`` (``draw()``'s layout; the parity tests inject the JAX
+        package's) or fresh ones from ``generator``, and with neither the
+        sampling is the eval's. Train mode adds ``weights_list`` and
+        ``sdist_list``; ``return_intermediates`` adds the field's last-layer
+        inputs, the final samples' geometry and, as ``sdist_list``, the
+        spacing edges each field was queried at."""
+        kw = dict(use_average_appearance=use_average_appearance,
+                  return_intermediates=return_intermediates)
+        if not train:
+            return self._eval_forward(ray_bundle, **kw)
+        if draws is None and generator is not None:
+            draws = self.draw(ray_bundle.origins.shape[0], generator)
+        return self._forward(ray_bundle, True, proposal_anneal, draws, **kw)
+
+    @torch.no_grad()
+    def _eval_forward(self, ray_bundle: RayBundle, **kw) -> dict[str, torch.Tensor]:
+        return self._forward(ray_bundle, False, 1.0, None, **kw)
+
+    def _forward(
+        self,
+        ray_bundle: RayBundle,
+        train: bool,
+        proposal_anneal: float,
+        draws: dict[str, Any] | None,
+        use_average_appearance: bool,
+        return_intermediates: bool,
+    ) -> dict[str, torch.Tensor]:
         cfg = self.config
         ray_bundle = self._with_planes(ray_bundle)
+        draws = draws or {}
+        pdf_draws = draws.get("pdf", [None] * self.num_proposal_levels)
 
-        sdist_list = []
-        rs = sample_uniform(ray_bundle, cfg.num_proposal_samples[0])
-        for i in range(self.num_proposal_levels):
+        weights_list, sdist_list = [], []
+        rs = sample_uniform(ray_bundle, cfg.num_proposal_samples[0], draws=draws.get("uniform"))
+        for i, n_next in enumerate(self._next_counts()):
             sdist_list.append(rs.spacing_edges)
             d = getattr(self, f"proposal_{i}")(rs.positions)
             w = raymarch.render_weights(d, rs.deltas)
-            n_next = (
-                cfg.num_proposal_samples[i + 1]
-                if i + 1 < self.num_proposal_levels
-                else cfg.num_nerf_samples
-            )
-            rs = sample_pdf(ray_bundle, rs.spacing_edges, w, n_next)
+            weights_list.append(w)
+            # sample_pdf detaches the weights, as the JAX package's stop_gradient
+            w_annealed = w if proposal_anneal == 1.0 else w**proposal_anneal
+            rs = sample_pdf(ray_bundle, rs.spacing_edges, w_annealed, n_next, draws=pdf_draws[i])
 
         field_out = self.field(
             rs.positions,
@@ -241,9 +303,9 @@ class NerfactoModel(nn.Module):
         weights = raymarch.render_weights(density, rs.deltas)
 
         steps = rs.midpoints
-        background = self._background(field_out.rgb)
+        background = self._background(field_out.rgb, draws.get("background"))
         rgb = raymarch.render_rgb(weights, field_out.rgb, background)
-        depth = raymarch.render_median_depth(weights, steps)
+        depth = raymarch.render_median_depth(weights, steps).detach()
         depth_var = raymarch.depth_variance(weights, steps, depth)
         outputs = {
             "rgb": rgb,
@@ -259,10 +321,59 @@ class NerfactoModel(nn.Module):
             rgb_var = raymarch.render_uncertainty(betas, weights**2)
             outputs["rgb_var"] = rgb_var
             outputs["rgb_std"] = torch.sqrt(rgb_var)
+        if train:
+            outputs["weights_list"] = weights_list + [weights]
+        if train or return_intermediates:
+            outputs["sdist_list"] = sdist_list + [rs.spacing_edges]
         if return_intermediates:
             outputs["trunk"] = field_out.trunk
             outputs["color_penultimate"] = field_out.color_penultimate
             outputs["deltas"] = rs.deltas
             outputs["steps"] = steps
-            outputs["sdist_list"] = sdist_list + [rs.spacing_edges]
         return outputs
+
+
+def nerfacto_loss(
+    outputs: dict[str, torch.Tensor],
+    batch: dict[str, torch.Tensor],
+    config: NerfactoConfig,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Training loss of a train-mode forward. Plain nerfacto: MSE +
+    interlevel + distortion. Active: the Gaussian NLL
+    ``mean((pred - gt)^2 / (2 var)) + 0.5 mean(log var) + 4.0`` plus the
+    density L1, in place of the MSE."""
+    gt = batch["image"]
+    pred = outputs["rgb"]
+    losses: dict[str, torch.Tensor] = {}
+    if config.uncertainty_channels:
+        # torch.maximum, as jnp.maximum, halves the gradient at a tie
+        var = torch.maximum(
+            outputs["rgb_var"], outputs["rgb_var"].new_tensor(config.rendered_uncertainty_eps)
+        )
+        losses["nll_loss"] = (
+            torch.mean((pred - gt) ** 2 / (2.0 * var[..., None]))
+            + 0.5 * torch.mean(torch.log(var))
+            + 4.0
+        )
+        losses["density_l1_loss"] = config.density_loss_mult * outputs["density_mean"]
+    else:
+        losses["rgb_loss"] = torch.mean((pred - gt) ** 2)
+    final_sdist = outputs["sdist_list"][-1]
+    final_weights = outputs["weights_list"][-1]
+    losses["interlevel_loss"] = config.interlevel_loss_mult * raymarch.interlevel_loss(
+        final_sdist, final_weights, outputs["sdist_list"][:-1], outputs["weights_list"][:-1]
+    )
+    losses["distortion_loss"] = config.distortion_loss_mult * raymarch.distortion_loss(
+        final_sdist, final_weights
+    )
+    total = sum(losses.values())
+    return total, losses
+
+
+def proposal_anneal_factor(step: int, config: NerfactoConfig) -> float:
+    """Nerfacto's proposal-weight annealing, bias(x, s) = s x / ((s - 1) x + 1)
+    with x = clip(step / n, 0, 1), in float32 as the JAX package computes it."""
+    f32 = np.float32
+    x = np.clip(f32(step) / f32(config.proposal_weights_anneal_max_num_iters), f32(0), f32(1))
+    s = f32(config.proposal_weights_anneal_slope)
+    return float(s * x / ((s - f32(1.0)) * x + f32(1.0)))

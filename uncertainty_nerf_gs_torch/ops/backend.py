@@ -39,7 +39,7 @@ import torch
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNELS = ("pdf_resample", "composite_tiles")  # sources in csrc/
+KERNELS = ("pdf_resample", "composite_tiles", "hash_grid")  # sources in csrc/
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -47,7 +47,9 @@ NVCC_FLAGS = (
 
 # kernel name -> launches since the last reset; each wrapper adds one where
 # it launches its kernel and nowhere else
-LAUNCH_COUNTERS = ("pdf_resample", "composite_fwd", "composite_bwd")
+LAUNCH_COUNTERS = (
+    "pdf_resample", "composite_fwd", "composite_bwd", "cell_lookup_fwd", "cell_lookup_bwd",
+)
 launch_counts: dict[str, int] = {name: 0 for name in LAUNCH_COUNTERS}
 _libraries: dict[str, ctypes.CDLL] = {}
 _plain = contextvars.ContextVar("plain_versions", default=False)

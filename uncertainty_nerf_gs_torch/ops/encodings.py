@@ -7,15 +7,25 @@ package's shape (L, n_rows, 128): cpr = 128 // (8F) cells per row, cell c at
 lanes [(c % cpr) * 8F, ...), corner order c = 4x + 2y + z with F innermost.
 Read row-major, that memory is (L, n_rows * cpr, 8, F), so the lookup
 gathers one (8, F) block per sample and level and needs no one-hot selects.
+
+``cell_lookup`` is the kernel pair's wrapper: on a CUDA tensor it launches
+``csrc/hash_grid.cu`` (K4 forward: index, gather and trilerp of every level
+in one launch; K5 backward: the scatter-add into the cells and the position
+gradient), on a CPU tensor it runs ``cell_lookup_reference``, the plain
+version, and autograd through it. ``CellLookup`` records the forward's
+choice, so its backward follows it.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
 import torch
 from torch import nn
+
+from uncertainty_nerf_gs_torch.ops import backend
 
 # ---------------------------------------------------------------------------
 # Spherical harmonics (degree <= 4, i.e. up to 16 components).
@@ -103,15 +113,15 @@ def cell_indices(
     return idx, w
 
 
-def cell_lookup(
+def cell_lookup_reference(
     cells: torch.Tensor,
     positions: torch.Tensor,
     resolutions,
     table_size: int,
     features_per_level: int = 2,
 ) -> torch.Tensor:
-    """Cell-major lookup: cells (L, n_rows, 128), positions (n, 3) in [0, 1]
-    -> (n, L * F) features, level-major."""
+    """Plain version: cells (L, n_rows, 128), positions (n, 3) in [0, 1]
+    -> (n, L * F) features, level-major. Differentiable by autograd."""
     levels = cells.shape[0]
     feats = features_per_level
     blocks = cells.reshape(levels, -1, 8, feats)  # (L, n_rows * cpr, 8, F)
@@ -121,6 +131,155 @@ def cell_lookup(
         corner = blocks[lvl].index_select(0, idx)  # (n, 8, F): ONE gather
         outs.append(torch.sum(corner * w[..., None], dim=1))
     return torch.cat(outs, dim=-1)
+
+
+def cell_lookup_vjp_reference(
+    cells: torch.Tensor,
+    positions: torch.Tensor,
+    resolutions,
+    table_size: int,
+    features_per_level: int,
+    g_out: torch.Tensor,
+    need_positions: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Plain backward: autograd through ``cell_lookup_reference``. Returns
+    (dense g_cells, g_positions or None)."""
+    with torch.enable_grad():
+        c = cells.detach().requires_grad_(True)
+        p = positions.detach().requires_grad_(need_positions)
+        out = cell_lookup_reference(c, p, resolutions, table_size, features_per_level)
+        grads = torch.autograd.grad(out, [c, p] if need_positions else [c], g_out)
+    return grads[0], (grads[1] if need_positions else None)
+
+
+KERNEL = "hash_grid"
+MAX_LEVELS = 32  # csrc/hash_grid.cu's per-level constants
+
+
+def _check(cells, positions, resolutions, table_size, features_per_level) -> None:
+    """Raises on what the kernels do not take, on every device."""
+    for name, t in (("cells", cells), ("positions", positions)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous, got strides {t.stride()}")
+    if positions.device != cells.device:
+        raise ValueError(f"positions are on {positions.device}, cells on {cells.device}")
+    if positions.dim() != 2 or positions.shape[1] != 3:
+        raise ValueError(f"positions must be (n, 3), got {tuple(positions.shape)}")
+    if cells.dim() != 3 or cells.shape[2] != 128:
+        raise ValueError(f"cells must be (L, n_rows, 128), got {tuple(cells.shape)}")
+    if features_per_level not in (1, 2, 4, 8, 16):
+        raise ValueError(f"features_per_level must divide 16, got {features_per_level}")
+    levels = cells.shape[0]
+    if len(resolutions) != levels or not 1 <= levels <= MAX_LEVELS:
+        raise ValueError(
+            f"{len(resolutions)} resolutions for {levels} levels (at most {MAX_LEVELS})"
+        )
+    cpr = 128 // (8 * features_per_level)
+    if not 1 <= table_size <= cells.shape[1] * cpr:
+        raise ValueError(f"table_size {table_size} exceeds the {cells.shape[1] * cpr} cells a level")
+    if positions.shape[0] * levels >= 2**31:
+        raise ValueError(f"{positions.shape[0]} positions x {levels} levels is too many lookups")
+
+
+def _entry(name: str):
+    """A C entry point of the kernel library, built and loaded at first use."""
+    fn = getattr(backend.load_library(KERNEL), name)
+    if fn.argtypes is None:
+        ptrs = 3 if name == "cell_lookup_fwd_f32" else 5
+        fn.argtypes = [ctypes.c_void_p] * ptrs + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _level_args(cells, resolutions, table_size, features_per_level):
+    res = (ctypes.c_int * len(resolutions))(*resolutions)
+    return (cells.shape[0], cells.shape[1] * 128, table_size, features_per_level, res)
+
+
+def cell_lookup_fwd(cells, positions, resolutions, table_size, features_per_level):
+    """K4: one launch for every level. Inputs as ``_check`` takes them."""
+    out = torch.empty(
+        (positions.shape[0], cells.shape[0] * features_per_level),
+        dtype=torch.float32, device=cells.device,
+    )
+    with torch.cuda.device(cells.device):
+        err = _entry("cell_lookup_fwd_f32")(
+            positions.data_ptr(), cells.data_ptr(), out.data_ptr(), positions.shape[0],
+            *_level_args(cells, resolutions, table_size, features_per_level),
+            backend.current_stream_handle(cells.device),
+        )
+    if err != 0:
+        raise RuntimeError(f"cell_lookup_fwd launch failed: CUDA error {err}")
+    backend.count_launch("cell_lookup_fwd")
+    return out
+
+
+def cell_lookup_bwd(cells, positions, resolutions, table_size, features_per_level,
+                    g_out, need_positions=True):
+    """K5: dense g_cells (zero-filled, the cells' shape) and, when asked,
+    g_positions (n, 3), from g_out (n, L * F) contiguous float32."""
+    n = positions.shape[0]
+    want = (n, cells.shape[0] * features_per_level)
+    if g_out.dtype != torch.float32 or tuple(g_out.shape) != want or not g_out.is_contiguous():
+        raise ValueError(f"g_out must be contiguous float32 {want}, got {g_out.dtype} "
+                         f"{tuple(g_out.shape)} strides {g_out.stride()}")
+    if g_out.device != cells.device:
+        raise ValueError(f"g_out is on {g_out.device}, cells on {cells.device}")
+    g_cells = torch.zeros_like(cells)
+    g_pos = torch.zeros_like(positions) if need_positions else None
+    with torch.cuda.device(cells.device):
+        err = _entry("cell_lookup_bwd_f32")(
+            positions.data_ptr(), cells.data_ptr(), g_out.data_ptr(), g_cells.data_ptr(),
+            None if g_pos is None else g_pos.data_ptr(), n,
+            *_level_args(cells, resolutions, table_size, features_per_level),
+            backend.current_stream_handle(cells.device),
+        )
+    if err != 0:
+        raise RuntimeError(f"cell_lookup_bwd launch failed: CUDA error {err}")
+    backend.count_launch("cell_lookup_bwd")
+    return g_cells, g_pos
+
+
+class CellLookup(torch.autograd.Function):
+    """K4 forward and K5 backward on the card, the plain version and autograd
+    through it elsewhere; the backward follows the forward's choice."""
+
+    @staticmethod
+    def forward(ctx, cells, positions, resolutions, table_size, features_per_level):
+        ctx.kernel = backend.use_kernel(cells)
+        ctx.args = (resolutions, table_size, features_per_level)
+        ctx.save_for_backward(cells, positions)
+        if ctx.kernel:
+            return cell_lookup_fwd(cells, positions, *ctx.args)
+        return cell_lookup_reference(cells, positions, *ctx.args)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        cells, positions = ctx.saved_tensors
+        need_positions = ctx.needs_input_grad[1]
+        bwd = cell_lookup_bwd if ctx.kernel else cell_lookup_vjp_reference
+        g_cells, g_pos = bwd(cells, positions, *ctx.args, g_out.contiguous(), need_positions)
+        return g_cells, g_pos, None, None, None
+
+
+def cell_lookup(
+    cells: torch.Tensor,
+    positions: torch.Tensor,
+    resolutions,
+    table_size: int,
+    features_per_level: int = 2,
+) -> torch.Tensor:
+    """Cell-major lookup: cells (L, n_rows, 128) float32 contiguous,
+    positions (n, 3) float32 contiguous, in [0, 1] -> (n, L * F) features,
+    level-major. Raises on other dtypes and layouts rather than copy."""
+    resolutions = tuple(int(r) for r in np.asarray(resolutions))
+    _check(cells, positions, resolutions, table_size, features_per_level)
+    return CellLookup.apply(cells, positions, resolutions, table_size, features_per_level)
 
 
 def hash_grid_resolutions(num_levels: int, min_res: int, max_res: int) -> np.ndarray:

@@ -1,8 +1,9 @@
 """Volumetric ray-march compositing: weights and renderers.
 
-Counterpart of ``uncertainty_nerf_gs_tpu/ops/raymarch.py``, eval side. R
-rays, S samples per ray; ``weights`` are compositing weights. The interlevel
-and distortion losses come with training.
+Counterpart of ``uncertainty_nerf_gs_tpu/ops/raymarch.py``: the renderers
+and nerfacto's two regularizers, the interlevel (proposal) loss and the
+distortion loss. R rays, S samples per ray; ``weights`` are compositing
+weights; the losses work in normalized s-space.
 """
 
 from __future__ import annotations
@@ -70,3 +71,57 @@ def depth_variance(
 ) -> torch.Tensor:
     """Analytic depth variance sum_i w_i (t_i - d)^2 + eps."""
     return torch.sum(weights * (steps - depth[..., None]) ** 2, dim=-1) + eps
+
+
+# ---------------------------------------------------------------------------
+# Mip-NeRF 360 regularizers (nerfacto's interlevel and distortion losses).
+# ---------------------------------------------------------------------------
+
+
+def _outer_measure(t0: torch.Tensor, t1: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
+    """For each interval of t0, the total w1 mass of the t1 bins that
+    overlap it. t0: (R, S0+1) query edges; t1: (R, S1+1) envelope edges;
+    w1: (R, S1) envelope weights. Returns (R, S0)."""
+    cw1 = torch.cat([torch.zeros_like(w1[..., :1]), torch.cumsum(w1, dim=-1)], dim=-1)
+    t1 = t1.contiguous()
+    idx_lo = torch.searchsorted(t1, t0[..., :-1].contiguous(), right=True) - 1
+    idx_hi = torch.searchsorted(t1, t0[..., 1:].contiguous(), right=False)
+    top = cw1.shape[-1] - 1
+    idx_lo = torch.clamp(idx_lo, 0, top)
+    idx_hi = torch.clamp(idx_hi, 0, top)
+    return torch.gather(cw1, -1, idx_hi) - torch.gather(cw1, -1, idx_lo)
+
+
+def interlevel_loss(
+    final_sdist: torch.Tensor,
+    final_weights: torch.Tensor,
+    prop_sdists: list[torch.Tensor],
+    prop_weights: list[torch.Tensor],
+    eps: float = 1e-7,
+) -> torch.Tensor:
+    """Proposal loss: the final weight mass each proposal envelope fails to
+    cover. final_sdist (R, S+1) and final_weights (R, S) are detached here;
+    the gradient reaches the proposal weights only."""
+    c = final_sdist.detach()
+    w = final_weights.detach()
+    total = 0.0
+    for cp, wp in zip(prop_sdists, prop_weights):
+        w_outer = _outer_measure(c, cp, wp)
+        excess = torch.clamp(w - w_outer, min=0.0)
+        total = total + torch.mean(excess**2 / (w + eps))
+    return total
+
+
+def distortion_loss(sdist: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Mip-NeRF 360 distortion loss in s-space, O(S) by cumsums.
+    sdist: (R, S+1) normalized edges; weights: (R, S)."""
+    mids = 0.5 * (sdist[..., 1:] + sdist[..., :-1])
+    deltas = sdist[..., 1:] - sdist[..., :-1]
+    # pairwise term: 2 sum_i w_i (m_i csum_{j<i} w_j - csum_{j<i} w_j m_j)
+    cw = torch.cumsum(weights, dim=-1)
+    cwm = torch.cumsum(weights * mids, dim=-1)
+    cw_ex = cw - weights
+    cwm_ex = cwm - weights * mids
+    pairwise = 2.0 * torch.sum(weights * (mids * cw_ex - cwm_ex), dim=-1)
+    self_term = torch.sum(weights**2 * deltas, dim=-1) / 3.0
+    return torch.mean(pairwise + self_term)

@@ -101,24 +101,30 @@ def _linspace01(n: int, device: torch.device) -> torch.Tensor:
     return out.to(device)
 
 
+def _check_draws(draws: torch.Tensor | None, shape, device) -> torch.Tensor | None:
+    """A stratified sampler's (R, K) uniform [0, 1) draws on ``device``, or
+    None (eval)."""
+    if draws is not None and tuple(draws.shape) != tuple(shape):
+        raise ValueError(f"draws must be {tuple(shape)}, got {tuple(draws.shape)}")
+    return None if draws is None else draws.to(device)
+
+
 def sample_uniform(
     ray_bundle: RayBundle,
     num_samples: int,
-    generator: torch.Generator | None = None,
+    draws: torch.Tensor | None = None,
     spacing_fn: Callable = spacing_piecewise,
     spacing_fn_inv: Callable = spacing_piecewise_inv,
 ) -> RaySamples:
-    """Stratified (train, generator given) or centered (eval) spaced sampling."""
+    """Stratified (train: ``draws`` (R, S+1) uniform in [0, 1), where the
+    JAX package takes a key) or centered (eval) spaced sampling."""
     num_rays = ray_bundle.origins.shape[0]
     device = ray_bundle.origins.device
     edges = _linspace01(num_samples + 1, device).expand(num_rays, num_samples + 1)
-    if generator is not None:
+    draws = _check_draws(draws, (num_rays, num_samples + 1), device)
+    if draws is not None:
         # jitter interior edges within their bins (stratified, bins stay sorted)
-        jitter = torch.rand(
-            (num_rays, num_samples + 1), generator=generator,
-            device=generator.device,
-        ).to(device)
-        jitter = (jitter - 0.5) * (1.0 / num_samples)
+        jitter = (draws - 0.5) * (1.0 / num_samples)
         jitter[:, 0].clamp_(min=0.0)
         jitter[:, -1].clamp_(max=0.0)
         edges = edges + jitter
@@ -130,7 +136,7 @@ def sample_pdf(
     s_edges: torch.Tensor,
     weights: torch.Tensor,
     num_samples: int,
-    generator: torch.Generator | None = None,
+    draws: torch.Tensor | None = None,
     histogram_padding: float = 0.01,
     spacing_fn: Callable = spacing_piecewise,
     spacing_fn_inv: Callable = spacing_piecewise_inv,
@@ -139,17 +145,16 @@ def sample_pdf(
     """Importance-resample new bin edges from a weights histogram.
 
     s_edges: (R, S+1) existing normalized edges; weights: (R, S). Evenly
-    spaced u at eval, stratified u from ``generator`` otherwise. The eval
-    queries are one row expanded over the rays, and ``sample_uniform``'s
-    edges one expanded linspace: the resampler reads both in place.
+    spaced u at eval, stratified u from ``draws`` (R, N+1) uniform in
+    [0, 1) otherwise. The eval queries are one row expanded over the
+    rays, and ``sample_uniform``'s edges one expanded linspace: the
+    resampler reads both in place.
     """
     num_rays = weights.shape[0]
     device = weights.device
     n_new = num_samples + 1
-    if generator is not None:
-        draws = torch.rand(
-            (num_rays, n_new), generator=generator, device=generator.device
-        ).to(device)
+    draws = _check_draws(draws, (num_rays, n_new), device)
+    if draws is not None:
         u = (torch.arange(n_new, dtype=torch.float32, device=device) + draws) / n_new
     else:
         u = (torch.arange(n_new, dtype=torch.float32, device=device) + 0.5) / n_new
