@@ -7,25 +7,33 @@ csrc`` with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, all started
 together) and holds each against its plain PyTorch version on the card:
 the PDF resampler (K1) on dense and ragged rays, on the render's rows
 shared by every ray (stride 0), at one bin, one query, 4,096 bins and all
-weights zero, timed beside its launch floor (an empty kernel with its grid);
-and the tile compositor's forward (K2) and backward
-(K3) on the full-width splat scene's packed tiles, a saturated scene, a
-tile the saturation exit cuts short, a tile with no rows, a one-channel
-payload, and hand-built tiles whose row counts end ragged against K3's
-row groups and K2/K3's 128-row batches at 1, 5, 6 and 16 channels; K3
-twice on the same full-width inputs, bit for bit. Then it drives both
-slices of the port at full width with random
-weights from a seed: two 256x256 images of active-nerfacto through
-``NerfactoTrainer.render_image``, and two 640x480 images and five training
-steps of active-splatfacto (65,536 Gaussian slots) through
-``SplatfactoTrainer``, checks from the launch counters that each went
-through its kernels, holds each against the same work on the plain
-versions (inside ``backend.plain_versions()``, where no kernel may
-launch), and profiles one image and one step. Exits non-zero, with no
-result line, when there is no card or any phase fails. The last line of
-standard output is a JSON object naming the device; the line before it the
-card's name and power limit; before that a ``{"kernels": [...]}`` line with
-each kernel's launches, error, times and bound.
+weights zero, bit for bit (both versions sum in float64 in K1's order),
+timed beside its launch floor (an empty kernel with its grid); the tile
+compositor's forward (K2) and backward (K3) on the full-width splat scene's
+packed tiles, a saturated scene, a tile the saturation exit cuts short, a
+tile with no rows, a one-channel payload, and hand-built tiles whose row
+counts end ragged against K3's row groups and K2/K3's 128-row batches at 1,
+5, 6 and 16 channels; K3 twice on the same full-width inputs, bit for bit;
+and the hash-grid lookup (K4 forward, K5 backward) at the main path's three
+shapes, a ragged count and F = 4, with K5 launched twice on every case and
+required bit for bit, its hand-written sort held equal to
+``torch.sort(stable=True)``, and K5 also run and timed on the clustered
+positions of real training forwards. Then it drives both slices of the port
+at full width with random weights from a seed: two 256x256 images and five
+training steps of active-nerfacto through ``NerfactoTrainer``, and two
+640x480 images and five training steps of active-splatfacto (65,536
+Gaussian slots) through ``SplatfactoTrainer``, checks from the launch
+counters that each went through its kernels, holds each against the same
+work on the plain versions (inside ``backend.plain_versions()``, where no
+kernel may launch; for the training step with a replay of the first
+resampler's inputs and a count of flipped rays by field), requires two
+nerfacto training steps from one restored state to be bit-identical, lists
+what ``torch.use_deterministic_algorithms(True, warn_only=True)`` flags in
+a step, and profiles one image and one step. Exits non-zero, with no result
+line, when there is no card or any phase fails. The last line of standard
+output is a JSON object naming the device; the line before it the card's
+name and power limit; before that a ``{"kernels": [...]}`` line with each
+kernel's launches, error, times and bound.
 """
 
 from __future__ import annotations
@@ -117,21 +125,36 @@ def device_kernels(fn) -> tuple[dict[str, tuple[int, float]], float]:
 
 def kernel_times(name, kernel, plain, sets, symbol) -> dict:
     """A kernel's and its plain version's time per call over ``sets``: device
-    time from the profiler where it traced the device, else CUDA events."""
+    time from the profiler where it traced the device, else CUDA events. The
+    kernel's time is the sum of every device kernel whose name holds
+    ``symbol`` (a pipeline of several kernels shares one prefix), per call;
+    ``parts`` holds each of them, ``others`` what else the wrapper ran (a
+    zero-fill) per call."""
     event_ms = time_ms(kernel, sets)
     plain_event_ms = time_ms(plain, sets)
     traced, _ = device_kernels(lambda: [kernel(*a) for a in sets])
-    own = [v for k, v in traced.items() if symbol in k]
+    own = {k: v for k, v in traced.items() if symbol in k}
     plain_traced, _ = device_kernels(lambda: [plain(*a) for a in sets])
+    per_call = {k: 1e-3 * us / len(sets) for k, (_, us) in traced.items()}
+    parts = {k: v for k, v in per_call.items() if k in own}
+    others = {k: v for k, v in per_call.items() if k not in own}
     if own and plain_traced:
-        ms = 1e-3 * own[0][1] / own[0][0]
+        ms = sum(parts.values())
         plain_ms = 1e-3 * sum(us for _, us in plain_traced.values()) / len(sets)
         source = "profiler"
     else:
         print(f"{name}: the profiler traced no device time; times are CUDA events")
         ms, plain_ms, source = event_ms, plain_event_ms, "events"
     return dict(ms=ms, plain_ms=plain_ms, event_ms=event_ms, plain_event_ms=plain_event_ms,
-                ms_from=source)
+                ms_from=source, parts=parts, others=others,
+                kernel_launches=sum(c for c, _ in own.values()) / len(sets))
+
+
+def kernel_name(key: str) -> str:
+    """A device kernel's name without its namespace, return type and
+    arguments: ``cell_lookup_bwd_scatter_kernel<false>``."""
+    head = key.split("(unsigned", 1)[0].split("(float", 1)[0].split("(int", 1)[0]
+    return head.replace("void ", "").replace("(anonymous namespace)::", "").strip()
 
 
 def profile_top(label, fn, port_symbols, top=15) -> dict:
@@ -151,7 +174,8 @@ def profile_top(label, fn, port_symbols, top=15) -> dict:
     for name, (count, us) in ranked:
         for label_, symbol in port_symbols.items():
             if symbol in name:
-                print(f"  port kernel {label_}: {1e-3 * us:.3f} ms {us / (1e6 * busy):.1%} x{count}")
+                print(f"  port kernel {label_}: {1e-3 * us:.3f} ms {us / (1e6 * busy):.1%} x{count} "
+                      f"{kernel_name(name)}")
     return kernels
 
 
@@ -249,12 +273,18 @@ def check_resampler(device) -> dict:
         exact = resample_edges_reference(w.double(), e.double(), u.double())
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
+        differ = int((got != want).sum())
         step = torch.diff(got, dim=1).min().item() if shape[2] > 1 else 0.0
         print(f"resample {name} {tuple(shape)} strides u {u.stride()} edges {e.stride()}: "
-              f"max_abs_err {err:.3e} (kernel to float64 {(got - exact).abs().max().item():.3e}, "
-              f"plain to float64 {(want - exact).abs().max().item():.3e}), least step {step:.3e}")
+              f"max_abs_err {err:.3e}, {differ} of {got.numel()} edges not bit-identical (kernel "
+              f"to float64 {(got - exact).abs().max().item():.3e}, plain to float64 "
+              f"{(want - exact).abs().max().item():.3e}), least step {step:.3e}")
         if not (torch.isclose(got, want, **TOL).all() and torch.isfinite(got).all()):
             failed.append(f"{name} {tuple(shape)}: kernel disagrees, {err:.3e}")
+        # the plain version sums in K1's order, and K1 contracts nothing to
+        # an fma: the two give the same bits
+        if differ:
+            failed.append(f"{name} {tuple(shape)}: {differ} edges differ from the plain version's bits")
         if step < -1e-6:
             failed.append(f"{name} {tuple(shape)}: a row decreases by {step:.3e}")
         worst = max(worst, err)
@@ -602,14 +632,115 @@ def grid_bound_ms(n, levels, features, unique_cells, backward) -> tuple[float, s
     return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations"), nbytes, ops
 
 
-def check_hash_grid(cfg, device) -> dict:
+def k5_against_plain(cells, pos, res, table, f, g_out) -> dict:
+    """K5 twice with the position gradient and once without, against the
+    plain backward: the errors, the entries outside GRID_GRAD_TOL (a cell
+    table level by level), and whether the three launches gave the same
+    bits (the cell gradient with and without the position gradient too)."""
+    from uncertainty_nerf_gs_torch.ops import encodings as enc
+
+    g_cells, g_pos = enc.cell_lookup_bwd(cells, pos, res, table, f, g_out, True)
+    again_cells, again_pos = enc.cell_lookup_bwd(cells, pos, res, table, f, g_out, True)
+    g_only, none = enc.cell_lookup_bwd(cells, pos, res, table, f, g_out, False)
+    ref_cells, ref_pos = enc.cell_lookup_vjp_reference(cells, pos, res, table, f, g_out)
+    torch.cuda.synchronize()
+    return dict(
+        e_c=(g_cells - ref_cells).abs().max().item(), e_p=(g_pos - ref_pos).abs().max().item(),
+        top_c=ref_cells.abs().max().item(), top_p=ref_pos.abs().max().item(),
+        bad_c=level_mismatch(g_cells, ref_cells),
+        bad_p=int(grad_mismatch(g_pos, ref_pos, GRID_GRAD_TOL).sum()),
+        finite=bool(torch.isfinite(g_cells).all() and torch.isfinite(g_pos).all()),
+        same=torch.equal(g_cells, again_cells) and torch.equal(g_pos, again_pos),
+        same_without_pos=none is None and torch.equal(g_only, g_cells),
+    )
+
+
+def check_sort(pos, res, table) -> dict:
+    """K5's keys against ``cell_keys_reference``, and its hand-written
+    stable sort against ``torch.sort(stable=True)`` of the same keys (the
+    yardstick only; the port never calls it): keys, sorted keys and the
+    permutation must be equal. Also the runs the reduction sees: distinct
+    keys and the longest run."""
+    from uncertainty_nerf_gs_torch.ops import encodings as enc
+
+    keys, sorted_keys, perm = (t.long() for t in enc.cell_lookup_sort(pos, res, table))
+    want = enc.cell_keys_reference(pos, res, table)
+    ref = torch.sort(want, stable=True)
+    _, runs = torch.unique_consecutive(ref.values, return_counts=True)
+    return dict(keys_equal=torch.equal(keys, want), sorted_equal=torch.equal(sorted_keys, ref.values),
+                perm_equal=torch.equal(perm, ref.indices), distinct=int(runs.numel()),
+                longest_run=int(runs.max()), bits=enc.key_bits(len(res), table)[1])
+
+
+def k5_yardsticks(cells, sets, res, table, f) -> dict:
+    """PyTorch's own calls for parts of K5's work, timed as yardsticks (the
+    port calls neither): ``torch.sort(stable=True)`` of K5's keys (int32),
+    and ``index_put_(accumulate=True)`` (PyTorch's deterministic scatter) of
+    each lookup's 8 F precomputed contributions into the cells. Both are
+    partial: neither computes the keys, the weights or the position
+    gradient."""
+    from uncertainty_nerf_gs_torch.ops import encodings as enc
+
+    levels = len(res)
+    keys = [(enc.cell_keys_reference(p, res, table).to(torch.int32),) for p, _ in sets]
+    sort_ms = time_ms(lambda k: torch.sort(k, stable=True), keys)
+    per_level = cells.shape[1] * 128 // (8 * f)
+    puts = []
+    for p, g in sets:
+        idx, contrib = [], []
+        for lvl, r in enumerate(res):
+            i, w = enc.cell_indices(p, r, table)
+            idx.append(i + lvl * per_level)
+            contrib.append(w[:, :, None] * g[:, lvl * f:(lvl + 1) * f][:, None, :])
+        puts.append((torch.stack(idx, 1).reshape(-1), torch.stack(contrib, 1).reshape(-1, 8 * f)))
+    target = torch.zeros_like(cells).view(-1, 8 * f)
+    put_ms = time_ms(lambda i, c: target.index_put_((i,), c, accumulate=True), puts)
+    return dict(sort_ms=sort_ms, index_put_ms=put_ms, levels=levels)
+
+
+def capture_lookup_positions(trainer, steps: int = 2) -> list[list[torch.Tensor]]:
+    """The positions each ``CellHashEncoding`` is queried at in ``steps``
+    training forwards of NERF_RAYS rays (fresh batches and draws from the
+    trainer's generator, no update), by a forward hook on each encoding:
+    per forward, [proposal 0, proposal 1, field] as (n, 3). They cluster
+    along the rays and around the surfaces the proposals find, as a real
+    step's do."""
+    from uncertainty_nerf_gs_torch.cameras.cameras import generate_rays
+    from uncertainty_nerf_gs_torch.models.nerfacto import proposal_anneal_factor
+
+    seen: list[torch.Tensor] = []
+    hooks = [field.encoding.register_forward_hook(
+        lambda mod, args, out: seen.append(args[0].detach().reshape(-1, 3).clone()))
+        for field in trainer.model._fields()]
+    sets = []
+    try:
+        for _ in range(steps):
+            seen.clear()
+            batch = trainer.sample_batch(NERF_RAYS)
+            with torch.no_grad():
+                rb = generate_rays(trainer.cameras, batch["camera_indices"], batch["pixel_x"],
+                                   batch["pixel_y"], pose_adjustment=trainer.camera_opt)
+                trainer.model(rb, train=True, generator=trainer._generator,
+                              proposal_anneal=proposal_anneal_factor(trainer.step, trainer.config))
+            sets.append(list(seen))
+    finally:
+        for h in hooks:
+            h.remove()
+    return sets
+
+
+def check_hash_grid(cfg, device, clustered) -> dict:
     """K4 and K5 against their plain versions at the main path's three
     shapes (4,096 rays), a ragged count and F = 4: K4's features within TOL,
     its cell choice bit for bit (from cells that encode their own index);
     K5's cell gradient within GRID_GRAD_TOL of each level's largest entry,
-    its position gradient within GRID_GRAD_TOL of its largest entry. Times
-    per launch at the main path's shapes, beside the bound and index_select
-    of the same rows."""
+    its position gradient within GRID_GRAD_TOL of its largest entry, and a
+    second K5 launch bit for bit. At the three full-width shapes also K5's
+    sort against torch.sort(stable=True), and K5 on ``clustered`` (the
+    positions of real training forwards, ``capture_lookup_positions``).
+    Times per launch at the main path's shapes on uniform and on clustered
+    positions, beside the bound, index_select of the same rows (K4) and
+    K5's two partial yardsticks."""
     from uncertainty_nerf_gs_torch.ops import encodings as enc
 
     rays = cfg.eval_num_rays_per_chunk
@@ -628,31 +759,48 @@ def check_hash_grid(cfg, device) -> dict:
         code = enc.cell_lookup_fwd(encoded_cells(cells, f), pos, res, table, f).reshape(n, levels, f)
         chosen = (torch.round(code[..., 0]) + 1024 * torch.round(code[..., 1])).long().t()
         g_out = torch.randn(n, levels * f, generator=gen, device=device)
-        g_cells, g_pos = enc.cell_lookup_bwd(cells, pos, res, table, f, g_out, True)
-        ref_cells, ref_pos = enc.cell_lookup_vjp_reference(cells, pos, res, table, f, g_out)
-        g_only, none = enc.cell_lookup_bwd(cells, pos, res, table, f, g_out, False)
-        torch.cuda.synchronize()
+        k5 = k5_against_plain(cells, pos, res, table, f, g_out)
         e_f = (got - want).abs().max().item()
-        e_c = (g_cells - ref_cells).abs().max().item()
-        e_p = (g_pos - ref_pos).abs().max().item()
         flips = int((chosen != idx).sum())
-        bad_c, bad_p = level_mismatch(g_cells, ref_cells), int(grad_mismatch(g_pos, ref_pos, GRID_GRAD_TOL).sum())
         print(f"hash_grid {name} n={n} L={levels} F={f} table 2^{log2}: K4 max_abs_err {e_f:.3e}, "
-              f"{flips} of {idx.numel()} cell choices differ; K5 cells max_abs_err {e_c:.3e} "
-              f"(largest |g| {ref_cells.abs().max().item():.3e}, {bad_c} outside the level bar), "
-              f"positions max_abs_err {e_p:.3e} (largest |g| {ref_pos.abs().max().item():.3e}, "
-              f"{bad_p} outside)")
+              f"{flips} of {idx.numel()} cell choices differ; K5 cells max_abs_err {k5['e_c']:.3e} "
+              f"(largest |g| {k5['top_c']:.3e}, {k5['bad_c']} outside the level bar), "
+              f"positions max_abs_err {k5['e_p']:.3e} (largest |g| {k5['top_p']:.3e}, "
+              f"{k5['bad_p']} outside); a second K5 launch bit-identical: {k5['same']}, "
+              f"without the position gradient: {k5['same_without_pos']}")
         if not torch.isclose(got, want, **TOL).all() or not torch.isfinite(got).all():
             failed.append(f"{name}: K4 features disagree, {e_f:.3e}")
         if flips:
             failed.append(f"{name}: K4 chose another cell in {flips} lookups")
-        if bad_c or bad_p or not (torch.isfinite(g_cells).all() and torch.isfinite(g_pos).all()):
+        if k5["bad_c"] or k5["bad_p"] or not k5["finite"]:
             failed.append(f"{name}: K5 disagrees with the plain backward")
-        if none is not None or level_mismatch(g_only, ref_cells):
-            failed.append(f"{name}: K5 without the position gradient disagrees")
-        fwd_err, bwd_err = max(fwd_err, e_f), max(bwd_err, e_c, e_p)
+        if not (k5["same"] and k5["same_without_pos"]):
+            failed.append(f"{name}: two K5 launches on the same inputs differ")
+        fwd_err, bwd_err = max(fwd_err, e_f), max(bwd_err, k5["e_c"], k5["e_p"])
         if not timed:
             continue
+        sort = check_sort(pos, res, table)
+        print(f"hash_grid {name}: K5's keys equal cell_keys_reference: {sort['keys_equal']}; its sort "
+              f"equals torch.sort(stable=True): keys {sort['sorted_equal']}, permutation "
+              f"{sort['perm_equal']} ({sort['bits']}-bit keys, {sort['distinct']} distinct cells, "
+              f"longest run {sort['longest_run']})")
+        if not (sort["keys_equal"] and sort["sorted_equal"] and sort["perm_equal"]):
+            failed.append(f"{name}: K5's keys or sort differ from the reference")
+        # the positions of real training forwards, g_out from the generator
+        c_sets = [(c[i], torch.randn(c[i].shape[0], levels * f, generator=gen, device=device))
+                  for c in clustered]
+        c_k5 = k5_against_plain(cells, c_sets[0][0], res, table, f, c_sets[0][1])
+        c_sort = check_sort(c_sets[0][0], res, table)
+        print(f"hash_grid {name} clustered (a training forward's positions): K5 cells max_abs_err "
+              f"{c_k5['e_c']:.3e} ({c_k5['bad_c']} outside), positions {c_k5['e_p']:.3e} "
+              f"({c_k5['bad_p']} outside); bit-identical {c_k5['same']}; sort equal "
+              f"{c_sort['sorted_equal'] and c_sort['perm_equal']} ({c_sort['distinct']} distinct "
+              f"cells, longest run {c_sort['longest_run']})")
+        if c_k5["bad_c"] or c_k5["bad_p"] or not (c_k5["finite"] and c_k5["same"]):
+            failed.append(f"{name} clustered: K5 disagrees with the plain backward or itself")
+        if not (c_sort["keys_equal"] and c_sort["sorted_equal"] and c_sort["perm_equal"]):
+            failed.append(f"{name} clustered: K5's keys or sort differ from the reference")
+        bwd_err = max(bwd_err, c_k5["e_c"], c_k5["e_p"])
         # timed at the main path's shape, two input sets of positions and
         # g_out over the same cells, as consecutive steps would see them
         sets = [(pos, g_out)] + [(torch.rand(n, 3, generator=gen, device=device),
@@ -660,26 +808,44 @@ def check_hash_grid(cfg, device) -> dict:
         fwd = kernel_times(f"{name} K4", lambda p, g: enc.cell_lookup_fwd(cells, p, res, table, f),
                            lambda p, g: enc.cell_lookup_reference(cells, p, res, table, f), sets,
                            "cell_lookup_fwd_kernel")
-        bwd = kernel_times(f"{name} K5", lambda p, g: enc.cell_lookup_bwd(cells, p, res, table, f, g, True),
-                           lambda p, g: enc.cell_lookup_vjp_reference(cells, p, res, table, f, g), sets,
-                           "cell_lookup_bwd_kernel")
+        bwd, c_bwd = (kernel_times(
+            f"{name} K5", lambda p, g: enc.cell_lookup_bwd(cells, p, res, table, f, g, True),
+            lambda p, g: enc.cell_lookup_vjp_reference(cells, p, res, table, f, g), ss,
+            "cell_lookup_bwd_") for ss in (sets, c_sets))
+        yard, c_yard = k5_yardsticks(cells, sets, res, table, f), k5_yardsticks(cells, c_sets, res, table, f)
         blocks = cells.reshape(levels, -1, 8, f)
         lib_sets = [[grid_lookups(p, res, table)] for p, _ in sets]
         library_ms = time_ms(lambda ix: [blocks[l].index_select(0, ix[l]) for l in range(levels)], lib_sets)
         unique = sum(int(torch.unique(row).numel()) for row in idx)
-        for label, tm, backward in (("K4", fwd, False), ("K5", bwd, True)):
-            bound, bound_by, nbytes, ops = grid_bound_ms(n, levels, f, unique, backward)
+        c_unique = sum(int(torch.unique(row).numel()) for row in grid_lookups(c_sets[0][0], res, table))
+        for label, tm, backward, uniq, positions in (
+                ("K4", fwd, False, unique, "uniform"), ("K5", bwd, True, unique, "uniform"),
+                ("K5", c_bwd, True, c_unique, "clustered")):
+            bound, bound_by, nbytes, ops = grid_bound_ms(n, levels, f, uniq, backward)
             every, _, every_bytes, _ = grid_bound_ms(n, levels, f, n * levels, backward)
-            tm.update(field=name, shape=[n, levels, f, 2**log2], bound_ms=bound, bound_by=bound_by,
-                      bytes=nbytes, operations=ops, unique_cells=unique, every_lookup_bound_ms=every,
-                      library_ms=library_ms if label == "K4" else None)
-            print(f"{label} {name} ({n} samples x {levels} levels): kernel {tm['ms']:.4f} ms on the device "
-                  f"({tm['event_ms']:.4f} ms a call back to back), plain {tm['plain_ms']:.4f} ms "
-                  f"({tm['plain_event_ms']:.4f}), bound {bound:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
-                  f"{unique} distinct cells of {n * levels} lookups; {every:.4f} ms, "
-                  f"{every_bytes / 1e6:.1f} MB counting every lookup's cell); index_select of the "
-                  f"same rows, {levels} calls, {library_ms:.4f} ms")
-        per_launch.append(dict(fwd=fwd, bwd=bwd))
+            tm.update(field=name, positions=positions, shape=[n, levels, f, 2**log2], bound_ms=bound,
+                      bound_by=bound_by, bytes=nbytes, operations=ops, unique_cells=uniq,
+                      every_lookup_bound_ms=every, library_ms=library_ms if label == "K4" else None)
+            print(f"{label} {name} ({n} samples x {levels} levels, {positions} positions): kernel "
+                  f"{tm['ms']:.4f} ms on the device ({tm['event_ms']:.4f} ms a call back to back), "
+                  f"plain {tm['plain_ms']:.4f} ms ({tm['plain_event_ms']:.4f}), bound {bound:.4f} ms "
+                  f"({bound_by}: {nbytes / 1e6:.1f} MB, {uniq} distinct cells of {n * levels} "
+                  f"lookups; {every:.4f} ms, {every_bytes / 1e6:.1f} MB counting every lookup's cell)"
+                  + (f"; index_select of the same rows, {levels} calls, {library_ms:.4f} ms"
+                     if label == "K4" else ""))
+            if label == "K5":
+                y = yard if positions == "uniform" else c_yard
+                tm.update(yardsticks=y)
+                print(f"  K5 {name} {positions}: {tm['kernel_launches']:.0f} kernels a call; " + ", ".join(
+                    f"{kernel_name(k)} {v:.4f} ms" for k, v in tm["parts"].items()))
+                print(f"  K5 {name} {positions}: zero-fill of g_cells and the wrapper's other "
+                      f"device work {sum(tm['others'].values()):.4f} ms a call (" + ", ".join(
+                          f"{k[:60]} {v:.4f} ms" for k, v in tm["others"].items()) + ")")
+                print(f"  K5 {name} {positions} yardsticks (partial, not called by the port): "
+                      f"torch.sort(stable=True) of the keys {y['sort_ms']:.4f} ms, "
+                      f"index_put_(accumulate=True) of the precomputed contributions "
+                      f"{y['index_put_ms']:.4f} ms")
+        per_launch.append(dict(fwd=fwd, bwd=bwd, bwd_clustered=c_bwd))
     if failed:
         raise AssertionError("hash_grid " + "; ".join(failed))
     return dict(fwd_err=fwd_err, bwd_err=bwd_err, per_launch=per_launch)
@@ -791,7 +957,7 @@ def gather_bytes(trainer) -> int:
 
 
 NERF_SYMBOLS = {"pdf_resample": "pdf_resample_kernel", "cell_lookup_fwd": "cell_lookup_fwd_kernel",
-                "cell_lookup_bwd": "cell_lookup_bwd_kernel"}
+                "cell_lookup_bwd": "cell_lookup_bwd_"}  # K5 is a pipeline of kernels
 
 
 def profile_nerfacto(trainer, idx: int = 1) -> dict:
@@ -888,29 +1054,96 @@ def nerfacto_step(trainer, batch, draws, plain: bool) -> tuple[dict, dict, torch
     return {k: float(v.detach()) for k, v in losses.items()}, grads, cells, edges
 
 
+@contextlib.contextmanager
+def record_resampler():
+    """Records the (weights, s_edges, u) that ``sample_pdf`` hands the
+    resampler in every call inside the block, as contiguous copies."""
+    from uncertainty_nerf_gs_torch.ops import sampling
+
+    calls = []
+    inner = sampling.resample_edges
+
+    def recording(weights, s_edges, u, *args):
+        calls.append(tuple(t.detach().contiguous().clone() for t in (weights, s_edges, u)))
+        return inner(weights, s_edges, u, *args)
+
+    sampling.resample_edges = recording
+    try:
+        yield calls
+    finally:
+        sampling.resample_edges = inner
+
+
+def field_widths(trainer) -> list[tuple[str, int]]:
+    """(field, lookups a ray) in ``lookup_cells``' column order."""
+    cfg = trainer.config
+    samples = list(cfg.num_proposal_samples) + [cfg.num_nerf_samples]
+    names = [f"proposal_{i}" for i in range(len(samples) - 1)] + ["field"]
+    return [(name, n * len(f.encoding.resolutions))
+            for name, n, f in zip(names, samples, trainer.model._fields())]
+
+
+def diagnose_first_resampler(trainer, k_calls, p_calls, k_cells, p_cells) -> dict:
+    """Where the training check's flips come from. K1 and the plain
+    resampler on the exact inputs each path handed the first resampler
+    (equal bits expected: both sum in K1's order); how far those inputs
+    differ between the paths (the proposal density, K4 on one and the plain
+    lookup on the other, upstream); and which field's lookups flipped."""
+    from uncertainty_nerf_gs_torch.ops.pdf_resample import resample_edges, resample_edges_reference
+
+    out = {}
+    for label, calls in (("kernel path", k_calls), ("plain path", p_calls)):
+        w, e, u = calls[0]
+        got, want = resample_edges(w, e, u), resample_edges_reference(w, e, u)
+        out[label] = dict(differ=int((got != want).sum()), max_abs_err=(got - want).abs().max().item())
+        print(f"first resampler, {label}'s inputs {tuple(w.shape)} -> {tuple(u.shape)}: K1 and the "
+              f"plain version differ in {out[label]['differ']} of {got.numel()} edges "
+              f"(max_abs_err {out[label]['max_abs_err']:.3e})")
+    (kw, ke, ku), (pw, pe, pu) = k_calls[0], p_calls[0]
+    rel = ((kw - pw).abs() / pw.abs().clamp_min(1e-30))[pw > 0]
+    out["inputs"] = dict(weights_max_abs=(kw - pw).abs().max().item(),
+                         weights_max_rel=rel.max().item() if rel.numel() else 0.0,
+                         weights_differ=int((kw != pw).sum()), edges_equal=torch.equal(ke, pe),
+                         u_equal=torch.equal(ku, pu))
+    print(f"first resampler inputs, kernel path against plain path: annealed weights differ in "
+          f"{out['inputs']['weights_differ']} of {kw.numel()} (max_abs {out['inputs']['weights_max_abs']:.3e}, "
+          f"max_rel {out['inputs']['weights_max_rel']:.3e}; proposal 0's density: K4 against the plain "
+          f"lookup); edges equal {out['inputs']['edges_equal']}, u equal {out['inputs']['u_equal']}")
+    col, per_field = 0, {}
+    for name, width in field_widths(trainer):
+        per_field[name] = int((k_cells[:, col:col + width] != p_cells[:, col:col + width]).any(1).sum())
+        col += width
+    out["flipped_by_field"] = per_field
+    print("rays with a flipped lookup, by field: " + ", ".join(f"{k} {v}" for k, v in per_field.items()))
+    return out
+
+
 def check_nerfacto_train_plain(trainer) -> dict:
     """One step's loss and gradients through the kernels against the same
     step on the plain versions, with the same batch and draws, on the rays
     whose lookups stayed in the same cells on both paths (the others are
     dropped from the batch and counted): loss terms within
     TRAIN_LOSS_RTOL, each gradient within TRAIN_GRAD_L2 in relative L2
-    norm (a cell table level by level)."""
+    norm (a cell table level by level). The first pass also replays the
+    first resampler's inputs (``diagnose_first_resampler``)."""
     from uncertainty_nerf_gs_torch.ops import backend
 
     gen = torch.Generator(device=trainer.device).manual_seed(SEED + 300)
     batch = trainer.sample_batch(NERF_RAYS)
     draws = trainer.model.draw(NERF_RAYS, gen)
     keep = torch.ones(NERF_RAYS, dtype=torch.bool, device=trainer.device)
-    edge_err = None
+    edge_err = diagnosis = None
     for attempt in range(3):
         sub_batch = {k: v[keep] for k, v in batch.items()}
         sub_draws = {k: ([d[keep] for d in v] if isinstance(v, list) else v[keep])
                      for k, v in draws.items()}
         backend.reset_launch_counts()
-        k_losses, k_grads, k_cells, k_edges = nerfacto_step(trainer, sub_batch, sub_draws, plain=False)
+        with record_resampler() as k_calls:
+            k_losses, k_grads, k_cells, k_edges = nerfacto_step(trainer, sub_batch, sub_draws, plain=False)
         kernel_launches = dict(backend.launch_counts)
         backend.reset_launch_counts()
-        p_losses, p_grads, p_cells, p_edges = nerfacto_step(trainer, sub_batch, sub_draws, plain=True)
+        with record_resampler() as p_calls:
+            p_losses, p_grads, p_cells, p_edges = nerfacto_step(trainer, sub_batch, sub_draws, plain=True)
         # the resampled edges of each stage, kernel path against plain path
         edge_err = edge_err or [(a - b).abs().max().item() for a, b in zip(k_edges[1:], p_edges[1:])]
         if any(backend.launch_counts.values()):
@@ -919,14 +1152,20 @@ def check_nerfacto_train_plain(trainer) -> dict:
         print(f"nerfacto train plain path, pass {attempt}: {int(flipped.sum())} of "
               f"{int(keep.sum())} rays flipped a cell; resampled edges max_abs_err "
               f"{', '.join(f'{e:.3e}' for e in edge_err)}; kernel-path launches {kernel_launches}")
+        if attempt == 0:
+            diagnosis = diagnose_first_resampler(trainer, k_calls, p_calls, k_cells, p_cells)
         if not flipped.any():
             break
         keep[keep.clone()] = ~flipped
     else:
         raise AssertionError("rays keep flipping cells between the kernel and plain paths")
     dropped = NERF_RAYS - int(keep.sum())
+    print(f"nerfacto train plain path: {dropped} of {NERF_RAYS} rays dropped "
+          f"({dropped / NERF_RAYS:.3f}; bar {MAX_FLIPPED_TRAIN_RAY_SHARE})")
     if dropped > MAX_FLIPPED_TRAIN_RAY_SHARE * NERF_RAYS:
         raise AssertionError(f"{dropped} of {NERF_RAYS} rays flipped a cell")
+    if any(d["differ"] for k, d in diagnosis.items() if k.endswith("path")):
+        raise AssertionError("K1 and the plain resampler differ on the same inputs")
     print("nerfacto train plain path: losses " + ", ".join(
         f"{k} {k_losses[k]:.7f} / {p_losses[k]:.7f}" for k in k_losses))
     failed = [k for k in k_losses if not np.isclose(k_losses[k], p_losses[k], rtol=TRAIN_LOSS_RTOL, atol=0)]
@@ -939,11 +1178,129 @@ def check_nerfacto_train_plain(trainer) -> dict:
     for k in sorted(grad_err, key=lambda k: -grad_err[k])[:8]:
         print(f"  gradient {k}: relative L2 error {grad_err[k]:.3e} (largest |g| "
               f"{p_grads[k].abs().max().item():.3e}, max_abs_err "
-              f"{(k_grads[k] - p_grads[k]).abs().max().item():.3e})")
+              f"{(k_grads[k] - p_grads[k]).abs().max().item():.3e}; bar {TRAIN_GRAD_L2})")
     if failed:
         raise AssertionError(f"nerfacto step: {failed} differ from the plain path")
     return dict(dropped=dropped, edge_err=edge_err, losses=k_losses, plain_losses=p_losses,
-                max_grad_l2_err=max(grad_err.values()))
+                max_grad_l2_err=max(grad_err.values()), diagnosis=diagnosis)
+
+
+def trainer_snapshot(trainer) -> dict:
+    """A copy of the trainer's whole state (parameters, Adam's moments and
+    counts, step) and of its generator's, to restore twice."""
+    sd = trainer.state_dict()
+    clone = lambda d: {k: v.detach().clone() for k, v in d.items()}  # noqa: E731
+    opt = sd["opt_state"]
+    return dict(ckpt={"params": clone(sd["params"]), "step": sd["step"], "opt_state": {
+        "groups": {k: dict(v) for k, v in opt["groups"].items()},
+        "exp_avg": clone(opt["exp_avg"]), "exp_avg_sq": clone(opt["exp_avg_sq"])}},
+        generator=trainer._generator.get_state())
+
+
+def restore_snapshot(trainer, snap) -> None:
+    trainer.restore(snap["ckpt"])
+    trainer._generator.set_state(snap["generator"])
+
+
+def check_nerfacto_repeatable(trainer) -> dict:
+    """Two training steps from one restored state, with the same batch and
+    draws (the trainer's generator restored too): the losses, every
+    parameter, Adam's moments and counts and the step must be equal bit for
+    bit. The trainer is left as the snapshot found it."""
+    from uncertainty_nerf_gs_torch.ops import backend
+
+    snap = trainer_snapshot(trainer)
+    runs = []
+    for _ in range(2):
+        restore_snapshot(trainer, snap)
+        backend.reset_launch_counts()
+        losses = trainer.train_step(NERF_RAYS)
+        runs.append((losses, trainer_snapshot(trainer)["ckpt"], dict(backend.launch_counts)))
+    (l0, s0, n0), (l1, s1, n1) = runs
+    differ = [k for k in l0 if l0[k] != l1[k]]
+    for part in ("params", "exp_avg", "exp_avg_sq"):
+        a = s0[part] if part == "params" else s0["opt_state"][part]
+        b = s1[part] if part == "params" else s1["opt_state"][part]
+        differ += [f"{part}:{k}" for k in a if not torch.equal(a[k], b[k])]
+    if s0["opt_state"]["groups"] != s1["opt_state"]["groups"] or s0["step"] != s1["step"]:
+        differ.append("counts")
+    print(f"nerfacto repeatability: two steps from one state, launches {n0} and {n1}; "
+          f"{len(differ)} of {len(l0) + 3 * len(s0['params']) + 1} items differ"
+          + (f": {differ[:12]}" if differ else " (losses, every parameter, Adam's moments and counts "
+             "bit-identical)"))
+    restore_snapshot(trainer, snap)
+    if differ:
+        raise AssertionError(f"two training steps from one state differ: {differ[:12]}")
+    return dict(items=len(l0) + 3 * len(s0["params"]) + 1, launches=n0)
+
+
+def repeats(fn, like, grad, runs: int = 10) -> int:
+    """How many of ``runs - 1`` backward passes of ``fn`` give another
+    gradient than the first, on a fresh leaf cloned from ``like``."""
+    grads = []
+    for _ in range(runs):
+        leaf = like.clone().requires_grad_(True)
+        fn(leaf).backward(grad)
+        grads.append(leaf.grad)
+    return sum(not torch.equal(grads[0], g) for g in grads[1:])
+
+
+def audit_determinism(trainer) -> dict:
+    """What PyTorch itself flags: one training step under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``, listing
+    the warnings it raises (the mode is switched off again and the state
+    restored; the port never sets it). An op with a deterministic variant
+    switches to it silently under the mode, so the two ops this step used to
+    take whose backwards add atomically are also run ten times each at the
+    step's shapes, beside the formulations that replaced them: the
+    interlevel loss's ``torch.gather`` (now ``raymarch.take_rows``) and the
+    appearance embedding's ``nn.Embedding`` call (now an index into its
+    weight)."""
+    import warnings
+
+    from uncertainty_nerf_gs_torch.ops.raymarch import take_rows
+
+    snap = trainer_snapshot(trainer)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            trainer.train_step(NERF_RAYS)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    restore_snapshot(trainer, snap)
+    messages = sorted({" ".join(str(w.message).split())[:200] for w in caught})
+    flagged = [m for m in messages if "determinis" in m.lower()]
+    print(f"determinism audit: one step under use_deterministic_algorithms(True, warn_only=True) "
+          f"raised {len(caught)} warnings, {len(messages)} distinct, {len(flagged)} about determinism:")
+    for m in messages:
+        print(f"  {m}")
+    gen = torch.Generator(device=trainer.device).manual_seed(SEED + 400)
+    cfg, dev = trainer.config, trainer.device
+    # the final edges crowd a few proposal bins, as where a step's weights peak
+    t1 = torch.sort(torch.rand(NERF_RAYS, cfg.num_proposal_samples[0] + 1, generator=gen, device=dev),
+                    dim=1).values
+    t0 = torch.sort(0.4 + 0.02 * torch.rand(NERF_RAYS, cfg.num_nerf_samples + 1, generator=gen,
+                                            device=dev), dim=1).values
+    idx = torch.clamp(torch.searchsorted(t1, t0), 0, t1.shape[1] - 1)
+    g = torch.randn(idx.shape, generator=gen, device=dev)
+    table = trainer.model.field.appearance_embedding.weight.detach()
+    cams = torch.randint(0, table.shape[0], (NERF_RAYS,), generator=gen, device=dev)
+    g_embed = torch.randn(NERF_RAYS, table.shape[1], generator=gen, device=dev)
+    counts = {
+        "torch.gather": repeats(lambda v: torch.gather(v, -1, idx), t1, g),
+        "take_rows": repeats(lambda v: take_rows(v, idx), t1, g),
+        "nn.functional.embedding": repeats(lambda w: torch.nn.functional.embedding(cams, w), table, g_embed),
+        "weight[index]": repeats(lambda w: w[cams], table, g_embed),
+    }
+    print(f"determinism audit: 10 backward passes each, how many differ from the first: "
+          f"interlevel gather {tuple(idx.shape)} into {tuple(t1.shape)}: torch.gather "
+          f"{counts['torch.gather']} of 9, take_rows {counts['take_rows']} of 9; appearance "
+          f"embedding, {NERF_RAYS} rays into {tuple(table.shape)}: nn.functional.embedding "
+          f"{counts['nn.functional.embedding']} of 9, weight[index] {counts['weight[index]']} of 9")
+    if counts["take_rows"] or counts["weight[index]"]:
+        raise AssertionError("a replacement's backward is not repeatable")
+    return dict(warnings=messages, repeats=counts)
 
 
 # -- active-splatfacto at full width -------------------------------------------
@@ -1143,16 +1500,22 @@ def kernel_line(run_nerf, train_nerf, resample, nerf_plain, run_splat_, comp, gr
                            ("cell_lookup_bwd", "bwd", grid["bwd_err"])):
         per = [p[key] for p in grid["per_launch"]]
         by_path = dict(render=run_nerf["launches"][name], train=train_nerf["launches"][name])
-        kernels.append(dict(
+        entry = dict(
             name=name, route="cuda", source="uncertainty_nerf_gs_torch/csrc/hash_grid.cu",
             replaces="experiments/jobs/403_pallas_gather_probe.py:96",
             launches=sum(by_path.values()), launches_by_path=by_path, max_abs_err=err,
             ms=sum(p["ms"] for p in per), plain_ms=sum(p["plain_ms"] for p in per),
             bound_ms=sum(p["bound_ms"] for p in per), bound_by=per[-1]["bound_by"],
             # no single PyTorch call computes this function; index_select of
-            # the same rows, the gather part alone, is in per_launch
+            # the same rows (K4) and K5's partial yardsticks are in per_launch
             library_ms=None, per_launch=per,
-        ))
+        )
+        if key == "bwd":
+            clustered = [p["bwd_clustered"] for p in grid["per_launch"]]
+            entry.update(deterministic=True, clustered_ms=sum(p["ms"] for p in clustered),
+                         clustered_bound_ms=sum(p["bound_ms"] for p in clustered),
+                         per_launch_clustered=clustered)
+        kernels.append(entry)
     return kernels
 
 
@@ -1186,7 +1549,7 @@ def main() -> int:
     nerf = build_nerfacto()
     n_params = sum(p.numel() for p in nerf.model.parameters())
     print(f"active-nerfacto: {n_params} parameters; set-up {time.perf_counter() - t0:.1f} s")
-    grid = check_hash_grid(nerf.config, device)
+    grid = check_hash_grid(nerf.config, device, capture_lookup_positions(nerf))
     print(f"hash-grid checks done at {time.perf_counter() - t_start:.1f} s")
     run_nerf = render_nerfacto(nerf)
     for i, s in enumerate(run_nerf["seconds"]):
@@ -1196,7 +1559,15 @@ def main() -> int:
     profile_nerfacto(nerf)
     train_nerf = train_nerfacto(nerf, name)
     check_nerfacto_train_plain(nerf)
-    profile_top("nerfacto train step", lambda: nerf.train_step(NERF_RAYS), NERF_SYMBOLS)
+    repeat = check_nerfacto_repeatable(nerf)
+    want = dict(pdf_resample=2, cell_lookup_fwd=3, cell_lookup_bwd=3)
+    if any(repeat["launches"][k] != v for k, v in want.items()):
+        raise AssertionError(f"a repeated step launched {repeat['launches']}, expected {want}")
+    audit_determinism(nerf)
+    step = profile_top("nerfacto train step", lambda: nerf.train_step(NERF_RAYS), NERF_SYMBOLS)
+    k5 = [(c, us) for k, (c, us) in step.items() if NERF_SYMBOLS["cell_lookup_bwd"] in k]
+    print(f"  K5 in the step: {1e-3 * sum(us for _, us in k5):.3f} ms for its 3 calls "
+          f"({sum(c for c, _ in k5)} kernels)")
     del nerf
     torch.cuda.empty_cache()
     print(f"nerfacto done at {time.perf_counter() - t_start:.1f} s")

@@ -227,6 +227,75 @@ def test_resample_reference_matches_pallas_interpret(s, n):
     assert np.array_equal(resample_edges(_t(w), _t(edges), _t(u)).numpy(), got)
 
 
+def _training_resampler_inputs(rng, r, s, n, anneal):
+    """What a training step hands a resampler, drawn with numpy: compositing
+    weights of random densities (exact zeros where the transmittance
+    underflows, as behind an opaque sample) raised to the proposal
+    annealing power, stratified edges, and stratified u from uniform
+    draws."""
+    tau = rng.exponential(0.05, (r, s)) * (rng.uniform(size=(r, s)) < 0.3) * rng.uniform(0, 40, (r, 1))
+    trans = np.exp(-np.concatenate([np.zeros((r, 1)), np.cumsum(tau, axis=1)[:, :-1]], axis=1))
+    w = ((1 - np.exp(-tau)) * trans).astype(np.float32)
+    w[w < 1e-30] = 0.0
+    w = (w ** np.float32(anneal)).astype(np.float32)
+    w[:, -s // 4:][rng.uniform(size=(r, 1)).repeat(s // 4, 1) < 0.5] = 0.0
+    jitter = ((rng.uniform(size=(r, s + 1)) - 0.5) / s).astype(np.float32)
+    jitter[:, 0] = np.maximum(jitter[:, 0], 0)
+    jitter[:, -1] = np.minimum(jitter[:, -1], 0)
+    edges = (np.linspace(0, 1, s + 1, dtype=np.float32)[None] + jitter).astype(np.float32)
+    draws = rng.uniform(size=(r, n)).astype(np.float32)
+    return w, edges, draws
+
+
+@pytest.mark.parametrize("s,n,anneal", [(256, 97, 0.04784689), (96, 49, 0.04784689), (256, 97, 1.0)])
+def test_resample_training_inputs_match_jax(rng, s, n, anneal):
+    """The resampler on a training step's kind of inputs (proposal weights
+    annealed to w ** 0.048, nerfacto's factor at step 5, many bins empty,
+    stratified edges and u), where a cdf step of an empty bin is about 0.01
+    / S of the total and divides any last-bit difference in the cdf: the
+    port's plain version (sums in float64, in K1's order) against the JAX
+    package's sample_pdf with the same draws (its XLA branch) and against
+    its Pallas kernel in interpret mode, within TOL."""
+    r = 48
+    w, edges, draws = _training_resampler_inputs(rng, r, s, n, anneal)
+    u = np.clip((np.arange(n, dtype=np.float32)[None] + draws) / n, 0, 1 - 1e-6).astype(np.float32)
+    got = resample_edges_reference(_t(w), _t(edges), _t(u)).numpy()
+    jb, tb = _bundles(rng, r)
+    want_xla = jsamp.sample_pdf(jb, jnp.asarray(edges), jnp.asarray(w), n - 1, key=jax.random.PRNGKey(0))
+    # the same function with our draws: replay them through the port's sampler
+    port = tsamp.sample_pdf(tb, _t(edges), _t(w), n - 1, draws=_t(draws))
+    np.testing.assert_array_equal(port.spacing_edges.numpy(), got)
+    want = np.asarray(resample_edges_tpu(jnp.asarray(w), jnp.asarray(edges), jnp.asarray(u)))
+    _close(got, want)
+    # JAX's XLA branch on its own draws, against the port replaying them
+    j_draws = np.asarray(jax.random.uniform(jax.random.PRNGKey(0), (r, n)))
+    replay = tsamp.sample_pdf(tb, _t(edges), _t(w), n - 1, draws=_t(j_draws)).spacing_edges
+    _close(replay, want_xla.spacing_edges)
+    assert (w == 0).mean() > 0.05 and (np.diff(got, axis=1) >= 0).all()
+
+
+@pytest.mark.parametrize("s", [1, 2, 24, 96, 128, 129, 256, 600, 4096])
+def test_resample_cdf_is_correctly_rounded(rng, s):
+    """The plain cdf (float64 sums in K1's association, one rounding to
+    float32) equals the float64 cumsum rounded to float32 to within one
+    ulp, and nearly everywhere exactly; K1's lane layout covers S."""
+    from uncertainty_nerf_gs_torch.ops.pdf_resample import _k1_cdf, lane_layout
+
+    r = 16
+    w = (rng.uniform(0, 1, (r, s)) ** 4).astype(np.float32)
+    w[3] = 0.0
+    got = _k1_cdf(_t(w), 0.01, 1e-5).numpy()
+    hp = np.float64(np.float32(0.01))
+    pad = w.astype(np.float64) + hp
+    exact = np.clip(np.cumsum(pad / pad.sum(1, keepdims=True), axis=1), 0, 1).astype(np.float32)
+    assert got.shape == (r, s + 1) and (got[:, 0] == 0).all()
+    diff = np.abs(got[:, 1:] - exact)
+    assert (diff <= np.spacing(np.float32(1))).all()
+    assert (diff == 0).mean() > 0.99
+    per, tile = lane_layout(s)
+    assert per in (4, 8) and tile == 32 * per and (per == 8) == (s > 128)
+
+
 @pytest.mark.parametrize("shared", ["u", "s_edges", "both"])
 def test_resample_reads_expanded_rows_in_place(rng, shared):
     """The eval path hands the resampler u, and the first stage's edges, as
@@ -342,6 +411,68 @@ def test_cell_lookup_vjp_matches_jax(rng, log2_size, max_res):
         assert not grad_mismatch(tc.grad[lvl], _t(want_cells[lvl]), GRID_GRAD_TOL).any(), lvl
     assert not grad_mismatch(tp.grad, _t(want_pos), GRID_GRAD_TOL).any()
     assert np.abs(want_pos).max() > 0 and np.abs(want_cells).max() > 0
+
+
+@pytest.mark.parametrize("log2_size,max_res,levels", [(12, 64, 4), (15, 128, 5), (10, 512, 16)])
+def test_cell_keys_reference_matches_jax(rng, log2_size, max_res, levels):
+    """K5's keys: lookup (i, l) at i * L + l holds l << cell_bits | idx,
+    idx the JAX package's cell_indices level by level; the packing leaves
+    the top bit free and sorts level-major, then by cell (a stable sort of
+    the keys is the lexicographic order of (level, cell, lookup))."""
+    res = jenc.hash_grid_resolutions(levels, 16, max_res)
+    table = 2**log2_size
+    p = _face_positions(rng, res, 300)
+    keys = tenc.cell_keys_reference(_t(p), res, table)
+    cell_bits, bits = tenc.key_bits(levels, table)
+    assert keys.dtype == torch.int64 and keys.shape == (300 * levels,)
+    assert cell_bits == log2_size and bits <= tenc.MAX_KEY_BITS and int(keys.max()) < 2**bits
+    grid = keys.reshape(300, levels)
+    for lvl, r in enumerate(res):
+        j_idx, _ = jenc.cell_indices(jnp.asarray(p), int(r), table)
+        assert np.array_equal((grid[:, lvl] >> cell_bits).numpy(), np.full(300, lvl))
+        assert np.array_equal((grid[:, lvl] & (2**cell_bits - 1)).numpy(), np.asarray(j_idx).astype(np.int64))
+    level = np.tile(np.arange(levels), 300)
+    cell = (keys & (2**cell_bits - 1)).numpy()
+    order = np.lexsort((np.arange(keys.numel()), cell, level))
+    assert np.array_equal(torch.sort(keys, stable=True).indices.numpy(), order)
+
+
+@pytest.mark.parametrize("log2_size,max_res", [(12, 64), (15, 128), (10, 512)])
+def test_cell_lookup_vjp_reference_matches_jax(rng, log2_size, max_res):
+    """The plain backward K5 is held against on the card,
+    ``cell_lookup_vjp_reference``, called directly, against jax.vjp of the
+    JAX cell_lookup: the cell gradient level by level and the position
+    gradient within GRID_GRAD_TOL; without the position gradient it gives
+    the same cell gradient and None."""
+    levels = 4
+    res = jenc.hash_grid_resolutions(levels, 16, max_res)
+    table = 2**log2_size
+    cells = rng.uniform(-2, 2, (levels, table // 8, 128)).astype(np.float32)
+    p = _face_positions(rng, res, 400)
+    g = rng.normal(size=(400, 2 * levels)).astype(np.float32)
+    _, vjp = jax.vjp(lambda c, x: jenc.cell_lookup(c, x, res, table), jnp.asarray(cells), jnp.asarray(p))
+    want_cells, want_pos = (np.asarray(a) for a in vjp(jnp.asarray(g)))
+    g_cells, g_pos = tenc.cell_lookup_vjp_reference(_t(cells), _t(p), res, table, 2, _t(g))
+    for lvl in range(levels):
+        assert not grad_mismatch(g_cells[lvl], _t(want_cells[lvl]), GRID_GRAD_TOL).any(), lvl
+    assert not grad_mismatch(g_pos, _t(want_pos), GRID_GRAD_TOL).any()
+    only, none = tenc.cell_lookup_vjp_reference(_t(cells), _t(p), res, table, 2, _t(g), False)
+    assert none is None and torch.equal(only, g_cells)
+
+
+def test_take_rows_matches_gather(rng):
+    """``raymarch.take_rows`` (the interlevel loss's gather, whose backward
+    adds in a fixed order on the card) equals torch.gather in value and
+    gradient, repeated indices included, with leading batch dimensions."""
+    values = _t(rng.normal(size=(2, 5, 9)).astype(np.float32))
+    idx = torch.from_numpy(np.sort(rng.integers(0, 9, (2, 5, 7)), axis=-1))
+    g = _t(rng.normal(size=(2, 5, 7)).astype(np.float32))
+    a, b = values.clone().requires_grad_(True), values.clone().requires_grad_(True)
+    got, want = trm.take_rows(a, idx), torch.gather(b, -1, idx)
+    assert torch.equal(got, want)
+    got.backward(g)
+    want.backward(g)
+    torch.testing.assert_close(a.grad, b.grad, rtol=0, atol=1e-6)
 
 
 # -- mlp ---------------------------------------------------------------------

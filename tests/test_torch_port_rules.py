@@ -186,6 +186,7 @@ def _lookup_inputs(levels=3, n=7, dtype=torch.float32):
         ("table_too_large", ValueError),
         ("features", ValueError),
         ("mixed_devices", ValueError),
+        ("key_bits", ValueError),
     ],
 )
 def test_cell_lookup_wrapper_refuses(case, error):
@@ -215,6 +216,9 @@ def test_cell_lookup_wrapper_refuses(case, error):
         feats = 3
     elif case == "mixed_devices":
         pos = pos.to("meta")
+    elif case == "key_bits":  # 32 levels of 2^27 cells: K5's keys would need 32 bits
+        cells = torch.empty(MAX_LEVELS, 2**24, 128, device="meta")
+        pos, res, table = torch.empty(7, 3, device="meta"), (4,) * MAX_LEVELS, 2**27
     with pytest.raises(error):
         cell_lookup(cells, pos, res, table, feats)
 
@@ -233,6 +237,45 @@ def test_cell_lookup_backward_wrapper_refuses_g_out(case):
         g_out = g_out.to("meta")
     with pytest.raises(ValueError):
         cell_lookup_bwd(cells, pos, res, table, 2, g_out)
+
+
+HASH_GRID_CU = REPO / "uncertainty_nerf_gs_torch" / "csrc" / "hash_grid.cu"
+
+
+def _k5_source() -> str:
+    """csrc/hash_grid.cu from K5's first kernel on, comments dropped."""
+    text = HASH_GRID_CU.read_text()
+    text = text[text.index("// -- K5, stage 1"):]
+    return "\n".join(line.split("//")[0] for line in text.splitlines())
+
+
+def test_k5_source_has_no_float_atomic():
+    """K5 adds no float atomically: every atomic in its kernels is an
+    integer count of the sort's histogram (a tile's bins in shared memory,
+    the digit totals), and there is no inline-PTX atom or red."""
+    import re
+
+    src = _k5_source()
+    calls = re.findall(r"\batomic\w*\s*\(\s*([^,]+),", src)
+    assert calls, "the histogram's integer atomics are expected"
+    assert all(re.fullmatch(r"&(hist|totals)\[.*\]", c.strip()) for c in calls), calls
+    for name in ("hist", "totals"):
+        assert re.search(rf"unsigned\*?\s*(__restrict__\s+)?{name}\b|unsigned {name}\[", src), name
+    assert not re.search(r"\b(atom|red)\.", src)
+
+
+def test_k5_path_calls_no_library_sort():
+    """K5's sort is the hand-written one in csrc/hash_grid.cu: no CUB or
+    Thrust there, and no torch.sort, argsort or unique on the Python path
+    from CellLookup.backward to the launch."""
+    from uncertainty_nerf_gs_torch.ops import encodings
+
+    src = HASH_GRID_CU.read_text()
+    assert "#include" in src and not any(lib in src for lib in ("cub/", "thrust", "cub::"))
+    path = "".join(inspect.getsource(f) for f in (
+        CellLookup.backward, encodings.cell_lookup_bwd, encodings._scratch, encodings._entry))
+    assert "cell_lookup_bwd_f32" in path
+    assert not any(call in path for call in ("sort(", "argsort", "unique"))
 
 
 def _composite_inputs(t=3, k=5, c=4, dtype=torch.float32):

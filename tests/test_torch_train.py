@@ -17,11 +17,13 @@ import pytest
 import torch
 
 from torch_parity import (
+    CPU_TRAIN_GRAD_L2,
     MAX_FLIPPED_RAY_SHARE,
     SPLAT_STEP_PARAM_TOL,
     TOL,
-    TRAIN_GRAD_L2,
     TRAIN_LOSS_RTOL,
+    WELL_CONDITIONED_DENSITY_SHIFT,
+    WELL_CONDITIONED_TRAIN_GRAD_L2,
     draw_params,
     grad_l2_error,
     lookup_cells_jax,
@@ -157,15 +159,23 @@ def test_make_optimizer_matches_optax(rng):
 # -- trainer -----------------------------------------------------------------
 
 
-def _trainer_pair(rng, camera_opt, masks=None, background="white"):
+def _trainer_pair(rng, camera_opt, masks=None, background="white", density_shift=0.0):
     """The JAX and the port's NerfactoTrainer with the camera optimizer, on
-    one set of random weights (tables +-2) and random images."""
+    one set of random weights (tables +-2) and random images.
+    ``density_shift`` is added to the bias of every density head (the
+    field's and the proposals'): rays then reach high accumulation."""
     kw = small_config_kwargs(background_color=background)
     images = rng.uniform(0, 1, (N_CAMS, H, W, 3)).astype(np.float32)
     jcams = j_hemisphere(N_CAMS, height=H, width=W, seed=1)
     jtr = JTrainer(jnerf.NerfactoConfig(**kw), jcams, images, use_camera_optimizer=True, masks=masks)
     model_tree = {k: v for k, v in jtr.state.params.items() if k != "camera_opt"}
     tree = draw_params(jax.tree_util.tree_map(np.asarray, model_tree), rng)
+    if density_shift:
+        tree["field"]["density_head"]["bias"] += np.float32(density_shift)
+        for name in tree:
+            if name.startswith("proposal_"):
+                last = sorted(tree[name]["mlp"])[-1]
+                tree[name]["mlp"][last]["bias"] += np.float32(density_shift)
     if camera_opt == "zero":
         tree["camera_opt"] = np.zeros((N_CAMS, 6), np.float32)
     else:
@@ -206,9 +216,10 @@ def _batches(images, rows):
     return j, t
 
 
-def _flipped_rays(jtr, ttr, tree, jb, tb, draws, rng_key, step) -> np.ndarray:
+def _flipped_rays(jtr, ttr, tree, jb, tb, draws, rng_key, step) -> tuple[np.ndarray, dict]:
     """(R,) bool: rays one of whose lookups lands in another cell in the two
-    packages' training forwards on this batch and these draws."""
+    packages' training forwards on this batch and these draws; and the
+    port's outputs."""
     cfg = jtr.config
     anneal = jnerf.proposal_anneal_factor(jnp.int32(step), cfg)
     k_model, _ = jax.random.split(rng_key)
@@ -224,18 +235,20 @@ def _flipped_rays(jtr, ttr, tree, jb, tb, draws, rng_key, step) -> np.ndarray:
                           proposal_anneal=tnerf.proposal_anneal_factor(step, ttr.config))
     want = lookup_cells_jax(cfg, j_rb, j_out["sdist_list"])
     got = ttr.model.lookup_cells(t_rb, t_out["sdist_list"]).numpy()
-    return (want != got).any(axis=1)
+    return (want != got).any(axis=1), t_out
 
 
 def train_loss_and_grads(rng, camera_opt, background="white", num_rays=96, step=300, seed=3,
-                         jit=True):
+                         jit=True, density_shift=0.0, outputs=None):
     """One batch's loss terms and gradients in both packages (JAX's under
     ``jax.jit`` unless ``jit`` is False). Rays whose
     lookups flipped a cell are replaced by fresh rays until none flips (the
     batch keeps its size, so that JAX's draws for each row stay the same).
     Returns (want_terms, got_terms, want_grads and got_grads by torch name,
-    rays replaced)."""
-    jtr, ttr, tree, images = _trainer_pair(rng, camera_opt, background=background)
+    rays replaced); a dict passed as ``outputs`` receives the port's
+    forward outputs on the final batch."""
+    jtr, ttr, tree, images = _trainer_pair(rng, camera_opt, background=background,
+                                           density_shift=density_shift)
 
     def fresh(n):
         return np.stack([rng.integers(0, N_CAMS, n), rng.integers(0, H, n), rng.integers(0, W, n)], axis=1)
@@ -246,7 +259,9 @@ def train_loss_and_grads(rng, camera_opt, background="white", num_rays=96, step=
     replaced = 0
     for _ in range(6):
         jb, tb = _batches(images, rows)
-        flipped = _flipped_rays(jtr, ttr, tree, jb, tb, draws, rng_key, step)
+        flipped, t_out = _flipped_rays(jtr, ttr, tree, jb, tb, draws, rng_key, step)
+        if outputs is not None:
+            outputs.update(t_out)
         if not flipped.any():
             break
         replaced += int(flipped.sum())
@@ -271,11 +286,13 @@ def test_trainer_loss_and_grads_match_jax(rng, camera_opt, background):
     ``_loss_fn``, on one batch of 96 rays at step 300 (annealing active),
     camera tangents at their zero start and at random, on a fixed and on
     the last-sample background: every loss term within TRAIN_LOSS_RTOL,
-    every gradient leaf (fields, proposals, camera_opt) within TRAIN_GRAD_L2
-    in relative L2 norm, on rays none of whose lookups crossed a cell face
-    between the packages."""
-    want_terms, got_terms, want_grads, got_grads, replaced = train_loss_and_grads(
-        rng, camera_opt, background)
+    every gradient leaf (fields, proposals, camera_opt) within
+    CPU_TRAIN_GRAD_L2 in relative L2 norm, on rays none of whose lookups
+    crossed a cell face between the packages."""
+    _check_train_parity(*train_loss_and_grads(rng, camera_opt, background), CPU_TRAIN_GRAD_L2)
+
+
+def _check_train_parity(want_terms, got_terms, want_grads, got_grads, replaced, grad_bar):
     assert replaced <= MAX_FLIPPED_RAY_SHARE * 96 * 2
     assert set(got_terms) == set(want_terms)
     for k in want_terms:
@@ -285,8 +302,23 @@ def test_trainer_loss_and_grads_match_jax(rng, camera_opt, background):
     for k, want in want_grads.items():
         got = got_grads[k]
         assert got.shape == want.shape and torch.isfinite(got).all(), k
-        assert grad_l2_error(k, got, want) <= TRAIN_GRAD_L2, (k, grad_l2_error(k, got, want))
+        assert grad_l2_error(k, got, want) <= grad_bar, (k, grad_l2_error(k, got, want))
     assert want_grads["camera_opt"].abs().max() > 0
+
+
+def test_trainer_loss_and_grads_match_jax_well_conditioned(rng):
+    """As above, on weights whose density heads are raised by
+    WELL_CONDITIONED_DENSITY_SHIFT: most rays reach high accumulation, so
+    their rendered rgb variance stays far above its 1e-6 floor and the NLL's
+    gradients are not dominated by the floor's division. Every gradient
+    within WELL_CONDITIONED_TRAIN_GRAD_L2 (tests/torch_parity.py)."""
+    outputs = {}
+    result = train_loss_and_grads(rng, "random", "white", density_shift=WELL_CONDITIONED_DENSITY_SHIFT,
+                                  outputs=outputs)
+    acc, rgb_var = outputs["accumulation"], outputs["rgb_var"]
+    assert float(torch.median(acc)) > 0.9 and float(rgb_var.min()) > 1e-4, (
+        float(torch.median(acc)), float(rgb_var.min()))
+    _check_train_parity(*result, WELL_CONDITIONED_TRAIN_GRAD_L2)
 
 
 def test_sample_batch_with_masks_never_draws_masked_pixel(rng):

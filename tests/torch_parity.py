@@ -55,10 +55,16 @@ OUTPUT_TOLS = {
 MAX_FLIPPED_RAY_SHARE = 0.1
 # chip_smoke.py's training step, kernel path against plain path at full
 # width (4,096 rays over 256 -> 96 -> 48 samples, 26 levels, random tables
-# +-2), flips far more rays than a render chunk does: 1,537 of 4,096 at
-# step 5, against 253 of 4,096 for the render's chunk (NVIDIA H100 80GB
-# HBM3, 700.00 W, chip_smoke.py). The bound keeps half the batch.
-MAX_FLIPPED_TRAIN_RAY_SHARE = 0.5
+# +-2). Until K1's plain version summed in K1's order, 1,526-1,555 of 4,096
+# rays flipped a cell there (bar 0.5): an empty bin's cdf step is 0.01 / S
+# of the total, and a last-bit difference in the cdf, divided by it, moved
+# the first resampling's edges by up to 1.4e-5. With both versions summing
+# in float64 in K1's association (bit-identical on the same inputs), 83 of
+# 4,096 flip in two runs of one call (0.020; all in the main field's
+# lookups, from K4's last-bit differences in the proposals' densities;
+# NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py). The bar is the smallest
+# round value above that.
+MAX_FLIPPED_TRAIN_RAY_SHARE = 0.03
 
 # The splat path (tests/test_torch_splat_*.py and chip_smoke.py). The
 # compositor's bars are the JAX package's own Pallas-vs-XLA bars
@@ -94,7 +100,7 @@ PACKED_FAMILIES = {
 }
 # The hash-grid lookup's backward (K5 on the card, autograd through the
 # plain lookup elsewhere) sums each cell's contributions in another order:
-# with atomics, in an order that changes from launch to launch. A cell of a
+# K5 in a fixed tree over the cell's lookups sorted by id. A cell of a
 # coarse dense level takes hundreds of lookups, a hashed level's a few, so
 # a cell gradient is held level by level against the largest entry of its
 # own level, and the position gradient against its own largest entry, at
@@ -106,19 +112,30 @@ GRID_GRAD_TOL = SPLAT_GRAD_TOL
 # rendered rgb variance, which two float32 orderings move by up to 1e-2
 # relative on rays of low accumulation (MOMENT_TOL); with random weights
 # such rays dominate the loss and its gradients. A gradient is held in
-# relative L2 norm (``grad_l2_error``), a cell table level by level.
-# Measured: on the trainer test's inputs the JAX package's own jitted
-# gradient is up to 3.1e-2 from its eager one (camera_opt) and its loss
-# 1.1e-3 relative, the port up to 4.1e-2 and 1.6e-3 from the jitted JAX
-# (``python tests/torch_parity_report.py train``); on the card at full
-# width the kernel path is 5.4e-2 to 8.6e-2 from the plain path (the main
-# field's cells; the state after five steps differs from run to run, since
-# K5's atomics add in no fixed order) and up to 3.9e-4 on the loss (NVIDIA
-# H100 80GB HBM3, 700.00 W, chip_smoke.py). A missing stop-gradient
-# (the last-sample background's) moves the field's gradients by 30 times
-# their norm.
+# relative L2 norm (``grad_l2_error``), a cell table level by level. A
+# missing stop-gradient (the last-sample background's) moves the field's
+# gradients by 30 times their norm. Numbers from ``python
+# tests/torch_parity_report.py train`` (CPU) and chip_smoke.py (card):
+# * TRAIN_GRAD_L2, the card's training check: the kernel path is 2.264e-2
+#   from the plain path (the main field's cells; camera_opt 4.4e-3), the
+#   same in two runs of one call, since the step now repeats bit for bit
+#   (NVIDIA H100 80GB HBM3, 700.00 W); before, 5.4e-2 to 8.6e-2 (bar 2e-1).
+#   The bar keeps a margin of 2.
+# * CPU_TRAIN_GRAD_L2, the trainer test's two random-weight cases, port
+#   against the jitted JAX gradients: up to 3.18e-2 (camera_opt of the
+#   last-sample case; its field cells 2.31e-2; the other case 8.8e-3); the
+#   JAX package's own eager gradients are 3.16e-2 from its jitted ones
+#   there, so the bar keeps a margin of 1.6 over both.
+# * WELL_CONDITIONED_TRAIN_GRAD_L2, the same test with every density head's
+#   bias raised by WELL_CONDITIONED_DENSITY_SHIFT: accumulation 0.999 to 1,
+#   rgb variances 0.035 and above, far off the 1e-6 floor; the port is up
+#   to 1.41e-4 from JAX (camera_opt; JAX eager 1.25e-4). The bar keeps a
+#   margin of about 7.
 TRAIN_LOSS_RTOL = 5e-3
-TRAIN_GRAD_L2 = 2e-1
+TRAIN_GRAD_L2 = 4.5e-2
+CPU_TRAIN_GRAD_L2 = 5e-2
+WELL_CONDITIONED_DENSITY_SHIFT = 6.0
+WELL_CONDITIONED_TRAIN_GRAD_L2 = 1e-3
 
 
 def grad_l2_error(name, got, want) -> float:

@@ -141,10 +141,19 @@ def train() -> None:
     from test_torch_train import train_loss_and_grads
     from torch_parity import grad_l2_error
 
-    for case in (("zero", "white"), ("random", "last_sample")):
-        want, got, want_g, got_g, replaced = train_loss_and_grads(np.random.default_rng(0), *case)
-        eager, _, eager_g, _, _ = train_loss_and_grads(np.random.default_rng(0), *case, jit=False)
-        print(f"train {case}: {replaced} rays replaced for flipping a cell")
+    from torch_parity import WELL_CONDITIONED_DENSITY_SHIFT
+
+    # the trainer test's two cases, then its well-conditioned one
+    for case in (("zero", "white", 0.0), ("random", "last_sample", 0.0),
+                 ("random", "white", WELL_CONDITIONED_DENSITY_SHIFT)):
+        outputs = {}
+        want, got, want_g, got_g, replaced = train_loss_and_grads(
+            np.random.default_rng(0), *case[:2], density_shift=case[2], outputs=outputs)
+        eager, _, eager_g, _, _ = train_loss_and_grads(
+            np.random.default_rng(0), *case[:2], jit=False, density_shift=case[2])
+        acc, var = outputs["accumulation"], outputs["rgb_var"]
+        print(f"train {case}: {replaced} rays replaced for flipping a cell; accumulation median "
+              f"{float(acc.median()):.3f}, min {float(acc.min()):.3f}; rgb_var min {float(var.min()):.2e}")
         for k in want:
             print(f"  {k:16s} port {abs(got[k] - want[k]) / abs(want[k]):.2e}  "
                   f"JAX eager {abs(eager[k] - want[k]) / abs(want[k]):.2e}")

@@ -9,6 +9,12 @@
 //   for each query u[r, j]: i = last index with cdf[i] <= u, clipped to
 //   [0, S-1]; out = e0 + frac * (e1 - e0) with frac = (u - c0) /
 //   max(c1 - c0, 1e-12) where c1 > c0, else 0.
+// The sums (the total, the normalised pdf and its scan) are taken in
+// float64 and each cdf entry is rounded to float32 once: the cdf is then
+// the correctly rounded one, up to float64's own error. The plain version
+// (ops/pdf_resample.py::_k1_cdf) takes the same float64 sums in this
+// kernel's association and nothing here contracts to an fma, so both give
+// the same bits on the same inputs.
 //
 // What bounds it on an H100: bytes. At R = 4096 rays, S = 256 bins, N = 97
 // queries with every row dense it reads weights, edges and u and writes the
@@ -77,7 +83,7 @@ int rays_per_block(int num_bins) {
     return fit < 1 ? 1 : (fit < kMaxRaysPerBlock ? fit : kMaxRaysPerBlock);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+__device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
     return v;
@@ -148,48 +154,52 @@ pdf_resample_kernel(const float* __restrict__ weights,
     for (int k = 0; k < kQueries; ++k)
         q[k] = lane + 32 * k < num_queries ? u_row[lane + 32 * k] : 0.0f;
 
-    float local = 0.0f;
+    // the sums in float64: each cdf entry is rounded to float32 once
+    const double hp = hist_pad;
+    double local = 0.0;
 #pragma unroll
     for (int k = 0; k < kPer; ++k)
-        if (kPer * lane + k < num_bins) local += w[k] + hist_pad;
+        if (kPer * lane + k < num_bins) local += static_cast<double>(w[k]) + hp;
     for (int base = kTile; base < num_bins; base += kTile) {
         float v[kPer];
         load_run(v, w_row, base + kPer * lane, num_bins, vec);
 #pragma unroll
         for (int k = 0; k < kPer; ++k)
-            if (base + kPer * lane + k < num_bins) local += v[k] + hist_pad;
+            if (base + kPer * lane + k < num_bins) local += static_cast<double>(v[k]) + hp;
     }
-    const float w_sum = warp_sum(local);
-    const float padding = fmaxf(eps - w_sum, 0.0f);
-    const float pad_bin = padding / num_bins;
-    const float denom = w_sum + padding;
+    const double w_sum = warp_sum(local);
+    const double padding = fmax(static_cast<double>(eps) - w_sum, 0.0);
+    const double pad_bin = padding / num_bins;
+    const double denom = w_sum + padding;
 
     // the pdf's inclusive scan: sequential within a lane's run, a warp scan
     // of the run totals, a carry from tile to tile
-    float carry = 0.0f;
+    double carry = 0.0;
     for (int base = 0; base < num_bins; base += kTile) {
         const int lo = base + kPer * lane;
         if (base > 0) load_run(w, w_row, lo, num_bins, vec);
-        float run = 0.0f;
+        double pdf[kPer];
+        double run = 0.0;
 #pragma unroll
         for (int k = 0; k < kPer; ++k) {
-            w[k] = lo + k < num_bins ? ((w[k] + hist_pad) + pad_bin) / denom : 0.0f;
-            run += w[k];
+            pdf[k] = lo + k < num_bins ? ((static_cast<double>(w[k]) + hp) + pad_bin) / denom : 0.0;
+            run += pdf[k];
         }
-        float incl = run;
+        double incl = run;
 #pragma unroll
         for (int off = 1; off < 32; off <<= 1) {
-            const float n = __shfl_up_sync(kFull, incl, off);
+            const double n = __shfl_up_sync(kFull, incl, off);
             if (lane >= off) incl += n;
         }
-        float acc = __shfl_up_sync(kFull, incl, 1);
-        acc = carry + (lane == 0 ? 0.0f : acc);
+        double acc = __shfl_up_sync(kFull, incl, 1);
+        acc = carry + (lane == 0 ? 0.0 : acc);
         carry += __shfl_sync(kFull, incl, 31);
 #pragma unroll
         for (int k = 0; k < kPer; ++k) {
-            acc += w[k];
+            acc += pdf[k];
             // entries past S are +inf for the search
-            w[k] = lo + k < num_bins ? fminf(fmaxf(acc, 0.0f), 1.0f) : __int_as_float(0x7f800000);
+            w[k] = lo + k < num_bins ? static_cast<float>(fmin(fmax(acc, 0.0), 1.0))
+                                     : __int_as_float(0x7f800000);
         }
 #pragma unroll
         for (int k = 0; k < kPer; k += 4)
@@ -224,7 +234,8 @@ pdf_resample_kernel(const float* __restrict__ weights,
                 const float c0 = cdf[idx], c1 = cdf[idx + 1];
                 const float e0 = edg[idx], e1 = edg[idx + 1];
                 const float frac = c1 > c0 ? (q[k] - c0) / fmaxf(c1 - c0, 1e-12f) : 0.0f;
-                o_row[j] = e0 + frac * (e1 - e0);
+                // no fma contraction: the plain version rounds the product
+                o_row[j] = __fadd_rn(e0, __fmul_rn(frac, __fsub_rn(e1, e0)));
             }
             const int next = j + 32 * kQueries;
             q[k] = next < num_queries ? u_row[next] : 0.0f;

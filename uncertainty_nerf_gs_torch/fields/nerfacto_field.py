@@ -196,7 +196,10 @@ class NerfactoField(nn.Module):
             if use_average_appearance:
                 embed = torch.mean(self.appearance_embedding.weight, dim=0).expand(shape)
             else:
-                embed = self.appearance_embedding(camera_indices)[..., None, :]
+                # an index, not the module's call: its backward is index_put's
+                # sorted accumulation, which adds in a fixed order on the card
+                # (nn.Embedding's backward does not)
+                embed = self.appearance_embedding.weight[camera_indices][..., None, :]
                 embed = embed.expand(shape)
             parts.append(embed)
         return self.color_trunk(torch.cat(parts, dim=-1))

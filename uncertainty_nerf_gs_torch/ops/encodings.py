@@ -10,10 +10,12 @@ gathers one (8, F) block per sample and level and needs no one-hot selects.
 
 ``cell_lookup`` is the kernel pair's wrapper: on a CUDA tensor it launches
 ``csrc/hash_grid.cu`` (K4 forward: index, gather and trilerp of every level
-in one launch; K5 backward: the scatter-add into the cells and the position
-gradient), on a CPU tensor it runs ``cell_lookup_reference``, the plain
-version, and autograd through it. ``CellLookup`` records the forward's
-choice, so its backward follows it.
+in one launch; K5 backward: the lookups sorted by cell with a hand-written
+stable radix sort of ``cell_keys_reference``'s keys, then each cell's sum
+taken in a fixed order and stored once, with no float atomic, so that two
+launches give the same bits), on a CPU tensor it runs
+``cell_lookup_reference``, the plain version, and autograd through it.
+``CellLookup`` records the forward's choice, so its backward follows it.
 """
 
 from __future__ import annotations
@@ -152,8 +154,29 @@ def cell_lookup_vjp_reference(
     return grads[0], (grads[1] if need_positions else None)
 
 
+def key_bits(num_levels: int, table_size: int) -> tuple[int, int]:
+    """(bits of the cell index, bits of the whole key) of the keys K5 sorts:
+    the level above the cell index."""
+    cell = max(int(table_size) - 1, 0).bit_length()
+    return cell, cell + max(int(num_levels) - 1, 0).bit_length()
+
+
+def cell_keys_reference(positions: torch.Tensor, resolutions, table_size: int) -> torch.Tensor:
+    """Plain version of K5's keys: (n * L,) int64, lookup (i, l) at i * L + l,
+    key = l << cell_bits | cell index. Sorting them orders the lookups
+    level-major, then by cell."""
+    resolutions = np.asarray(resolutions)
+    cell_bits, _ = key_bits(len(resolutions), table_size)
+    keys = [
+        cell_indices(positions, int(res), table_size)[0] | (lvl << cell_bits)
+        for lvl, res in enumerate(resolutions)
+    ]
+    return torch.stack(keys, dim=1).reshape(-1)
+
+
 KERNEL = "hash_grid"
 MAX_LEVELS = 32  # csrc/hash_grid.cu's per-level constants
+MAX_KEY_BITS = 31  # csrc/hash_grid.cu's keys leave the top bit free
 
 
 def _check(cells, positions, resolutions, table_size, features_per_level) -> None:
@@ -179,26 +202,42 @@ def _check(cells, positions, resolutions, table_size, features_per_level) -> Non
     cpr = 128 // (8 * features_per_level)
     if not 1 <= table_size <= cells.shape[1] * cpr:
         raise ValueError(f"table_size {table_size} exceeds the {cells.shape[1] * cpr} cells a level")
+    if key_bits(levels, table_size)[1] > MAX_KEY_BITS:
+        raise ValueError(f"{levels} levels of {table_size} cells need more than {MAX_KEY_BITS} key bits")
     if positions.shape[0] * levels >= 2**31:
         raise ValueError(f"{positions.shape[0]} positions x {levels} levels is too many lookups")
+
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = {
+    "cell_lookup_fwd_f32": [_P, _P, _P, _I, _I, _L, _I, _I, _P, _P],
+    "cell_lookup_bwd_f32": [_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _P, _P, _L, _P],
+    "cell_lookup_sort_u32": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _L, _P],
+    "cell_lookup_bwd_scratch_bytes": [_I, _I, _I, _I],
+}
 
 
 def _entry(name: str):
     """A C entry point of the kernel library, built and loaded at first use."""
     fn = getattr(backend.load_library(KERNEL), name)
     if fn.argtypes is None:
-        ptrs = 3 if name == "cell_lookup_fwd_f32" else 5
-        fn.argtypes = [ctypes.c_void_p] * ptrs + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_longlong if name.endswith("scratch_bytes") else ctypes.c_int
     return fn
 
 
 def _level_args(cells, resolutions, table_size, features_per_level):
     res = (ctypes.c_int * len(resolutions))(*resolutions)
     return (cells.shape[0], cells.shape[1] * 128, table_size, features_per_level, res)
+
+
+def _scratch(n, levels, table_size, features_per_level, device) -> torch.Tensor:
+    """K5's scratch buffer (keys, ids, the sort's counts, the partial sums of
+    cells whose lookups cross a chunk boundary), as its source sizes it."""
+    nbytes = _entry("cell_lookup_bwd_scratch_bytes")(n, levels, table_size, features_per_level)
+    if nbytes < 0:
+        raise ValueError(f"K5 takes no {n} x {levels} lookups into {table_size} cells")
+    return torch.empty(max(nbytes, 1), dtype=torch.uint8, device=device)
 
 
 def cell_lookup_fwd(cells, positions, resolutions, table_size, features_per_level):
@@ -230,19 +269,40 @@ def cell_lookup_bwd(cells, positions, resolutions, table_size, features_per_leve
                          f"{tuple(g_out.shape)} strides {g_out.stride()}")
     if g_out.device != cells.device:
         raise ValueError(f"g_out is on {g_out.device}, cells on {cells.device}")
-    g_cells = torch.zeros_like(cells)
-    g_pos = torch.zeros_like(positions) if need_positions else None
+    g_cells = torch.zeros_like(cells)  # cells no lookup touches keep their zero
+    g_pos = torch.empty_like(positions) if need_positions else None  # written in full
+    scratch = _scratch(n, cells.shape[0], table_size, features_per_level, cells.device)
     with torch.cuda.device(cells.device):
         err = _entry("cell_lookup_bwd_f32")(
             positions.data_ptr(), cells.data_ptr(), g_out.data_ptr(), g_cells.data_ptr(),
             None if g_pos is None else g_pos.data_ptr(), n,
             *_level_args(cells, resolutions, table_size, features_per_level),
-            backend.current_stream_handle(cells.device),
+            scratch.data_ptr(), scratch.numel(), backend.current_stream_handle(cells.device),
         )
     if err != 0:
         raise RuntimeError(f"cell_lookup_bwd launch failed: CUDA error {err}")
     backend.count_launch("cell_lookup_bwd")
     return g_cells, g_pos
+
+
+def cell_lookup_sort(positions, resolutions, table_size):
+    """K5's keys and its hand-written stable sort of them, on the card, for
+    checks (not counted as a K5 launch): (keys in lookup order, sorted keys,
+    the sorting permutation), (n * L,) int32 each. The keys equal
+    ``cell_keys_reference``'s; the permutation is the stable one."""
+    resolutions = tuple(int(r) for r in np.asarray(resolutions))
+    n, levels = positions.shape[0], len(resolutions)
+    outs = [torch.empty(n * levels, dtype=torch.int32, device=positions.device) for _ in range(3)]
+    scratch = _scratch(n, levels, table_size, 1, positions.device)
+    with torch.cuda.device(positions.device):
+        err = _entry("cell_lookup_sort_u32")(
+            positions.data_ptr(), n, levels, table_size,
+            (ctypes.c_int * levels)(*resolutions), *(o.data_ptr() for o in outs),
+            scratch.data_ptr(), scratch.numel(), backend.current_stream_handle(positions.device),
+        )
+    if err != 0:
+        raise RuntimeError(f"cell_lookup_sort launch failed: CUDA error {err}")
+    return tuple(outs)
 
 
 class CellLookup(torch.autograd.Function):

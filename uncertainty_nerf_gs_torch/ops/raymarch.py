@@ -78,6 +78,18 @@ def depth_variance(
 # ---------------------------------------------------------------------------
 
 
+def take_rows(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``torch.gather(values, -1, idx)`` written as an index into the
+    flattened values. Its backward is index_put's accumulation, which on
+    the card sorts the indices and adds each entry's gradients in order;
+    gather's backward is a scatter_add whose float atomics add in no fixed
+    order, so a training step would not repeat bit for bit."""
+    k, m = values.shape[-1], idx.shape[-1]
+    flat = values.reshape(-1, k)
+    rows = torch.arange(flat.shape[0], device=idx.device)[:, None] * k
+    return flat.reshape(-1)[idx.reshape(-1, m) + rows].reshape(idx.shape)
+
+
 def _outer_measure(t0: torch.Tensor, t1: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
     """For each interval of t0, the total w1 mass of the t1 bins that
     overlap it. t0: (R, S0+1) query edges; t1: (R, S1+1) envelope edges;
@@ -89,7 +101,7 @@ def _outer_measure(t0: torch.Tensor, t1: torch.Tensor, w1: torch.Tensor) -> torc
     top = cw1.shape[-1] - 1
     idx_lo = torch.clamp(idx_lo, 0, top)
     idx_hi = torch.clamp(idx_hi, 0, top)
-    return torch.gather(cw1, -1, idx_hi) - torch.gather(cw1, -1, idx_lo)
+    return take_rows(cw1, idx_hi) - take_rows(cw1, idx_lo)
 
 
 def interlevel_loss(
