@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--k4-against OTHER_CHECKOUT]
 
 Builds the port's hand-written CUDA kernels from ``uncertainty_nerf_gs_torch/
 csrc`` with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, all started
@@ -15,18 +15,21 @@ tile with no rows, a one-channel payload, and hand-built tiles whose row
 counts end ragged against K3's row groups and K2/K3's 128-row batches at 1,
 5, 6 and 16 channels; K3 twice on the same full-width inputs, bit for bit;
 and the hash-grid lookup (K4 forward, K5 backward) at the main path's three
-shapes, a ragged count and F = 4, with K5 launched twice on every case and
-required bit for bit, its hand-written sort held equal to
-``torch.sort(stable=True)``, and K5 also run and timed on the clustered
-positions of real training forwards. Then it drives both slices of the port
+shapes, a ragged count, F = 4 and F = 1, with K4 required equal to its
+plain version bit for bit (also at the positions of real training forwards
+and of a render's eval chunks, captured by forward hooks, where it is timed
+too), K5 launched twice on every case and required bit for bit, its
+hand-written sort held equal to ``torch.sort(stable=True)``, and K5 also run
+and timed on the training forwards' positions. Then it drives both slices of the port
 at full width with random weights from a seed: two 256x256 images and five
 training steps of active-nerfacto through ``NerfactoTrainer``, and two
 640x480 images and five training steps of active-splatfacto (65,536
 Gaussian slots) through ``SplatfactoTrainer``, checks from the launch
 counters that each went through its kernels, holds each against the same
 work on the plain versions (inside ``backend.plain_versions()``, where no
-kernel may launch; for the training step with a replay of the first
-resampler's inputs and a count of flipped rays by field), requires two
+kernel may launch: the forwards bit for bit, the training step's gradients
+within a bar; the flipped rays are counted by field and the first
+resampler's inputs replayed), requires two
 nerfacto training steps from one restored state to be bit-identical, lists
 what ``torch.use_deterministic_algorithms(True, warn_only=True)`` flags in
 a step, and profiles one image and one step. Exits non-zero, with no result
@@ -34,6 +37,12 @@ line, when there is no card or any phase fails. The last line of standard
 output is a JSON object naming the device; the line before it the card's
 name and power limit; before that a ``{"kernels": [...]}`` line with each
 kernel's launches, error, times and bound.
+
+``--k4-against OTHER_CHECKOUT`` also builds that checkout's ``uncertainty_
+nerf_gs_torch/csrc/hash_grid.cu`` (for example the parent commit unpacked
+with ``git archive``; it must have the same ``cell_lookup_fwd_f32`` entry
+point), holds its K4 within TOL of the plain version and times it in turns
+with this K4 at every shape and position set K4 is timed at.
 """
 
 from __future__ import annotations
@@ -52,9 +61,6 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 from torch_parity import (  # noqa: E402  (the tolerances the CPU tests hold)
     GRID_GRAD_TOL,
     TRAIN_GRAD_L2,
-    TRAIN_LOSS_RTOL,
-    MAX_FLIPPED_RAY_SHARE,
-    MAX_FLIPPED_TRAIN_RAY_SHARE,
     OUTPUT_TOLS,
     PACKED_FAMILIES,
     SPLAT_FWD_ATOL,
@@ -148,6 +154,30 @@ def kernel_times(name, kernel, plain, sets, symbol) -> dict:
     return dict(ms=ms, plain_ms=plain_ms, event_ms=event_ms, plain_event_ms=plain_event_ms,
                 ms_from=source, parts=parts, others=others,
                 kernel_launches=sum(c for c, _ in own.values()) / len(sets))
+
+
+def device_ms(fn, sets, symbol) -> float:
+    """Device time per call of ``fn`` over ``sets``: the profiler's time of
+    the kernels whose name holds ``symbol``, else CUDA events."""
+    event_ms = time_ms(fn, sets)
+    traced, _ = device_kernels(lambda: [fn(*a) for a in sets])
+    own = [us for k, (_, us) in traced.items() if symbol in k]
+    return 1e-3 * sum(own) / len(sets) if own else event_ms
+
+
+def ptxas_summary(report: str, symbol: str) -> list[str]:
+    """``ptxas -v``'s lines (registers, shared memory, stack and spills) for
+    each instantiation of the kernels whose mangled name holds ``symbol``."""
+    out, current = [], None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            current = line.split("'")[1]
+        elif "Function properties for" in line:
+            current = line.rsplit(" ", 1)[-1].strip()
+        elif current and symbol in current and any(
+                k in line for k in ("registers", "stack frame", "spill")):
+            out.append(f"{current}: {line.split('info    :')[-1].strip()}")
+    return out
 
 
 def kernel_name(key: str) -> str:
@@ -594,13 +624,27 @@ def grid_inputs(levels, max_res, log2, n, gen, device, features=2):
 
 def encoded_cells(cells, features):
     """Cells whose corners all hold their own cell index k as (k % 1024,
-    k // 1024, 0, ...): a lookup's features then round to its cell."""
+    k // 1024, 0, ...), or as k at F = 1: a lookup's features then round to
+    its cell."""
     levels, n_rows, _ = cells.shape
     k = torch.arange(n_rows * 128 // (8 * features), device=cells.device, dtype=torch.float32)
     code = torch.zeros(levels, k.shape[0], 8, features, device=cells.device)
-    code[..., 0] = (k % 1024)[None, :, None]
-    code[..., 1] = torch.div(k, 1024, rounding_mode="floor")[None, :, None]
+    if features == 1:
+        assert k.shape[0] <= 2**16, "k must round back exactly from one float"
+        code[..., 0] = k[None, :, None]
+    else:
+        code[..., 0] = (k % 1024)[None, :, None]
+        code[..., 1] = torch.div(k, 1024, rounding_mode="floor")[None, :, None]
     return code.reshape(cells.shape)
+
+
+def decoded_cells(code) -> torch.Tensor:
+    """(L, n) int64: the cell each lookup read, from K4's (n, L, F) output
+    on ``encoded_cells``."""
+    chosen = torch.round(code[..., 0])
+    if code.shape[-1] > 1:
+        chosen = chosen + 1024 * torch.round(code[..., 1])
+    return chosen.long().t()
 
 
 def grid_lookups(pos, res, table):
@@ -729,25 +773,137 @@ def capture_lookup_positions(trainer, steps: int = 2) -> list[list[torch.Tensor]
     return sets
 
 
-def check_hash_grid(cfg, device, clustered) -> dict:
+def capture_render_positions(trainer, idx: int = 1) -> list[list[torch.Tensor]]:
+    """The positions each ``CellHashEncoding`` is queried at in two eval
+    chunks of ``render_image(idx)`` (the middle chunk of the image and the
+    next), by a forward hook on each encoding: per chunk, [proposal 0,
+    proposal 1, field] as (n, 3)."""
+    fields = trainer.model._fields()
+    chunks = -(-trainer.cameras.height * trainer.cameras.width // trainer.config.eval_num_rays_per_chunk)
+    keep = {chunks // 2, chunks // 2 + 1}
+    calls, seen = [0], {}
+
+    def hook(mod, args, out):
+        chunk = calls[0] // len(fields)
+        if chunk in keep:
+            seen.setdefault(chunk, []).append(args[0].detach().reshape(-1, 3).clone())
+        calls[0] += 1
+
+    hooks = [field.encoding.register_forward_hook(hook) for field in fields]
+    try:
+        trainer.render_image(idx)
+    finally:
+        for h in hooks:
+            h.remove()
+    return [seen[c] for c in sorted(keep)]
+
+
+def other_k4(checkout):
+    """Starts ``nvcc`` on another checkout's ``hash_grid.cu`` (for example
+    the parent commit unpacked with ``git archive``) with the port's flags,
+    into ``build/torch_kernels/``. Returns a function that waits for it,
+    prints its K4's ``ptxas -v`` lines and returns a K4 call through that
+    library, ``run(cells, positions, res, table, f)`` (no launch counted)."""
+    import ctypes
+    import hashlib
+
+    from uncertainty_nerf_gs_torch.ops import backend
+    from uncertainty_nerf_gs_torch.ops import encodings as enc
+
+    src = Path(checkout).resolve() / "uncertainty_nerf_gs_torch" / "csrc" / "hash_grid.cu"
+    backend.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = backend.BUILD_DIR / f"other_k4-{hashlib.sha256(src.read_bytes()).hexdigest()[:16]}.so"
+    proc = subprocess.Popen([backend._nvcc(), *backend.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out),
+                             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def finish():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src}:\n{log}")
+        for line in ptxas_summary(log, "cell_lookup_fwd_kernel"):
+            print(f"other K4 ptxas: {line}")
+        fn = ctypes.CDLL(str(out)).cell_lookup_fwd_f32
+        fn.argtypes, fn.restype = enc._ARGTYPES["cell_lookup_fwd_f32"], ctypes.c_int
+
+        def run(cells, pos, res, table, f):
+            got = torch.empty((pos.shape[0], cells.shape[0] * f), dtype=torch.float32, device=cells.device)
+            err = fn(pos.data_ptr(), cells.data_ptr(), got.data_ptr(), pos.shape[0],
+                     *enc._level_args(cells, res, table, f), backend.current_stream_handle(cells.device))
+            if err != 0:
+                raise RuntimeError(f"the other K4's launch failed: CUDA error {err}")
+            return got
+
+        return run
+
+    return finish
+
+
+def k4_times(name, cells, sets, res, table, f, positions, other=None) -> dict:
+    """K4 and its plain version per call over ``sets`` of (positions, g_out),
+    beside the bound of the first set's distinct cells, the bound counting
+    every lookup's cell, and ``index_select`` of the same rows (the
+    yardstick; the port never calls it). With ``other`` (``other_k4``), that
+    K4 is held within TOL of the plain version and timed in turns with this
+    one, other, this, this, other (``turns_ms``)."""
+    from uncertainty_nerf_gs_torch.ops import encodings as enc
+
+    n, levels = sets[0][0].shape[0], len(res)
+    tm = kernel_times(f"{name} K4 {positions}", lambda p, g: enc.cell_lookup_fwd(cells, p, res, table, f),
+                      lambda p, g: enc.cell_lookup_reference(cells, p, res, table, f), sets,
+                      "cell_lookup_fwd_kernel")
+    blocks = cells.reshape(levels, -1, 8, f)
+    lib_sets = [[grid_lookups(p, res, table)] for p, _ in sets]
+    library_ms = time_ms(lambda ix: [blocks[l].index_select(0, ix[l]) for l in range(levels)], lib_sets)
+    uniq = sum(int(torch.unique(row).numel()) for row in lib_sets[0][0])
+    bound, bound_by, nbytes, ops = grid_bound_ms(n, levels, f, uniq, False)
+    every, _, every_bytes, _ = grid_bound_ms(n, levels, f, n * levels, False)
+    tm.update(field=name, positions=positions, shape=[n, levels, f, table], bound_ms=bound,
+              bound_by=bound_by, bytes=nbytes, operations=ops, unique_cells=uniq,
+              every_lookup_bound_ms=every, library_ms=library_ms)
+    print(f"K4 {name} ({n} samples x {levels} levels, {positions} positions): kernel "
+          f"{tm['ms']:.4f} ms on the device ({tm['event_ms']:.4f} ms a call back to back), "
+          f"plain {tm['plain_ms']:.4f} ms ({tm['plain_event_ms']:.4f}), bound {bound:.4f} ms "
+          f"({bound_by}: {nbytes / 1e6:.1f} MB, {uniq} distinct cells of {n * levels} lookups; "
+          f"{every:.4f} ms, {every_bytes / 1e6:.1f} MB counting every lookup's cell); "
+          f"index_select of the same rows, {levels} calls, {library_ms:.4f} ms")
+    if other is not None:
+        for p, _ in sets:
+            want = enc.cell_lookup_reference(cells, p, res, table, f)
+            if not torch.isclose(other(cells, p, res, table, f), want, **TOL).all():
+                raise AssertionError(f"{name} {positions}: the other K4 disagrees with the plain version")
+        runs = dict(other=lambda p, g: other(cells, p, res, table, f),
+                    this=lambda p, g: enc.cell_lookup_fwd(cells, p, res, table, f))
+        tm["turns_ms"] = turns = dict(other=[], this=[])
+        for version in ("other", "this", "this", "other"):
+            turns[version].append(device_ms(runs[version], sets, "cell_lookup_fwd_kernel"))
+        print(f"K4 {name} {positions} positions in turns: " + ", ".join(
+            f"{v} {' / '.join(f'{t:.4f}' for t in ts)} ms" for v, ts in turns.items()))
+    return tm
+
+
+def check_hash_grid(cfg, device, clustered, rendered, other=None) -> dict:
     """K4 and K5 against their plain versions at the main path's three
-    shapes (4,096 rays), a ragged count and F = 4: K4's features within TOL,
-    its cell choice bit for bit (from cells that encode their own index);
-    K5's cell gradient within GRID_GRAD_TOL of each level's largest entry,
-    its position gradient within GRID_GRAD_TOL of its largest entry, and a
-    second K5 launch bit for bit. At the three full-width shapes also K5's
-    sort against torch.sort(stable=True), and K5 on ``clustered`` (the
-    positions of real training forwards, ``capture_lookup_positions``).
-    Times per launch at the main path's shapes on uniform and on clustered
-    positions, beside the bound, index_select of the same rows (K4) and
-    K5's two partial yardsticks."""
+    shapes (4,096 rays), a ragged count, F = 4 and F = 1: K4's features equal
+    to the plain version's bit for bit, its cell choice too (from cells that
+    encode their own index); K5's cell gradient within GRID_GRAD_TOL of each
+    level's largest entry, its position gradient within GRID_GRAD_TOL of its
+    largest entry, and a second K5 launch bit for bit. At the three
+    full-width shapes also K5's sort against torch.sort(stable=True), K4 bit
+    for bit and K5 on ``clustered`` (the positions of real training
+    forwards, ``capture_lookup_positions``), and K4 bit for bit on
+    ``rendered`` (an image's eval chunks, ``capture_render_positions``).
+    Times per launch at the main path's shapes: K4 on uniform, training and
+    render positions, K5 on uniform and training positions, beside the
+    bound, index_select of the same rows (K4) and K5's two partial
+    yardsticks; with ``other`` (``other_k4``), that K4 in turns with this
+    one at every position set."""
     from uncertainty_nerf_gs_torch.ops import encodings as enc
 
     rays = cfg.eval_num_rays_per_chunk
     cases = [(name, levels, max_res, log2, rays * spr, 2, True)
              for name, levels, max_res, log2, spr in grid_shapes(cfg)]
     cases += [("ragged", cfg.num_levels, cfg.max_res, cfg.log2_hashmap_size, 1001, 2, False),
-              ("f4", 4, 512, 12, 777, 4, False)]
+              ("f4", 4, 512, 12, 777, 4, False), ("f1", 4, 512, 12, 777, 1, False)]
     fwd_err = bwd_err = 0.0
     failed, per_launch = [], []
     for i, (name, levels, max_res, log2, n, f, timed) in enumerate(cases):
@@ -757,19 +913,23 @@ def check_hash_grid(cfg, device, clustered) -> dict:
         want = enc.cell_lookup_reference(cells, pos, res, table, f)
         idx = grid_lookups(pos, res, table)
         code = enc.cell_lookup_fwd(encoded_cells(cells, f), pos, res, table, f).reshape(n, levels, f)
-        chosen = (torch.round(code[..., 0]) + 1024 * torch.round(code[..., 1])).long().t()
+        chosen = decoded_cells(code)
         g_out = torch.randn(n, levels * f, generator=gen, device=device)
         k5 = k5_against_plain(cells, pos, res, table, f, g_out)
         e_f = (got - want).abs().max().item()
+        differ = int((got != want).sum())
         flips = int((chosen != idx).sum())
         print(f"hash_grid {name} n={n} L={levels} F={f} table 2^{log2}: K4 max_abs_err {e_f:.3e}, "
+              f"{differ} of {got.numel()} features not bit-identical to the plain version's, "
               f"{flips} of {idx.numel()} cell choices differ; K5 cells max_abs_err {k5['e_c']:.3e} "
               f"(largest |g| {k5['top_c']:.3e}, {k5['bad_c']} outside the level bar), "
               f"positions max_abs_err {k5['e_p']:.3e} (largest |g| {k5['top_p']:.3e}, "
               f"{k5['bad_p']} outside); a second K5 launch bit-identical: {k5['same']}, "
               f"without the position gradient: {k5['same_without_pos']}")
-        if not torch.isclose(got, want, **TOL).all() or not torch.isfinite(got).all():
-            failed.append(f"{name}: K4 features disagree, {e_f:.3e}")
+        # K4 sums the corners in the plain version's tree and contracts
+        # nothing to an fma: the two give the same bits
+        if differ or not torch.isfinite(got).all():
+            failed.append(f"{name}: {differ} K4 features differ from the plain version's bits")
         if flips:
             failed.append(f"{name}: K4 chose another cell in {flips} lookups")
         if k5["bad_c"] or k5["bad_p"] or not k5["finite"]:
@@ -801,53 +961,64 @@ def check_hash_grid(cfg, device, clustered) -> dict:
         if not (c_sort["keys_equal"] and c_sort["sorted_equal"] and c_sort["perm_equal"]):
             failed.append(f"{name} clustered: K5's keys or sort differ from the reference")
         bwd_err = max(bwd_err, c_k5["e_c"], c_k5["e_p"])
+        # the positions the main path feeds K4: a training forward's and a
+        # render chunk's
+        r_sets = [(r[i], torch.randn(r[i].shape[0], levels * f, generator=gen, device=device))
+                  for r in rendered]
+        for label, ss in (("training", c_sets), ("render", r_sets)):
+            for p, _ in ss:
+                k4, plain = enc.cell_lookup_fwd(cells, p, res, table, f), enc.cell_lookup_reference(
+                    cells, p, res, table, f)
+                same = torch.equal(k4, plain)
+                print(f"hash_grid {name} {label} positions ({p.shape[0]} samples): K4 bit-identical "
+                      f"to the plain version: {same} ({int((k4 != plain).sum())} features differ)")
+                if not same:
+                    failed.append(f"{name} {label}: K4 differs from the plain version's bits")
         # timed at the main path's shape, two input sets of positions and
         # g_out over the same cells, as consecutive steps would see them
         sets = [(pos, g_out)] + [(torch.rand(n, 3, generator=gen, device=device),
                                  torch.randn(n, levels * f, generator=gen, device=device))]
-        fwd = kernel_times(f"{name} K4", lambda p, g: enc.cell_lookup_fwd(cells, p, res, table, f),
-                           lambda p, g: enc.cell_lookup_reference(cells, p, res, table, f), sets,
-                           "cell_lookup_fwd_kernel")
+        fwd = k4_times(name, cells, sets, res, table, f, "uniform", other)
+        fwd_training = k4_times(name, cells, c_sets, res, table, f, "training", other)
+        fwd_render = k4_times(name, cells, r_sets, res, table, f, "render", other)
         bwd, c_bwd = (kernel_times(
             f"{name} K5", lambda p, g: enc.cell_lookup_bwd(cells, p, res, table, f, g, True),
             lambda p, g: enc.cell_lookup_vjp_reference(cells, p, res, table, f, g), ss,
             "cell_lookup_bwd_") for ss in (sets, c_sets))
         yard, c_yard = k5_yardsticks(cells, sets, res, table, f), k5_yardsticks(cells, c_sets, res, table, f)
-        blocks = cells.reshape(levels, -1, 8, f)
-        lib_sets = [[grid_lookups(p, res, table)] for p, _ in sets]
-        library_ms = time_ms(lambda ix: [blocks[l].index_select(0, ix[l]) for l in range(levels)], lib_sets)
         unique = sum(int(torch.unique(row).numel()) for row in idx)
         c_unique = sum(int(torch.unique(row).numel()) for row in grid_lookups(c_sets[0][0], res, table))
-        for label, tm, backward, uniq, positions in (
-                ("K4", fwd, False, unique, "uniform"), ("K5", bwd, True, unique, "uniform"),
-                ("K5", c_bwd, True, c_unique, "clustered")):
-            bound, bound_by, nbytes, ops = grid_bound_ms(n, levels, f, uniq, backward)
-            every, _, every_bytes, _ = grid_bound_ms(n, levels, f, n * levels, backward)
+        for tm, uniq, positions, y in ((bwd, unique, "uniform", yard), (c_bwd, c_unique, "clustered", c_yard)):
+            bound, bound_by, nbytes, ops = grid_bound_ms(n, levels, f, uniq, True)
+            every, _, every_bytes, _ = grid_bound_ms(n, levels, f, n * levels, True)
             tm.update(field=name, positions=positions, shape=[n, levels, f, 2**log2], bound_ms=bound,
                       bound_by=bound_by, bytes=nbytes, operations=ops, unique_cells=uniq,
-                      every_lookup_bound_ms=every, library_ms=library_ms if label == "K4" else None)
-            print(f"{label} {name} ({n} samples x {levels} levels, {positions} positions): kernel "
+                      every_lookup_bound_ms=every, library_ms=None, yardsticks=y)
+            print(f"K5 {name} ({n} samples x {levels} levels, {positions} positions): kernel "
                   f"{tm['ms']:.4f} ms on the device ({tm['event_ms']:.4f} ms a call back to back), "
                   f"plain {tm['plain_ms']:.4f} ms ({tm['plain_event_ms']:.4f}), bound {bound:.4f} ms "
                   f"({bound_by}: {nbytes / 1e6:.1f} MB, {uniq} distinct cells of {n * levels} "
-                  f"lookups; {every:.4f} ms, {every_bytes / 1e6:.1f} MB counting every lookup's cell)"
-                  + (f"; index_select of the same rows, {levels} calls, {library_ms:.4f} ms"
-                     if label == "K4" else ""))
-            if label == "K5":
-                y = yard if positions == "uniform" else c_yard
-                tm.update(yardsticks=y)
-                print(f"  K5 {name} {positions}: {tm['kernel_launches']:.0f} kernels a call; " + ", ".join(
-                    f"{kernel_name(k)} {v:.4f} ms" for k, v in tm["parts"].items()))
-                print(f"  K5 {name} {positions}: zero-fill of g_cells and the wrapper's other "
-                      f"device work {sum(tm['others'].values()):.4f} ms a call (" + ", ".join(
-                          f"{k[:60]} {v:.4f} ms" for k, v in tm["others"].items()) + ")")
-                print(f"  K5 {name} {positions} yardsticks (partial, not called by the port): "
-                      f"torch.sort(stable=True) of the keys {y['sort_ms']:.4f} ms, "
-                      f"index_put_(accumulate=True) of the precomputed contributions "
-                      f"{y['index_put_ms']:.4f} ms")
-        per_launch.append(dict(fwd=fwd, bwd=bwd, bwd_clustered=c_bwd))
+                  f"lookups; {every:.4f} ms, {every_bytes / 1e6:.1f} MB counting every lookup's cell)")
+            print(f"  K5 {name} {positions}: {tm['kernel_launches']:.0f} kernels a call; " + ", ".join(
+                f"{kernel_name(k)} {v:.4f} ms" for k, v in tm["parts"].items()))
+            print(f"  K5 {name} {positions}: zero-fill of g_cells and the wrapper's other "
+                  f"device work {sum(tm['others'].values()):.4f} ms a call (" + ", ".join(
+                      f"{k[:60]} {v:.4f} ms" for k, v in tm["others"].items()) + ")")
+            print(f"  K5 {name} {positions} yardsticks (partial, not called by the port): "
+                  f"torch.sort(stable=True) of the keys {y['sort_ms']:.4f} ms, "
+                  f"index_put_(accumulate=True) of the precomputed contributions "
+                  f"{y['index_put_ms']:.4f} ms")
+        per_launch.append(dict(fwd=fwd, fwd_training=fwd_training, fwd_render=fwd_render,
+                               bwd=bwd, bwd_clustered=c_bwd))
     if failed:
         raise AssertionError("hash_grid " + "; ".join(failed))
+    for key in ("fwd", "fwd_training", "fwd_render"):
+        chunk = [p[key] for p in per_launch]
+        turns = "".join(f", {v} {sum(min(c['turns_ms'][v]) for c in chunk):.4f}-"
+                        f"{sum(max(c['turns_ms'][v]) for c in chunk):.4f} ms in turns"
+                        for v in ("other", "this") if other is not None)
+        print(f"a chunk's three K4 calls, {chunk[0]['positions']} positions: "
+              f"{sum(c['ms'] for c in chunk):.4f} ms{turns}; bound {sum(c['bound_ms'] for c in chunk):.4f} ms")
     return dict(fwd_err=fwd_err, bwd_err=bwd_err, per_launch=per_launch)
 
 
@@ -905,10 +1076,24 @@ def render_nerfacto(trainer, num_images: int = 2) -> dict:
     return dict(launches=launches, seconds=times, chunks=chunks, rays=h * w)
 
 
+def bits_differ(a: dict, b: dict) -> dict[str, int]:
+    """Per output of two forwards, the entries whose bits differ (a list of
+    tensors counted over its items)."""
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    out = {}
+    for k, v in a.items():
+        xs, ys = (v, b[k]) if isinstance(v, list) else ([v], [b[k]])
+        out[k] = sum(int((bits(x) != bits(y)).sum()) for x, y in zip(xs, ys))
+    return out
+
+
 def check_nerfacto_plain_chunk(trainer) -> dict:
     """One chunk again on the plain path (``backend.plain_versions()``, no K1
-    launch); every output within the CPU tests' tolerances on every ray
-    whose lookups stayed in the same cells."""
+    or K4 launch): every output bit for bit the kernel path's, since K1 and
+    K4 equal their plain versions. Prints the rays that flipped a cell and,
+    where outputs differ, the rays outside the CPU tests' tolerances."""
     from uncertainty_nerf_gs_torch.cameras.cameras import generate_rays, pixel_grid
 
     from uncertainty_nerf_gs_torch.ops import backend
@@ -930,17 +1115,19 @@ def check_nerfacto_plain_chunk(trainer) -> dict:
     flipped = (
         model.lookup_cells(rb, kern["sdist_list"]) != model.lookup_cells(rb, plain["sdist_list"])
     ).any(dim=1)
-    bad = torch.zeros_like(flipped)
-    for k, tol in OUTPUT_TOLS.items():
-        miss = ~torch.isclose(kern[k], plain[k], **tol)
-        bad |= miss.reshape(chunk, -1).any(dim=1)
-    n_flip, n_bad = int(flipped.sum()), int((bad & ~flipped).sum())
+    n_flip = int(flipped.sum())
+    differ = bits_differ(kern, plain)
+    inexact = sum(differ.values())
     print(f"nerfacto plain chunk: first-stage edges max_abs_err {edge_err:.3e}; "
-          f"{n_flip} of {chunk} rays flipped a cell; {n_bad} others differ")
-    edges_close = torch.isclose(kern["sdist_list"][1], plain["sdist_list"][1], **TOL).all()
-    if not edges_close or n_bad or n_flip > MAX_FLIPPED_RAY_SHARE * chunk:
+          f"{n_flip} of {chunk} rays flipped a cell; {inexact} output entries not bit-identical")
+    if inexact:
+        bad = torch.zeros_like(flipped)
+        for k, tol in OUTPUT_TOLS.items():
+            bad |= (~torch.isclose(kern[k], plain[k], **tol)).reshape(chunk, -1).any(dim=1)
+        print("  outputs that differ: " + ", ".join(f"{k} {v}" for k, v in differ.items() if v)
+              + f"; {int((bad & ~flipped).sum())} rays that kept their cells outside OUTPUT_TOLS")
         raise AssertionError("the kernel path and the plain path disagree")
-    return dict(edge_err=edge_err, flipped=n_flip)
+    return dict(edge_err=edge_err, flipped=n_flip, inexact=inexact)
 
 
 def gather_bytes(trainer) -> int:
@@ -1025,8 +1212,8 @@ def train_nerfacto(trainer, name) -> dict:
     return dict(launches=launches, step_s=step_s, losses=losses)
 
 
-def nerfacto_step(trainer, batch, draws, plain: bool) -> tuple[dict, dict, torch.Tensor, list]:
-    """One step's loss terms, gradients, per-ray cells and spacing edges at the trainer's
+def nerfacto_step(trainer, batch, draws, plain: bool) -> tuple[dict, dict, torch.Tensor, dict]:
+    """One step's loss terms, gradients, per-ray cells and forward outputs at the trainer's
     state, without an update, as ``NerfactoTrainer._loss_fn`` computes
     them. With ``plain`` the forward runs inside ``backend.plain_versions()``
     and autograd runs the backward after the block has closed: it follows
@@ -1049,9 +1236,9 @@ def nerfacto_step(trainer, batch, draws, plain: bool) -> tuple[dict, dict, torch
     for p in params.values():
         p.grad = None
     losses["total_loss"] = total
-    edges = [e.detach() for e in out["sdist_list"]]
-    cells = trainer.model.lookup_cells(rb, edges)
-    return {k: float(v.detach()) for k, v in losses.items()}, grads, cells, edges
+    out = {k: [e.detach() for e in v] if isinstance(v, list) else v.detach() for k, v in out.items()}
+    cells = trainer.model.lookup_cells(rb, out["sdist_list"])
+    return {k: float(v.detach()) for k, v in losses.items()}, grads, cells, out
 
 
 @contextlib.contextmanager
@@ -1119,56 +1306,41 @@ def diagnose_first_resampler(trainer, k_calls, p_calls, k_cells, p_cells) -> dic
 
 
 def check_nerfacto_train_plain(trainer) -> dict:
-    """One step's loss and gradients through the kernels against the same
-    step on the plain versions, with the same batch and draws, on the rays
-    whose lookups stayed in the same cells on both paths (the others are
-    dropped from the batch and counted): loss terms within
-    TRAIN_LOSS_RTOL, each gradient within TRAIN_GRAD_L2 in relative L2
-    norm (a cell table level by level). The first pass also replays the
-    first resampler's inputs (``diagnose_first_resampler``)."""
+    """One step through the kernels against the same step on the plain
+    versions, with the same batch and draws: the forward outputs, every
+    ray's cells and the loss terms bit for bit (K1 and K4 equal their plain
+    versions, so the forwards are the same), each gradient within
+    TRAIN_GRAD_L2 in relative L2 norm (a cell table level by level: K5
+    against autograd). Also replays the first resampler's inputs
+    (``diagnose_first_resampler``)."""
     from uncertainty_nerf_gs_torch.ops import backend
 
     gen = torch.Generator(device=trainer.device).manual_seed(SEED + 300)
     batch = trainer.sample_batch(NERF_RAYS)
     draws = trainer.model.draw(NERF_RAYS, gen)
-    keep = torch.ones(NERF_RAYS, dtype=torch.bool, device=trainer.device)
-    edge_err = diagnosis = None
-    for attempt in range(3):
-        sub_batch = {k: v[keep] for k, v in batch.items()}
-        sub_draws = {k: ([d[keep] for d in v] if isinstance(v, list) else v[keep])
-                     for k, v in draws.items()}
-        backend.reset_launch_counts()
-        with record_resampler() as k_calls:
-            k_losses, k_grads, k_cells, k_edges = nerfacto_step(trainer, sub_batch, sub_draws, plain=False)
-        kernel_launches = dict(backend.launch_counts)
-        backend.reset_launch_counts()
-        with record_resampler() as p_calls:
-            p_losses, p_grads, p_cells, p_edges = nerfacto_step(trainer, sub_batch, sub_draws, plain=True)
-        # the resampled edges of each stage, kernel path against plain path
-        edge_err = edge_err or [(a - b).abs().max().item() for a, b in zip(k_edges[1:], p_edges[1:])]
-        if any(backend.launch_counts.values()):
-            raise AssertionError(f"kernels launched inside plain_versions(): {backend.launch_counts}")
-        flipped = (k_cells != p_cells).any(dim=1)
-        print(f"nerfacto train plain path, pass {attempt}: {int(flipped.sum())} of "
-              f"{int(keep.sum())} rays flipped a cell; resampled edges max_abs_err "
-              f"{', '.join(f'{e:.3e}' for e in edge_err)}; kernel-path launches {kernel_launches}")
-        if attempt == 0:
-            diagnosis = diagnose_first_resampler(trainer, k_calls, p_calls, k_cells, p_cells)
-        if not flipped.any():
-            break
-        keep[keep.clone()] = ~flipped
-    else:
-        raise AssertionError("rays keep flipping cells between the kernel and plain paths")
-    dropped = NERF_RAYS - int(keep.sum())
-    print(f"nerfacto train plain path: {dropped} of {NERF_RAYS} rays dropped "
-          f"({dropped / NERF_RAYS:.3f}; bar {MAX_FLIPPED_TRAIN_RAY_SHARE})")
-    if dropped > MAX_FLIPPED_TRAIN_RAY_SHARE * NERF_RAYS:
-        raise AssertionError(f"{dropped} of {NERF_RAYS} rays flipped a cell")
+    backend.reset_launch_counts()
+    with record_resampler() as k_calls:
+        k_losses, k_grads, k_cells, k_out = nerfacto_step(trainer, batch, draws, plain=False)
+    kernel_launches = dict(backend.launch_counts)
+    backend.reset_launch_counts()
+    with record_resampler() as p_calls:
+        p_losses, p_grads, p_cells, p_out = nerfacto_step(trainer, batch, draws, plain=True)
+    if any(backend.launch_counts.values()):
+        raise AssertionError(f"kernels launched inside plain_versions(): {backend.launch_counts}")
+    flipped = int((k_cells != p_cells).any(dim=1).sum())
+    differ = bits_differ(k_out, p_out)
+    print(f"nerfacto train plain path: {flipped} of {NERF_RAYS} rays flipped a cell; "
+          f"{sum(differ.values())} forward output entries not bit-identical"
+          + "".join(f", {k} {v}" for k, v in differ.items() if v)
+          + f"; kernel-path launches {kernel_launches}")
+    diagnosis = diagnose_first_resampler(trainer, k_calls, p_calls, k_cells, p_cells)
     if any(d["differ"] for k, d in diagnosis.items() if k.endswith("path")):
         raise AssertionError("K1 and the plain resampler differ on the same inputs")
     print("nerfacto train plain path: losses " + ", ".join(
-        f"{k} {k_losses[k]:.7f} / {p_losses[k]:.7f}" for k in k_losses))
-    failed = [k for k in k_losses if not np.isclose(k_losses[k], p_losses[k], rtol=TRAIN_LOSS_RTOL, atol=0)]
+        f"{k} {k_losses[k]!r} / {p_losses[k]!r}" for k in k_losses))
+    failed = [k for k in k_losses if k_losses[k] != p_losses[k]]
+    if flipped or any(differ.values()):
+        failed.append("the forward")
     grad_err = {}
     for k, want in p_grads.items():
         got = k_grads[k]
@@ -1181,7 +1353,7 @@ def check_nerfacto_train_plain(trainer) -> dict:
               f"{(k_grads[k] - p_grads[k]).abs().max().item():.3e}; bar {TRAIN_GRAD_L2})")
     if failed:
         raise AssertionError(f"nerfacto step: {failed} differ from the plain path")
-    return dict(dropped=dropped, edge_err=edge_err, losses=k_losses, plain_losses=p_losses,
+    return dict(flipped=flipped, losses=k_losses, plain_losses=p_losses,
                 max_grad_l2_err=max(grad_err.values()), diagnosis=diagnosis)
 
 
@@ -1510,6 +1682,14 @@ def kernel_line(run_nerf, train_nerf, resample, nerf_plain, run_splat_, comp, gr
             # the same rows (K4) and K5's partial yardsticks are in per_launch
             library_ms=None, per_launch=per,
         )
+        if key == "fwd":
+            # a chunk's three calls at the positions the main path feeds K4
+            entry.update(by_positions={label: dict(
+                ms=sum(p[k]["ms"] for p in grid["per_launch"]),
+                bound_ms=sum(p[k]["bound_ms"] for p in grid["per_launch"]),
+                index_select_ms=sum(p[k]["library_ms"] for p in grid["per_launch"]),
+                per_launch=[p[k] for p in grid["per_launch"]],
+            ) for label, k in (("uniform", "fwd"), ("training", "fwd_training"), ("render", "fwd_render"))})
         if key == "bwd":
             clustered = [p["bwd_clustered"] for p in grid["per_launch"]]
             entry.update(deterministic=True, clustered_ms=sum(p["ms"] for p in clustered),
@@ -1523,6 +1703,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    args = sys.argv[1:]
+    if args and (len(args) != 2 or args[0] != "--k4-against"):
+        print(__doc__, file=sys.stderr)
+        return 2
     from uncertainty_nerf_gs_torch.ops import backend
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1532,8 +1716,12 @@ def main() -> int:
     t_start = time.perf_counter()
 
     t0 = time.perf_counter()
+    other_build = other_k4(args[1]) if args else None
     for kernel, report in backend.build_kernels().items():
         print(f"built {kernel}:\n{report.strip()}")
+        for line in ptxas_summary(report, "cell_lookup_fwd_kernel"):
+            print(f"K4 ptxas: {line}")
+    other = other_build() if other_build else None
     print(f"build: {time.perf_counter() - t0:.1f} s")
     device = torch.device("cuda")
 
@@ -1549,7 +1737,8 @@ def main() -> int:
     nerf = build_nerfacto()
     n_params = sum(p.numel() for p in nerf.model.parameters())
     print(f"active-nerfacto: {n_params} parameters; set-up {time.perf_counter() - t0:.1f} s")
-    grid = check_hash_grid(nerf.config, device, capture_lookup_positions(nerf))
+    grid = check_hash_grid(nerf.config, device, capture_lookup_positions(nerf),
+                           capture_render_positions(nerf), other)
     print(f"hash-grid checks done at {time.perf_counter() - t_start:.1f} s")
     run_nerf = render_nerfacto(nerf)
     for i, s in enumerate(run_nerf["seconds"]):

@@ -413,6 +413,39 @@ def test_cell_lookup_vjp_matches_jax(rng, log2_size, max_res):
     assert np.abs(want_pos).max() > 0 and np.abs(want_cells).max() > 0
 
 
+@pytest.mark.parametrize("features", [1, 2, 4])
+@pytest.mark.parametrize("log2_size,max_res", [(12, 64), (15, 128)])
+def test_cell_lookup_reference_sums_in_k4_tree(rng, features, log2_size, max_res):
+    """cell_lookup_reference equals, bit for bit, a numpy float32 evaluation
+    of K4's association on the JAX package's cells and weights: the corner
+    products rounded in float32, then ((c0 + c1) + (c2 + c3)) + ((c4 + c5) +
+    (c6 + c7)) by pairwise float32 adds. Dense and hashed levels, positions
+    on corners and cell faces. The tree is not the left-to-right chain on
+    these inputs, so the test tells the two apart."""
+    levels = 4
+    res = jenc.hash_grid_resolutions(levels, 16, max_res)
+    table = 2**log2_size
+    assert int(res[0]) ** 3 <= table < int(res[-1]) ** 3  # dense and hashed levels
+    cells = rng.uniform(-2, 2, (levels, table * features // 16, 128)).astype(np.float32)
+    p = _face_positions(rng, res, 400)
+    got = tenc.cell_lookup_reference(_t(cells), _t(p), res, table, features).numpy()
+    blocks = cells.reshape(levels, -1, 8, features)
+    want, chain = [], []
+    for lvl, r in enumerate(res):
+        idx, w = jenc.cell_indices(jnp.asarray(p), int(r), table)
+        prod = blocks[lvl][np.asarray(idx)] * np.asarray(w)[..., None]  # (n, 8, F) float32
+        c = [prod[:, k] for k in range(8)]
+        want.append(((c[0] + c[1]) + (c[2] + c[3])) + ((c[4] + c[5]) + (c[6] + c[7])))
+        acc = c[0]
+        for k in range(1, 8):
+            acc = acc + c[k]
+        chain.append(acc)
+    want, chain = np.concatenate(want, -1), np.concatenate(chain, -1)
+    assert got.dtype == want.dtype == np.float32
+    assert np.array_equal(got, want)
+    assert not np.array_equal(chain, want)
+
+
 @pytest.mark.parametrize("log2_size,max_res,levels", [(12, 64, 4), (15, 128, 5), (10, 512, 16)])
 def test_cell_keys_reference_matches_jax(rng, log2_size, max_res, levels):
     """K5's keys: lookup (i, l) at i * L + l holds l << cell_bits | idx,

@@ -187,6 +187,7 @@ def _lookup_inputs(levels=3, n=7, dtype=torch.float32):
         ("features", ValueError),
         ("mixed_devices", ValueError),
         ("key_bits", ValueError),
+        ("cells_misaligned", ValueError),
     ],
 )
 def test_cell_lookup_wrapper_refuses(case, error):
@@ -219,6 +220,8 @@ def test_cell_lookup_wrapper_refuses(case, error):
     elif case == "key_bits":  # 32 levels of 2^27 cells: K5's keys would need 32 bits
         cells = torch.empty(MAX_LEVELS, 2**24, 128, device="meta")
         pos, res, table = torch.empty(7, 3, device="meta"), (4,) * MAX_LEVELS, 2**27
+    elif case == "cells_misaligned":  # contiguous, but K4's float4 reads need 16 bytes
+        cells = torch.rand(cells.numel() + 1)[1:].view(cells.shape)
     with pytest.raises(error):
         cell_lookup(cells, pos, res, table, feats)
 

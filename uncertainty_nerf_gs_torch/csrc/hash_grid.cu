@@ -13,7 +13,8 @@
 //            (bx * 1 ^ by * 2654435761 ^ bz * 805459861) % table_size
 //                                              otherwise, in uint32
 //   w[c]   = (wx[c >> 2] * wy[(c >> 1) & 1]) * wz[c & 1],  wx = (1 - fx, fx)
-//   K4: out[i, l * F + f] = sum_c w[c] * cell[l, idx, c, f]
+//   K4: out[i, l * F + f] = sum_c w[c] * cell[l, idx, c, f], summed in the
+//       tree ((c0 + c1) + (c2 + c3)) + ((c4 + c5) + (c6 + c7))
 //   K5: g_cells[l, idx, c, f] = sum over the lookups (i, l) of that cell of
 //                               w[c] * g_out[i, l * F + f]
 //       g_pos[i, d] = sum_l res_l * sum_c dw[c]/dfrac_d * <cell[l, idx, c, :], g_out[i, l, :]>
@@ -25,18 +26,53 @@
 // __fmul_rn / __fsub_rn in the plain version's order, and the clamp bound is
 // the float the wrapper's Python scalar rounds to.
 //
-// K4. What bounds it on an H100: bytes, and the latency of random 64-byte
-// reads. A lookup reads 12 B of position (shared by the L lookups of a
-// sample), one 64 B cell and writes 4 F B; the float work is about 60
-// operations. At the training step's main field (4,096 rays x 48 samples x
-// 16 levels) that is about 229 MB if every lookup's cell is counted, less
-// where lookups share a cell (the coarse dense levels have 4,096 cells).
-// What the design does about that: one thread per (sample, level), the
-// level fastest, so a warp's output stores are contiguous, the L threads of
-// a sample read its position from one cache line, and millions of
-// independent 16-byte loads are in flight to hide the gather's latency; each
-// cell is read as 2 F float4s.
-//
+// K4 replaces the row gather that experiments/jobs/403_pallas_gather_probe.py::
+// pallas_gather probed for uncertainty_nerf_gs_tpu/ops/encodings.py::
+// cell_lookup, and does the whole lookup: index, gather and trilerp of every
+// level in one launch. What bounds it on an H100: bytes and the load path. A
+// lookup reads one 64-byte cell (F = 2) and writes 4 F bytes; the float work
+// (about 25 operations to locate the cell, 16 F to weigh and sum its
+// corners) is far below the float32 rate. The proposals' touched tables
+// (about 23 MB) stay in the 50 MB L2, so their limit is how many L1
+// wavefronts and L2 requests the loads cost; the field's 10 hashed levels
+// (32 MB each) do not fit, and it reads random 64-byte cells from DRAM. With
+// one thread a lookup, each reading its cell as 2 F float4s of its own, a
+// warp-wide load touches up to 32 lines, about 4 wavefronts a lookup.
+// What the design does about that:
+//   - A warp takes 32 consecutive samples and walks all L levels, one at a
+//     time; lane s keeps sample s's position in registers and locates its
+//     cell once a level.
+//   - Shared reads: 2 F lanes share each lookup's read, one float4 of the
+//     cell each, so a warp-wide load covers 32 / (2 F) whole cells of
+//     consecutive samples (at most 8 lines at F = 2, about one wavefront a
+//     lookup). The lanes take the cell index and the fractions from the
+//     locating lane by __shfl_sync.
+//   - Own reads: where neighbouring samples share cells (samples along a
+//     ray at a coarse level), each lane reads its own cell; lanes that read
+//     one cell share the wavefront, and the warp saves the shuffles and the
+//     lanes' repeated weights. The warp counts the runs of equal cells among
+//     its 32 lookups (one ballot) and takes own reads at kK4OwnMaxRuns runs
+//     or fewer, shared reads above. Both load 2 F float4s a lane at F <= 2,
+//     through the same load instructions, all in flight before any is used.
+//   - The warps of a launch move through the levels roughly together, so
+//     one level's table is hot in L2 at a time.
+//   - Each lane rounds its corners' products (w[c] * value) and the sum is
+//     taken in one tree for every F and both reads, ((c0 + c1) + (c2 + c3))
+//     + ((c4 + c5) + (c6 + c7)): inside a lane for the corners it holds, then
+//     by __shfl_xor_sync across lanes, with __fmul_rn / __fadd_rn so that
+//     nvcc contracts nothing. cell_lookup_reference sums in the same tree,
+//     so K4 equals its plain version bit for bit.
+//   - The warp stages its samples' outputs in shared memory (32 floats a
+//     sample a pass over the levels, 16.9 KB a block) and writes them as
+//     whole lines of float4s, not F scalars a thread at a stride.
+//   - Power-of-two tables (every table CellHashEncoding builds) reduce the
+//     hash with & (table_size - 1) in place of a 32-bit division; the two
+//     give the same index.
+// The choices (one level in flight, the threshold, the stage's width, 8
+// blocks an SM, the cell taken from the locating lane rather than located
+// again by every lane) were timed on an H100 against the alternatives
+// (PERF.md, section 6).
+
 // K5. The function's own work is the same gather run backwards: read each
 // lookup's position and g_out, write each touched cell's 8 F sums once, and
 // for g_pos read each lookup's cell once more. So it is bound by bytes too
@@ -106,6 +142,7 @@ struct Levels {
     float hi[kMaxLevels];   // float(res * (1 - 1e-7)) rounded from double
     int ires[kMaxLevels];
     unsigned dense;         // bit l: level l indexes densely
+    unsigned hash_mask;     // table_size - 1 where it is a power of two, else 0
 };
 
 struct Cell {
@@ -133,7 +170,7 @@ __device__ __forceinline__ Cell locate(const float p[3], const Levels& lv, int l
         const unsigned h = static_cast<unsigned>(b[0]) ^
                            static_cast<unsigned>(b[1]) * 2654435761u ^
                            static_cast<unsigned>(b[2]) * 805459861u;
-        cell.idx = h % table_size;
+        cell.idx = lv.hash_mask ? h & lv.hash_mask : h % table_size;
     }
     return cell;
 }
@@ -165,31 +202,242 @@ __device__ __forceinline__ void store_floats(float* dst, const float (&v)[N]) {
         d4[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
 }
 
+// -- K4: the forward ------------------------------------------------------------
+
+constexpr int kK4Warps = 4;  // a block: 4 warps, 128 samples
+constexpr int kK4Threads = 32 * kK4Warps;
+constexpr int kK4Stage = 32;  // outputs a sample stages per pass over the levels
+// A level whose 32 lookups form more runs of equal cells than this is read
+// with shared reads; one with fewer, by each lane on its own.
+constexpr int kK4OwnMaxRuns = 16;
+
 template <int F>
-__global__ void __launch_bounds__(kThreads) cell_lookup_fwd_kernel(
-    const float* __restrict__ positions, const float* __restrict__ cells,
-    float* __restrict__ out, int num_lookups, int num_levels, long long level_stride,
-    unsigned table_size, Levels lv) {
-    const int t = blockIdx.x * kThreads + threadIdx.x;
-    if (t >= num_lookups) return;
-    const int i = t / num_levels;
-    const int l = t - i * num_levels;
-    const float p[3] = {positions[3 * i], positions[3 * i + 1], positions[3 * i + 2]};
-    const Cell cell = locate(p, lv, l, table_size);
-    float v[8 * F];
-    load_cell<F>(cells + l * level_stride + static_cast<long long>(cell.idx) * (8 * F), v);
-    float acc[F];
+struct K4Lanes {
+    static constexpr int kParts = 2 * F;                    // lanes sharing a cell's read
+    static constexpr int kPerLoad = 32 / kParts;            // lookups a shared warp-wide load
+    static constexpr int kValues = F < 4 ? F : 4;           // features in a lane's float4
+    static constexpr int kBatch = kParts < 4 ? kParts : 4;  // shared rounds loaded together
+    static constexpr int kGroups = F / 4;                   // own reads a cell at F >= 4, a feature group each
+    static constexpr int kOwnLoads = F <= 2 ? 2 * F : 8;    // float4s of one own read
+};
+
+// w[c] for corner c from the fractions, as corner_weight forms it.
+__device__ __forceinline__ float k4_weight(const float frac[3], int c) {
+    const float wx = c & 4 ? frac[0] : __fsub_rn(1.0f, frac[0]);
+    const float wy = c & 2 ? frac[1] : __fsub_rn(1.0f, frac[1]);
+    const float wz = c & 1 ? frac[2] : __fsub_rn(1.0f, frac[2]);
+    return __fmul_rn(__fmul_rn(wx, wy), wz);
+}
+
+__device__ __forceinline__ float k4_tree(const float c[8]) {
+    return __fadd_rn(__fadd_rn(__fadd_rn(c[0], c[1]), __fadd_rn(c[2], c[3])),
+                     __fadd_rn(__fadd_rn(c[4], c[5]), __fadd_rn(c[6], c[7])));
+}
+
+// Runs of equal cells among the warp's 32 lookups at one level, in lane
+// order: about the distinct cells where neighbouring samples share them.
+__device__ __forceinline__ int k4_runs(unsigned idx, int lane) {
+    const unsigned prev = __shfl_up_sync(kFull, idx, 1);
+    return __popc(__ballot_sync(kFull, lane == 0 || prev != idx));
+}
+
+// Own read: float4 k of the lane's own cell for feature group g; the group's
+// float4s hold x[c * kValues + f] for its corners c and features f.
+template <int F>
+__device__ __forceinline__ int k4_own_float4(int k, int g) {
+    return F <= 2 ? k : k * (F / 4) + g;
+}
+
+// The lane's own lookup from the float4s of one own read (at F >= 4, one
+// feature group): its kValues features into dst[0 ..].
+template <int F>
+__device__ __forceinline__ void k4_own_sum(const Cell& cell, const float4* v, float* dst) {
+    using K = K4Lanes<F>;
+    float x[4 * K::kOwnLoads];
 #pragma unroll
-    for (int f = 0; f < F; ++f) acc[f] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-        const float w = corner_weight(cell, c);
-#pragma unroll
-        for (int f = 0; f < F; ++f) acc[f] = fmaf(w, v[c * F + f], acc[f]);
+    for (int k = 0; k < K::kOwnLoads; ++k) {
+        x[4 * k] = v[k].x, x[4 * k + 1] = v[k].y, x[4 * k + 2] = v[k].z, x[4 * k + 3] = v[k].w;
     }
-    // out is (n, L * F), level-major: lookup t's features are floats [t F, t F + F)
+    float w[8];
 #pragma unroll
-    for (int f = 0; f < F; ++f) out[static_cast<long long>(t) * F + f] = acc[f];
+    for (int c = 0; c < 8; ++c) w[c] = corner_weight(cell, c);
+#pragma unroll
+    for (int f = 0; f < K::kValues; ++f) {
+        float prod[8];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) prod[c] = __fmul_rn(w[c], x[c * K::kValues + f]);
+        dst[f] = k4_tree(prod);
+    }
+}
+
+// One shared round: lane part q holds float4 q of a lookup's cell (corners
+// 4q / F .. (4q + 3) / F). Each lane rounds its products and sums its
+// corners; the lookup's lanes then add across, a group of g corners meeting
+// the next g, g F / 4 lanes away, and store into dst, the lookup's staged
+// features.
+template <int F>
+__device__ __forceinline__ void k4_shared_sum(float4 v, const float frac[3], int q, float* dst) {
+    using K = K4Lanes<F>;
+    const float x[4] = {v.x, v.y, v.z, v.w};
+    float prod[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) prod[m] = __fmul_rn(k4_weight(frac, (4 * q + m) / F), x[m]);
+    if constexpr (F == 2) {
+        // reduce-scatter: lane part q keeps feature q & 1 and sends the other
+        const bool odd = q & 1;
+        const float s0 = __fadd_rn(prod[0], prod[2]), s1 = __fadd_rn(prod[1], prod[3]);
+        float t = __fadd_rn(odd ? s1 : s0, __shfl_xor_sync(kFull, odd ? s0 : s1, 1));
+        t = __fadd_rn(t, __shfl_xor_sync(kFull, t, 2));
+        if (q < 2) dst[q] = t;
+    } else {
+        float s[K::kValues];
+        if constexpr (F == 1) {
+            s[0] = __fadd_rn(__fadd_rn(prod[0], prod[1]), __fadd_rn(prod[2], prod[3]));
+        } else {
+#pragma unroll
+            for (int f = 0; f < K::kValues; ++f) s[f] = prod[f];
+        }
+#pragma unroll
+        for (int g = F < 4 ? 4 / F : 1; g < 8; g *= 2) {
+#pragma unroll
+            for (int f = 0; f < K::kValues; ++f) s[f] = __fadd_rn(s[f], __shfl_xor_sync(kFull, s[f], g * F / 4));
+        }
+        if (4 * q < F) {  // lane part q holds features 4q .. 4q + kValues - 1
+#pragma unroll
+            for (int f = 0; f < K::kValues; ++f) dst[4 * q + f] = s[f];
+        }
+    }
+}
+
+// One warp a run of 32 samples, every level; see the note at the top.
+// ptxas is held to 8 resident blocks an SM at F <= 2 (64 registers a
+// thread) and 6 above (85), or it takes up to 255 at F >= 4.
+template <int F>
+__global__ void __launch_bounds__(kK4Threads, F <= 2 ? 8 : 6) cell_lookup_fwd_kernel(
+    const float* __restrict__ positions, const float* __restrict__ cells,
+    float* __restrict__ out, int n, int num_levels, long long level_stride,
+    unsigned table_size, Levels lv) {
+    using K = K4Lanes<F>;
+    constexpr int kWidth = kK4Stage > F ? kK4Stage : F;  // staged floats a sample a pass
+    constexpr int kStride = kWidth + 1;  // padded against bank conflicts
+    __shared__ float stage[kK4Warps][32 * kStride];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const long long base = (static_cast<long long>(blockIdx.x) * kK4Warps + warp) * 32;
+    if (base >= n) return;  // the whole warp
+    const int valid = n - base < 32 ? static_cast<int>(n - base) : 32;
+    float p[3] = {0.0f, 0.0f, 0.0f};
+    if (lane < valid) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d) p[d] = positions[3 * (base + lane) + d];
+    }
+    const int q = lane % K::kParts;  // this lane's float4 of a shared read
+    const int j0 = lane / K::kParts;  // its lookup in a shared round, less the round's first
+    float* buf = stage[warp];
+    const int row = num_levels * F;
+    const int levels_a_pass = kWidth / F < num_levels ? kWidth / F : num_levels;
+    for (int l0 = 0; l0 < num_levels; l0 += levels_a_pass) {
+        const int l1 = l0 + levels_a_pass < num_levels ? l0 + levels_a_pass : num_levels;
+        for (int l = l0; l < l1; ++l) {
+            const Cell cell = locate(p, lv, l, table_size);
+            const bool shared = k4_runs(cell.idx, lane) > kK4OwnMaxRuns;
+            const float4* level_cells = reinterpret_cast<const float4*>(cells + l * level_stride);
+            if constexpr (F <= 2) {
+                // Either read loads 2F float4s a lane, through the same load
+                // instructions: a shared read's float4 k is part q of round
+                // k's lookup, k * kPerLoad + j0; an own read's, float4 k of
+                // the lane's cell.
+                float4 v[2 * F];
+#pragma unroll
+                for (int k = 0; k < 2 * F; ++k) {
+                    unsigned idx = cell.idx;
+                    int part = k;
+                    if (shared) {
+                        idx = __shfl_sync(kFull, cell.idx, k * K::kPerLoad + j0);
+                        part = q;
+                    }
+                    v[k] = __ldg(level_cells + static_cast<long long>(idx) * (2 * F) + part);
+                }
+                float* level_row = buf + (l - l0) * F;
+                if (shared) {
+#pragma unroll
+                    for (int k = 0; k < 2 * F; ++k) {
+                        const int src = k * K::kPerLoad + j0;
+                        float frac[3];
+#pragma unroll
+                        for (int d = 0; d < 3; ++d) frac[d] = __shfl_sync(kFull, cell.w[d][1], src);
+                        k4_shared_sum<F>(v[k], frac, q, level_row + src * kStride);
+                    }
+                } else {
+                    k4_own_sum<F>(cell, v, level_row + lane * kStride);
+                }
+            } else {
+                float* level_row = buf + (l - l0) * F;
+                if (shared) {
+                    // kBatch rounds' loads in flight at once
+#pragma unroll
+                    for (int r0 = 0; r0 < K::kParts; r0 += K::kBatch) {
+                        float4 v[K::kBatch];
+#pragma unroll
+                        for (int b = 0; b < K::kBatch; ++b) {
+                            const int src = (r0 + b) * K::kPerLoad + j0;
+                            const unsigned idx = __shfl_sync(kFull, cell.idx, src);
+                            v[b] = __ldg(level_cells + static_cast<long long>(idx) * (2 * F) + q);
+                        }
+#pragma unroll
+                        for (int b = 0; b < K::kBatch; ++b) {
+                            const int src = (r0 + b) * K::kPerLoad + j0;
+                            float frac[3];
+#pragma unroll
+                            for (int d = 0; d < 3; ++d) frac[d] = __shfl_sync(kFull, cell.w[d][1], src);
+                            k4_shared_sum<F>(v[b], frac, q, level_row + src * kStride);
+                        }
+                    }
+                } else {
+                    // the lane's own cell, a feature group at a time
+#pragma unroll
+                    for (int g = 0; g < K::kGroups; ++g) {
+                        float4 v[K::kOwnLoads];
+#pragma unroll
+                        for (int k = 0; k < K::kOwnLoads; ++k)
+                            v[k] = __ldg(level_cells + static_cast<long long>(cell.idx) * (2 * F) +
+                                         k4_own_float4<F>(k, g));
+                        k4_own_sum<F>(cell, v, level_row + lane * kStride + 4 * g);
+                    }
+                }
+            }
+        }
+        // the staged outputs of levels [l0, l1): `width` floats a sample
+        __syncwarp();
+        const int width = (l1 - l0) * F;
+        if (width == row) {
+            // whole rows: the warp's samples are one contiguous run of floats,
+            // 16-byte aligned (base is a multiple of 32), written as float4s
+            float* dst = out + base * row;
+            const int total = valid * row;
+            for (int k = lane; k < total / 4; k += 32) {
+                int s = 4 * k / width, j = 4 * k - s * width;
+                float t[4];
+#pragma unroll
+                for (int m = 0; m < 4; ++m) {
+                    t[m] = buf[s * kStride + j];
+                    if (++j == width) j = 0, ++s;
+                }
+                reinterpret_cast<float4*>(dst)[k] = make_float4(t[0], t[1], t[2], t[3]);
+            }
+            for (int e = (total & ~3) + lane; e < total; e += 32) {
+                const int s = e / width;
+                dst[e] = buf[s * kStride + e - s * width];
+            }
+        } else {
+            // a pass over part of the levels: each sample's run of `width`
+            // floats, consecutive lanes on consecutive floats
+            for (int e = lane; e < valid * width; e += 32) {
+                const int s = e / width, j = e - s * width;
+                out[(base + s) * row + l0 * F + j] = buf[s * kStride + j];
+            }
+        }
+        __syncwarp();
+    }
 }
 
 // -- K5, stage 1: keys, and the position gradient -----------------------------
@@ -570,6 +818,8 @@ bool make_levels(const int* resolutions, int num_levels, int table_size, Levels*
         const long long cube = static_cast<long long>(res) * res * res;
         if (cube <= table_size) lv->dense |= 1u << l;
     }
+    const bool pow2 = (table_size & (table_size - 1)) == 0;
+    lv->hash_mask = pow2 ? static_cast<unsigned>(table_size - 1) : 0u;
     return true;
 }
 
@@ -701,7 +951,8 @@ cudaError_t launch_bwd(const float* positions, const float* cells, const float* 
 
 // C interface, loaded with ctypes. Device pointers to float32: positions
 // (n, 3) contiguous; cells (L, n_rows, 128) contiguous, level_stride =
-// n_rows * 128 floats, 16-byte aligned; out (n, L * F) contiguous.
+// n_rows * 128 floats, 16-byte aligned; out (n, L * F) contiguous, 16-byte
+// aligned.
 // resolutions is a host array of L ints; features is F in {1, 2, 4, 8, 16};
 // n * L < 2^31. Launches on `stream` and returns cudaGetLastError(), or
 // cudaErrorInvalidValue for arguments the kernel does not take.
@@ -710,16 +961,19 @@ extern "C" int cell_lookup_fwd_f32(const float* positions, const float* cells, f
                                    int table_size, int features, const int* resolutions,
                                    void* stream) {
     Levels lv;
-    if (!make_levels(resolutions, num_levels, table_size, &lv) || n < 0)
+    if (!make_levels(resolutions, num_levels, table_size, &lv) || n < 0 ||
+        static_cast<long long>(n) * num_levels >= (1LL << 31) ||
+        reinterpret_cast<unsigned long long>(cells) % 16 != 0 ||
+        reinterpret_cast<unsigned long long>(out) % 16 != 0 || level_stride % 4 != 0)
         return static_cast<int>(cudaErrorInvalidValue);
-    const int lookups = n * num_levels;
-    if (lookups == 0) return 0;
+    if (n == 0) return 0;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const unsigned ts = static_cast<unsigned>(table_size);
+    const int blocks = static_cast<int>((static_cast<long long>(n) + kK4Threads - 1) / kK4Threads);
 #define K4_CASE(f)                                                                      \
     case f:                                                                             \
-        cell_lookup_fwd_kernel<f><<<blocks_for(lookups), kThreads, 0, s>>>(             \
-            positions, cells, out, lookups, num_levels, level_stride, ts, lv);          \
+        cell_lookup_fwd_kernel<f><<<blocks, kK4Threads, 0, s>>>(                        \
+            positions, cells, out, n, num_levels, level_stride, ts, lv);                \
         break;
     switch (features) {
         K4_CASE(1) K4_CASE(2) K4_CASE(4) K4_CASE(8) K4_CASE(16)

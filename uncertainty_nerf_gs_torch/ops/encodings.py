@@ -10,7 +10,8 @@ gathers one (8, F) block per sample and level and needs no one-hot selects.
 
 ``cell_lookup`` is the kernel pair's wrapper: on a CUDA tensor it launches
 ``csrc/hash_grid.cu`` (K4 forward: index, gather and trilerp of every level
-in one launch; K5 backward: the lookups sorted by cell with a hand-written
+in one launch, summing each cell's corners in ``corner_sum``'s tree, so that
+it equals the plain version bit for bit; K5 backward: the lookups sorted by cell with a hand-written
 stable radix sort of ``cell_keys_reference``'s keys, then each cell's sum
 taken in a fixed order and stored once, with no float atomic, so that two
 launches give the same bits), on a CPU tensor it runs
@@ -115,6 +116,15 @@ def cell_indices(
     return idx, w
 
 
+def corner_sum(products: torch.Tensor) -> torch.Tensor:
+    """(n, 8, F) weighted corners -> (n, F), summed in K4's tree
+    ((c0 + c1) + (c2 + c3)) + ((c4 + c5) + (c6 + c7)): pairwise adds of the
+    rounded products, the same association on every device."""
+    pairs = products[:, 0::2] + products[:, 1::2]  # c0+c1, c2+c3, c4+c5, c6+c7
+    quads = pairs[:, 0::2] + pairs[:, 1::2]
+    return quads[:, 0] + quads[:, 1]
+
+
 def cell_lookup_reference(
     cells: torch.Tensor,
     positions: torch.Tensor,
@@ -131,7 +141,7 @@ def cell_lookup_reference(
     for lvl, res in enumerate(np.asarray(resolutions)):
         idx, w = cell_indices(positions, int(res), table_size)
         corner = blocks[lvl].index_select(0, idx)  # (n, 8, F): ONE gather
-        outs.append(torch.sum(corner * w[..., None], dim=1))
+        outs.append(corner_sum(corner * w[..., None]))
     return torch.cat(outs, dim=-1)
 
 
@@ -206,6 +216,8 @@ def _check(cells, positions, resolutions, table_size, features_per_level) -> Non
         raise ValueError(f"{levels} levels of {table_size} cells need more than {MAX_KEY_BITS} key bits")
     if positions.shape[0] * levels >= 2**31:
         raise ValueError(f"{positions.shape[0]} positions x {levels} levels is too many lookups")
+    if cells.data_ptr() % 16:  # K4 reads each cell as float4s
+        raise ValueError(f"cells must be 16-byte aligned, got address {cells.data_ptr():#x}")
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
