@@ -32,8 +32,18 @@ within a bar; the flipped rays are counted by field and the first
 resampler's inputs replayed), requires two
 nerfacto training steps from one restored state to be bit-identical, lists
 what ``torch.use_deterministic_algorithms(True, warn_only=True)`` flags in
-a step, and profiles one image and one step. Exits non-zero, with no result
-line, when there is no card or any phase fails. The last line of standard
+a step, and profiles one image and one step. Last, the deep ensemble at
+full width (``bench.py::bench_ensemble_render``'s model, five members from
+numpy seeds 0-4): the member-packed lookup (K6) bit for bit against its
+plain version and against five K4 launches on the members' own tables (the
+three fields' shapes, a ragged count, M = 1 and 3, F = 1 and 4, and every
+launch of two real fused chunks), timed beside its bound and
+``index_select`` of the same rows; the fused and the per-member chunk on
+the kernel path against the plain path bit for bit, with their launch
+plans; five identical members against the single model; and both modes
+through ``get_average_uncertainty_metrics`` over two images (finite
+metrics, the JSON written), profiled and timed in turns. Exits non-zero,
+with no result line, when there is no card or any phase fails. The last line of standard
 output is a JSON object naming the device; the line before it the card's
 name and power limit; before that a ``{"kernels": [...]}`` line with each
 kernel's launches, error, times and bound.
@@ -60,6 +70,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 from torch_parity import (  # noqa: E402  (the tolerances the CPU tests hold)
     GRID_GRAD_TOL,
+    MAX_FLIPPED_RAY_SHARE,
     TRAIN_GRAD_L2,
     OUTPUT_TOLS,
     PACKED_FAMILIES,
@@ -129,31 +140,39 @@ def device_kernels(fn) -> tuple[dict[str, tuple[int, float]], float]:
     return kernels, wall
 
 
-def kernel_times(name, kernel, plain, sets, symbol) -> dict:
+def kernel_times(name, kernel, plain, sets, symbol, kernels_per_call=1) -> dict:
     """A kernel's and its plain version's time per call over ``sets``: device
     time from the profiler where it traced the device, else CUDA events. The
     kernel's time is the sum of every device kernel whose name holds
     ``symbol`` (a pipeline of several kernels shares one prefix), per call;
     ``parts`` holds each of them, ``others`` what else the wrapper ran (a
-    zero-fill) per call."""
+    zero-fill) per call. The profiler has been seen to drop a profiled run's
+    first device kernel (with two input sets, one of a kernel's two
+    launches): where it traced fewer than ``kernels_per_call`` a call, the
+    traced launches are scaled up to the calls made, and the count is
+    printed."""
     event_ms = time_ms(kernel, sets)
     plain_event_ms = time_ms(plain, sets)
     traced, _ = device_kernels(lambda: [kernel(*a) for a in sets])
     own = {k: v for k, v in traced.items() if symbol in k}
     plain_traced, _ = device_kernels(lambda: [plain(*a) for a in sets])
+    launched, expected = sum(c for c, _ in own.values()), kernels_per_call * len(sets)
+    scale = expected / launched if launched else 1.0
     per_call = {k: 1e-3 * us / len(sets) for k, (_, us) in traced.items()}
-    parts = {k: v for k, v in per_call.items() if k in own}
+    parts = {k: scale * v for k, v in per_call.items() if k in own}
     others = {k: v for k, v in per_call.items() if k not in own}
+    if launched != expected:
+        print(f"{name}: the profiler traced {launched} of the kernel's {expected} device kernels")
     if own and plain_traced:
         ms = sum(parts.values())
         plain_ms = 1e-3 * sum(us for _, us in plain_traced.values()) / len(sets)
-        source = "profiler"
+        source = "profiler" if launched == expected else "profiler, scaled"
     else:
         print(f"{name}: the profiler traced no device time; times are CUDA events")
         ms, plain_ms, source = event_ms, plain_event_ms, "events"
     return dict(ms=ms, plain_ms=plain_ms, event_ms=event_ms, plain_event_ms=plain_event_ms,
                 ms_from=source, parts=parts, others=others,
-                kernel_launches=sum(c for c, _ in own.values()) / len(sets))
+                kernel_launches=launched / len(sets))
 
 
 def device_ms(fn, sets, symbol) -> float:
@@ -589,6 +608,7 @@ def check_compositor(trainer, device) -> dict:
 # 8 F scatter products and, with the position gradient, the 8 F-wide dots
 # and the weight derivatives (3 x 8 x 3), times res
 K4_OPS = lambda f: 25 + 16 * f  # noqa: E731
+K5_KERNELS = 12  # device kernels a K5 call at the main path's shapes (3 sort passes)
 K5_OPS = lambda f, pos: 25 + 8 * f + ((16 * f + 75) if pos else 0)  # noqa: E731
 
 
@@ -611,6 +631,13 @@ def grid_inputs(levels, max_res, log2, n, gen, device, features=2):
     table = 2**log2
     n_rows = -(-table // (128 // (8 * features)))
     cells = torch.rand(levels, n_rows, 128, generator=gen, device=device) * 4.0 - 2.0
+    return cells, lookup_positions(res, n, gen, device), tuple(int(r) for r in res), table
+
+
+def lookup_positions(res, n, gen, device) -> torch.Tensor:
+    """(n, 3) positions uniform in [0, 1]^3 whose first rows sit on the
+    cube's corners, at 0 and 1, a little outside it, and on cell faces k /
+    res of every level of ``res``."""
     pos = torch.rand(n, 3, generator=gen, device=device)
     edge = [[0, 0, 0], [1, 1, 1], [1, 0, 1], [0.5, 1, 0], [-1e-7, 0.5, 1 + 1e-7], [1 + 1e-7, -1e-7, 0.3]]
     for r in res:
@@ -619,7 +646,7 @@ def grid_inputs(levels, max_res, log2, n, gen, device, features=2):
         edge += faces.tolist()
     edge = torch.tensor(edge, dtype=torch.float32, device=device)[:n]
     pos[: edge.shape[0]] = edge
-    return cells, pos, tuple(int(r) for r in res), table
+    return pos
 
 
 def encoded_cells(cells, features):
@@ -984,7 +1011,7 @@ def check_hash_grid(cfg, device, clustered, rendered, other=None) -> dict:
         bwd, c_bwd = (kernel_times(
             f"{name} K5", lambda p, g: enc.cell_lookup_bwd(cells, p, res, table, f, g, True),
             lambda p, g: enc.cell_lookup_vjp_reference(cells, p, res, table, f, g), ss,
-            "cell_lookup_bwd_") for ss in (sets, c_sets))
+            "cell_lookup_bwd_", K5_KERNELS) for ss in (sets, c_sets))
         yard, c_yard = k5_yardsticks(cells, sets, res, table, f), k5_yardsticks(cells, c_sets, res, table, f)
         unique = sum(int(torch.unique(row).numel()) for row in idx)
         c_unique = sum(int(torch.unique(row).numel()) for row in grid_lookups(c_sets[0][0], res, table))
@@ -1633,7 +1660,423 @@ def profile_splat(trainer) -> None:
     profile_top("splat image 0", lambda: trainer.render_image(0), symbols, top=8)
 
 
-def kernel_line(run_nerf, train_nerf, resample, nerf_plain, run_splat_, comp, grid) -> list[dict]:
+# -- the deep ensemble at full width: K6 ---------------------------------------
+
+NUM_MEMBERS = 5
+# per (sample, level): locating the cell and its weights, then 8 corners x F
+# features x M members, a product and an add each
+K6_OPS = lambda f, m: 25 + 16 * f * m  # noqa: E731
+K6_SYMBOL = "packed_lookup_fwd_kernel"
+ENSEMBLE_SYMBOLS = {"pdf_resample": "pdf_resample_kernel", "cell_lookup_fwd": "cell_lookup_fwd_kernel",
+                    "packed_cell_lookup_fwd": K6_SYMBOL}
+
+
+def build_ensemble(device, size=256):
+    """bench.py::bench_ensemble_render's model (bench.py:166-187) at full
+    width: nerfacto defaults with the aleatoric head, 8 images, near 0.5, far
+    6, white background, no appearance embedding; hash proposals, 16 levels
+    x 2^19 cells, 256 -> 96 -> 48 samples; float32 MLPs (the bf16 path is not
+    ported). Five members drawn by ``interop.draw_params`` with numpy seeds
+    0-4, stacked on the card (``interop.stack_params``' layout), and two
+    cameras from ``hemisphere_cameras``. Models, not trainers: no Adam
+    state."""
+    from uncertainty_nerf_gs_torch.data.synthetic import hemisphere_cameras
+    from uncertainty_nerf_gs_torch.interop import draw_params, params_from_jax, params_to_jax
+    from uncertainty_nerf_gs_torch.models.nerfacto import NerfactoConfig, NerfactoModel
+
+    cfg = NerfactoConfig(num_images=8, uncertainty_channels=1, near_plane=0.5, far_plane=6.0,
+                         background_color="white", use_appearance_embedding=False)
+    model = NerfactoModel(cfg, device=device)
+    like = params_to_jax(model.state_dict())
+    stacked: dict[str, torch.Tensor] = {}
+    for j in range(NUM_MEMBERS):
+        for k, v in params_from_jax(draw_params(like, np.random.default_rng(j))).items():
+            if k not in stacked:
+                stacked[k] = torch.empty((NUM_MEMBERS,) + v.shape, dtype=v.dtype, device=device)
+            stacked[k][j].copy_(v)
+    return model, stacked, hemisphere_cameras(2, size, size)
+
+
+def ensemble_fields(cfg) -> list[tuple]:
+    """(name, resolutions, table size, F, samples per ray) of the three
+    packed tables, as ``pack_ensemble_tables`` builds them."""
+    from uncertainty_nerf_gs_torch.ops.encodings import hash_grid_resolutions
+    from uncertainty_nerf_gs_torch.parallel.ensemble_fused import _PROP_FEATS, _prop_grid_spec
+
+    out = []
+    for i in range(len(cfg.proposal_net_args)):
+        res, table = _prop_grid_spec(cfg, i)
+        out.append((f"proposal_{i}", tuple(int(r) for r in res), table, _PROP_FEATS,
+                    cfg.num_proposal_samples[i]))
+    res = hash_grid_resolutions(cfg.num_levels, cfg.base_res, cfg.max_res)
+    out.append(("field", tuple(int(r) for r in res), 2**cfg.log2_hashmap_size, cfg.features_per_level,
+                cfg.num_nerf_samples))
+    return out
+
+
+def k6_plan(cfg) -> dict[str, list[int]]:
+    """Per proposal, the anchor stride of each level at its sample count: the
+    fused render's K6 launches a chunk are one a proposal level (strided) and
+    one for the field."""
+    from uncertainty_nerf_gs_torch.ops.encodings import anchor_stride
+
+    return {name: [anchor_stride(spr, r) for r in res]
+            for name, res, _, _, spr in ensemble_fields(cfg)[:-1]}
+
+
+@contextlib.contextmanager
+def record_k6():
+    """The (packed, positions, resolutions, table size) of every K6 launch
+    inside the block, in launch order."""
+    from uncertainty_nerf_gs_torch.ops import encodings as enc
+
+    calls, launch = [], enc.packed_cell_lookup_fwd
+
+    def record(packed, positions, resolutions, table_size):
+        calls.append((packed, positions.clone(), tuple(resolutions), table_size))
+        return launch(packed, positions, resolutions, table_size)
+
+    enc.packed_cell_lookup_fwd = record
+    try:
+        yield calls
+    finally:
+        enc.packed_cell_lookup_fwd = launch
+
+
+@contextlib.contextmanager
+def record_edges():
+    """The spacing edges of every ``sample_uniform``/``sample_pdf`` call of
+    the fused render inside the block: its shared chain's sdist list."""
+    from uncertainty_nerf_gs_torch.parallel import ensemble_fused as ef
+
+    edges, saved = [], (ef.sample_uniform, ef.sample_pdf)
+
+    def record(fn):
+        def call(*args, **kwargs):
+            rs = fn(*args, **kwargs)
+            edges.append(rs.spacing_edges)
+            return rs
+        return call
+
+    ef.sample_uniform, ef.sample_pdf = record(saved[0]), record(saved[1])
+    try:
+        yield edges
+    finally:
+        ef.sample_uniform, ef.sample_pdf = saved
+
+
+def chunk_rays(cams, cam_idx, chunk_idx, chunk, device):
+    """The rays of one eval chunk of camera ``cam_idx`` (the render's own
+    chunking)."""
+    from uncertainty_nerf_gs_torch.cameras.cameras import generate_rays, pixel_grid
+
+    px, py = pixel_grid(cams.height, cams.width, device)
+    sl = slice(chunk_idx * chunk, (chunk_idx + 1) * chunk)
+    idx = torch.full((px[sl].shape[0],), cam_idx, dtype=torch.int64, device=device)
+    return generate_rays(cams.to(device), idx, px[sl], py[sl])
+
+
+def k6_bound_ms(n, levels, f, m, unique_rows) -> tuple[float, str, int, int]:
+    """Least time of one K6 call: positions read once, each distinct packed
+    row once (8 M F floats), the output written once; or its float
+    operations. Returns (ms, bound_by, bytes, operations)."""
+    nbytes = 12 * n + unique_rows * 8 * m * f * 4 + 4 * m * n * levels * f
+    ops = n * levels * K6_OPS(f, m)
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations"), nbytes, ops
+
+
+def k6_times(label, calls) -> dict:
+    """K6 and its plain version per call over ``calls`` (one or more sets of
+    (packed, positions, resolutions, table) with the same shapes), beside
+    the bound of the first call's distinct rows and ``index_select`` of the
+    same packed rows (the yardstick; the port never calls it)."""
+    from uncertainty_nerf_gs_torch.ops import encodings as enc
+
+    packed, pos, res, table = calls[0]
+    levels, _, _, m, f = packed.shape
+    n = pos.shape[0]
+    sets = [(c[1],) for c in calls]
+    tm = kernel_times(f"K6 {label}", lambda p: enc.packed_cell_lookup_fwd(packed, p, res, table),
+                      lambda p: enc.packed_cell_lookup_reference(packed, p, res, table), sets, K6_SYMBOL)
+    idx = [[grid_lookups(p, res, table)] for (p,) in sets]
+    library_ms = time_ms(lambda ix: [packed[l].index_select(0, ix[l]) for l in range(levels)], idx)
+    uniq = sum(int(torch.unique(row).numel()) for row in idx[0][0])
+    bound, bound_by, nbytes, ops = k6_bound_ms(n, levels, f, m, uniq)
+    tm.update(label=label, shape=[n, levels, m, f, table], bound_ms=bound, bound_by=bound_by, bytes=nbytes,
+              operations=ops, unique_rows=uniq, library_ms=library_ms)
+    print(f"K6 {label} ({n} samples x {levels} levels x {m} members, F={f}): kernel {tm['ms']:.4f} ms "
+          f"on the device ({tm['event_ms']:.4f} ms a call back to back), plain {tm['plain_ms']:.4f} ms, "
+          f"bound {bound:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, {uniq} distinct rows of "
+          f"{n * levels} lookups); index_select of the same rows, {levels} calls, {library_ms:.4f} ms")
+    return tm
+
+
+def check_k6(model, stacked, packed, device) -> dict:
+    """K6 against its plain version, bit for bit, at M = 5 and the three
+    fields' full-width shapes (4,096 rays x 256 / 96 / 48 samples, 5 / 5 /
+    16 levels), a ragged count, M = 1 and M = 3, F = 1 and F = 4; and K6's
+    member m against K4 on member m's own table, bit for bit, at the three
+    shapes. Times at the three shapes at uniform positions."""
+    from uncertainty_nerf_gs_torch.ops import encodings as enc
+
+    cfg = model.config
+    rays = cfg.eval_num_rays_per_chunk
+    failed, err, times = [], 0.0, {}
+
+    def hold(label, pk, pos, res, table, cells=None):
+        nonlocal err
+        got = enc.packed_cell_lookup_fwd(pk, pos, res, table)
+        want = enc.packed_cell_lookup_reference(pk, pos, res, table)
+        differ = int((got != want).sum())
+        err = max(err, (got - want).abs().max().item())
+        line = f"K6 {label} n={pos.shape[0]} L={len(res)} M={pk.shape[3]} F={pk.shape[4]}: {differ} of " \
+               f"{got.numel()} features differ from the plain version's bits"
+        if differ or not torch.isfinite(got).all():
+            failed.append(f"{label}: K6 differs from its plain version")
+        if cells is not None:
+            f = pk.shape[4]
+            k4 = sum(int((enc.cell_lookup_fwd(cells[j], pos, res, table, f) != got[j]).sum())
+                     for j in range(pk.shape[3]))
+            line += f"; {k4} differ from {pk.shape[3]} K4 launches on the members' own tables"
+            if k4:
+                failed.append(f"{label}: K6 differs from K4 on the members' tables")
+        print(line)
+
+    for i, (name, res, table, f, spr) in enumerate(ensemble_fields(cfg)):
+        gen = torch.Generator(device=device).manual_seed(SEED + 300 + i)
+        pos = lookup_positions(res, rays * spr, gen, device)
+        cells = stacked[f"{name}.encoding.cells"]
+        hold(name, packed[name], pos, res, table, cells)
+        sets = [(packed[name], pos, res, table),
+                (packed[name], torch.rand(rays * spr, 3, generator=gen, device=device), res, table)]
+        times[name] = k6_times(f"{name} uniform", sets)
+        if name == "field":
+            hold("ragged", packed[name], lookup_positions(res, 1001, gen, device), res, table, cells)
+        if name == "proposal_0":
+            for m in (1, 3):
+                sub = enc.pack_member_cell_tables(cells[:m], table, f)
+                hold(f"{name} M={m}", sub, pos, res, table, cells)
+                del sub
+    for f in (1, 4):
+        gen = torch.Generator(device=device).manual_seed(SEED + 310 + f)
+        res = tuple(int(r) for r in enc.hash_grid_resolutions(4, 16, 512))
+        cells = torch.rand(NUM_MEMBERS, 4, 2**12 * 8 * f // 128, 128, generator=gen, device=device) * 4 - 2
+        hold(f"f{f}", enc.pack_member_cell_tables(cells, 2**12, f), lookup_positions(res, 777, gen, device),
+             res, 2**12, cells)
+    if failed:
+        raise AssertionError("K6 " + "; ".join(failed))
+    return dict(err=err, times=times)
+
+
+def check_k6_render_chunk(render, stacked, packed, rb) -> dict:
+    """K6 bit for bit against its plain version at every launch of a real
+    fused render chunk (the proposals' per-level anchors and the field), and
+    those launches timed, a chunk's sum beside its bound."""
+    from uncertainty_nerf_gs_torch.ops import encodings as enc
+
+    with record_k6() as calls:
+        render(stacked, packed, rb)
+    differ = 0
+    for pk, pos, res, table in calls:
+        got = enc.packed_cell_lookup_fwd(pk, pos, res, table)
+        differ += int((got != enc.packed_cell_lookup_reference(pk, pos, res, table)).sum())
+    print(f"K6 at a fused render chunk's {len(calls)} launches: {differ} features differ from the "
+          f"plain version's bits")
+    if differ:
+        raise AssertionError("K6 differs from its plain version at a render chunk's positions")
+    return calls
+
+
+def ensemble_chunk_checks(model, stacked, packed, cams, device) -> dict:
+    """One chunk of camera 1: the launch plan per chunk of the fused and the
+    per-member render; each on the kernel path against the plain path
+    (``plain_versions()``), every output bit for bit; five identical members
+    (exact proposal lookups) against the single model within OUTPUT_TOLS
+    on the rays that kept their cells; distinct members' epistemic variance
+    above 0. Returns the captured K6 calls of two render chunks."""
+    from uncertainty_nerf_gs_torch.models import ensemble as ens
+    from uncertainty_nerf_gs_torch.ops import backend
+    from uncertainty_nerf_gs_torch.parallel.ensemble_fused import (
+        build_fused_ensemble_render,
+        pack_ensemble_tables,
+    )
+
+    cfg = model.config
+    chunk = cfg.eval_num_rays_per_chunk
+    middle = cams.height * cams.width // chunk // 2
+    rb = chunk_rays(cams, 1, middle, chunk, device)
+    fused = build_fused_ensemble_render(model)
+    plan = k6_plan(cfg)
+    print("fused render: anchor strides a proposal level " + ", ".join(
+        f"{k} {'/'.join(map(str, v))}" for k, v in plan.items()))
+    want = {
+        "fused": dict(pdf_resample=2, packed_cell_lookup_fwd=sum(len(v) for v in plan.values()) + 1,
+                      cell_lookup_fwd=0, cell_lookup_bwd=0),
+        "per_member": dict(pdf_resample=2 * NUM_MEMBERS, cell_lookup_fwd=3 * NUM_MEMBERS,
+                           packed_cell_lookup_fwd=0, cell_lookup_bwd=0),
+    }
+    renders = {"fused": lambda: fused(stacked, packed, rb),
+               "per_member": lambda: ens.ensemble_render(model, stacked, rb)}
+    out = {}
+    for mode, run in renders.items():
+        backend.reset_launch_counts()
+        kern = run()
+        launches = {k: backend.launch_counts[k] for k in want[mode]}
+        print(f"ensemble {mode} chunk launches {launches}, expected {want[mode]}")
+        if launches != want[mode]:
+            raise AssertionError(f"the {mode} ensemble chunk did not launch its plan")
+        backend.reset_launch_counts()
+        with backend.plain_versions():
+            plain = run()
+        if any(backend.launch_counts.values()):
+            raise AssertionError(f"kernels launched inside plain_versions(): {backend.launch_counts}")
+        differ = bits_differ(kern, plain)
+        print(f"ensemble {mode} chunk, kernel path against plain path: {sum(differ.values())} output "
+              "entries not bit-identical" + "".join(f", {k} {v}" for k, v in differ.items() if v))
+        if sum(differ.values()):
+            raise AssertionError(f"the {mode} ensemble's kernel and plain paths disagree")
+        out[mode] = kern
+    epi = out["fused"]["rgb_var_epi"]
+    print(f"distinct members: fused rgb_var_epi mean {epi.mean().item():.3e}, max {epi.max().item():.3e}; "
+          f"per-member {out['per_member']['rgb_var_epi'].mean().item():.3e}")
+    if not (epi.mean() > 0 and out["per_member"]["rgb_var_epi"].mean() > 0):
+        raise AssertionError("distinct members gave no epistemic variance")
+    diff = (out["fused"]["rgb"] - out["per_member"]["rgb"]).abs()
+    print(f"fused against per-member rgb: mean abs {diff.mean().item():.3e}, max {diff.max().item():.3e}")
+
+    # five identical members with exact proposal lookups (the anchor stride
+    # lerps the coarse levels, which the single model does not): the shared
+    # chain is each member's own, and the fused render the single model's
+    same = {k: v[:1].expand((NUM_MEMBERS,) + v.shape[1:]) for k, v in stacked.items()}
+    packed_same = pack_ensemble_tables(model, same)
+    with record_edges() as edges:
+        fused_same = build_fused_ensemble_render(model, proposal_anchor_stride=False)(same, packed_same, rb)
+    del packed_same
+    single = ens.member_apply(model, ens.member_params(stacked, 0),
+                              lambda mdl, r: mdl(r, use_average_appearance=True, return_intermediates=True), rb)
+    flipped = (model.lookup_cells(rb, edges) != model.lookup_cells(rb, single["sdist_list"])).any(dim=1)
+    bad = torch.zeros_like(flipped)
+    for k, tol in OUTPUT_TOLS.items():
+        bad |= (~torch.isclose(fused_same[k], single[k], **tol)).reshape(chunk, -1).any(dim=1)
+    epi_same = fused_same["rgb_var_epi"].max().item()
+    print(f"five identical members against the single model: {int(flipped.sum())} of {chunk} rays flipped "
+          f"a cell, {int((bad & ~flipped).sum())} others outside OUTPUT_TOLS; rgb_var_epi max {epi_same:.3e}")
+    if (bad & ~flipped).any() or flipped.float().mean() > MAX_FLIPPED_RAY_SHARE:
+        raise AssertionError("five identical members do not give the single model's render")
+
+    calls = [check_k6_render_chunk(fused, stacked, packed, chunk_rays(cams, 1, c, chunk, device))
+             for c in (middle, middle + 1)]
+    return dict(render_calls=calls, plan=plan)
+
+
+def ensemble_images(model, stacked, cams, device, name) -> dict:
+    """The eval path as a user drives it: ``build_ensemble_chunk_fn`` (fused
+    and per member) through ``_nerfacto_full_image_renderer`` into
+    ``get_average_uncertainty_metrics`` over two images, then
+    ``write_benchmark_json`` into a temporary directory; launches counted
+    over each evaluation and held to the plan; the metrics finite. The GT of
+    image i is the per-member render of the other camera plus numpy-seeded
+    noise. Then each mode's image under the profiler and its host-clock
+    time."""
+    import tempfile
+
+    from uncertainty_nerf_gs_torch.eval.evaluator import (
+        EvalOptions,
+        get_average_uncertainty_metrics,
+        write_benchmark_json,
+    )
+    from uncertainty_nerf_gs_torch.ops import backend
+    from uncertainty_nerf_gs_torch.scripts.eval_uncertainty import (
+        _nerfacto_full_image_renderer,
+        build_ensemble_chunk_fn,
+    )
+
+    cfg = model.config
+    renders = {mode: _nerfacto_full_image_renderer(
+        cfg, build_ensemble_chunk_fn(model, stacked, ensemble_mode=mode), cams, device)
+        for mode in ("fused", "per_member")}
+    rng = np.random.default_rng(SEED + 8)
+    gts = [np.clip(renders["per_member"](1 - i)["rgb"].cpu().numpy()
+                   + rng.normal(0, 0.05, (cams.height, cams.width, 3)), 0, 1).astype(np.float32)
+           for i in range(2)]
+    chunks = -(-cams.height * cams.width // cfg.eval_num_rays_per_chunk)
+    plan = k6_plan(cfg)
+    per_chunk = {"fused": dict(pdf_resample=2, cell_lookup_fwd=0,
+                               packed_cell_lookup_fwd=sum(len(v) for v in plan.values()) + 1),
+                 "per_member": dict(pdf_resample=2 * NUM_MEMBERS, cell_lookup_fwd=3 * NUM_MEMBERS,
+                                    packed_cell_lookup_fwd=0)}
+    keys = ("psnr", "ssim", "lpips_rand", "nll_rgb", "rgb_ause_mae", "rgb_ause_mse", "rgb_ause_rmse",
+            "rgb_auce_abs", "rgb_auce_length", "rgb_auce_neg", "num_rays_per_sec")
+    out = {"launches": {}, "results": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode, render in renders.items():
+            opts = EvalOptions(experiment_name="chip_smoke", method_name=f"active-nerfacto-ensemble-{mode}",
+                               approximations={"table_dtype": "f32", "ensemble_mode": mode,
+                                               "proposal_anchor_stride": mode == "fused"})
+            backend.reset_launch_counts()
+            res = get_average_uncertainty_metrics(render, gts, opts)["results"]
+            launches = dict(backend.launch_counts)
+            renders_run = 3 * chunks  # a warm-up render, then the two images
+            want = {k: v * renders_run for k, v in per_chunk[mode].items()}
+            print(f"ensemble {mode} evaluation launches {launches}, expected {want} "
+                  f"({renders_run} chunks)")
+            if any(launches[k] != v for k, v in want.items()) or launches["cell_lookup_bwd"]:
+                raise AssertionError(f"the {mode} evaluation did not go through its kernels")
+            print(f"ensemble {mode} metrics on {name}: " + ", ".join(f"{k} {res[k]:.6g}" for k in keys))
+            if not all(np.isfinite(res[k]) for k in keys):
+                raise AssertionError(f"the {mode} evaluation gave a metric that is not finite")
+            write_benchmark_json(Path(tmp) / f"{mode}.json", res, opts)
+            written = json.loads((Path(tmp) / f"{mode}.json").read_text())
+            if written["results"].keys() != res.keys():
+                raise AssertionError("the benchmark JSON lost results")
+            out["launches"][mode], out["results"][mode] = launches, res
+    # image 1 of each mode on the host clock, in turns: fused, per member,
+    # per member, fused, three times
+    times = {mode: [] for mode in renders}
+    for _ in range(3):
+        for mode in ("fused", "per_member", "per_member", "fused"):
+            t0 = time.perf_counter()
+            renders[mode](1)["rgb"].cpu()
+            times[mode].append(time.perf_counter() - t0)
+    for mode, render in renders.items():
+        seconds = times[mode]
+        print(f"ensemble {mode} image 1 in turns: " + ", ".join(f"{1e3 * s:.1f}" for s in seconds)
+              + f" ms/image; median {1e3 * float(np.median(seconds)):.1f} ms, "
+              f"{cams.height * cams.width / float(np.median(seconds)):.0f} rays/s on {name}")
+        backend.reset_launch_counts()
+        traced = profile_top(f"ensemble {mode} image 1", lambda: render(1)["rgb"].cpu(), ENSEMBLE_SYMBOLS)
+        seen = {k: sum(c for name_, (c, _) in traced.items() if sym in name_)
+                for k, sym in ENSEMBLE_SYMBOLS.items()}
+        print(f"  the profile traced {seen} of the port's launches {dict((k, backend.launch_counts[k]) for k in seen)}")
+    out["seconds"] = times
+    return out
+
+
+def run_ensemble(device, name) -> dict:
+    from uncertainty_nerf_gs_torch.parallel.ensemble_fused import pack_ensemble_tables
+
+    t0 = time.perf_counter()
+    model, stacked, cams = build_ensemble(device)
+    packed = pack_ensemble_tables(model, stacked)
+    gb = lambda ts: sum(t.numel() * t.element_size() for t in ts) / 1e9  # noqa: E731
+    print(f"ensemble: {NUM_MEMBERS} members, {gb(stacked.values()):.2f} GB of member parameters, "
+          f"{gb(packed.values()):.2f} GB of packed tables ({gb([packed['field']]):.2f} GB the field's); "
+          f"set-up {time.perf_counter() - t0:.1f} s")
+    k6 = check_k6(model, stacked, packed, device)
+    chunk = ensemble_chunk_checks(model, stacked, packed, cams, device)
+    k6["render"] = [k6_times(f"render chunk launch {i}", [c[i] for c in chunk["render_calls"]])
+                    for i in range(len(chunk["render_calls"][0]))]
+    per = k6["render"]
+    print(f"a fused chunk's {len(per)} K6 launches at a render chunk's positions: "
+          f"{sum(t['ms'] for t in per):.4f} ms, plain {sum(t['plain_ms'] for t in per):.4f} ms, bound "
+          f"{sum(t['bound_ms'] for t in per):.4f} ms, index_select {sum(t['library_ms'] for t in per):.4f} ms")
+    del packed
+    images = ensemble_images(model, stacked, cams, device, name)
+    return dict(k6=k6, plan=chunk["plan"], **images)
+
+
+def kernel_line(run_nerf, train_nerf, resample, nerf_plain, run_splat_, comp, grid, ens) -> list[dict]:
     per = resample["per_launch"]
     # one chunk's two launches as the render makes them: 256 -> 97 with u
     # and edges shared, 96 -> 49 with u shared, at 4096 rays
@@ -1642,9 +2085,11 @@ def kernel_line(run_nerf, train_nerf, resample, nerf_plain, run_splat_, comp, gr
         name="pdf_resample", route="cuda",
         source="uncertainty_nerf_gs_torch/csrc/pdf_resample.cu",
         replaces="uncertainty_nerf_gs_tpu/ops/pdf_pallas.py:120",
-        launches=run_nerf["launches"]["pdf_resample"] + train_nerf["launches"]["pdf_resample"],
+        launches=run_nerf["launches"]["pdf_resample"] + train_nerf["launches"]["pdf_resample"]
+        + sum(v["pdf_resample"] for v in ens["launches"].values()),
         launches_by_path=dict(render=run_nerf["launches"]["pdf_resample"],
-                              train=train_nerf["launches"]["pdf_resample"]),
+                              train=train_nerf["launches"]["pdf_resample"],
+                              **{f"ensemble_{k}": v["pdf_resample"] for k, v in ens["launches"].items()}),
         max_abs_err=max(resample["max_abs_err"], nerf_plain["edge_err"]),
         ms=sum(p["ms"] for p in render), plain_ms=sum(p["plain_ms"] for p in render),
         bound_ms=sum(p["bound_ms"] for p in render), bound_by=render[0]["bound_by"],
@@ -1671,7 +2116,8 @@ def kernel_line(run_nerf, train_nerf, resample, nerf_plain, run_splat_, comp, gr
     for name, key, err in (("cell_lookup_fwd", "fwd", grid["fwd_err"]),
                            ("cell_lookup_bwd", "bwd", grid["bwd_err"])):
         per = [p[key] for p in grid["per_launch"]]
-        by_path = dict(render=run_nerf["launches"][name], train=train_nerf["launches"][name])
+        by_path = dict(render=run_nerf["launches"][name], train=train_nerf["launches"][name],
+                       **{f"ensemble_{k}": v[name] for k, v in ens["launches"].items()})
         entry = dict(
             name=name, route="cuda", source="uncertainty_nerf_gs_torch/csrc/hash_grid.cu",
             replaces="experiments/jobs/403_pallas_gather_probe.py:96",
@@ -1696,6 +2142,20 @@ def kernel_line(run_nerf, train_nerf, resample, nerf_plain, run_splat_, comp, gr
                          clustered_bound_ms=sum(p["bound_ms"] for p in clustered),
                          per_launch_clustered=clustered)
         kernels.append(entry)
+    # a fused chunk's K6 launches at a render chunk's positions
+    per = ens["k6"]["render"]
+    kernels.append(dict(
+        name="packed_cell_lookup_fwd", route="cuda", source="uncertainty_nerf_gs_torch/csrc/hash_grid.cu",
+        replaces="experiments/jobs/403_pallas_gather_probe.py:96",
+        launches=sum(v["packed_cell_lookup_fwd"] for v in ens["launches"].values()),
+        launches_by_path={f"ensemble_{k}": v["packed_cell_lookup_fwd"] for k, v in ens["launches"].items()},
+        max_abs_err=ens["k6"]["err"],
+        ms=sum(p["ms"] for p in per), plain_ms=sum(p["plain_ms"] for p in per),
+        bound_ms=sum(p["bound_ms"] for p in per), bound_by=per[-1]["bound_by"],
+        # index_select of the same packed rows: a yardstick, not the function
+        library_ms=None, index_select_ms=sum(p["library_ms"] for p in per), per_launch=per,
+        uniform=ens["k6"]["times"], strides=ens["plan"],
+    ))
     return kernels
 
 
@@ -1721,6 +2181,8 @@ def main() -> int:
         print(f"built {kernel}:\n{report.strip()}")
         for line in ptxas_summary(report, "cell_lookup_fwd_kernel"):
             print(f"K4 ptxas: {line}")
+        for line in ptxas_summary(report, K6_SYMBOL):
+            print(f"K6 ptxas: {line}")
     other = other_build() if other_build else None
     print(f"build: {time.perf_counter() - t0:.1f} s")
     device = torch.device("cuda")
@@ -1767,7 +2229,11 @@ def main() -> int:
     print(f"splat done at {time.perf_counter() - t_start:.1f} s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
-    kernels = kernel_line(run_nerf, train_nerf, resample, nerf_plain, run, comp, grid)
+    ens = run_ensemble(device, name)
+    print(f"ensemble done at {time.perf_counter() - t_start:.1f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    kernels = kernel_line(run_nerf, train_nerf, resample, nerf_plain, run, comp, grid, ens)
     print(json.dumps({"kernels": kernels}))
     print(name)
     print(json.dumps({"ok": True, "device": {

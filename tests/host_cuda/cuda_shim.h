@@ -3,9 +3,9 @@
 // is 32 host threads (run_warp), and every shuffle, ballot and __syncwarp is
 // a meeting of the 32 at a barrier. Float arithmetic is IEEE single
 // precision; compile with -ffp-contract=off so that nothing is fused, as
-// __fmul_rn / __fadd_rn guarantee on the card. Only K4 is run this way: K5's
-// kernels compile but use shared memory across warps and integer atomics
-// that the stand-ins here do not model.
+// __fmul_rn / __fadd_rn guarantee on the card. K4 and K6 are run this way:
+// K5's kernels compile but use shared memory across warps and integer
+// atomics that the stand-ins here do not model.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -27,9 +27,13 @@ using std::min;
 #define __launch_bounds__(...)
 #define __restrict__
 
+struct float2 {
+    float x, y;
+};
 struct float4 {
     float x, y, z, w;
 };
+inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 struct uint3_ {
     unsigned x, y, z;

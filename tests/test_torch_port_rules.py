@@ -21,9 +21,11 @@ from uncertainty_nerf_gs_torch.models.splatfacto import SplatfactoConfig
 from uncertainty_nerf_gs_torch.ops import backend
 from uncertainty_nerf_gs_torch.ops.encodings import (
     MAX_LEVELS,
+    MAX_MEMBERS,
     CellLookup,
     cell_lookup,
     cell_lookup_bwd,
+    packed_cell_lookup,
 )
 from uncertainty_nerf_gs_torch.ops.composite import (
     MAX_CHANNELS,
@@ -158,7 +160,7 @@ def test_plain_versions_switch():
     sample_pdf, NerfactoModel.forward, CompositeTiles.forward, composite_tiles,
     rasterize_gaussians, splatfacto._rasterize, splatfacto.render_splat,
     SplatfactoTrainer.render_image, cell_lookup, CellLookup.forward,
-    NerfactoTrainer.train_step, NerfactoTrainer._loss_fn,
+    NerfactoTrainer.train_step, NerfactoTrainer._loss_fn, packed_cell_lookup,
 ], ids=lambda f: f.__qualname__)
 def test_no_plain_parameter(fn):
     """The plain path is chosen by ``backend.plain_versions()``, not by an
@@ -240,6 +242,104 @@ def test_cell_lookup_backward_wrapper_refuses_g_out(case):
         g_out = g_out.to("meta")
     with pytest.raises(ValueError):
         cell_lookup_bwd(cells, pos, res, table, 2, g_out)
+
+
+def _packed_inputs(levels=3, m=3, f=2, n=7, dtype=torch.float32):
+    """packed (L, 512, 8, M, F), positions (n, 3), resolutions, table size."""
+    return (torch.rand(levels, 512, 8, m, f, dtype=dtype), torch.rand(n, 3, dtype=dtype),
+            (4, 8, 16)[:levels], 512)
+
+
+@pytest.mark.parametrize(
+    "case,error",
+    [
+        ("packed_float64", TypeError),
+        ("positions_float64", TypeError),
+        ("packed_not_contiguous", ValueError),
+        ("positions_not_contiguous", ValueError),
+        ("too_many_members", ValueError),
+        ("members_asked", ValueError),
+        ("features_3", ValueError),
+        ("features_8", ValueError),
+        ("features_asked", ValueError),
+        ("packed_4d", ValueError),
+        ("not_8_corners", ValueError),
+        ("table_size", ValueError),
+        ("resolutions_count", ValueError),
+        ("positions_shape", ValueError),
+        ("mixed_devices", ValueError),
+        ("packed_misaligned", ValueError),
+    ],
+)
+def test_packed_lookup_wrapper_refuses(case, error):
+    """The packed lookup refuses what K6 does not take (dtype, layout, M,
+    F, the table's shape, the device), on every device, rather than copy."""
+    packed, pos, res, table = _packed_inputs()
+    m, f = 3, 2
+    if case == "packed_float64":
+        packed = packed.double()
+    elif case == "positions_float64":
+        pos = pos.double()
+    elif case == "packed_not_contiguous":
+        packed = torch.rand(3, 512, 8, 2, 3).transpose(3, 4)  # (.., 3, 2), strided
+    elif case == "positions_not_contiguous":
+        pos = torch.rand(3, 7).t()
+    elif case == "too_many_members":
+        packed, pos, res, table = _packed_inputs(m=MAX_MEMBERS + 1)
+        m = MAX_MEMBERS + 1
+    elif case == "members_asked":
+        m = 2
+    elif case == "features_3":
+        packed, pos, res, table = _packed_inputs(f=3)
+        f = 3
+    elif case == "features_8":
+        packed, pos, res, table = _packed_inputs(f=8)
+        f = 8
+    elif case == "features_asked":
+        f = 4
+    elif case == "packed_4d":
+        packed = packed.reshape(3, 512, 8, 6)
+    elif case == "not_8_corners":
+        packed = torch.rand(3, 512, 4, 3, 2)
+    elif case == "table_size":
+        table = 256
+    elif case == "resolutions_count":
+        res = res[:2]
+    elif case == "positions_shape":
+        pos = torch.rand(7, 2)
+    elif case == "mixed_devices":
+        pos = pos.to("meta")
+    elif case == "packed_misaligned":  # contiguous, but K6's vector reads need 16 bytes
+        packed = torch.rand(packed.numel() + 1)[1:].view(packed.shape)
+    with pytest.raises(error):
+        packed_cell_lookup(packed, pos, res, table, m, f)
+
+
+EVAL_MODULES = [
+    "uncertainty_nerf_gs_torch.eval.evaluator",
+    "uncertainty_nerf_gs_torch.metrics.image_metrics",
+    "uncertainty_nerf_gs_torch.metrics.ause",
+    "uncertainty_nerf_gs_torch.metrics.auce",
+    "uncertainty_nerf_gs_torch.metrics.nll",
+    "uncertainty_nerf_gs_torch.ops.lpips",
+    "uncertainty_nerf_gs_torch.models.ensemble",
+    "uncertainty_nerf_gs_torch.parallel.ensemble_fused",
+    "uncertainty_nerf_gs_torch.scripts.eval_uncertainty",
+]
+
+
+def test_eval_modules_import_without_pil_or_matplotlib():
+    """The card's machine has neither PIL nor matplotlib: the evaluator,
+    the metrics and the ensemble modules import (with what they import)
+    in an interpreter where both are missing; only the PNG and plot writers
+    need them, and import them inside."""
+    code = ("import sys\nsys.modules['PIL'] = None\nsys.modules['matplotlib'] = None\n"
+            + "".join(f"import {m}\n" for m in EVAL_MODULES)
+            + "assert not any(k.split('.')[0] in ('PIL', 'matplotlib') and v is not None "
+              "for k, v in sys.modules.items())\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
 
 
 HASH_GRID_CU = REPO / "uncertainty_nerf_gs_torch" / "csrc" / "hash_grid.cu"

@@ -1,8 +1,8 @@
 """How far the port is from the JAX package on the parity tests' inputs.
 
-    JAX_PLATFORMS=cpu python tests/torch_parity_report.py [nerfacto] [splat] [composite] [train]
+    JAX_PLATFORMS=cpu python tests/torch_parity_report.py [nerfacto] [splat] [composite] [train] [ensemble]
 
-Each named section, or all four. Nerfacto (tests/test_torch_model.py::test_model_eval_forward_matches_jax):
+Each named section, or all five. Nerfacto (tests/test_torch_model.py::test_model_eval_forward_matches_jax):
 the rays whose lookups flipped a hash-grid cell between the port and JAX's
 eager forward, then per output the largest absolute and relative deviation
 on the other rays, beside the JAX package's own jit-vs-eager deviation.
@@ -21,6 +21,12 @@ Train (tests/test_torch_train.py::test_trainer_loss_and_grads_match_jax):
 per case the loss terms' relative deviation and each gradient's relative L2
 deviation from the jitted JAX trainer, the port's beside the JAX package's
 own eager evaluation's.
+
+Ensemble (tests/test_torch_ensemble.py::test_fused_render_matches_jax and
+test_per_member_render_matches_jax): for the fused render (both proposal
+stride settings) and the per-member render of three members, the rays that
+flipped a cell, then per output the largest absolute and relative deviation
+from JAX's jitted render on the other rays.
 
 The tolerances in tests/torch_parity.py are set from this report.
 """
@@ -163,7 +169,38 @@ def train() -> None:
             print(f"  {k:40s} relative L2: port {port:.2e}  JAX eager {jax_eager:.2e}")
 
 
+def ensemble() -> None:
+    import test_torch_ensemble as te
+
+    stride_config = dict(
+        num_proposal_samples=(64, 24),
+        proposal_net_args=(dict(num_levels=2, max_res=8, log2_hashmap_size=9, hidden_dim=16),
+                           dict(num_levels=2, max_res=16, log2_hashmap_size=9, hidden_dim=16)))
+    cases = [("fused, anchor stride", dict(proposal_anchor_stride=True), stride_config),
+             ("fused, exact", dict(proposal_anchor_stride=False), stride_config),
+             ("per member", None, {})]
+    for label, kw, over in cases:
+        rng = np.random.default_rng(0)
+        jmodel, tmodel, stacked, tstacked = te.ensemble_pair(**over)
+        jb, tb = te.bundles(rng)
+        if kw is None:
+            want, got, j_sdist, t_sdist = te.per_member_pair(jmodel, tmodel, stacked, tstacked, jb, tb)
+        else:
+            want, got, j_sdist, t_sdist = te.fused_pair(jmodel, tmodel, stacked, tstacked, jb, tb, **kw)
+            j_sdist, t_sdist = [j_sdist], [t_sdist]
+        flipped = te.flipped_rays(jmodel, tmodel, jb, tb, j_sdist, t_sdist)
+        print(f"ensemble {label}: {flipped.sum()} of {flipped.size} rays flipped a cell")
+        keep = ~flipped
+        for k in sorted(want):
+            if np.ndim(want[k]) == 0:
+                continue
+            w = want[k].reshape(flipped.size, -1)[keep]
+            err = np.abs(got[k].reshape(flipped.size, -1)[keep] - w)
+            rel = err / np.maximum(np.abs(w), 1e-12)
+            print(f"  {k:20s} max abs {err.max():.3e}  max rel {rel.max():.3e}")
+
+
 if __name__ == "__main__":
-    sections = dict(nerfacto=nerfacto, splat=splat, composite=composite, train=train)
+    sections = dict(nerfacto=nerfacto, splat=splat, composite=composite, train=train, ensemble=ensemble)
     for name in sys.argv[1:] or sections:
         sections[name]()

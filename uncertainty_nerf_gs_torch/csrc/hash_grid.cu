@@ -1,4 +1,5 @@
-// Hash-grid cell lookup for Hopper (sm_90a): forward (K4) and backward (K5).
+// Hash-grid cell lookup for Hopper (sm_90a): forward (K4), backward (K5), and
+// the ensemble's forward on member-packed rows (K6, below K4).
 //
 // The TPU side has this lookup in uncertainty_nerf_gs_tpu/ops/encodings.py::
 // cell_lookup (one row gather per sample and level, `tables[lvl][idx // cpr]`),
@@ -437,6 +438,92 @@ __global__ void __launch_bounds__(kK4Threads, F <= 2 ? 8 : 6) cell_lookup_fwd_ke
             }
         }
         __syncwarp();
+    }
+}
+
+// -- K6: the member-packed forward, the ensemble's lookup -------------------------
+
+// K6 is K4 for an ensemble of M members stored side by side: a level's table
+// is (T, 8, M, F), one packed row of 8 corners x M members x F features a
+// cell (320 B at M = 5, F = 2), so that one cell index serves every member.
+// It replaces the row gather of uncertainty_nerf_gs_tpu/ops/encodings.py::
+// packed_cell_lookup, the member-packed rows that experiments/jobs/
+// 403_pallas_gather_probe.py::pallas_gather probed at 2^19 rows. For each
+// sample i, level l and member m:
+//   out[m, i, l * F + f] = sum_c w[c] * row[l, idx, c, m, f]
+// with idx and w from locate and corner_weight, summed in k4_tree's order, so
+// that it equals its plain version (ops/encodings.py::
+// packed_cell_lookup_reference) and M K4 launches on the members' own tables
+// bit for bit. What bounds the function: bytes, each distinct row once
+// (320 B at M = 5, F = 2) and the M-fold output (4 M L F B a sample). The
+// design is the simple one: a thread a sample, walking the levels as K4's
+// warps do (one level's table hot at a time), locating its cell once a
+// level and reading member m's 8 corners as F-float vectors (8 loads of
+// 4 F bytes, 4 M F bytes apart); it writes each (member, level) as one
+// F-float vector, no staging (the warp's writes land 4 L F bytes apart and
+// are merged in L2). So it pays 8 M load instructions a lookup, each
+// touching up to 32 lines where the warp's rows differ, against K4's one
+// shared read: on an H100 it sits at 5-22x its byte bound (PERF.md,
+// section 6), and a redesign is queued (ROADMAP, queue 2).
+
+constexpr int kK6Threads = 128;
+constexpr int kK6MaxMembers = 8;
+
+template <int F>
+__device__ __forceinline__ void load_features(const float* src, float (&v)[F]) {
+    if constexpr (F == 1) {
+        v[0] = __ldg(src);
+    } else if constexpr (F == 2) {
+        const float2 q = __ldg(reinterpret_cast<const float2*>(src));
+        v[0] = q.x, v[1] = q.y;
+    } else {
+        static_assert(F == 4, "F in {1, 2, 4}");
+        const float4 q = __ldg(reinterpret_cast<const float4*>(src));
+        v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+    }
+}
+
+template <int F>
+__device__ __forceinline__ void store_features(float* dst, const float (&v)[F]) {
+    if constexpr (F == 1) {
+        dst[0] = v[0];
+    } else if constexpr (F == 2) {
+        *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+    } else {
+        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+}
+
+template <int F>
+__global__ void __launch_bounds__(kK6Threads) packed_lookup_fwd_kernel(
+    const float* __restrict__ positions, const float* __restrict__ packed,
+    float* __restrict__ out, int n, int num_levels, int members, long long level_stride,
+    unsigned table_size, Levels lv) {
+    const long long i = static_cast<long long>(blockIdx.x) * kK6Threads + threadIdx.x;
+    if (i >= n) return;
+    const float p[3] = {positions[3 * i], positions[3 * i + 1], positions[3 * i + 2]};
+    const long long row = static_cast<long long>(num_levels) * F;  // out floats a sample
+    const long long cell_floats = 8LL * members * F;
+    for (int l = 0; l < num_levels; ++l) {
+        const Cell cell = locate(p, lv, l, table_size);
+        float w[8];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) w[c] = corner_weight(cell, c);
+        const float* cell_ptr = packed + l * level_stride + cell.idx * cell_floats;
+        for (int m = 0; m < members; ++m) {
+            float x[8][F];
+#pragma unroll
+            for (int c = 0; c < 8; ++c) load_features<F>(cell_ptr + (c * members + m) * F, x[c]);
+            float v[F];
+#pragma unroll
+            for (int f = 0; f < F; ++f) {
+                float prod[8];
+#pragma unroll
+                for (int c = 0; c < 8; ++c) prod[c] = __fmul_rn(w[c], x[c][f]);
+                v[f] = k4_tree(prod);
+            }
+            store_features<F>(out + (m * static_cast<long long>(n) + i) * row + l * F, v);
+        }
     }
 }
 
@@ -981,6 +1068,39 @@ extern "C" int cell_lookup_fwd_f32(const float* positions, const float* cells, f
             return static_cast<int>(cudaErrorInvalidValue);
     }
 #undef K4_CASE
+    return static_cast<int>(cudaGetLastError());
+}
+
+// K6. Device pointers to float32: positions (n, 3) contiguous; packed (L,
+// table_size, 8, M, F) contiguous, 16-byte aligned; out (M, n, L * F)
+// contiguous, 16-byte aligned. resolutions is a host array of L ints;
+// members is M in [1, 8]; features is F in {1, 2, 4}. Launches on `stream`
+// and returns cudaGetLastError(), or cudaErrorInvalidValue for arguments the
+// kernel does not take.
+extern "C" int packed_cell_lookup_fwd_f32(const float* positions, const float* packed, float* out,
+                                          int n, int num_levels, int table_size, int members,
+                                          int features, const int* resolutions, void* stream) {
+    Levels lv;
+    if (!make_levels(resolutions, num_levels, table_size, &lv) || n < 0 || members < 1 ||
+        members > kK6MaxMembers || reinterpret_cast<unsigned long long>(packed) % 16 != 0 ||
+        reinterpret_cast<unsigned long long>(out) % 16 != 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (n == 0) return 0;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const unsigned ts = static_cast<unsigned>(table_size);
+    const long long level_stride = static_cast<long long>(table_size) * 8 * members * features;
+    const int blocks = static_cast<int>((static_cast<long long>(n) + kK6Threads - 1) / kK6Threads);
+#define K6_CASE(f)                                                                 \
+    case f:                                                                        \
+        packed_lookup_fwd_kernel<f><<<blocks, kK6Threads, 0, s>>>(                 \
+            positions, packed, out, n, num_levels, members, level_stride, ts, lv); \
+        break;
+    switch (features) {
+        K6_CASE(1) K6_CASE(2) K6_CASE(4)
+        default:
+            return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef K6_CASE
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,8 +13,8 @@ The batch and the forward's draws come from the trainer's own
 ``torch.Generator`` (seeded ``seed + 1``; the weights' from ``seed``), so
 they are not the JAX package's numbers; the parity tests inject those.
 Refused rather than skipped: ``steps_per_launch > 1`` and
-``gradient_checkpointing`` (ROADMAP, queue 1, item 7) and the face
-consistency loss (item 3).
+``gradient_checkpointing`` (ROADMAP, queue 1, item 6) and the face
+consistency loss (item 7).
 """
 
 from __future__ import annotations
@@ -72,11 +72,11 @@ class NerfactoTrainer:
     ):
         if gradient_checkpointing:
             raise NotImplementedError(
-                "gradient_checkpointing is not ported yet (ROADMAP, queue 1, item 7)"
+                "gradient_checkpointing is not ported yet (ROADMAP, queue 1, item 6)"
             )
         if config.face_consistency_mult > 0.0:
             raise NotImplementedError(
-                "face_consistency_loss is not ported yet (ROADMAP, queue 1, item 3)"
+                "face_consistency_loss is not ported yet (ROADMAP, queue 1, item 7)"
             )
         self.device = resolve_device(device)
         self.config = config
@@ -235,7 +235,7 @@ class NerfactoTrainer:
         the last, ``callback(i, losses)`` after each."""
         if steps_per_launch > 1:
             raise NotImplementedError(
-                "steps_per_launch > 1 is not ported yet (ROADMAP, queue 1, item 7)"
+                "steps_per_launch > 1 is not ported yet (ROADMAP, queue 1, item 6)"
             )
         losses: dict[str, float] = {}
         for i in range(num_steps):

@@ -24,12 +24,20 @@ neither direction imports optax. Both are bit-exact.
 The splat models' parameters are a flat dict with the same names in both
 packages (``SPLAT_PARAM_NAMES``); ``splat_params_from_jax`` and
 ``splat_params_to_jax`` copy them leaf by leaf, also bit-exact.
+
+An ensemble's members are one dict of (M, ...) tensors under the state
+dict's names (``stack_params``); ``ensemble_params_from_jax`` takes the JAX
+package's stacked flax tree (a leading member axis on every leaf) to it.
+``packed_tables_from_jax`` and ``packed_tables_to_jax`` move the member-packed
+eval tables between the JAX layout, (L, T, lanes) rows padded with zeros to a
+multiple of 128 lanes, and the port's (L, T, 8, M, F) without the pad; both
+directions only copy, so the round trip is exact.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Any, Mapping
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -223,4 +231,54 @@ def splat_params_to_jax(params: Mapping[str, torch.Tensor]) -> dict[str, np.ndar
         if key not in SPLAT_PARAM_NAMES:
             raise KeyError(f"no splat parameter named {key}")
         out[key] = np.ascontiguousarray(value.detach().cpu().numpy())
+    return out
+
+
+def stack_params(states: Sequence[Mapping[str, torch.Tensor]]) -> dict[str, torch.Tensor]:
+    """M state dicts with the same keys -> one dict of (M, ...) tensors, the
+    ensemble's members on a leading axis (the JAX ``stack_params``)."""
+    keys = list(states[0])
+    for state in states[1:]:
+        if list(state) != keys:
+            raise KeyError("the members' state dicts hold different keys")
+    return {k: torch.stack([state[k] for state in states]) for k in keys}
+
+
+def ensemble_params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The JAX package's stacked flax param tree of numpy arrays (every leaf
+    with a leading member axis, as ``init_ensemble_params`` makes it) ->
+    ``stack_params`` of the members' state dicts (CPU tensors)."""
+    leaves = list(_flatten(tree))
+    members = {leaf.shape[0] for _, leaf in leaves}
+    if len(members) != 1:
+        raise ValueError(f"leaves disagree on the member count: {sorted(members)}")
+    m = members.pop()
+
+    def member(j):
+        return OrderedDict(_torch_leaf(path, leaf[j]) for path, leaf in leaves)
+
+    return stack_params([member(j) for j in range(m)])
+
+
+def packed_tables_from_jax(rows, num_members: int, features_per_level: int = 2) -> torch.Tensor:
+    """JAX ``pack_member_cell_tables`` rows (L, T, lanes), 8 M F real lanes
+    padded to a multiple of 128 -> the port's (L, T, 8, M, F) float32
+    without the pad lanes (CPU tensor)."""
+    rows = np.asarray(rows)
+    payload = 8 * num_members * features_per_level
+    levels, table, lanes = rows.shape
+    if lanes < payload or lanes % 128:
+        raise ValueError(f"{lanes} lanes cannot hold {num_members} members at F = {features_per_level}")
+    real = np.ascontiguousarray(rows[:, :, :payload]).astype(np.float32, copy=False)
+    return torch.from_numpy(real.reshape(levels, table, 8, num_members, features_per_level))
+
+
+def packed_tables_to_jax(packed: torch.Tensor) -> np.ndarray:
+    """The port's (L, T, 8, M, F) packed tables -> the JAX layout (L, T,
+    lanes), zeros in the pad lanes up to a multiple of 128."""
+    levels, table = packed.shape[:2]
+    payload = int(np.prod(packed.shape[2:]))
+    lanes = -(-payload // 128) * 128
+    out = np.zeros((levels, table, lanes), dtype=np.float32)
+    out[:, :, :payload] = packed.detach().cpu().numpy().reshape(levels, table, payload)
     return out

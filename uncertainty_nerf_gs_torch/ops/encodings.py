@@ -17,6 +17,14 @@ taken in a fixed order and stored once, with no float atomic, so that two
 launches give the same bits), on a CPU tensor it runs
 ``cell_lookup_reference``, the plain version, and autograd through it.
 ``CellLookup`` records the forward's choice, so its backward follows it.
+
+The ensemble's layout (``pack_member_cell_tables``) stores M members' cells
+as (L, T, 8, M, F): one row of 8 corners x M members x F features a cell,
+the JAX package's packed row without its pad lanes. ``packed_cell_lookup``
+is K6's wrapper (``csrc/hash_grid.cu``: K4's cell location and corner tree
+over the packed row, forward only; on a CPU tensor its plain version
+``packed_cell_lookup_reference``), and ``packed_cell_lookup_strided`` the
+JAX package's per-level anchor striding over it.
 """
 
 from __future__ import annotations
@@ -352,6 +360,177 @@ def cell_lookup(
     resolutions = tuple(int(r) for r in np.asarray(resolutions))
     _check(cells, positions, resolutions, table_size, features_per_level)
     return CellLookup.apply(cells, positions, resolutions, table_size, features_per_level)
+
+
+# ---------------------------------------------------------------------------
+# The ensemble's layout: M members' cells packed into one row a cell.
+# ---------------------------------------------------------------------------
+
+MAX_MEMBERS = 8  # csrc/hash_grid.cu's K6
+PACKED_FEATURES = (1, 2, 4)  # K6's F
+
+
+def pack_member_cell_tables(
+    stacked_rows: torch.Tensor, table_size: int, features_per_level: int = 2
+) -> torch.Tensor:
+    """M stacked member tables (M, L, n_rows, 128), the training layout ->
+    (L, table_size, 8, M, F) float32 contiguous: one row of 8 corners x M
+    members x F features a cell, so that one cell index serves the whole
+    ensemble. Corner c owns the contiguous [c M F, (c + 1) M F) of the row,
+    as in the JAX package, which pads each row to a multiple of 128 lanes
+    for the TPU; this layout has no pad (``interop.packed_tables_from_jax``)."""
+    m, levels, n_rows, _ = stacked_rows.shape
+    cells = stacked_rows.reshape(m, levels, n_rows * 128 // (8 * features_per_level), 8,
+                                 features_per_level)[:, :, :table_size]
+    return cells.permute(1, 2, 3, 0, 4).contiguous()
+
+
+def packed_cell_lookup_reference(
+    packed: torch.Tensor, positions: torch.Tensor, resolutions, table_size: int
+) -> torch.Tensor:
+    """Plain version of K6: packed (L, T, 8, M, F), positions (n, 3) in
+    [0, 1] -> (M, n, L * F). Gathers each lookup's row with index_select,
+    weighs it with ``cell_indices``' weights and sums the corners in
+    ``corner_sum``'s tree, so that member m's slice equals
+    ``cell_lookup_reference`` on member m's own table bit for bit."""
+    levels, _, _, m, feats = packed.shape
+    outs = []
+    for lvl, res in enumerate(np.asarray(resolutions)):
+        idx, w = cell_indices(positions, int(res), table_size)
+        rows = packed[lvl].index_select(0, idx)  # (n, 8, M, F): ONE gather
+        outs.append(corner_sum(rows * w[:, :, None, None]))  # (n, M, F)
+    out = torch.stack(outs, dim=2)  # (n, M, L, F)
+    return out.permute(1, 0, 2, 3).reshape(m, positions.shape[0], levels * feats)
+
+
+def _check_packed(packed, positions, resolutions, table_size, num_members, features_per_level) -> None:
+    """Raises on what K6 does not take, on every device."""
+    for name, t in (("packed", packed), ("positions", positions)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous, got strides {t.stride()}")
+    if positions.device != packed.device:
+        raise ValueError(f"positions are on {positions.device}, packed on {packed.device}")
+    if positions.dim() != 2 or positions.shape[1] != 3:
+        raise ValueError(f"positions must be (n, 3), got {tuple(positions.shape)}")
+    if packed.dim() != 5 or packed.shape[2] != 8:
+        raise ValueError(f"packed must be (L, T, 8, M, F), got {tuple(packed.shape)}")
+    levels, rows, _, m, feats = packed.shape
+    if not 1 <= m <= MAX_MEMBERS or m != num_members:
+        raise ValueError(f"packed holds {m} members, {num_members} asked; K6 takes 1 to {MAX_MEMBERS}")
+    if feats not in PACKED_FEATURES or feats != features_per_level:
+        raise ValueError(f"packed holds F = {feats}, F = {features_per_level} asked; "
+                         f"K6 takes F in {PACKED_FEATURES}")
+    if len(resolutions) != levels or not 1 <= levels <= MAX_LEVELS:
+        raise ValueError(f"{len(resolutions)} resolutions for {levels} levels (at most {MAX_LEVELS})")
+    if rows != table_size:
+        raise ValueError(f"packed holds {rows} cells a level, table_size is {table_size}")
+    if positions.shape[0] >= 2**31:
+        raise ValueError(f"{positions.shape[0]} positions are too many for K6")
+    if packed.data_ptr() % 16:  # K6 reads its rows as F-float vectors
+        raise ValueError(f"packed must be 16-byte aligned, got address {packed.data_ptr():#x}")
+
+
+_ARGTYPES["packed_cell_lookup_fwd_f32"] = [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P]
+
+
+def packed_cell_lookup_fwd(packed, positions, resolutions, table_size):
+    """K6: one launch for every level and member. Inputs as
+    ``_check_packed`` takes them."""
+    levels, _, _, m, feats = packed.shape
+    n = positions.shape[0]
+    out = torch.empty((m, n, levels * feats), dtype=torch.float32, device=packed.device)
+    with torch.cuda.device(packed.device):
+        err = _entry("packed_cell_lookup_fwd_f32")(
+            positions.data_ptr(), packed.data_ptr(), out.data_ptr(), n, levels, table_size, m,
+            feats, (ctypes.c_int * levels)(*resolutions),
+            backend.current_stream_handle(packed.device),
+        )
+    if err != 0:
+        raise RuntimeError(f"packed_cell_lookup_fwd launch failed: CUDA error {err}")
+    backend.count_launch("packed_cell_lookup_fwd")
+    return out
+
+
+def packed_cell_lookup(
+    packed: torch.Tensor,
+    positions: torch.Tensor,
+    resolutions,
+    table_size: int,
+    num_members: int,
+    features_per_level: int = 2,
+) -> torch.Tensor:
+    """Ensemble lookup, one row read serving all M members: packed (L, T,
+    8, M, F) from ``pack_member_cell_tables``, positions (n, 3) float32
+    contiguous in [0, 1] -> (M, n, L * F). K6 on the card, its plain
+    version on the CPU; forward only (the JAX package never differentiates
+    it). Raises on other dtypes and layouts rather than copy."""
+    resolutions = tuple(int(r) for r in np.asarray(resolutions))
+    _check_packed(packed, positions, resolutions, table_size, num_members, features_per_level)
+    if backend.use_kernel(packed):
+        return packed_cell_lookup_fwd(packed, positions, resolutions, table_size)
+    return packed_cell_lookup_reference(packed, positions, resolutions, table_size)
+
+
+def anchor_stride(num_samples: int, res: int, stride_scale: float = 1.0, max_stride: int = 8) -> int:
+    """K_l of ``packed_cell_lookup_strided``: clamp(stride_scale S // (2 R_l),
+    1, max_stride), with ``int(stride_scale * S)`` as the JAX package
+    takes it."""
+    return int(np.clip(int(stride_scale * num_samples) // (2 * int(res)), 1, max_stride))
+
+
+def packed_cell_lookup_strided(
+    packed: torch.Tensor,
+    norm_positions: torch.Tensor,
+    t_mid: torch.Tensor,
+    resolutions,
+    table_size: int,
+    num_members: int,
+    features_per_level: int = 2,
+    max_stride: int = 8,
+    stride_scale: float = 1.0,
+) -> torch.Tensor:
+    """Ensemble lookup with per-level anchor striding along the ray, as the
+    JAX package's: level l is looked up only at every K_l-th sample
+    (``anchor_stride``) and its features are lerped along the ray in
+    ``t_mid`` between the bracketing anchors (static anchors 0, K, ...,
+    the last clamped to S - 1); a level with K_l = 1 is looked up at every
+    sample. Each level is one ``packed_cell_lookup`` (one K6 launch on the
+    card). norm_positions (R, S, 3), t_mid (R, S) -> (M, R, S, L * F)."""
+    feats, m = features_per_level, num_members
+    r, s, _ = norm_positions.shape
+    resolutions = np.asarray(resolutions)
+    # each level written into its slice of the output (in place of a
+    # concatenation of F-wide pieces, which the card copies slowly)
+    out = torch.empty((m, r, s, len(resolutions) * feats), dtype=torch.float32,
+                      device=norm_positions.device)
+    for lvl, res in enumerate(resolutions):
+        k = anchor_stride(s, int(res), stride_scale, max_stride)
+        level = packed[lvl:lvl + 1]
+        dst = out[..., lvl * feats:(lvl + 1) * feats]
+        if k == 1:
+            f = packed_cell_lookup(level, norm_positions.reshape(-1, 3), [int(res)], table_size, m, feats)
+            dst.copy_(f.reshape(m, r, s, feats))
+            continue
+        # anchors at 0, k, ...; one always lies past s - 1 (clamped back), so
+        # every sample has a right bracket, where a repeated last anchor gives
+        # w = 0 through the max(t_right - t_left, 1e-12) guard
+        pad = (-(s - 1)) % k or k
+        na = (s - 1 + pad) // k + 1
+        idx = torch.from_numpy(np.minimum(np.arange(na) * k, s - 1)).to(norm_positions.device)
+        pos_a = norm_positions[:, idx]  # (R, A, 3)
+        t_a = t_mid[:, idx]  # (R, A)
+        f_a = packed_cell_lookup(level, pos_a.reshape(-1, 3), [int(res)], table_size, m, feats)
+        f_a = f_a.reshape(m, r, na, feats)
+        left = torch.repeat_interleave(f_a[:, :, :-1], k, dim=2)[:, :, :s]
+        right = torch.repeat_interleave(f_a[:, :, 1:], k, dim=2)[:, :, :s]
+        t_left = torch.repeat_interleave(t_a[:, :-1], k, dim=1)[:, :s]
+        t_right = torch.repeat_interleave(t_a[:, 1:], k, dim=1)[:, :s]
+        w = (t_mid - t_left) / torch.clamp(t_right - t_left, min=1e-12)
+        w = torch.clamp(w, 0.0, 1.0)[None, :, :, None]
+        torch.add(left * (1.0 - w), right * w, out=dst)
+    return out
 
 
 def hash_grid_resolutions(num_levels: int, min_res: int, max_res: int) -> np.ndarray:
