@@ -37,10 +37,14 @@ full width (``bench.py::bench_ensemble_render``'s model, five members from
 numpy seeds 0-4): the member-packed lookup (K6) bit for bit against its
 plain version and against five K4 launches on the members' own tables (the
 three fields' shapes, a ragged count, M = 1 and 3, F = 1 and 4, and every
-launch of two real fused chunks), timed beside its bound and
-``index_select`` of the same rows; the fused and the per-member chunk on
-the kernel path against the plain path bit for bit, with their launch
-plans; five identical members against the single model; and both modes
+launch of two real fused chunks), its strided entry bit for bit against
+its plain version (the three fields' full-width shapes with the
+proposals' strides and the field's at MAIN_STRIDE_SCALE, F = 1 and 4, and
+every strided launch of real chunks, the field strided too), each timed
+beside its bound and ``index_select`` of the same rows; the fused (K1 2, K6
+3 a chunk, also with the field strided) and the per-member chunk on the
+kernel path against the plain path bit for bit, with their launch plans;
+five identical members against the single model; and both modes
 through ``get_average_uncertainty_metrics`` over two images (finite
 metrics, the JSON written), profiled and timed in turns. Exits non-zero,
 with no result line, when there is no card or any phase fails. The last line of standard
@@ -50,9 +54,12 @@ kernel's launches, error, times and bound.
 
 ``--k4-against OTHER_CHECKOUT`` also builds that checkout's ``uncertainty_
 nerf_gs_torch/csrc/hash_grid.cu`` (for example the parent commit unpacked
-with ``git archive``; it must have the same ``cell_lookup_fwd_f32`` entry
-point), holds its K4 within TOL of the plain version and times it in turns
-with this K4 at every shape and position set K4 is timed at.
+with ``git archive``; it must have the same ``cell_lookup_fwd_f32`` and
+``packed_cell_lookup_fwd_f32`` entry points), holds its K4 within TOL and
+its K6 bit for bit against the plain versions and times them in turns with
+this checkout's at every shape and position set K4 and K6 are timed at; a
+checkout without K6's strided entry makes the strided lookup as its own
+code did, a K6 launch a level and the lerp as PyTorch ops.
 """
 
 from __future__ import annotations
@@ -88,6 +95,7 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 MIN_SET_BYTES = 100_000_000  # timed input sets pass twice the 50 MB L2
+SENTINEL_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel
 
 
 def card() -> str:
@@ -122,12 +130,18 @@ def device_kernels(fn) -> tuple[dict[str, tuple[int, float]], float]:
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # a sentinel first: the profiler has been seen to drop a profiled
+        # run's first device kernel; the sentinel is left out of the result
+        torch.cuda._sleep(100)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = {}
     for e in prof.key_averages():
+        if SENTINEL_KERNEL in e.key:
+            continue
         # a user annotation (Optimizer.step#Adam.step) spans kernels counted
         # on their own
         if "CUDA" not in str(getattr(e, "device_type", "")) or getattr(e, "is_user_annotation", False):
@@ -148,9 +162,9 @@ def kernel_times(name, kernel, plain, sets, symbol, kernels_per_call=1) -> dict:
     ``parts`` holds each of them, ``others`` what else the wrapper ran (a
     zero-fill) per call. The profiler has been seen to drop a profiled run's
     first device kernel (with two input sets, one of a kernel's two
-    launches): where it traced fewer than ``kernels_per_call`` a call, the
-    traced launches are scaled up to the calls made, and the count is
-    printed."""
+    launches; ``device_kernels`` now runs a sentinel kernel first): where it
+    traced fewer than ``kernels_per_call`` a call, the traced launches are
+    scaled up to the calls made, and the count is printed."""
     event_ms = time_ms(kernel, sets)
     plain_event_ms = time_ms(plain, sets)
     traced, _ = device_kernels(lambda: [kernel(*a) for a in sets])
@@ -177,7 +191,8 @@ def kernel_times(name, kernel, plain, sets, symbol, kernels_per_call=1) -> dict:
 
 def device_ms(fn, sets, symbol) -> float:
     """Device time per call of ``fn`` over ``sets``: the profiler's time of
-    the kernels whose name holds ``symbol``, else CUDA events."""
+    the kernels whose name holds ``symbol`` (every kernel it traced for
+    ""), else CUDA events."""
     event_ms = time_ms(fn, sets)
     traced, _ = device_kernels(lambda: [fn(*a) for a in sets])
     own = [us for k, (_, us) in traced.items() if symbol in k]
@@ -829,10 +844,15 @@ def other_k4(checkout):
     """Starts ``nvcc`` on another checkout's ``hash_grid.cu`` (for example
     the parent commit unpacked with ``git archive``) with the port's flags,
     into ``build/torch_kernels/``. Returns a function that waits for it,
-    prints its K4's ``ptxas -v`` lines and returns a K4 call through that
-    library, ``run(cells, positions, res, table, f)`` (no launch counted)."""
+    prints its K4's and K6's ``ptxas -v`` lines and returns that library's
+    K4 and K6 calls, ``.k4(cells, positions, res, table, f)`` and
+    ``.k6(packed, positions, res, table)`` (no launch counted), and
+    ``.k6_strided(packed, positions, t_mid, res, table, strides)``: the
+    strided lookup as that checkout's K6 makes it where it has no strided
+    entry (a K6 launch a level, the lerp as PyTorch ops)."""
     import ctypes
     import hashlib
+    from types import SimpleNamespace
 
     from uncertainty_nerf_gs_torch.ops import backend
     from uncertainty_nerf_gs_torch.ops import encodings as enc
@@ -847,20 +867,50 @@ def other_k4(checkout):
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {src}:\n{log}")
-        for line in ptxas_summary(log, "cell_lookup_fwd_kernel"):
-            print(f"other K4 ptxas: {line}")
-        fn = ctypes.CDLL(str(out)).cell_lookup_fwd_f32
-        fn.argtypes, fn.restype = enc._ARGTYPES["cell_lookup_fwd_f32"], ctypes.c_int
+        for label, symbol in (("K4", "cell_lookup_fwd_kernel"), ("K6", "packed_lookup_")):
+            for line in ptxas_summary(log, symbol):
+                print(f"other {label} ptxas: {line}")
+        lib = ctypes.CDLL(str(out))
+        k4, k6 = lib.cell_lookup_fwd_f32, lib.packed_cell_lookup_fwd_f32
+        for fn, name in ((k4, "cell_lookup_fwd_f32"), (k6, "packed_cell_lookup_fwd_f32")):
+            fn.argtypes, fn.restype = enc._ARGTYPES[name], ctypes.c_int
+        strided = getattr(lib, "packed_cell_lookup_strided_fwd_f32", None)
 
-        def run(cells, pos, res, table, f):
+        def run_k4(cells, pos, res, table, f):
             got = torch.empty((pos.shape[0], cells.shape[0] * f), dtype=torch.float32, device=cells.device)
-            err = fn(pos.data_ptr(), cells.data_ptr(), got.data_ptr(), pos.shape[0],
+            err = k4(pos.data_ptr(), cells.data_ptr(), got.data_ptr(), pos.shape[0],
                      *enc._level_args(cells, res, table, f), backend.current_stream_handle(cells.device))
             if err != 0:
                 raise RuntimeError(f"the other K4's launch failed: CUDA error {err}")
             return got
 
-        return run
+        def run_k6(packed, pos, res, table):
+            levels, _, _, m, f = packed.shape
+            got = torch.empty((m, pos.shape[0], levels * f), dtype=torch.float32, device=packed.device)
+            err = k6(pos.data_ptr(), packed.data_ptr(), got.data_ptr(), pos.shape[0], levels, table, m, f,
+                     (ctypes.c_int * levels)(*res), backend.current_stream_handle(packed.device))
+            if err != 0:
+                raise RuntimeError(f"the other K6's launch failed: CUDA error {err}")
+            return got
+
+        def run_k6_strided(packed, pos, t_mid, res, table, strides):
+            if strided is not None:
+                strided.argtypes = enc._ARGTYPES["packed_cell_lookup_strided_fwd_f32"]
+                levels, _, _, m, f = packed.shape
+                got = torch.empty((m, *pos.shape[:2], levels * f), dtype=torch.float32, device=packed.device)
+                err = strided(pos.data_ptr(), t_mid.data_ptr(), packed.data_ptr(), got.data_ptr(),
+                              pos.shape[0], pos.shape[1], levels, table, m, f, (ctypes.c_int * levels)(*res),
+                              (ctypes.c_int * levels)(*strides), backend.current_stream_handle(packed.device))
+                if err != 0:
+                    raise RuntimeError(f"the other strided K6's launch failed: CUDA error {err}")
+                return got
+            plain, enc.packed_cell_lookup_reference = enc.packed_cell_lookup_reference, run_k6
+            try:
+                return enc.packed_cell_lookup_strided_reference(packed, pos, t_mid, res, table, strides)
+            finally:
+                enc.packed_cell_lookup_reference = plain
+
+        return SimpleNamespace(k4=run_k4, k6=run_k6, k6_strided=run_k6_strided)
 
     return finish
 
@@ -896,9 +946,9 @@ def k4_times(name, cells, sets, res, table, f, positions, other=None) -> dict:
     if other is not None:
         for p, _ in sets:
             want = enc.cell_lookup_reference(cells, p, res, table, f)
-            if not torch.isclose(other(cells, p, res, table, f), want, **TOL).all():
+            if not torch.isclose(other.k4(cells, p, res, table, f), want, **TOL).all():
                 raise AssertionError(f"{name} {positions}: the other K4 disagrees with the plain version")
-        runs = dict(other=lambda p, g: other(cells, p, res, table, f),
+        runs = dict(other=lambda p, g: other.k4(cells, p, res, table, f),
                     this=lambda p, g: enc.cell_lookup_fwd(cells, p, res, table, f))
         tm["turns_ms"] = turns = dict(other=[], this=[])
         for version in ("other", "this", "this", "other"):
@@ -1663,12 +1713,21 @@ def profile_splat(trainer) -> None:
 # -- the deep ensemble at full width: K6 ---------------------------------------
 
 NUM_MEMBERS = 5
+MAIN_STRIDE_SCALE = 8.0  # the JAX package's experiments' choice (experiments/jobs/205_stage_ablation_int8.py:60)
 # per (sample, level): locating the cell and its weights, then 8 corners x F
 # features x M members, a product and an add each
 K6_OPS = lambda f, m: 25 + 16 * f * m  # noqa: E731
+# per (sample, strided level): the lerp weight (two subtractions, a max, a
+# division, a clamp), then two products and an add per member and feature
+K6_LERP_OPS = lambda f, m: 6 + 3 * f * m  # noqa: E731
 K6_SYMBOL = "packed_lookup_fwd_kernel"
+K6S_SYMBOL = "packed_lookup_strided_kernel"
 ENSEMBLE_SYMBOLS = {"pdf_resample": "pdf_resample_kernel", "cell_lookup_fwd": "cell_lookup_fwd_kernel",
-                    "packed_cell_lookup_fwd": K6_SYMBOL}
+                    "packed_cell_lookup_fwd": K6_SYMBOL, "packed_cell_lookup_strided": K6S_SYMBOL}
+# a fused chunk's launches: the two proposals' strided lookups and the field's
+FUSED_PLAN = dict(pdf_resample=2, packed_cell_lookup_fwd=1, packed_cell_lookup_strided=2, cell_lookup_fwd=0)
+PER_MEMBER_PLAN = dict(pdf_resample=2 * NUM_MEMBERS, cell_lookup_fwd=3 * NUM_MEMBERS, packed_cell_lookup_fwd=0,
+                       packed_cell_lookup_strided=0)
 
 
 def build_ensemble(device, size=256):
@@ -1716,8 +1775,8 @@ def ensemble_fields(cfg) -> list[tuple]:
 
 def k6_plan(cfg) -> dict[str, list[int]]:
     """Per proposal, the anchor stride of each level at its sample count: the
-    fused render's K6 launches a chunk are one a proposal level (strided) and
-    one for the field."""
+    fused render's K6 launches a chunk are one strided call a proposal and
+    one dense call for the field."""
     from uncertainty_nerf_gs_torch.ops.encodings import anchor_stride
 
     return {name: [anchor_stride(spr, r) for r in res]
@@ -1726,21 +1785,66 @@ def k6_plan(cfg) -> dict[str, list[int]]:
 
 @contextlib.contextmanager
 def record_k6():
-    """The (packed, positions, resolutions, table size) of every K6 launch
-    inside the block, in launch order."""
+    """Every K6 launch inside the block, in launch order: dicts with the
+    entry (``kind`` "dense" or "strided") and its inputs (the positions and
+    t_mid copied)."""
     from uncertainty_nerf_gs_torch.ops import encodings as enc
 
-    calls, launch = [], enc.packed_cell_lookup_fwd
+    calls, dense, strided = [], enc.packed_cell_lookup_fwd, enc.packed_cell_lookup_strided_fwd
 
-    def record(packed, positions, resolutions, table_size):
-        calls.append((packed, positions.clone(), tuple(resolutions), table_size))
-        return launch(packed, positions, resolutions, table_size)
+    def record_dense(packed, positions, resolutions, table_size):
+        calls.append(dict(kind="dense", packed=packed, pos=positions.clone(), res=tuple(resolutions),
+                          table=table_size))
+        return dense(packed, positions, resolutions, table_size)
 
-    enc.packed_cell_lookup_fwd = record
+    def record_strided(packed, positions, t_mid, resolutions, table_size, strides):
+        calls.append(dict(kind="strided", packed=packed, pos=positions.clone(), t=t_mid.clone(),
+                          res=tuple(resolutions), table=table_size, strides=tuple(strides)))
+        return strided(packed, positions, t_mid, resolutions, table_size, strides)
+
+    enc.packed_cell_lookup_fwd, enc.packed_cell_lookup_strided_fwd = record_dense, record_strided
     try:
         yield calls
     finally:
-        enc.packed_cell_lookup_fwd = launch
+        enc.packed_cell_lookup_fwd, enc.packed_cell_lookup_strided_fwd = dense, strided
+
+
+def k6_call(c, other=None):
+    """K6 on a recorded call: this checkout's entry, or ``other``'s (``other_k4``)."""
+    from uncertainty_nerf_gs_torch.ops import encodings as enc
+
+    if c["kind"] == "dense":
+        return (other.k6 if other else enc.packed_cell_lookup_fwd)(c["packed"], c["pos"], c["res"], c["table"])
+    return (other.k6_strided if other else enc.packed_cell_lookup_strided_fwd)(
+        c["packed"], c["pos"], c["t"], c["res"], c["table"], c["strides"])
+
+
+def k6_plain(c):
+    """The plain version of a recorded K6 call."""
+    from uncertainty_nerf_gs_torch.ops import encodings as enc
+
+    if c["kind"] == "dense":
+        return enc.packed_cell_lookup_reference(c["packed"], c["pos"], c["res"], c["table"])
+    return enc.packed_cell_lookup_strided_reference(c["packed"], c["pos"], c["t"], c["res"], c["table"],
+                                                    c["strides"])
+
+
+def k6_lookups(c) -> list[torch.Tensor]:
+    """Per level, the cells of the lookups the call's function needs: every
+    sample's at a dense level, the anchors' at a strided one (K > 1)."""
+    from uncertainty_nerf_gs_torch.ops.encodings import cell_indices
+
+    out = []
+    for lvl, r in enumerate(c["res"]):
+        k = c["strides"][lvl] if c["kind"] == "strided" else 1
+        pos = c["pos"].reshape(-1, 3)
+        if k > 1:
+            s = c["pos"].shape[1]
+            na = (s - 1) // k + 2
+            idx = torch.clamp(torch.arange(na, device=pos.device) * k, max=s - 1)
+            pos = c["pos"][:, idx].reshape(-1, 3)
+        out.append(cell_indices(pos, r, c["table"])[0])
+    return out
 
 
 @contextlib.contextmanager
@@ -1776,113 +1880,159 @@ def chunk_rays(cams, cam_idx, chunk_idx, chunk, device):
     return generate_rays(cams.to(device), idx, px[sl], py[sl])
 
 
-def k6_bound_ms(n, levels, f, m, unique_rows) -> tuple[float, str, int, int]:
-    """Least time of one K6 call: positions read once, each distinct packed
-    row once (8 M F floats), the output written once; or its float
-    operations. Returns (ms, bound_by, bytes, operations)."""
-    nbytes = 12 * n + unique_rows * 8 * m * f * 4 + 4 * m * n * levels * f
-    ops = n * levels * K6_OPS(f, m)
+def k6_bound_ms(c, lookups) -> tuple[float, str, int, int]:
+    """Least time of one K6 call on its inputs: positions (and t_mid) read
+    once, each distinct packed row that its lookups need once (8 M F
+    floats), the whole (M, n, L F) output written once; or its float
+    operations, the lerp's at the strided levels included. Returns (ms,
+    bound_by, bytes, operations)."""
+    levels, _, _, m, f = c["packed"].shape
+    n = c["pos"].numel() // 3
+    strided = c["kind"] == "strided"
+    unique = sum(int(torch.unique(ix).numel()) for ix in lookups)
+    nbytes = (12 + 4 * strided) * n + unique * 8 * m * f * 4 + 4 * m * n * levels * f
+    ops = sum(ix.numel() for ix in lookups) * K6_OPS(f, m)
+    if strided:
+        ops += n * sum(k > 1 for k in c["strides"]) * K6_LERP_OPS(f, m)
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations"), nbytes, ops
 
 
-def k6_times(label, calls) -> dict:
-    """K6 and its plain version per call over ``calls`` (one or more sets of
-    (packed, positions, resolutions, table) with the same shapes), beside
-    the bound of the first call's distinct rows and ``index_select`` of the
-    same packed rows (the yardstick; the port never calls it)."""
-    from uncertainty_nerf_gs_torch.ops import encodings as enc
-
-    packed, pos, res, table = calls[0]
-    levels, _, _, m, f = packed.shape
-    n = pos.shape[0]
-    sets = [(c[1],) for c in calls]
-    tm = kernel_times(f"K6 {label}", lambda p: enc.packed_cell_lookup_fwd(packed, p, res, table),
-                      lambda p: enc.packed_cell_lookup_reference(packed, p, res, table), sets, K6_SYMBOL)
-    idx = [[grid_lookups(p, res, table)] for (p,) in sets]
-    library_ms = time_ms(lambda ix: [packed[l].index_select(0, ix[l]) for l in range(levels)], idx)
-    uniq = sum(int(torch.unique(row).numel()) for row in idx[0][0])
-    bound, bound_by, nbytes, ops = k6_bound_ms(n, levels, f, m, uniq)
-    tm.update(label=label, shape=[n, levels, m, f, table], bound_ms=bound, bound_by=bound_by, bytes=nbytes,
-              operations=ops, unique_rows=uniq, library_ms=library_ms)
-    print(f"K6 {label} ({n} samples x {levels} levels x {m} members, F={f}): kernel {tm['ms']:.4f} ms "
-          f"on the device ({tm['event_ms']:.4f} ms a call back to back), plain {tm['plain_ms']:.4f} ms, "
-          f"bound {bound:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, {uniq} distinct rows of "
-          f"{n * levels} lookups); index_select of the same rows, {levels} calls, {library_ms:.4f} ms")
+def k6_times(label, calls, other=None) -> dict:
+    """K6 and its plain version per call over ``calls`` (recorded calls of
+    one entry with the same shapes), beside the bound of the first call's
+    lookups and ``index_select`` of the same packed rows (the yardstick; the
+    port never calls it). With ``other`` (``other_k4``), that checkout's K6
+    (where it has no strided entry, its K6 a level and the lerp as PyTorch
+    ops) is held equal to the plain version and timed in turns with this
+    one, every device kernel of a call counted: other, this, this, other."""
+    c0 = calls[0]
+    levels, _, _, m, f = c0["packed"].shape
+    n = c0["pos"].numel() // 3
+    sets = [(c,) for c in calls]
+    symbol = K6_SYMBOL if c0["kind"] == "dense" else K6S_SYMBOL
+    tm = kernel_times(f"K6 {label}", k6_call, k6_plain, sets, symbol)
+    lookups = [k6_lookups(c) for c in calls]
+    packed = c0["packed"]
+    library_ms = time_ms(lambda ix: [packed[l].index_select(0, ix[l]) for l in range(levels)],
+                         [[ix] for ix in lookups])
+    bound, bound_by, nbytes, ops = k6_bound_ms(c0, lookups[0])
+    n_lookups = sum(ix.numel() for ix in lookups[0])
+    tm.update(label=label, kind=c0["kind"], shape=[n, levels, m, f, c0["table"]], bound_ms=bound,
+              bound_by=bound_by, bytes=nbytes, operations=ops, lookups=n_lookups, library_ms=library_ms,
+              strides=list(c0.get("strides", [1] * levels)))
+    print(f"K6 {label} ({c0['kind']}, {n} samples x {levels} levels x {m} members, F={f}, strides "
+          f"{'/'.join(map(str, tm['strides']))}): kernel {tm['ms']:.4f} ms on the device ({tm['event_ms']:.4f} "
+          f"ms a call back to back), plain {tm['plain_ms']:.4f} ms, bound {bound:.4f} ms ({bound_by}: "
+          f"{nbytes / 1e6:.1f} MB, {n_lookups} lookups); index_select of the same rows, {levels} calls, "
+          f"{library_ms:.4f} ms")
+    if other is not None:
+        for c in calls:
+            if not torch.equal(k6_call(c, other), k6_plain(c)):
+                raise AssertionError(f"K6 {label}: the other K6 differs from the plain version")
+        runs = dict(other=lambda c: k6_call(c, other), this=k6_call)
+        tm["turns_ms"] = turns = dict(other=[], this=[])
+        for version in ("other", "this", "this", "other"):
+            turns[version].append(device_ms(runs[version], sets, ""))
+        print(f"K6 {label} in turns (every device kernel of a call): " + ", ".join(
+            f"{v} {' / '.join(f'{t:.4f}' for t in ts)} ms" for v, ts in turns.items()))
     return tm
 
 
-def check_k6(model, stacked, packed, device) -> dict:
+def ray_inputs(rays, samples, gen, device):
+    """(rays, samples, 3) positions along rays through the unit cube at
+    sorted t_mid (rays, samples), as a render chunk's proposal samples lie,
+    with the first ray's first two samples at one t."""
+    t = torch.sort(torch.rand(rays, samples, generator=gen, device=device), dim=1).values
+    t[0, 1] = t[0, 0]
+    origins = torch.rand(rays, 1, 3, generator=gen, device=device) * 0.4 + 0.3
+    dirs = torch.nn.functional.normalize(torch.randn(rays, 1, 3, generator=gen, device=device), dim=-1)
+    return (origins + 0.3 * dirs * t[..., None]).clamp(0, 1).contiguous(), t
+
+
+def check_k6(model, stacked, packed, device, other=None) -> dict:
     """K6 against its plain version, bit for bit, at M = 5 and the three
     fields' full-width shapes (4,096 rays x 256 / 96 / 48 samples, 5 / 5 /
-    16 levels), a ragged count, M = 1 and M = 3, F = 1 and F = 4; and K6's
+    16 levels), a ragged count, M = 1 and M = 3, F = 1 and F = 4; K6's
     member m against K4 on member m's own table, bit for bit, at the three
-    shapes. Times at the three shapes at uniform positions."""
+    shapes; the strided entry at the proposals' full-width shapes with their
+    strides and at the field's with MAIN_STRIDE_SCALE. Times at the three
+    shapes at uniform positions (with ``other``, that K6 in turns)."""
     from uncertainty_nerf_gs_torch.ops import encodings as enc
 
     cfg = model.config
     rays = cfg.eval_num_rays_per_chunk
     failed, err, times = [], 0.0, {}
 
-    def hold(label, pk, pos, res, table, cells=None):
+    def hold(label, c, cells=None):
         nonlocal err
-        got = enc.packed_cell_lookup_fwd(pk, pos, res, table)
-        want = enc.packed_cell_lookup_reference(pk, pos, res, table)
+        got, want = k6_call(c), k6_plain(c)
         differ = int((got != want).sum())
         err = max(err, (got - want).abs().max().item())
-        line = f"K6 {label} n={pos.shape[0]} L={len(res)} M={pk.shape[3]} F={pk.shape[4]}: {differ} of " \
-               f"{got.numel()} features differ from the plain version's bits"
+        pk = c["packed"]
+        line = f"K6 {label} ({c['kind']}) n={c['pos'].numel() // 3} L={len(c['res'])} M={pk.shape[3]} " \
+               f"F={pk.shape[4]}: {differ} of {got.numel()} features differ from the plain version's bits"
         if differ or not torch.isfinite(got).all():
             failed.append(f"{label}: K6 differs from its plain version")
         if cells is not None:
             f = pk.shape[4]
-            k4 = sum(int((enc.cell_lookup_fwd(cells[j], pos, res, table, f) != got[j]).sum())
+            k4 = sum(int((enc.cell_lookup_fwd(cells[j], c["pos"], c["res"], c["table"], f) != got[j]).sum())
                      for j in range(pk.shape[3]))
             line += f"; {k4} differ from {pk.shape[3]} K4 launches on the members' own tables"
             if k4:
                 failed.append(f"{label}: K6 differs from K4 on the members' tables")
         print(line)
 
+    def dense(pk, pos, res, table):
+        return dict(kind="dense", packed=pk, pos=pos, res=tuple(res), table=table)
+
+    plan = k6_plan(cfg)
     for i, (name, res, table, f, spr) in enumerate(ensemble_fields(cfg)):
         gen = torch.Generator(device=device).manual_seed(SEED + 300 + i)
         pos = lookup_positions(res, rays * spr, gen, device)
         cells = stacked[f"{name}.encoding.cells"]
-        hold(name, packed[name], pos, res, table, cells)
-        sets = [(packed[name], pos, res, table),
-                (packed[name], torch.rand(rays * spr, 3, generator=gen, device=device), res, table)]
-        times[name] = k6_times(f"{name} uniform", sets)
+        hold(name, dense(packed[name], pos, res, table), cells)
+        sets = [dense(packed[name], pos, res, table),
+                dense(packed[name], torch.rand(rays * spr, 3, generator=gen, device=device), res, table)]
+        times[name] = k6_times(f"{name} uniform", sets, other)
         if name == "field":
-            hold("ragged", packed[name], lookup_positions(res, 1001, gen, device), res, table, cells)
+            hold("ragged", dense(packed[name], lookup_positions(res, 1001, gen, device), res, table), cells)
         if name == "proposal_0":
             for m in (1, 3):
                 sub = enc.pack_member_cell_tables(cells[:m], table, f)
-                hold(f"{name} M={m}", sub, pos, res, table, cells)
+                hold(f"{name} M={m}", dense(sub, pos, res, table), cells)
                 del sub
+        # the strided entry at the full-width shape: the proposals' strides,
+        # the field's at MAIN_STRIDE_SCALE
+        strides = plan.get(name) or [enc.anchor_stride(spr, r, MAIN_STRIDE_SCALE) for r in res]
+        pos3, t = ray_inputs(rays, spr, gen, device)
+        hold(f"{name} strided {'/'.join(map(str, strides))}",
+             dict(kind="strided", packed=packed[name], pos=pos3, t=t, res=tuple(res), table=table,
+                  strides=tuple(strides)))
     for f in (1, 4):
         gen = torch.Generator(device=device).manual_seed(SEED + 310 + f)
         res = tuple(int(r) for r in enc.hash_grid_resolutions(4, 16, 512))
         cells = torch.rand(NUM_MEMBERS, 4, 2**12 * 8 * f // 128, 128, generator=gen, device=device) * 4 - 2
-        hold(f"f{f}", enc.pack_member_cell_tables(cells, 2**12, f), lookup_positions(res, 777, gen, device),
-             res, 2**12, cells)
+        pk = enc.pack_member_cell_tables(cells, 2**12, f)
+        hold(f"f{f}", dense(pk, lookup_positions(res, 777, gen, device), res, 2**12), cells)
+        pos3, t = ray_inputs(33, 65, gen, device)
+        hold(f"f{f} strided", dict(kind="strided", packed=pk, pos=pos3, t=t, res=res, table=2**12,
+                                   strides=tuple(enc.anchor_stride(65, r, 4.0) for r in res)))
     if failed:
         raise AssertionError("K6 " + "; ".join(failed))
     return dict(err=err, times=times)
 
 
-def check_k6_render_chunk(render, stacked, packed, rb) -> dict:
+def check_k6_render_chunk(render, stacked, packed, rb) -> list[dict]:
     """K6 bit for bit against its plain version at every launch of a real
-    fused render chunk (the proposals' per-level anchors and the field), and
-    those launches timed, a chunk's sum beside its bound."""
-    from uncertainty_nerf_gs_torch.ops import encodings as enc
-
+    fused render chunk (the proposals' strided calls and the field's).
+    Returns the recorded calls."""
     with record_k6() as calls:
         render(stacked, packed, rb)
-    differ = 0
-    for pk, pos, res, table in calls:
-        got = enc.packed_cell_lookup_fwd(pk, pos, res, table)
-        differ += int((got != enc.packed_cell_lookup_reference(pk, pos, res, table)).sum())
-    print(f"K6 at a fused render chunk's {len(calls)} launches: {differ} features differ from the "
-          f"plain version's bits")
+    differ = sum(int((k6_call(c) != k6_plain(c)).sum()) for c in calls)
+    kinds = "/".join(c["kind"] for c in calls)
+    print(f"K6 at a fused render chunk's {len(calls)} launches ({kinds}): {differ} features differ from "
+          f"the plain version's bits")
     if differ:
         raise AssertionError("K6 differs from its plain version at a render chunk's positions")
     return calls
@@ -1894,7 +2044,10 @@ def ensemble_chunk_checks(model, stacked, packed, cams, device) -> dict:
     (``plain_versions()``), every output bit for bit; five identical members
     (exact proposal lookups) against the single model within OUTPUT_TOLS
     on the rays that kept their cells; distinct members' epistemic variance
-    above 0. Returns the captured K6 calls of two render chunks."""
+    above 0. The fused chunk also with the field strided
+    (MAIN_STRIDE_SCALE): its plan and its plain path. Returns the captured
+    K6 calls of two render chunks and of the field-strided chunk, each held
+    bit for bit against its plain version."""
     from uncertainty_nerf_gs_torch.models import ensemble as ens
     from uncertainty_nerf_gs_torch.ops import backend
     from uncertainty_nerf_gs_torch.parallel.ensemble_fused import (
@@ -1910,14 +2063,17 @@ def ensemble_chunk_checks(model, stacked, packed, cams, device) -> dict:
     plan = k6_plan(cfg)
     print("fused render: anchor strides a proposal level " + ", ".join(
         f"{k} {'/'.join(map(str, v))}" for k, v in plan.items()))
+    # the field strided too (main_stride_scale > 0): three strided K6 calls
+    fused_main = build_fused_ensemble_render(model, main_stride_scale=MAIN_STRIDE_SCALE)
     want = {
-        "fused": dict(pdf_resample=2, packed_cell_lookup_fwd=sum(len(v) for v in plan.values()) + 1,
-                      cell_lookup_fwd=0, cell_lookup_bwd=0),
-        "per_member": dict(pdf_resample=2 * NUM_MEMBERS, cell_lookup_fwd=3 * NUM_MEMBERS,
-                           packed_cell_lookup_fwd=0, cell_lookup_bwd=0),
+        "fused": dict(FUSED_PLAN, cell_lookup_bwd=0),
+        "per_member": dict(PER_MEMBER_PLAN, cell_lookup_bwd=0),
+        "fused_main_stride": dict(FUSED_PLAN, packed_cell_lookup_fwd=0, packed_cell_lookup_strided=3,
+                                  cell_lookup_bwd=0),
     }
     renders = {"fused": lambda: fused(stacked, packed, rb),
-               "per_member": lambda: ens.ensemble_render(model, stacked, rb)}
+               "per_member": lambda: ens.ensemble_render(model, stacked, rb),
+               "fused_main_stride": lambda: fused_main(stacked, packed, rb)}
     out = {}
     for mode, run in renders.items():
         backend.reset_launch_counts()
@@ -1967,7 +2123,8 @@ def ensemble_chunk_checks(model, stacked, packed, cams, device) -> dict:
 
     calls = [check_k6_render_chunk(fused, stacked, packed, chunk_rays(cams, 1, c, chunk, device))
              for c in (middle, middle + 1)]
-    return dict(render_calls=calls, plan=plan)
+    main_calls = check_k6_render_chunk(fused_main, stacked, packed, rb)
+    return dict(render_calls=calls, main_stride_calls=main_calls, plan=plan)
 
 
 def ensemble_images(model, stacked, cams, device, name) -> dict:
@@ -2001,11 +2158,7 @@ def ensemble_images(model, stacked, cams, device, name) -> dict:
                    + rng.normal(0, 0.05, (cams.height, cams.width, 3)), 0, 1).astype(np.float32)
            for i in range(2)]
     chunks = -(-cams.height * cams.width // cfg.eval_num_rays_per_chunk)
-    plan = k6_plan(cfg)
-    per_chunk = {"fused": dict(pdf_resample=2, cell_lookup_fwd=0,
-                               packed_cell_lookup_fwd=sum(len(v) for v in plan.values()) + 1),
-                 "per_member": dict(pdf_resample=2 * NUM_MEMBERS, cell_lookup_fwd=3 * NUM_MEMBERS,
-                                    packed_cell_lookup_fwd=0)}
+    per_chunk = {"fused": FUSED_PLAN, "per_member": PER_MEMBER_PLAN}
     keys = ("psnr", "ssim", "lpips_rand", "nll_rgb", "rgb_ause_mae", "rgb_ause_mse", "rgb_ause_rmse",
             "rgb_auce_abs", "rgb_auce_length", "rgb_auce_neg", "num_rays_per_sec")
     out = {"launches": {}, "results": {}}
@@ -2053,7 +2206,7 @@ def ensemble_images(model, stacked, cams, device, name) -> dict:
     return out
 
 
-def run_ensemble(device, name) -> dict:
+def run_ensemble(device, name, other=None) -> dict:
     from uncertainty_nerf_gs_torch.parallel.ensemble_fused import pack_ensemble_tables
 
     t0 = time.perf_counter()
@@ -2063,13 +2216,19 @@ def run_ensemble(device, name) -> dict:
     print(f"ensemble: {NUM_MEMBERS} members, {gb(stacked.values()):.2f} GB of member parameters, "
           f"{gb(packed.values()):.2f} GB of packed tables ({gb([packed['field']]):.2f} GB the field's); "
           f"set-up {time.perf_counter() - t0:.1f} s")
-    k6 = check_k6(model, stacked, packed, device)
+    k6 = check_k6(model, stacked, packed, device, other)
     chunk = ensemble_chunk_checks(model, stacked, packed, cams, device)
-    k6["render"] = [k6_times(f"render chunk launch {i}", [c[i] for c in chunk["render_calls"]])
+    # a fused chunk's launches at a render chunk's positions, each over the
+    # two chunks' inputs; then the field strided
+    k6["render"] = [k6_times(f"render chunk launch {i}", [c[i] for c in chunk["render_calls"]], other)
                     for i in range(len(chunk["render_calls"][0]))]
+    k6["main_stride"] = k6_times("field strided at a render chunk's positions", chunk["main_stride_calls"][-1:])
     per = k6["render"]
+    turns = "".join(f", {v} {sum(min(t['turns_ms'][v]) for t in per):.4f}-"
+                    f"{sum(max(t['turns_ms'][v]) for t in per):.4f} ms in turns (every device kernel)"
+                    for v in ("other", "this") if other is not None)
     print(f"a fused chunk's {len(per)} K6 launches at a render chunk's positions: "
-          f"{sum(t['ms'] for t in per):.4f} ms, plain {sum(t['plain_ms'] for t in per):.4f} ms, bound "
+          f"{sum(t['ms'] for t in per):.4f} ms{turns}, plain {sum(t['plain_ms'] for t in per):.4f} ms, bound "
           f"{sum(t['bound_ms'] for t in per):.4f} ms, index_select {sum(t['library_ms'] for t in per):.4f} ms")
     del packed
     images = ensemble_images(model, stacked, cams, device, name)
@@ -2142,20 +2301,27 @@ def kernel_line(run_nerf, train_nerf, resample, nerf_plain, run_splat_, comp, gr
                          clustered_bound_ms=sum(p["bound_ms"] for p in clustered),
                          per_launch_clustered=clustered)
         kernels.append(entry)
-    # a fused chunk's K6 launches at a render chunk's positions
-    per = ens["k6"]["render"]
-    kernels.append(dict(
-        name="packed_cell_lookup_fwd", route="cuda", source="uncertainty_nerf_gs_torch/csrc/hash_grid.cu",
-        replaces="experiments/jobs/403_pallas_gather_probe.py:96",
-        launches=sum(v["packed_cell_lookup_fwd"] for v in ens["launches"].values()),
-        launches_by_path={f"ensemble_{k}": v["packed_cell_lookup_fwd"] for k, v in ens["launches"].items()},
-        max_abs_err=ens["k6"]["err"],
-        ms=sum(p["ms"] for p in per), plain_ms=sum(p["plain_ms"] for p in per),
-        bound_ms=sum(p["bound_ms"] for p in per), bound_by=per[-1]["bound_by"],
-        # index_select of the same packed rows: a yardstick, not the function
-        library_ms=None, index_select_ms=sum(p["library_ms"] for p in per), per_launch=per,
-        uniform=ens["k6"]["times"], strides=ens["plan"],
-    ))
+    # a fused chunk's K6 launches at a render chunk's positions: the field's
+    # dense call, the proposals' strided calls
+    for name, kind, symbol in (("packed_cell_lookup_fwd", "dense", K6_SYMBOL),
+                               ("packed_cell_lookup_strided", "strided", K6S_SYMBOL)):
+        per = [t for t in ens["k6"]["render"] if t["kind"] == kind]
+        entry = dict(
+            name=name, route="cuda", source="uncertainty_nerf_gs_torch/csrc/hash_grid.cu",
+            replaces="experiments/jobs/403_pallas_gather_probe.py:96", symbol=symbol,
+            launches=sum(v[name] for v in ens["launches"].values()),
+            launches_by_path={f"ensemble_{k}": v[name] for k, v in ens["launches"].items()},
+            max_abs_err=ens["k6"]["err"],
+            ms=sum(p["ms"] for p in per), plain_ms=sum(p["plain_ms"] for p in per),
+            bound_ms=sum(p["bound_ms"] for p in per), bound_by=per[-1]["bound_by"],
+            # index_select of the same packed rows: a yardstick, not the function
+            library_ms=None, index_select_ms=sum(p["library_ms"] for p in per), per_launch=per,
+        )
+        if kind == "dense":
+            entry.update(uniform=ens["k6"]["times"])
+        else:
+            entry.update(strides=ens["plan"], field_strided=ens["k6"]["main_stride"])
+        kernels.append(entry)
     return kernels
 
 
@@ -2181,7 +2347,7 @@ def main() -> int:
         print(f"built {kernel}:\n{report.strip()}")
         for line in ptxas_summary(report, "cell_lookup_fwd_kernel"):
             print(f"K4 ptxas: {line}")
-        for line in ptxas_summary(report, K6_SYMBOL):
+        for line in ptxas_summary(report, "packed_lookup_"):
             print(f"K6 ptxas: {line}")
     other = other_build() if other_build else None
     print(f"build: {time.perf_counter() - t0:.1f} s")
@@ -2229,7 +2395,13 @@ def main() -> int:
     print(f"splat done at {time.perf_counter() - t_start:.1f} s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
-    ens = run_ensemble(device, name)
+    from uncertainty_nerf_gs_torch.ops import encodings as enc
+
+    for f in enc.PACKED_FEATURES:
+        print(f"K6 dynamic shared memory a block (M = {NUM_MEMBERS}, F = {f}): " + ", ".join(
+            f"{enc._entry('packed_cell_lookup_shared_bytes')(levels, NUM_MEMBERS, f)} B at L = {levels}"
+            for levels in (5, 16)))
+    ens = run_ensemble(device, name, other)
     print(f"ensemble done at {time.perf_counter() - t_start:.1f} s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 

@@ -5,7 +5,10 @@
 // precision; compile with -ffp-contract=off so that nothing is fused, as
 // __fmul_rn / __fadd_rn guarantee on the card. K4 and K6 are run this way:
 // K5's kernels compile but use shared memory across warps and integer
-// atomics that the stand-ins here do not model.
+// atomics that the stand-ins here do not model. K6's device-only helpers
+// (its dynamic shared memory, mbarrier and cp.async.bulk row copies) are
+// stood in for below: a copy lands at once, so the host run cannot show a
+// missing wait.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -44,6 +47,8 @@ uint3_ blockIdx;
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+using std::isnan;
 template <class T>
 T __ldg(const T* p) { return *p; }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
@@ -107,9 +112,25 @@ inline unsigned atomicAdd(unsigned* p, unsigned v) {
     return old;
 }
 
+// K6's helpers: the block's dynamic shared memory (the harness sizes it;
+// one block runs at a time), its mbarrier and its bulk row copies
+inline std::vector<float4> k6_host_shared;
+inline float* k6_shared() { return reinterpret_cast<float*>(k6_host_shared.data()); }
+inline void bar_init(unsigned long long*) {}
+inline void bar_expect(unsigned long long*, unsigned) {}
+inline void copy_row_bulk(float* dst, const float* src, unsigned bytes, unsigned long long*) {
+    std::memcpy(dst, src, bytes);
+}
+// on the card every lane's own wait makes the copies visible to it; here the
+// lanes' copies are their own stores, so the lanes meet
+inline void bar_wait(unsigned long long*, unsigned) { __syncwarp(); }
+
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaMemcpyDeviceToDevice = 3 };
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <class T>
+cudaError_t cudaFuncSetAttribute(T, int, int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline cudaError_t cudaMemcpyAsync(void*, const void*, size_t, int, cudaStream_t) { return cudaSuccess; }
 

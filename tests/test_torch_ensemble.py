@@ -142,21 +142,31 @@ def test_strided_lookup_matches_jax(rng, case):
 
 HASH_GRID_CU = REPO / "uncertainty_nerf_gs_torch" / "csrc" / "hash_grid.cu"
 SHIM = REPO / "tests" / "host_cuda"
+COPY_THRESHOLD = "constexpr int kK6CopyRunsMax = 32;"
+# K6's row copies: each run of equal cells once (the source as built), or
+# every lookup's row (the threshold rewritten to 0)
+COPIES = {"runs_once": None, "every_row": 0}
 
 
 @pytest.fixture(scope="module")
 def k6_host(tmp_path_factory):
-    """K6's CUDA source built for the host with g++ against the shim of
-    tests/host_cuda (launches written as plain calls, a thread a call)."""
+    """copy mode -> K6's CUDA source built for the host with g++ against the
+    shim of tests/host_cuda (each warp as 32 host threads)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build K6's source for the host")
     out = tmp_path_factory.mktemp("k6_host")
-    text = HASH_GRID_CU.read_text().replace("#include <cuda_runtime.h>", '#include "cuda_shim.h"')
-    (out / "k6.cpp").write_text(re.sub(r"<<<[^>]*>>>", "", text) + '\n#include "k6_main.inc"\n')
-    subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-pthread", "-w", f"-I{SHIM}",
-                    str(out / "k6.cpp"), "-o", str(out / "k6")], check=True, timeout=300)
-    return out / "k6"
+    text = HASH_GRID_CU.read_text()
+    assert COPY_THRESHOLD in text
+    text = re.sub(r"<<<[^>]*>>>", "", text.replace("#include <cuda_runtime.h>", '#include "cuda_shim.h"'))
+    exes = {}
+    for mode, runs in COPIES.items():
+        src = text if runs is None else text.replace(COPY_THRESHOLD, f"constexpr int kK6CopyRunsMax = {runs};")
+        (out / f"{mode}.cpp").write_text(src + '\n#include "k6_main.inc"\n')
+        subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-pthread", "-w", f"-I{SHIM}",
+                        str(out / f"{mode}.cpp"), "-o", str(out / mode)], check=True, timeout=300)
+        exes[mode] = out / mode
+    return exes
 
 
 K6_CASES = [
@@ -169,24 +179,98 @@ K6_CASES = [
 ]
 
 
+def _run_k6_host(exe, tmp_path, packed, pos, res, t_mid=None, strides=None):
+    """K6's host build on these inputs: (M, n, L * F); the strided entry's
+    arguments where ``t_mid`` (R, S) and ``strides`` are given."""
+    levels, table, _, m, feats = packed.shape
+    n = pos.size // 3
+    pos.tofile(tmp_path / "positions.bin")
+    packed.tofile(tmp_path / "packed.bin")
+    np.asarray(res, np.int32).tofile(tmp_path / "resolutions.bin")
+    args = [str(exe), str(tmp_path), str(n), str(levels), str(table), str(m), str(feats)]
+    if t_mid is not None:
+        t_mid.tofile(tmp_path / "t_mid.bin")
+        np.asarray(strides, np.int32).tofile(tmp_path / "strides.bin")
+        args.append(str(t_mid.shape[1]))
+    subprocess.run(args, check=True, timeout=120)
+    return np.fromfile(tmp_path / "out.bin", np.float32).reshape(m, n, levels * feats)
+
+
+@pytest.mark.parametrize("copies", list(COPIES))
 @pytest.mark.parametrize("case", K6_CASES, ids=[c[0] for c in K6_CASES])
-def test_k6_source_matches_plain_version(k6_host, tmp_path, rng, case):
+def test_k6_source_matches_plain_version(k6_host, tmp_path, rng, case, copies):
     """K6's CUDA source, run on the CPU, equals ``packed_cell_lookup_reference``
-    bit for bit, as chip_smoke.py requires on the card."""
+    bit for bit, as chip_smoke.py requires on the card, with each run's row
+    copied once and with every lookup's row copied."""
     _, m, feats, levels, max_res, table, n = case
     res = tenc.hash_grid_resolutions(levels, 16, max_res)
     packed = rng.uniform(-2, 2, (levels, table, 8, m, feats)).astype(np.float32)
     pos = rng.uniform(0, 1, (n, 3)).astype(np.float32)
     pos[:4] = [[0, 0, 0], [1, 1, 1], [1, 0, 1], [-1e-7, 0.5, 1 + 1e-7]]
-    pos.tofile(tmp_path / "positions.bin")
-    packed.tofile(tmp_path / "packed.bin")
-    np.asarray(res, np.int32).tofile(tmp_path / "resolutions.bin")
-    subprocess.run([str(k6_host), str(tmp_path), str(n), str(levels), str(table), str(m), str(feats)],
-                   check=True, timeout=120)
-    got = np.fromfile(tmp_path / "out.bin", np.float32).reshape(m, n, levels * feats)
+    got = _run_k6_host(k6_host[copies], tmp_path, packed, pos, res)
     want = tenc.packed_cell_lookup_reference(torch.from_numpy(packed), torch.from_numpy(pos),
                                              tuple(int(r) for r in res), table).numpy()
     assert np.array_equal(got, want), f"{int((got != want).sum())} of {got.size} features differ"
+
+
+STRIDED_CASES = [
+    # name, members, features, resolutions, table, rays, samples, stride_scale, max_stride
+    ("proposal_0_s256", 5, 2, (16, 26, 45, 76, 127), 2**12, 3, 256, 1.0, 8),  # strides 8/4/2/1/1
+    ("proposal_1_s96", 5, 2, (16, 32, 64, 128, 256), 2**12, 4, 96, 1.0, 8),  # 3/1/1/1/1
+    ("s65_k4", 2, 2, (8,), 512, 6, 65, 1.0, 8),  # S - 1 divisible by K
+    ("s121_k20", 2, 2, (3,), 512, 5, 121, 1.0, 32),
+    ("field_s48_scale4", 5, 2, (16, 22, 30, 42, 58, 80, 111, 2048), 2**12, 3, 48, 4.0, 8),  # warps span rays
+    ("m1", 1, 2, (16, 26, 45, 76, 127), 2**12, 2, 256, 1.0, 8),
+    ("m8_f4", 8, 4, (16, 45, 127), 2**11, 2, 96, 2.0, 8),
+    ("m3_f1_rounds", 3, 1, (3, 5), 512, 40, 3, 4.0, 8),  # more than 32 anchors a warp: two rounds
+]
+
+
+def _rays(rng, r, s):
+    """Sorted t_mid along rays through the unit cube, and their positions."""
+    t = np.sort(rng.uniform(0.05, 0.95, (r, s)), axis=1).astype(np.float32)
+    t[0, 1] = t[0, 0]  # a repeated sample: t_right - t_left may be 0 at an anchor pair
+    origins = rng.uniform(0.1, 0.3, (r, 1, 3))
+    dirs = rng.uniform(0.3, 0.7, (r, 1, 3))
+    return np.ascontiguousarray((origins + dirs * t[..., None] * 0.7).astype(np.float32)), t
+
+
+@pytest.mark.parametrize("copies", list(COPIES))
+@pytest.mark.parametrize("case", STRIDED_CASES, ids=[c[0] for c in STRIDED_CASES])
+def test_k6_strided_source_matches_plain_version(k6_host, tmp_path, rng, case, copies):
+    """K6's strided entry, its CUDA source run on the CPU, equals
+    ``packed_cell_lookup_strided_reference`` bit for bit: the proposals'
+    strides at S = 256 and 96, S - 1 divisible by K, the field's S = 48
+    with stride_scale > 0 (a warp spans two rays), M = 1 and 8, and warps
+    whose anchors take two rounds."""
+    _, m, feats, res, table, r, s, scale, max_stride = case
+    strides = [tenc.anchor_stride(s, x, scale, max_stride) for x in res]
+    assert any(k > 1 for k in strides)
+    packed = rng.uniform(-2, 2, (len(res), table, 8, m, feats)).astype(np.float32)
+    pos, t = _rays(rng, r, s)
+    got = _run_k6_host(k6_host[copies], tmp_path, packed, pos, res, t, strides)
+    want = tenc.packed_cell_lookup_strided_reference(
+        torch.from_numpy(packed), torch.from_numpy(pos), torch.from_numpy(t), res, table, strides).numpy()
+    want = want.reshape(m, r * s, -1)
+    assert np.array_equal(got, want), f"{int((got != want).sum())} of {got.size} features differ"
+
+
+def test_strided_lookup_plain_versions_on_the_cpu(rng):
+    """On a CPU tensor ``packed_cell_lookup_strided`` runs its plain version
+    inside ``plain_versions()`` and outside it alike, bit for bit: the
+    function the CPU tests hold against JAX is the one the card's checks
+    hold K6's strided entry against."""
+    from uncertainty_nerf_gs_torch.ops import backend
+
+    _, m, feats, res, table, r, s, scale, max_stride = STRIDED_CASES[0]
+    packed = torch.from_numpy(rng.uniform(-2, 2, (len(res), table, 8, m, feats)).astype(np.float32))
+    pos, t = (torch.from_numpy(a) for a in _rays(rng, r, s))
+    outside = tenc.packed_cell_lookup_strided(packed, pos, t, res, table, m, feats)
+    with backend.plain_versions():
+        inside = tenc.packed_cell_lookup_strided(packed, pos, t, res, table, m, feats)
+    strides = [tenc.anchor_stride(s, x) for x in res]
+    assert torch.equal(outside, inside)
+    assert torch.equal(outside, tenc.packed_cell_lookup_strided_reference(packed, pos, t, res, table, strides))
 
 
 # ---------------------------------------------------------------- combining

@@ -26,6 +26,7 @@ from uncertainty_nerf_gs_torch.ops.encodings import (
     cell_lookup,
     cell_lookup_bwd,
     packed_cell_lookup,
+    packed_cell_lookup_strided,
 )
 from uncertainty_nerf_gs_torch.ops.composite import (
     MAX_CHANNELS,
@@ -160,7 +161,7 @@ def test_plain_versions_switch():
     sample_pdf, NerfactoModel.forward, CompositeTiles.forward, composite_tiles,
     rasterize_gaussians, splatfacto._rasterize, splatfacto.render_splat,
     SplatfactoTrainer.render_image, cell_lookup, CellLookup.forward,
-    NerfactoTrainer.train_step, NerfactoTrainer._loss_fn, packed_cell_lookup,
+    NerfactoTrainer.train_step, NerfactoTrainer._loss_fn, packed_cell_lookup, packed_cell_lookup_strided,
 ], ids=lambda f: f.__qualname__)
 def test_no_plain_parameter(fn):
     """The plain path is chosen by ``backend.plain_versions()``, not by an
@@ -314,6 +315,35 @@ def test_packed_lookup_wrapper_refuses(case, error):
     with pytest.raises(error):
         packed_cell_lookup(packed, pos, res, table, m, f)
 
+
+
+@pytest.mark.parametrize("case", ["positions_not_contiguous", "positions_2d", "positions_float64",
+                                  "t_mid_float64", "t_mid_not_contiguous", "t_mid_shape", "t_mid_device",
+                                  "members_asked"])
+def test_strided_lookup_wrapper_refuses(case):
+    """The strided packed lookup refuses what K6's strided entry does not
+    take (the rays' layout, t_mid's dtype, layout, shape and device), on
+    every device, rather than copy."""
+    packed, _, res, table = _packed_inputs()
+    pos, t, m = torch.rand(4, 9, 3), torch.rand(4, 9), 3
+    if case == "positions_not_contiguous":
+        pos = torch.rand(9, 4, 3).transpose(0, 1)
+    elif case == "positions_2d":
+        pos = pos.reshape(36, 3)
+    elif case == "positions_float64":
+        pos = pos.double()
+    elif case == "t_mid_float64":
+        t = t.double()
+    elif case == "t_mid_not_contiguous":
+        t = torch.rand(9, 4).t()
+    elif case == "t_mid_shape":
+        t = t[:, :8].contiguous()
+    elif case == "t_mid_device":
+        t = t.to("meta")
+    elif case == "members_asked":
+        m = 2
+    with pytest.raises((TypeError, ValueError)):
+        packed_cell_lookup_strided(packed, pos, t, res, table, m, 2)
 
 EVAL_MODULES = [
     "uncertainty_nerf_gs_torch.eval.evaluator",

@@ -1,5 +1,6 @@
 // Hash-grid cell lookup for Hopper (sm_90a): forward (K4), backward (K5), and
-// the ensemble's forward on member-packed rows (K6, below K4).
+// the ensemble's forward on member-packed rows (K6, below K4, with a strided
+// entry that lerps anchors along each ray).
 //
 // The TPU side has this lookup in uncertainty_nerf_gs_tpu/ops/encodings.py::
 // cell_lookup (one row gather per sample and level, `tables[lvl][idx // cpr]`),
@@ -447,84 +448,432 @@ __global__ void __launch_bounds__(kK4Threads, F <= 2 ? 8 : 6) cell_lookup_fwd_ke
 // is (T, 8, M, F), one packed row of 8 corners x M members x F features a
 // cell (320 B at M = 5, F = 2), so that one cell index serves every member.
 // It replaces the row gather of uncertainty_nerf_gs_tpu/ops/encodings.py::
-// packed_cell_lookup, the member-packed rows that experiments/jobs/
-// 403_pallas_gather_probe.py::pallas_gather probed at 2^19 rows. For each
-// sample i, level l and member m:
+// packed_cell_lookup and packed_cell_lookup_strided, the member-packed rows
+// that experiments/jobs/403_pallas_gather_probe.py::pallas_gather probed at
+// 2^19 rows. For each sample i, level l and member m:
 //   out[m, i, l * F + f] = sum_c w[c] * row[l, idx, c, m, f]
 // with idx and w from locate and corner_weight, summed in k4_tree's order, so
 // that it equals its plain version (ops/encodings.py::
 // packed_cell_lookup_reference) and M K4 launches on the members' own tables
-// bit for bit. What bounds the function: bytes, each distinct row once
-// (320 B at M = 5, F = 2) and the M-fold output (4 M L F B a sample). The
-// design is the simple one: a thread a sample, walking the levels as K4's
-// warps do (one level's table hot at a time), locating its cell once a
-// level and reading member m's 8 corners as F-float vectors (8 loads of
-// 4 F bytes, 4 M F bytes apart); it writes each (member, level) as one
-// F-float vector, no staging (the warp's writes land 4 L F bytes apart and
-// are merged in L2). So it pays 8 M load instructions a lookup, each
-// touching up to 32 lines where the warp's rows differ, against K4's one
-// shared read: on an H100 it sits at 5-22x its byte bound (PERF.md,
-// section 6), and a redesign is queued (ROADMAP, queue 2).
+// bit for bit. The strided entry takes rays of S samples and looks level l
+// up only at its anchors a_j = min(j K_l, S - 1), j < NA = (S - 1) / K_l + 2
+// (the last one past S - 1, clamped back), then lerps them along the ray in
+// t_mid, for sample s in block b = s / K_l:
+//   w   = clamp((t_s - t_a[b]) / max(t_a[b + 1] - t_a[b], 1e-12), 0, 1)
+//   out = left * (1 - w) + right * w
+// each step rounded once, as PyTorch's elementwise ops round it, so that it
+// equals ops/encodings.py::packed_cell_lookup_strided_reference bit for bit;
+// a level with K_l = 1 is the dense lookup at every sample. The anchors of
+// all rays are numbered r * NA + j; a sample's two anchors are consecutive,
+// and the anchors 32 consecutive samples need form one range.
+//
+// What bounds it on an H100: bytes. Each distinct row once (the field's fine
+// levels from DRAM), the M-fold output (4 M L F bytes a sample: 126-210 MB a
+// render chunk's call at M = 5) and the positions. A thread a sample reading
+// member m's corners as F-float vectors issues 8 M loads a lookup, each
+// touching up to 32 rows where the warp's rows differ, and writes 4 F bytes
+// at a stride of 4 L F; that design sat at 5-22x its bound. This one:
+//   - A warp takes 32 consecutive samples and walks the levels, as K4 does.
+//     Each lane locates its lookup's cell (a strided level: one anchor a
+//     lane), and one ballot marks the runs of equal cells among the 32.
+//   - Each run's row is copied once, whole, into the warp's shared memory:
+//     lane s hands run s's row to the copy engine (cp.async.bulk, whole
+//     sectors, past the registers), and the warp's mbarrier counts the
+//     bytes in. All of a level's copies are in flight at once. Rows sit 4
+//     floats apart beyond their length (without the pad the sums' reads
+//     conflict on banks).
+//   - Each lane weighs and sums its own lookup for every member from shared
+//     memory, with corner_weight and k4_tree.
+//   - The M-fold output is staged in shared memory, member by member, and
+//     written out as each sample's run of floats, consecutive lanes on
+//     consecutive floats; where a pass covers whole rows, a member's stage
+//     is the output's run itself, written as float4s (kK6Stage floats a
+//     sample a pass, all members).
+//   - One buffer of 32 rows a warp and one warp a block: the shared memory a
+//     warp holds sets how many warps an SM keeps (about 30 KB a warp at M =
+//     5, F = 2, so 7), and the lookups' latency is hidden by other warps,
+//     not by the next level's copies. A second buffer with the next level's
+//     copies in flight while this one is summed, 2 or 4 warps a block, a
+//     larger or smaller stage, 16-byte cp.async copies by consecutive lanes
+//     and a corner order that alternates between rows 8 slots apart were
+//     each slower on an H100 (PERF.md, section 6); the next job's positions
+//     still load while this one's rows copy.
+//   - A strided level stages its anchors' features and each lane lerps its
+//     sample from them. The lanes look up at most 32 anchors a round, a
+//     round's last anchor being the next round's first, so that both anchors
+//     of a sample fall in one round; two warps that share an anchor each look
+//     it up.
+// A warp's shared memory is its own and __syncwarp its only barrier. The
+// launch's dynamic shared memory (k6_layout) holds kK6Warps such regions.
 
-constexpr int kK6Threads = 128;
+constexpr int kK6Warps = 1;
+constexpr int kK6Threads = 32 * kK6Warps;
 constexpr int kK6MaxMembers = 8;
+constexpr int kK6Stage = 80;  // staged output floats a sample a pass, all members
+// A level whose 32 lookups form at most this many runs of equal cells copies
+// each run's row once; one with more, every lookup's row (the same copies
+// where all 32 differ). Both give the same bits.
+constexpr int kK6CopyRunsMax = 32;
+
+struct K6Args {
+    const float* positions;  // (n, 3)
+    const float* t_mid;      // (n,), rays of `samples` samples; strided levels only
+    const float* packed;     // (L, T, 8, M, F)
+    float* out;              // (M, n, L F)
+    long long level_stride;  // T 8 M F floats
+    int n, num_levels, members, samples;
+    unsigned table_size;
+    int stride[kMaxLevels];  // K_l; 1 at every level of the dense entry
+};
+
+// A warp's region of shared memory, in floats: 32 rows, their cells' indices,
+// the anchors' features, the output stage and the copies' mbarrier.
+struct K6Layout {
+    int row;            // 8 M F floats of a packed row
+    int row_stride;     // row + 4: 16-byte aligned
+    int anchor_stride;  // M F, odd
+    int levels_a_pass;
+    int stage_stride;   // levels_a_pass F, odd; the row where a pass covers whole rows
+    int index_at, anchors_at, stage_at, bar_at, floats;
+};
+
+__host__ __device__ inline K6Layout k6_layout(int members, int features, int num_levels) {
+    K6Layout k;
+    k.row = 8 * members * features;
+    k.row_stride = k.row + 4;
+    k.anchor_stride = (members * features) | 1;
+    const int per_pass = kK6Stage / (members * features);
+    k.levels_a_pass = per_pass < 1 ? 1 : per_pass < num_levels ? per_pass : num_levels;
+    // odd against bank conflicts; where a pass covers whole rows, the row
+    // itself, so that a member's stage is the output's run of floats
+    k.stage_stride = k.levels_a_pass == num_levels ? num_levels * features : (k.levels_a_pass * features) | 1;
+    k.index_at = 32 * k.row_stride;
+    k.anchors_at = k.index_at + 32;
+    k.stage_at = k.anchors_at + 32 * k.anchor_stride;
+    k.bar_at = (k.stage_at + members * 32 * k.stage_stride + 1) & ~1;  // 8-byte aligned
+    // a multiple of 4, so that the next warp's rows are 16-byte aligned too
+    k.floats = (k.bar_at + 2 + 3) & ~3;
+    return k;
+}
+
+#ifdef __CUDACC__
+// Device-only helpers; the host test harness (tests/host_cuda/cuda_shim.h)
+// stands in for k6_shared, bar_init, bar_expect, copy_row_bulk and bar_wait.
+// The launch's dynamic shared memory:
+__device__ __forceinline__ float* k6_shared() {
+    extern __shared__ float4 k6_smem[];
+    return reinterpret_cast<float*>(k6_smem);
+}
+
+__device__ __forceinline__ unsigned shared_address(const void* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// A warp's mbarrier: one arrival a phase, completed by its copies' bytes.
+__device__ __forceinline__ void bar_init(unsigned long long* bar) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(shared_address(bar)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The arrival of a phase whose copies bring `bytes`.
+__device__ __forceinline__ void bar_expect(unsigned long long* bar, unsigned bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(shared_address(bar)),
+                 "r"(bytes) : "memory");
+}
+
+// One whole row from global to shared memory by the copy engine (16-byte
+// aligned, a multiple of 16 bytes); its bytes complete the barrier's phase.
+__device__ __forceinline__ void copy_row_bulk(float* dst, const float* src, unsigned bytes,
+                                              unsigned long long* bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+            shared_address(dst)),
+        "l"(src), "r"(bytes), "r"(shared_address(bar)) : "memory");
+}
+
+// Waits until the barrier's phase of parity `phase` has completed: its copies
+// have landed and are visible to the thread.
+__device__ __forceinline__ void bar_wait(unsigned long long* bar, unsigned phase) {
+    asm volatile(
+        "{\n.reg .pred P1;\nLAB_WAIT:\nmbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+        "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(shared_address(bar)),
+        "r"(phase) : "memory");
+}
+#endif
+
+// Where a warp's samples lie: the first sample `base`, `valid` of 32 in the
+// launch, and (ray, sample) of the lane's own, the first and the last (rays
+// of `samples` samples; the dense entry has samples = 1).
+struct K6Warp {
+    int base, valid, g, r, s, r0, s0, r1, s1;
+};
+
+// One (level, round) of a warp's walk. A dense level is one round; a strided
+// level's rounds each look up up to 32 of the `anchors` anchors that the
+// warp's samples need: anchors j0, j0 + 1, ... of ray r0, then on into the
+// next rays (na anchors a ray).
+struct K6Job {
+    int level, round, rounds, k, na, j0, anchors;
+};
+
+__device__ __forceinline__ K6Job k6_job(const K6Args& a, const K6Warp& w, int level) {
+    K6Job j;
+    j.level = level;
+    j.round = 0;
+    j.rounds = 1;
+    j.k = level < a.num_levels ? a.stride[level] : 1;
+    j.na = j.j0 = j.anchors = 0;
+    if (j.k > 1) {
+        j.na = (a.samples - 1) / j.k + 2;
+        j.j0 = w.s0 / j.k;  // the first sample's left anchor
+        // to the last sample's right anchor
+        j.anchors = (w.r1 - w.r0) * j.na + w.s1 / j.k + 2 - j.j0;
+        j.rounds = (j.anchors - 2) / 31 + 1;
+    }
+    return j;
+}
+
+__device__ __forceinline__ K6Job k6_next(const K6Args& a, const K6Warp& w, K6Job j) {
+    if (j.round + 1 < j.rounds) {
+        ++j.round;
+        return j;
+    }
+    return k6_job(a, w, j.level + 1);
+}
+
+// The position of the lane's lookup in `job`: its own sample's, or at a
+// strided level anchor 31 round + lane of the warp's range (lanes past it
+// repeat its last). Loaded a job ahead of its use.
+__device__ __forceinline__ void k6_position(const K6Args& a, const K6Warp& w, const K6Job& job,
+                                            const float p[3], int lane, float (&q)[3]) {
+    q[0] = p[0], q[1] = p[1], q[2] = p[2];
+    if (job.k > 1) {
+        const int i = 31 * job.round + lane;
+        const int j = job.j0 + (i < job.anchors ? i : job.anchors - 1);
+        const int r = w.r0 + j / job.na;
+        const int s = min((j % job.na) * job.k, a.samples - 1);
+        const float* src = a.positions + 3 * (static_cast<long long>(r) * a.samples + s);
+        q[0] = src[0], q[1] = src[1], q[2] = src[2];
+    }
+}
+
+struct K6Lookup {
+    Cell cell;
+    int slot;      // its row among the job's rows
+    int slots;     // rows the job copies
+    bool writes;   // the lane names its row's cell in the index
+    float t[3];    // a strided level: t of the lane's sample and of its two anchors
+};
+
+// Locates the lane's lookup at q and marks the runs of equal cells (at a
+// strided level also loads the t the lerp needs); no shared memory yet.
+__device__ __forceinline__ K6Lookup k6_locate(const K6Args& a, const Levels& lv, const K6Warp& w,
+                                              const K6Job& job, const float q[3], int lane) {
+    K6Lookup lk;
+    if (job.k > 1) {
+        const float* t = a.t_mid + static_cast<long long>(w.r) * a.samples;
+        const int b = w.s / job.k;
+        lk.t[0] = t[w.s], lk.t[1] = t[b * job.k], lk.t[2] = t[min((b + 1) * job.k, a.samples - 1)];
+    }
+    lk.cell = locate(q, lv, job.level, a.table_size);
+    const unsigned idx = lk.cell.idx;
+    const unsigned prev = __shfl_up_sync(kFull, idx, 1);
+    const unsigned starts = __ballot_sync(kFull, lane == 0 || prev != idx);
+    const int runs = __popc(starts);
+    const bool once = runs <= kK6CopyRunsMax;
+    lk.slot = once ? __popc(starts & ((2u << lane) - 1u)) - 1 : lane;
+    lk.slots = once ? runs : 32;
+    lk.writes = !once || ((starts >> lane) & 1u);
+    return lk;
+}
+
+// Puts the copies of the job's rows into the warp's rows in flight.
+__device__ __forceinline__ void k6_copy(const K6Args& a, const K6Layout& k, const K6Job& job,
+                                        const K6Lookup& lk, float* mine, int lane) {
+    unsigned* index = reinterpret_cast<unsigned*>(mine + k.index_at);
+    if (lk.writes) index[lk.slot] = lk.cell.idx;
+    __syncwarp();
+    const float* level = a.packed + job.level * a.level_stride;
+    unsigned long long* bar = reinterpret_cast<unsigned long long*>(mine + k.bar_at);
+    if (lane == 0) bar_expect(bar, static_cast<unsigned>(lk.slots * k.row * 4));
+    __syncwarp();
+    if (lane < lk.slots)
+        copy_row_bulk(mine + lane * k.row_stride, level + static_cast<long long>(index[lane]) * k.row,
+                      static_cast<unsigned>(k.row * 4), bar);
+}
 
 template <int F>
-__device__ __forceinline__ void load_features(const float* src, float (&v)[F]) {
+__device__ __forceinline__ void load_shared(const float* src, float (&v)[F]) {
     if constexpr (F == 1) {
-        v[0] = __ldg(src);
+        v[0] = src[0];
     } else if constexpr (F == 2) {
-        const float2 q = __ldg(reinterpret_cast<const float2*>(src));
+        const float2 q = *reinterpret_cast<const float2*>(src);
         v[0] = q.x, v[1] = q.y;
     } else {
         static_assert(F == 4, "F in {1, 2, 4}");
-        const float4 q = __ldg(reinterpret_cast<const float4*>(src));
+        const float4 q = *reinterpret_cast<const float4*>(src);
         v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
     }
 }
 
+// Member m's F features of one lookup from its row in shared memory.
 template <int F>
-__device__ __forceinline__ void store_features(float* dst, const float (&v)[F]) {
-    if constexpr (F == 1) {
-        dst[0] = v[0];
-    } else if constexpr (F == 2) {
-        *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+__device__ __forceinline__ void k6_member(const float* row, const float (&w)[8], int m, int members,
+                                          float (&v)[F]) {
+    float x[8][F];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) load_shared<F>(row + (c * members + m) * F, x[c]);
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+        float prod[8];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) prod[c] = __fmul_rn(w[c], x[c][f]);
+        v[f] = k4_tree(prod);
+    }
+}
+
+// torch: (t - t_left) / clamp(t_right - t_left, min=1e-12), then clamp(w, 0,
+// 1); each op rounded once, NaN passed through as torch.clamp passes it.
+__device__ __forceinline__ float k6_lerp_weight(float t, float t_left, float t_right) {
+    float d = __fsub_rn(t_right, t_left);
+    d = isnan(d) ? d : fmaxf(d, static_cast<float>(1e-12));
+    const float w = __fdiv_rn(__fsub_rn(t, t_left), d);
+    return isnan(w) ? w : fminf(fmaxf(w, 0.0f), 1.0f);
+}
+
+// Waits for the job's rows, sums the lane's lookup for every member into the
+// stage (a strided level: into the anchors' features, then lerps the lane's
+// sample from them), and frees the rows.
+template <int F>
+__device__ __forceinline__ void k6_finish(const K6Args& a, const K6Layout& k, const K6Warp& wp,
+                                          const K6Job& job, const K6Lookup& lk, float* mine,
+                                          unsigned phase, int lane) {
+    bar_wait(reinterpret_cast<unsigned long long*>(mine + k.bar_at), phase);
+    const float* row = mine + lk.slot * k.row_stride;
+    float w[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) w[c] = corner_weight(lk.cell, c);
+    const int members = a.members;
+    // member m's staged outputs: 32 samples at stage_stride
+    float* stage = mine + k.stage_at + lane * k.stage_stride + job.level % k.levels_a_pass * F;
+    const int member_stage = 32 * k.stage_stride;
+    if (job.k == 1) {
+#pragma unroll 4
+        for (int m = 0; m < members; ++m) {
+            float v[F];
+            k6_member<F>(row, w, m, members, v);
+#pragma unroll
+            for (int f = 0; f < F; ++f) stage[m * member_stage + f] = v[f];
+        }
     } else {
-        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+        float* anchors = mine + k.anchors_at;
+#pragma unroll 4
+        for (int m = 0; m < members; ++m) {
+            float v[F];
+            k6_member<F>(row, w, m, members, v);
+#pragma unroll
+            for (int f = 0; f < F; ++f) anchors[lane * k.anchor_stride + m * F + f] = v[f];
+        }
+        __syncwarp();
+        const int b = wp.s / job.k;
+        const int local = (wp.r - wp.r0) * job.na + b - job.j0 - 31 * job.round;
+        if (local >= 0 && local < 31) {  // this round holds the sample's anchors b, b + 1
+            const float wt = k6_lerp_weight(lk.t[0], lk.t[1], lk.t[2]);
+            const float rest = __fsub_rn(1.0f, wt);
+            const float* left = anchors + local * k.anchor_stride;
+            const float* right = left + k.anchor_stride;
+#pragma unroll 4
+            for (int m = 0; m < members; ++m) {
+#pragma unroll
+                for (int f = 0; f < F; ++f)
+                    stage[m * member_stage + f] =
+                        __fadd_rn(__fmul_rn(left[m * F + f], rest), __fmul_rn(right[m * F + f], wt));
+            }
+        }
+    }
+    __syncwarp();
+}
+
+// The staged outputs of levels [l0, l1), member by member: each sample's run
+// of (l1 - l0) F floats (one contiguous run of the warp's samples where the
+// pass covers every level), consecutive lanes on consecutive floats.
+template <int F>
+__device__ __forceinline__ void k6_flush(const K6Args& a, const K6Layout& k, const K6Warp& w,
+                                         const float* stage, int l0, int l1, int lane) {
+    const int row = a.num_levels * F, width = (l1 - l0) * F;
+    // float e = lane + 32 i of a member: sample e / width, float e % width,
+    // carried forward without a division
+    const int ds = 32 / width, dj = 32 - ds * width;
+    for (int m = 0; m < a.members; ++m) {
+        const float* src = stage + m * 32 * k.stage_stride;
+        float* dst = a.out + (static_cast<long long>(m) * a.n + w.base) * row + l0 * F;
+        int done = 0;
+        if (k.stage_stride == row && (reinterpret_cast<unsigned long long>(dst) & 15u) == 0) {
+            // whole rows, staged back to back: the warp's samples are one run
+            const int quads = w.valid * row / 4;
+#pragma unroll 4
+            for (int q = lane; q < quads; q += 32)
+                reinterpret_cast<float4*>(dst)[q] = reinterpret_cast<const float4*>(src)[q];
+            done = 4 * quads;
+        }
+        int s = (done + lane) / width, j = done + lane - s * width;
+#pragma unroll 4
+        while (s < w.valid) {
+            dst[s * row + j] = src[s * k.stage_stride + j];
+            s += ds, j += dj;
+            if (j >= width) j -= width, ++s;
+        }
+    }
+    __syncwarp();
+}
+
+// One warp's 32 samples, every level (both entries).
+template <int F>
+__device__ __forceinline__ void k6_warp(const K6Args& a, const Levels& lv) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const long long first = (static_cast<long long>(blockIdx.x) * kK6Warps + warp) * 32;
+    if (first >= a.n) return;  // the whole warp
+    K6Warp w;
+    w.base = static_cast<int>(first);
+    w.valid = a.n - w.base < 32 ? a.n - w.base : 32;
+    w.g = w.base + (lane < w.valid ? lane : w.valid - 1);  // lanes past n repeat the last sample
+    w.r = w.g / a.samples, w.s = w.g - w.r * a.samples;
+    w.r0 = w.base / a.samples, w.s0 = w.base - w.r0 * a.samples;
+    const int last = w.base + w.valid - 1;
+    w.r1 = last / a.samples, w.s1 = last - w.r1 * a.samples;
+    const float* own = a.positions + 3LL * w.g;
+    const float p[3] = {own[0], own[1], own[2]};
+    const K6Layout k = k6_layout(a.members, F, a.num_levels);
+    float* mine = k6_shared() + warp * k.floats;
+    // a job's rows are copied and summed in turn; the next job's positions
+    // load meanwhile
+    K6Job job = k6_job(a, w, 0);
+    float q[3];
+    k6_position(a, w, job, p, lane, q);
+    if (lane == 0) bar_init(reinterpret_cast<unsigned long long*>(mine + k.bar_at));
+    __syncwarp();
+    for (unsigned phase = 0;; phase ^= 1u) {
+        const K6Lookup lk = k6_locate(a, lv, w, job, q, lane);
+        const K6Job next = k6_next(a, w, job);
+        if (next.level < a.num_levels) k6_position(a, w, next, p, lane, q);
+        k6_copy(a, k, job, lk, mine, lane);
+        k6_finish<F>(a, k, w, job, lk, mine, phase, lane);
+        const int l = job.level;
+        if (job.round + 1 == job.rounds && ((l + 1) % k.levels_a_pass == 0 || l + 1 == a.num_levels))
+            k6_flush<F>(a, k, w, mine + k.stage_at, l - l % k.levels_a_pass, l + 1, lane);
+        if (next.level == a.num_levels) break;
+        job = next;
     }
 }
 
 template <int F>
-__global__ void __launch_bounds__(kK6Threads) packed_lookup_fwd_kernel(
-    const float* __restrict__ positions, const float* __restrict__ packed,
-    float* __restrict__ out, int n, int num_levels, int members, long long level_stride,
-    unsigned table_size, Levels lv) {
-    const long long i = static_cast<long long>(blockIdx.x) * kK6Threads + threadIdx.x;
-    if (i >= n) return;
-    const float p[3] = {positions[3 * i], positions[3 * i + 1], positions[3 * i + 2]};
-    const long long row = static_cast<long long>(num_levels) * F;  // out floats a sample
-    const long long cell_floats = 8LL * members * F;
-    for (int l = 0; l < num_levels; ++l) {
-        const Cell cell = locate(p, lv, l, table_size);
-        float w[8];
-#pragma unroll
-        for (int c = 0; c < 8; ++c) w[c] = corner_weight(cell, c);
-        const float* cell_ptr = packed + l * level_stride + cell.idx * cell_floats;
-        for (int m = 0; m < members; ++m) {
-            float x[8][F];
-#pragma unroll
-            for (int c = 0; c < 8; ++c) load_features<F>(cell_ptr + (c * members + m) * F, x[c]);
-            float v[F];
-#pragma unroll
-            for (int f = 0; f < F; ++f) {
-                float prod[8];
-#pragma unroll
-                for (int c = 0; c < 8; ++c) prod[c] = __fmul_rn(w[c], x[c][f]);
-                v[f] = k4_tree(prod);
-            }
-            store_features<F>(out + (m * static_cast<long long>(n) + i) * row + l * F, v);
-        }
-    }
+__global__ void __launch_bounds__(kK6Threads) packed_lookup_fwd_kernel(K6Args a, Levels lv) {
+    k6_warp<F>(a, lv);
+}
+
+template <int F>
+__global__ void __launch_bounds__(kK6Threads) packed_lookup_strided_kernel(K6Args a, Levels lv) {
+    k6_warp<F>(a, lv);
 }
 
 // -- K5, stage 1: keys, and the position gradient -----------------------------
@@ -1034,6 +1383,61 @@ cudaError_t launch_bwd(const float* positions, const float* cells, const float* 
     return cudaGetLastError();
 }
 
+
+// K6's launch arguments from the entry points' (strides null: the dense
+// entry). False on what the kernel does not take.
+bool k6_args(const float* positions, const float* t_mid, const float* packed, float* out, long long n,
+             int samples, int num_levels, int table_size, int members, int features,
+             const int* resolutions, const int* strides, K6Args* a, Levels* lv) {
+    if (!make_levels(resolutions, num_levels, table_size, lv) || n < 0 ||
+        n * num_levels >= (1LL << 31) || members < 1 || members > kK6MaxMembers ||
+        (features != 1 && features != 2 && features != 4) ||
+        reinterpret_cast<unsigned long long>(packed) % 16 != 0 ||
+        reinterpret_cast<unsigned long long>(out) % 16 != 0)
+        return false;
+    a->positions = positions;
+    a->t_mid = t_mid;
+    a->packed = packed;
+    a->out = out;
+    a->level_stride = static_cast<long long>(table_size) * 8 * members * features;
+    a->n = static_cast<int>(n);
+    a->num_levels = num_levels;
+    a->members = members;
+    a->samples = samples;
+    a->table_size = static_cast<unsigned>(table_size);
+    for (int l = 0; l < num_levels; ++l) {
+        a->stride[l] = strides == nullptr ? 1 : strides[l];
+        if (a->stride[l] < 1 || (a->stride[l] > 1 && (samples < 1 || t_mid == nullptr))) return false;
+    }
+    return true;
+}
+
+// Dynamic shared memory of a K6 block.
+int k6_shared_bytes(int members, int features, int num_levels) {
+    return kK6Warps * k6_layout(members, features, num_levels).floats * 4;
+}
+
+template <int F>
+cudaError_t launch_k6(const K6Args& a, const Levels& lv, bool strided, cudaStream_t st) {
+    auto kernel = strided ? packed_lookup_strided_kernel<F> : packed_lookup_fwd_kernel<F>;
+    const int bytes = k6_shared_bytes(a.members, F, a.num_levels);
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    const int blocks = (a.n + kK6Threads - 1) / kK6Threads;
+    kernel<<<blocks, kK6Threads, bytes, st>>>(a, lv);
+    return cudaGetLastError();
+}
+
+int run_k6(const K6Args& a, const Levels& lv, int features, bool strided, void* stream) {
+    if (a.n == 0) return 0;
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch (features) {
+        case 1: return static_cast<int>(launch_k6<1>(a, lv, strided, st));
+        case 2: return static_cast<int>(launch_k6<2>(a, lv, strided, st));
+        case 4: return static_cast<int>(launch_k6<4>(a, lv, strided, st));
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
 }  // namespace
 
 // C interface, loaded with ctypes. Device pointers to float32: positions
@@ -1074,34 +1478,41 @@ extern "C" int cell_lookup_fwd_f32(const float* positions, const float* cells, f
 // K6. Device pointers to float32: positions (n, 3) contiguous; packed (L,
 // table_size, 8, M, F) contiguous, 16-byte aligned; out (M, n, L * F)
 // contiguous, 16-byte aligned. resolutions is a host array of L ints;
-// members is M in [1, 8]; features is F in {1, 2, 4}. Launches on `stream`
-// and returns cudaGetLastError(), or cudaErrorInvalidValue for arguments the
-// kernel does not take.
+// members is M in [1, 8]; features is F in {1, 2, 4}; n * L < 2^31. Launches
+// on `stream` and returns cudaGetLastError(), or cudaErrorInvalidValue for
+// arguments the kernel does not take.
 extern "C" int packed_cell_lookup_fwd_f32(const float* positions, const float* packed, float* out,
                                           int n, int num_levels, int table_size, int members,
                                           int features, const int* resolutions, void* stream) {
+    K6Args a;
     Levels lv;
-    if (!make_levels(resolutions, num_levels, table_size, &lv) || n < 0 || members < 1 ||
-        members > kK6MaxMembers || reinterpret_cast<unsigned long long>(packed) % 16 != 0 ||
-        reinterpret_cast<unsigned long long>(out) % 16 != 0)
+    if (!k6_args(positions, nullptr, packed, out, n, 1, num_levels, table_size, members, features,
+                 resolutions, nullptr, &a, &lv))
         return static_cast<int>(cudaErrorInvalidValue);
-    if (n == 0) return 0;
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const unsigned ts = static_cast<unsigned>(table_size);
-    const long long level_stride = static_cast<long long>(table_size) * 8 * members * features;
-    const int blocks = static_cast<int>((static_cast<long long>(n) + kK6Threads - 1) / kK6Threads);
-#define K6_CASE(f)                                                                 \
-    case f:                                                                        \
-        packed_lookup_fwd_kernel<f><<<blocks, kK6Threads, 0, s>>>(                 \
-            positions, packed, out, n, num_levels, members, level_stride, ts, lv); \
-        break;
-    switch (features) {
-        K6_CASE(1) K6_CASE(2) K6_CASE(4)
-        default:
-            return static_cast<int>(cudaErrorInvalidValue);
-    }
-#undef K6_CASE
-    return static_cast<int>(cudaGetLastError());
+    return run_k6(a, lv, features, false, stream);
+}
+
+// K6's strided entry: positions (rays, samples, 3) and t_mid (rays, samples)
+// contiguous; out (M, rays, samples, L * F); strides a host array of L ints
+// >= 1, K_l of each level (1: looked up at every sample). Otherwise as
+// packed_cell_lookup_fwd_f32, with n = rays * samples.
+extern "C" int packed_cell_lookup_strided_fwd_f32(const float* positions, const float* t_mid,
+                                                  const float* packed, float* out, int rays,
+                                                  int samples, int num_levels, int table_size,
+                                                  int members, int features, const int* resolutions,
+                                                  const int* strides, void* stream) {
+    K6Args a;
+    Levels lv;
+    if (rays < 0 || samples < 1 ||
+        !k6_args(positions, t_mid, packed, out, static_cast<long long>(rays) * samples, samples,
+                 num_levels, table_size, members, features, resolutions, strides, &a, &lv))
+        return static_cast<int>(cudaErrorInvalidValue);
+    return run_k6(a, lv, features, true, stream);
+}
+
+// Bytes of dynamic shared memory a K6 block takes (kK6Warps warps).
+extern "C" int packed_cell_lookup_shared_bytes(int num_levels, int members, int features) {
+    return k6_shared_bytes(members, features, num_levels);
 }
 
 // Bytes of scratch K5 (and cell_lookup_sort_u32) needs for n samples, or -1

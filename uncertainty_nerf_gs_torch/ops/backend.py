@@ -49,7 +49,7 @@ NVCC_FLAGS = (
 # it launches its kernel and nowhere else
 LAUNCH_COUNTERS = (
     "pdf_resample", "composite_fwd", "composite_bwd", "cell_lookup_fwd", "cell_lookup_bwd",
-    "packed_cell_lookup_fwd",
+    "packed_cell_lookup_fwd", "packed_cell_lookup_strided",
 )
 launch_counts: dict[str, int] = {name: 0 for name in LAUNCH_COUNTERS}
 _libraries: dict[str, ctypes.CDLL] = {}

@@ -24,7 +24,9 @@ the JAX package's packed row without its pad lanes. ``packed_cell_lookup``
 is K6's wrapper (``csrc/hash_grid.cu``: K4's cell location and corner tree
 over the packed row, forward only; on a CPU tensor its plain version
 ``packed_cell_lookup_reference``), and ``packed_cell_lookup_strided`` the
-JAX package's per-level anchor striding over it.
+JAX package's per-level anchor striding over it (K6's strided entry, which
+looks up each level's anchors and lerps them in one launch; its plain
+version ``packed_cell_lookup_strided_reference``).
 """
 
 from __future__ import annotations
@@ -426,9 +428,9 @@ def _check_packed(packed, positions, resolutions, table_size, num_members, featu
         raise ValueError(f"{len(resolutions)} resolutions for {levels} levels (at most {MAX_LEVELS})")
     if rows != table_size:
         raise ValueError(f"packed holds {rows} cells a level, table_size is {table_size}")
-    if positions.shape[0] >= 2**31:
-        raise ValueError(f"{positions.shape[0]} positions are too many for K6")
-    if packed.data_ptr() % 16:  # K6 reads its rows as F-float vectors
+    if positions.shape[0] * levels >= 2**31:
+        raise ValueError(f"{positions.shape[0]} positions x {levels} levels are too many lookups for K6")
+    if packed.data_ptr() % 16:  # K6 copies whole rows, 16-byte aligned
         raise ValueError(f"packed must be 16-byte aligned, got address {packed.data_ptr():#x}")
 
 
@@ -480,6 +482,77 @@ def anchor_stride(num_samples: int, res: int, stride_scale: float = 1.0, max_str
     return int(np.clip(int(stride_scale * num_samples) // (2 * int(res)), 1, max_stride))
 
 
+def packed_cell_lookup_strided_reference(
+    packed: torch.Tensor,
+    norm_positions: torch.Tensor,
+    t_mid: torch.Tensor,
+    resolutions,
+    table_size: int,
+    strides,
+) -> torch.Tensor:
+    """Plain version of K6's strided entry, the JAX package's per-level
+    anchor striding: level l is looked up (``packed_cell_lookup_reference``)
+    only at every K_l-th sample (``strides``) and its features are lerped
+    along the ray in ``t_mid`` between the bracketing anchors (static
+    anchors 0, K, ..., the last clamped to S - 1); a level with K_l = 1 is
+    looked up at every sample. norm_positions (R, S, 3), t_mid (R, S) ->
+    (M, R, S, L * F)."""
+    _, _, _, m, feats = packed.shape
+    r, s, _ = norm_positions.shape
+    # each level written into its slice of the output (in place of a
+    # concatenation of F-wide pieces, which the card copies slowly)
+    out = torch.empty((m, r, s, len(resolutions) * feats), dtype=torch.float32,
+                      device=norm_positions.device)
+    for lvl, (res, k) in enumerate(zip(resolutions, strides)):
+        level = packed[lvl:lvl + 1]
+        dst = out[..., lvl * feats:(lvl + 1) * feats]
+        if k == 1:
+            f = packed_cell_lookup_reference(level, norm_positions.reshape(-1, 3), [int(res)], table_size)
+            dst.copy_(f.reshape(m, r, s, feats))
+            continue
+        # anchors at 0, k, ...; one always lies past s - 1 (clamped back), so
+        # every sample has a right bracket, where a repeated last anchor gives
+        # w = 0 through the max(t_right - t_left, 1e-12) guard
+        pad = (-(s - 1)) % k or k
+        na = (s - 1 + pad) // k + 1
+        idx = torch.from_numpy(np.minimum(np.arange(na) * k, s - 1)).to(norm_positions.device)
+        pos_a = norm_positions[:, idx]  # (R, A, 3)
+        t_a = t_mid[:, idx]  # (R, A)
+        f_a = packed_cell_lookup_reference(level, pos_a.reshape(-1, 3), [int(res)], table_size)
+        f_a = f_a.reshape(m, r, na, feats)
+        left = torch.repeat_interleave(f_a[:, :, :-1], k, dim=2)[:, :, :s]
+        right = torch.repeat_interleave(f_a[:, :, 1:], k, dim=2)[:, :, :s]
+        t_left = torch.repeat_interleave(t_a[:, :-1], k, dim=1)[:, :s]
+        t_right = torch.repeat_interleave(t_a[:, 1:], k, dim=1)[:, :s]
+        w = (t_mid - t_left) / torch.clamp(t_right - t_left, min=1e-12)
+        w = torch.clamp(w, 0.0, 1.0)[None, :, :, None]
+        torch.add(left * (1.0 - w), right * w, out=dst)
+    return out
+
+
+_ARGTYPES["packed_cell_lookup_strided_fwd_f32"] = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]
+_ARGTYPES["packed_cell_lookup_shared_bytes"] = [_I, _I, _I]
+
+
+def packed_cell_lookup_strided_fwd(packed, norm_positions, t_mid, resolutions, table_size, strides):
+    """K6's strided entry: one launch for every level and member, the
+    anchors looked up and lerped in it. Inputs as ``packed_cell_lookup_strided``
+    takes them."""
+    levels, _, _, m, feats = packed.shape
+    r, s, _ = norm_positions.shape
+    out = torch.empty((m, r, s, levels * feats), dtype=torch.float32, device=packed.device)
+    with torch.cuda.device(packed.device):
+        err = _entry("packed_cell_lookup_strided_fwd_f32")(
+            norm_positions.data_ptr(), t_mid.data_ptr(), packed.data_ptr(), out.data_ptr(), r, s, levels,
+            table_size, m, feats, (ctypes.c_int * levels)(*resolutions), (ctypes.c_int * levels)(*strides),
+            backend.current_stream_handle(packed.device),
+        )
+    if err != 0:
+        raise RuntimeError(f"packed_cell_lookup_strided_fwd launch failed: CUDA error {err}")
+    backend.count_launch("packed_cell_lookup_strided")
+    return out
+
+
 def packed_cell_lookup_strided(
     packed: torch.Tensor,
     norm_positions: torch.Tensor,
@@ -493,44 +566,28 @@ def packed_cell_lookup_strided(
 ) -> torch.Tensor:
     """Ensemble lookup with per-level anchor striding along the ray, as the
     JAX package's: level l is looked up only at every K_l-th sample
-    (``anchor_stride``) and its features are lerped along the ray in
-    ``t_mid`` between the bracketing anchors (static anchors 0, K, ...,
-    the last clamped to S - 1); a level with K_l = 1 is looked up at every
-    sample. Each level is one ``packed_cell_lookup`` (one K6 launch on the
-    card). norm_positions (R, S, 3), t_mid (R, S) -> (M, R, S, L * F)."""
-    feats, m = features_per_level, num_members
-    r, s, _ = norm_positions.shape
-    resolutions = np.asarray(resolutions)
-    # each level written into its slice of the output (in place of a
-    # concatenation of F-wide pieces, which the card copies slowly)
-    out = torch.empty((m, r, s, len(resolutions) * feats), dtype=torch.float32,
-                      device=norm_positions.device)
-    for lvl, res in enumerate(resolutions):
-        k = anchor_stride(s, int(res), stride_scale, max_stride)
-        level = packed[lvl:lvl + 1]
-        dst = out[..., lvl * feats:(lvl + 1) * feats]
-        if k == 1:
-            f = packed_cell_lookup(level, norm_positions.reshape(-1, 3), [int(res)], table_size, m, feats)
-            dst.copy_(f.reshape(m, r, s, feats))
-            continue
-        # anchors at 0, k, ...; one always lies past s - 1 (clamped back), so
-        # every sample has a right bracket, where a repeated last anchor gives
-        # w = 0 through the max(t_right - t_left, 1e-12) guard
-        pad = (-(s - 1)) % k or k
-        na = (s - 1 + pad) // k + 1
-        idx = torch.from_numpy(np.minimum(np.arange(na) * k, s - 1)).to(norm_positions.device)
-        pos_a = norm_positions[:, idx]  # (R, A, 3)
-        t_a = t_mid[:, idx]  # (R, A)
-        f_a = packed_cell_lookup(level, pos_a.reshape(-1, 3), [int(res)], table_size, m, feats)
-        f_a = f_a.reshape(m, r, na, feats)
-        left = torch.repeat_interleave(f_a[:, :, :-1], k, dim=2)[:, :, :s]
-        right = torch.repeat_interleave(f_a[:, :, 1:], k, dim=2)[:, :, :s]
-        t_left = torch.repeat_interleave(t_a[:, :-1], k, dim=1)[:, :s]
-        t_right = torch.repeat_interleave(t_a[:, 1:], k, dim=1)[:, :s]
-        w = (t_mid - t_left) / torch.clamp(t_right - t_left, min=1e-12)
-        w = torch.clamp(w, 0.0, 1.0)[None, :, :, None]
-        torch.add(left * (1.0 - w), right * w, out=dst)
-    return out
+    (``anchor_stride``) and lerped along the ray in ``t_mid`` between the
+    bracketing anchors. norm_positions (R, S, 3), t_mid (R, S) float32
+    contiguous -> (M, R, S, L * F). K6's strided entry on the card (one
+    launch), its plain version ``packed_cell_lookup_strided_reference`` on
+    the CPU. Raises on other dtypes and layouts rather than copy."""
+    resolutions = tuple(int(r) for r in np.asarray(resolutions))
+    for name, t in (("norm_positions", norm_positions), ("t_mid", t_mid)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous, got strides {t.stride()}")
+    if norm_positions.dim() != 3 or norm_positions.shape[2] != 3:
+        raise ValueError(f"norm_positions must be (R, S, 3), got {tuple(norm_positions.shape)}")
+    if tuple(t_mid.shape) != tuple(norm_positions.shape[:2]) or t_mid.device != packed.device:
+        raise ValueError(f"t_mid must be {tuple(norm_positions.shape[:2])} on {packed.device}, "
+                         f"got {tuple(t_mid.shape)} on {t_mid.device}")
+    _check_packed(packed, norm_positions.view(-1, 3), resolutions, table_size, num_members, features_per_level)
+    s = norm_positions.shape[1]
+    strides = tuple(anchor_stride(s, r, stride_scale, max_stride) for r in resolutions)
+    if backend.use_kernel(packed):
+        return packed_cell_lookup_strided_fwd(packed, norm_positions, t_mid, resolutions, table_size, strides)
+    return packed_cell_lookup_strided_reference(packed, norm_positions, t_mid, resolutions, table_size, strides)
 
 
 def hash_grid_resolutions(num_levels: int, min_res: int, max_res: int) -> np.ndarray:
