@@ -46,7 +46,19 @@ beside its bound and ``index_select`` of the same rows; the fused (K1 2, K6
 kernel path against the plain path bit for bit, with their launch plans;
 five identical members against the single model; and both modes
 through ``get_average_uncertainty_metrics`` over two images (finite
-metrics, the JSON written), profiled and timed in turns. Exits non-zero,
+metrics, the JSON written), profiled and timed in turns. After the splat
+phase come two more at the same width: active-splatfacto past warmup
+(65,000 live Gaussians in 131,072 slots, the capacity tuner at start and
+every 20 steps, the camera optimizer, refines at steps 20, 30, 60 and 70
+and opacity resets at 40 and 80 in 80 steps; K2 and K3 on every step, each
+refine's counts and time, the replaced slots' Adam moments zeroed, the
+opacities' Adam count restarted, the first refine replayed on the CPU with
+equal masks, K2 and K3 timed at the tuned capacity), and the splat deep
+ensemble (five members from numpy seeds 0-4 with their own alive masks,
+through ``build_ensemble_splat_render_cam`` at probed eval budgets: K2
+five times an image, against the plain path, five identical members
+against the single model, ``get_average_uncertainty_metrics`` over two
+images). Exits non-zero,
 with no result line, when there is no card or any phase fails. The last line of standard
 output is a JSON object naming the device; the line before it the card's
 name and power limit; before that a ``{"kernels": [...]}`` line with each
@@ -466,14 +478,14 @@ def ragged_case(device, gen, pix, c):
     return packed, pix[:t].contiguous(), counts
 
 
-def print_families(g, ref_g, exact) -> None:
+def print_families(g, ref_g, exact=None) -> None:
     """Per column family of g_packed: its largest and median nonzero |g|,
     the absolute part of its bar, the kernel's error, both float32 versions'
-    distance to float64, the entries outside the bar and outside the
-    elementwise bar, and the share of its nonzero entries on which a zeroed
-    family would fail the bar."""
+    distance to float64 (where ``exact`` is given), the entries outside the
+    bar and outside the elementwise bar, and the share of its nonzero
+    entries on which a zeroed family would fail the bar."""
     for fam, cols in PACKED_FAMILIES.items():
-        got, want, ex = g[..., cols], ref_g[..., cols], exact[..., cols]
+        got, want = g[..., cols], ref_g[..., cols]
         mag = want.abs()
         nonzero = mag[mag > 0]
         top = mag.max().item()
@@ -482,37 +494,78 @@ def print_families(g, ref_g, exact) -> None:
         elementwise = int((~torch.isclose(got, want, **SPLAT_GRAD_TOL)).sum())
         zeroed = grad_mismatch(torch.zeros_like(want), want)[mag > 0]
         caught = zeroed.float().mean().item() if zeroed.numel() else 0.0
+        to64 = "" if exact is None else (
+            f" (kernel to float64 {(got - exact[..., cols]).abs().max().item():.3e}, plain to float64 "
+            f"{(want - exact[..., cols]).abs().max().item():.3e})")
         print(f"  {fam}: largest |g| {top:.3e}, median nonzero {median:.3e}, absolute bar "
-              f"{SPLAT_GRAD_TOL['atol'] * top:.3e}; max_abs_err {(got - want).abs().max().item():.3e} "
-              f"(kernel to float64 {(got - ex).abs().max().item():.3e}, plain to float64 "
-              f"{(want - ex).abs().max().item():.3e}); {outside} outside the bar, {elementwise} "
-              f"outside it elementwise; a zeroed family fails on {caught:.1%} of its nonzero entries")
+              f"{SPLAT_GRAD_TOL['atol'] * top:.3e}; max_abs_err {(got - want).abs().max().item():.3e}"
+              f"{to64}; {outside} outside the bar, {elementwise} outside it elementwise; a zeroed "
+              f"family fails on {caught:.1%} of its nonzero entries")
+
+
+def scene_tiles(trainer, gen):
+    """The trainer's packed tiles of camera 0 at its rasterize budgets, as
+    render_splat packs them, with random colours and uncertainties."""
+    from uncertainty_nerf_gs_torch.models import splatfacto as sf
+    from uncertainty_nerf_gs_torch.ops.rasterize import select_and_pack
+
+    cfg = trainer.config
+    params = {k: v.detach() for k, v in trainer.params.items()}
+    w, h = trainer.cameras.width, trainer.cameras.height
+    with torch.no_grad():
+        proj = sf._project(params, trainer.splat_state.alive, *trainer.camera(0), w, h, cfg)
+        opac = torch.sigmoid(params["opacities"]) * proj.compensation
+        depth = proj.depths
+        n = depth.shape[0]
+        payload = torch.cat([torch.rand(n, 3, generator=gen, device=gen.device), depth[:, None],
+                             depth[:, None] ** 2, 0.5 + torch.rand(n, 1, generator=gen, device=gen.device)], 1)
+        return select_and_pack(proj, opac, payload, w, h, cfg.rasterize_capacity, cfg.rasterize_row_capacity)
+
+
+def compare_composite(name, packed, pix, counts, gen, exact: bool = True) -> dict:
+    """K2 and K3 against their plain versions on one set of packed tiles,
+    with random output gradients; both backwards read their total from K2's
+    outputs, as the main path's does. K2 within SPLAT_FWD_ATOL, K3 within
+    SPLAT_GRAD_TOL of each column family's largest entry, everything
+    finite: ``ok``. ``exact`` also prints each family's distance to the
+    plain version in float64 (memory grows with tiles x capacity x 256, so
+    the main path's large capacities leave it out)."""
+    from uncertainty_nerf_gs_torch.ops import composite as tc
+
+    t, _, d = packed.shape
+    g_img = torch.randn(t, 256, d - 6, generator=gen, device=gen.device)
+    g_alpha = torch.randn(t, 256, generator=gen, device=gen.device)
+    img, alpha = tc.composite_fwd(packed, pix, counts)
+    ref_img, ref_alpha = tc.composite_tiles_reference(packed, pix, counts)
+    g = tc.composite_bwd(packed, pix, counts, img, alpha, g_img, g_alpha)
+    ref_g = tc.composite_tiles_vjp_reference(packed, pix, counts, img, alpha, g_img, g_alpha)
+    # the plain forward and backward in float64, to see which float32
+    # version is the closer
+    ex = composite_vjp_float64(packed, pix, counts, g_img, g_alpha) if exact else None
+    rows = tc.executed_rows(packed, pix, counts)
+    torch.cuda.synchronize()
+    e_f = max((img - ref_img).abs().max().item(), (alpha - ref_alpha).abs().max().item())
+    e_b = (g - ref_g).abs().max().item()
+    bad = grad_mismatch(g, ref_g, families=PACKED_FAMILIES)
+    print(f"composite {name} {tuple(packed.shape)}: fwd max_abs_err {e_f:.3e}; bwd max_abs_err "
+          f"{e_b:.3e}, {int(bad.sum())} entries outside atol 1e-4 x the family's largest "
+          f"|g| + rtol 1e-3; rows composited {int(rows.sum())} of {int(counts.sum())} live, "
+          f"max alpha {alpha.max().item():.6f}")
+    print_families(g, ref_g, ex)
+    finite = all(bool(torch.isfinite(x).all()) for x in (img, alpha, g))
+    return dict(ok=finite and e_f <= SPLAT_FWD_ATOL and not bad.any(), fwd_err=e_f, bwd_err=e_b,
+                img=img, alpha=alpha, g=g, g_img=g_img, g_alpha=g_alpha, rows=rows)
 
 
 def check_compositor(trainer, device) -> dict:
     """K2 and K3 against their plain versions on every case; times and
     bounds at full width (C = 6 and the indirection pass's C = 1)."""
-    from uncertainty_nerf_gs_torch.models import splatfacto as sf
     from uncertainty_nerf_gs_torch.ops import composite as tc
-    from uncertainty_nerf_gs_torch.ops.rasterize import select_and_pack
 
     gen = torch.Generator(device=device).manual_seed(SEED + 10)
-    # the full-width scene's packed tiles, camera 0, as render_splat packs them
+    # the full-width scene's packed tiles, camera 0
     cfg = trainer.config
-    params = {k: v.detach() for k, v in trainer.params.items()}
-    c2w, fx, fy, cx, cy = trainer.camera(0)
-    w, h = trainer.cameras.width, trainer.cameras.height
-    with torch.no_grad():
-        proj = sf.project_gaussians(params["means"], torch.exp(params["scales"]), params["quats"],
-                                    sf.opengl_to_viewmat(c2w), fx, fy, cx, cy, w, h)
-        proj = proj._replace(valid=proj.valid & trainer.splat_state.alive)
-        opac = torch.sigmoid(params["opacities"]) * proj.compensation
-        depth = proj.depths
-        payload = torch.cat([torch.rand(depth.shape[0], 3, generator=gen, device=device),
-                             depth[:, None], depth[:, None] ** 2,
-                             0.5 + torch.rand(depth.shape[0], 1, generator=gen, device=device)], 1)
-        full = select_and_pack(proj, opac, payload, w, h, cfg.rasterize_capacity,
-                               cfg.rasterize_row_capacity)
+    full = scene_tiles(trainer, gen)
     zero_packed, zero_counts = full.packed.clone(), full.counts.clone()
     zero_packed[0], zero_counts[0] = 0.0, 0
     cases = {
@@ -527,29 +580,10 @@ def check_compositor(trainer, device) -> dict:
     fwd_err = bwd_err = 0.0
     failed = []
     for name, (packed, pix, counts) in cases.items():
-        t, k, d = packed.shape
-        g_img = torch.randn(t, 256, d - 6, generator=gen, device=device)
-        g_alpha = torch.randn(t, 256, generator=gen, device=device)
-        img, alpha = tc.composite_fwd(packed, pix, counts)
-        ref_img, ref_alpha = tc.composite_tiles_reference(packed, pix, counts)
-        # both backwards read their total from K2's outputs, as the main path's
-        g = tc.composite_bwd(packed, pix, counts, img, alpha, g_img, g_alpha)
-        ref_g = tc.composite_tiles_vjp_reference(packed, pix, counts, img, alpha, g_img, g_alpha)
-        # the plain forward and backward in float64, to see which float32
-        # version is the closer
-        exact = composite_vjp_float64(packed, pix, counts, g_img, g_alpha)
-        rows = tc.executed_rows(packed, pix, counts)
-        torch.cuda.synchronize()
-        e_f = max((img - ref_img).abs().max().item(), (alpha - ref_alpha).abs().max().item())
-        e_b = (g - ref_g).abs().max().item()
-        bad = grad_mismatch(g, ref_g, families=PACKED_FAMILIES)
-        print(f"composite {name} {tuple(packed.shape)}: fwd max_abs_err {e_f:.3e}; bwd max_abs_err "
-              f"{e_b:.3e}, {int(bad.sum())} entries outside atol 1e-4 x the family's largest "
-              f"|g| + rtol 1e-3; rows composited {int(rows.sum())} of {int(counts.sum())} live, "
-              f"max alpha {alpha.max().item():.6f}")
-        print_families(g, ref_g, exact)
-        finite = all(torch.isfinite(x).all() for x in (img, alpha, g))
-        if not finite or e_f > SPLAT_FWD_ATOL or bad.any():
+        k = packed.shape[1]
+        res = compare_composite(name, packed, pix, counts, gen)
+        img, alpha, g, rows, e_f, e_b = (res[x] for x in ("img", "alpha", "g", "rows", "fwd_err", "bwd_err"))
+        if not res["ok"]:
             failed.append(f"{name}: a kernel disagrees with its plain version")
         if name == "exit" and rows.tolist() != [128, 0]:
             failed.append(f"exit: rows {rows.tolist()}, expected [128, 0]")
@@ -561,7 +595,7 @@ def check_compositor(trainer, device) -> dict:
                 failed.append(f"{name}: rows {rows.tolist()}, or a dead row has a gradient")
         if name == "full_width":
             # no atomics: a second launch gives the same bits
-            again = tc.composite_bwd(packed, pix, counts, img, alpha, g_img, g_alpha)
+            again = tc.composite_bwd(packed, pix, counts, img, alpha, res["g_img"], res["g_alpha"])
             same = torch.equal(g, again)
             print(f"composite {name}: a second K3 launch is bit-identical: {same}")
             if not same:
@@ -586,34 +620,43 @@ def check_compositor(trainer, device) -> dict:
     if failed:
         raise AssertionError("composite " + "; ".join(failed))
 
-    times = {}
-    for name in ("full_width", "full_width_c1"):
-        packed, pix, counts = cases[name]
-        t, k, d = packed.shape
-        per_set = 4 * (packed.numel() * 2 + pix.numel() + t * 256 * (d - 5) * 4)
-        sets = []
-        for _ in range(-(-MIN_SET_BYTES // per_set)):
-            p = packed.clone()
-            p[:, :, 6:] += 1e-3 * torch.rand(p[:, :, 6:].shape, generator=gen, device=device)
-            pix_, counts_ = pix.clone(), counts.clone()
-            sets.append((p, pix_, counts_, *tc.composite_fwd(p, pix_, counts_),
-                         torch.randn(t, 256, d - 6, generator=gen, device=device),
-                         torch.randn(t, 256, generator=gen, device=device)))
-        rows = int(tc.executed_rows(packed, pix, counts).sum())
-        fwd = kernel_times(f"{name} K2", tc.composite_fwd, tc.composite_tiles_reference,
-                           [s[:3] for s in sets], "composite_fwd_kernel")
-        bwd = kernel_times(f"{name} K3", tc.composite_bwd, tc.composite_tiles_vjp_reference,
-                           sets, "composite_bwd_kernel")
-        for label, tm, backward in (("K2", fwd, False), ("K3", bwd, True)):
-            bound, bound_by, nbytes, ops = composite_bound_ms(rows, packed, backward)
-            tm.update(bound_ms=bound, bound_by=bound_by, bytes=nbytes, operations=ops,
-                      shape=list(packed.shape), rows=rows)
-            print(f"{label} {name} {tuple(packed.shape)}, {rows} rows composited: kernel "
-                  f"{tm['ms']:.4f} ms on the device ({tm['event_ms']:.4f} ms a call back to back), "
-                  f"plain {tm['plain_ms']:.4f} ms ({tm['plain_event_ms']:.4f}), bound {bound:.4f} ms "
-                  f"({bound_by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP)")
-        times[name] = dict(fwd=fwd, bwd=bwd)
+    times = {name: composite_times(name, *cases[name], gen) for name in ("full_width", "full_width_c1")}
     return dict(fwd_err=fwd_err, bwd_err=bwd_err, times=times)
+
+
+def composite_times(name, packed, pix, counts, gen, backward: bool = True) -> dict:
+    """K2's (and with ``backward`` K3's) time per call against their plain
+    versions and bounds, over input sets like these that pass
+    MIN_SET_BYTES."""
+    from uncertainty_nerf_gs_torch.ops import composite as tc
+
+    t, k, d = packed.shape
+    per_set = 4 * (packed.numel() * 2 + pix.numel() + t * 256 * (d - 5) * 4)
+    sets = []
+    for _ in range(-(-MIN_SET_BYTES // per_set)):
+        p = packed.clone()
+        p[:, :, 6:] += 1e-3 * torch.rand(p[:, :, 6:].shape, generator=gen, device=gen.device)
+        pix_, counts_ = pix.clone(), counts.clone()
+        sets.append((p, pix_, counts_, *tc.composite_fwd(p, pix_, counts_),
+                     torch.randn(t, 256, d - 6, generator=gen, device=gen.device),
+                     torch.randn(t, 256, generator=gen, device=gen.device)))
+    rows = int(tc.executed_rows(packed, pix, counts).sum())
+    fwd = kernel_times(f"{name} K2", tc.composite_fwd, tc.composite_tiles_reference,
+                       [s[:3] for s in sets], "composite_fwd_kernel")
+    out = dict(fwd=fwd)
+    if backward:
+        out.update(bwd=kernel_times(f"{name} K3", tc.composite_bwd, tc.composite_tiles_vjp_reference,
+                                    sets, "composite_bwd_kernel"))
+    for label, key in (("K2", "fwd"), ("K3", "bwd"))[:len(out)]:
+        tm = out[key]
+        bound, bound_by, nbytes, ops = composite_bound_ms(rows, packed, key == "bwd")
+        tm.update(bound_ms=bound, bound_by=bound_by, bytes=nbytes, operations=ops,
+                  shape=list(packed.shape), rows=rows)
+        print(f"{label} {name} {tuple(packed.shape)}, {rows} rows composited: kernel "
+              f"{tm['ms']:.4f} ms on the device ({tm['event_ms']:.4f} ms a call back to back), "
+              f"plain {tm['plain_ms']:.4f} ms ({tm['plain_event_ms']:.4f}), bound {bound:.4f} ms "
+              f"({bound_by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP)")
+    return out
 
 
 # -- K4 / K5: the hash-grid cell lookup against its plain versions -------------
@@ -1557,31 +1600,39 @@ def audit_determinism(trainer) -> dict:
 SPLAT_IMAGES, SPLAT_STEPS = 2, 5
 
 
-def build_splat(device=None):
+def build_splat(device=None, member: int | None = None, **overrides):
     """The repo's splat benchmark shape (bench.py:289-297): 65,536 slots with
     65,000 live Gaussians in a +-1.5 cube, capacity 384, SH degree 3,
     active-splatfacto, 640x480 with fx = fy = 500. ``sh_degree_interval=2``
     ramps the SH degree to 2 within the five steps, so every parameter group
     trains; images and a perturbation of the initial log-scales from a
-    numpy seed."""
+    numpy seed. ``member`` m (the splat ensemble's) draws the perturbation
+    from numpy seed m and drops a tenth of the live slots from its alive
+    mask; ``overrides`` replace config fields (and ``use_camera_optimizer``
+    the trainer's)."""
     from uncertainty_nerf_gs_torch.data.synthetic import hemisphere_cameras
     from uncertainty_nerf_gs_torch.engine.splat_trainer import SplatfactoTrainer
     from uncertainty_nerf_gs_torch.models.splatfacto import SplatfactoConfig
 
-    cfg = SplatfactoConfig(
+    camera_opt = overrides.pop("use_camera_optimizer", False)
+    cfg = SplatfactoConfig(**{**dict(
         capacity=1 << 16, num_random=65_000, random_scale=1.5, rasterize_capacity=384,
         uncertainty_channels=1, background_color="white", sh_degree_interval=2,
-    )
+    ), **overrides})
     cams = hemisphere_cameras(4, 480, 640, radius=4.0, focal_mult=0.78125)
     rng = np.random.default_rng(SEED)
     images = rng.uniform(size=(4, 480, 640, 3)).astype(np.float32)
-    trainer = SplatfactoTrainer(cfg, cams, images, seed=SEED, device=device)
+    trainer = SplatfactoTrainer(cfg, cams, images, seed=SEED, use_camera_optimizer=camera_opt, device=device)
     # anisotropic scales: at init every Gaussian is isotropic, and the
     # gradient of its quaternion is float32 noise
+    if member is not None:
+        rng = np.random.default_rng(member)
     params = {k: v.detach().cpu().numpy() for k, v in trainer.params.items()}
     params["scales"] += rng.uniform(-0.5, 0.3, params["scales"].shape).astype(np.float32)
-    trainer.restore({"params": params, "splat_alive": trainer.splat_state.alive.cpu().numpy(),
-                     "step": 0})
+    alive = trainer.splat_state.alive.cpu().numpy()
+    if member is not None:
+        alive &= rng.uniform(size=alive.shape) >= 0.1
+    trainer.restore({"params": params, "splat_alive": alive, "step": 0})
     return trainer
 
 
@@ -1708,6 +1759,300 @@ def profile_splat(trainer) -> None:
     symbols = {"composite_fwd": "composite_fwd_kernel", "composite_bwd": "composite_bwd_kernel"}
     profile_top("splat train step", trainer.train_step, symbols)
     profile_top("splat image 0", lambda: trainer.render_image(0), symbols, top=8)
+
+
+# -- active-splatfacto past warmup: refinement, the camera optimizer, the tuner
+
+# a shortened schedule: refines at steps 20, 30, 60 and 70, opacity resets at
+# 40 and 80, the scale and screen culls on at 60 and 70
+REFINE_SCHEDULE = dict(warmup_length=10, refine_every=10, reset_alpha_every=4, stop_screen_size_at=50)
+REFINE_STEPS, REFINES, RESETS = 80, (20, 30, 60, 70), (40, 80)
+
+
+def build_splat_refine(device=None):
+    """The splat benchmark's scene in a buffer of 131,072 slots, so that
+    densification has room to grow, with the capacity tuner (at start and
+    every 20 steps), the camera optimizer and REFINE_SCHEDULE; the SH degree
+    ramps every 20 steps. The tuner runs again after the log-scales'
+    perturbation, as a restore of other parameters would need."""
+    trainer = build_splat(device, capacity=1 << 17, sh_degree_interval=20, rasterize_capacity_auto=True,
+                          capacity_retune_every=20, use_camera_optimizer=True, **REFINE_SCHEDULE)
+    trainer.retune_capacity()
+    return trainer
+
+
+def cpu_copy(params, state):
+    from uncertainty_nerf_gs_torch.models import splatfacto as sf
+
+    return ({k: v.detach().cpu().clone() for k, v in params.items()},
+            sf.SplatState(*(x.detach().cpu().clone() for x in state)))
+
+
+def run_splat_refine(trainer, name) -> dict:
+    """REFINE_STEPS training steps through the refine schedule, then two
+    images: K2 launched once a step and an image, K3 once a step; each
+    refine's counts and time; the replaced slots' Adam moments zero right
+    after each refine; the opacities' Adam count back at 0 after each reset
+    (1 a step later, while the other groups count on); the camera tangents
+    moved; every parameter and loss finite; the images overflow-free at the
+    tuned capacity where it is below rasterize_capacity_max. The first
+    refine is replayed on the CPU from the same state and split draws: its
+    masks (the admitted splits and dups, the touched slots, the alive
+    mask) and counts equal, its floats within TOL. K2 and K3 at the tuned
+    capacity are held against their plain versions, then timed."""
+    from uncertainty_nerf_gs_torch.models import splatfacto as sf
+    from uncertainty_nerf_gs_torch.ops import backend
+
+    refines, replay = [], {}
+    card_refine = trainer.refine
+
+    def refine(eps=None):
+        if not replay:  # the first refine: its inputs, for a replay on the CPU
+            eps = torch.randn((trainer.config.n_split_samples, trainer.config.capacity, 3),
+                              generator=trainer._generator, device=trainer.device)
+            # the admitted splits and dups, as refine_gaussians takes them
+            decisions = sf.refine_decisions(trainer.params, trainer.splat_state, trainer.config, trainer.step,
+                                            trainer.scene_extent)
+            replay.update(step=trainer.step, eps=eps.cpu(), config=trainer.config,
+                          before=cpu_copy(trainer.params, trainer.splat_state),
+                          decisions=[x.cpu() for x in decisions])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        info = card_refine(eps)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        touched = info["touched_slots"]
+        for k, opt in trainer.optimizers.items():
+            for st in opt.state.values():
+                if st["exp_avg"][touched].any() or st["exp_avg_sq"][touched].any():
+                    raise AssertionError(f"refine at step {trainer.step}: {k}'s moments not zeroed")
+        if "after" not in replay:
+            replay.update(after=cpu_copy(trainer.params, trainer.splat_state), info=info)
+        counts = {k: int(v) for k, v in info.items() if k != "touched_slots"}
+        refines.append(dict(step=trainer.step, seconds=seconds, touched=int(touched.sum()), **counts))
+        return info
+
+    trainer.refine = refine
+    h, w = trainer.cameras.height, trainer.cameras.width
+    start = {k: v.detach().clone() for k, v in trainer.params.items()}
+    backend.reset_launch_counts()
+    step_s, losses = [], []
+    for _ in range(REFINE_STEPS):
+        t0 = time.perf_counter()
+        losses.append(trainer.train_step())  # ends in a copy of the losses to the host
+        step_s.append(time.perf_counter() - t0)
+        if trainer.step in RESETS or trainer.step - 1 in RESETS:
+            groups = trainer.state_dict()["opt_state"]["groups"]
+            want = int(trainer.step - 1 in RESETS)
+            if (groups["opacities"]["adam_count"], groups["opacities"]["schedule_count"]) != (want, want) \
+                    or groups["means"]["adam_count"] != trainer.step:
+                raise AssertionError(f"step {trainer.step}: Adam counts {groups} after an opacity reset")
+    overflow = []
+    for idx in range(SPLAT_IMAGES):
+        images = trainer.render_image(idx)
+        overflow.append(int(images["raster_overflow"]))
+        if not all(np.isfinite(v).all() for v in images.values()) or images["rgb"].shape != (h, w, 3):
+            raise AssertionError(f"refined splat image {idx}: not finite, or shape {images['rgb'].shape}")
+    launches = dict(backend.launch_counts)
+    del trainer.refine
+    want = dict(composite_fwd=REFINE_STEPS + SPLAT_IMAGES, composite_bwd=REFINE_STEPS)
+    print(f"splat refine launches {launches}, expected {want}")
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError("the refining splat path did not go through the compositing kernels")
+    for r in refines:
+        print(f"splat refine at step {r['step']}: num_split {r['num_split']}, num_dup {r['num_dup']}, "
+              f"num_culled {r['num_culled']}, num_alive {r['num_alive']}, touched {r['touched']}, "
+              f"budget capped {r['num_budget_capped']}, dropped {r['num_dropped_capacity']}, "
+              f"non-finite {r['num_nonfinite']}; {1e3 * r['seconds']:.1f} ms on {name}")
+    if [r["step"] for r in refines] != list(REFINES):
+        raise AssertionError(f"refines at steps {[r['step'] for r in refines]}, expected {REFINES}")
+    if not any(r["num_split"] and r["num_dup"] for r in refines):
+        raise AssertionError("no refine both split and duplicated")
+    for i, l in enumerate(losses):
+        if not all(np.isfinite(v) for v in l.values()):
+            raise AssertionError(f"refining step {i}: loss not finite {l}")
+    for k, v in trainer.params.items():
+        if not torch.isfinite(v).all() or torch.equal(v.detach(), start[k]):
+            raise AssertionError(f"{k} not finite, or unchanged, after the refining steps")
+    moved = float(trainer.camera_opt.detach().abs().max())
+    if not moved > 0 or not torch.isfinite(trainer.camera_opt).all():
+        raise AssertionError("the camera tangents did not move")
+    cfg = trainer.config
+    print(f"splat refine: tuned rasterize_capacity {cfg.rasterize_capacity}, row_capacity "
+          f"{cfg.rasterize_row_capacity} (max {cfg.rasterize_capacity_max}); raster_overflow per image "
+          f"{overflow}; camera tangents up to {moved:.3e}; {int(trainer.splat_state.alive.sum())} alive")
+    if cfg.rasterize_capacity < cfg.rasterize_capacity_max and any(overflow):
+        raise AssertionError("an image at a probed camera overflowed the tuned capacity")
+    for i, (t, l) in enumerate(zip(step_s, losses)):
+        if i < 3 or i + 1 in REFINES + RESETS or i + 2 in RESETS:
+            print(f"splat refining step {i + 1}: {1e3 * t:.1f} ms/step on {name}, total_loss "
+                  f"{l['total_loss']:.4f}")
+    print(f"splat refining steps: median {1e3 * float(np.median(step_s)):.1f} ms/step, steps that "
+          f"refine {', '.join(f'{1e3 * step_s[s - 1]:.1f}' for s in REFINES)} ms on {name}")
+
+    # the first refine again on the CPU, from the same state and draws
+    params, state = replay["before"]
+    cpu_params, cpu_state, cpu_info = sf.refine_gaussians(
+        params, state, replay["config"], replay["step"], scene_extent=trainer.scene_extent, eps=replay["eps"])
+    card_params, card_state = replay["after"]
+    card_info = {k: v.cpu() for k, v in replay["info"].items()}
+    card_splits, card_dups, card_capped = replay["decisions"]
+    cpu_splits, cpu_dups, cpu_capped = sf.refine_decisions(params, state, replay["config"], replay["step"],
+                                                           trainer.scene_extent)
+    masks = dict(touched_slots=(card_info["touched_slots"], cpu_info["touched_slots"]),
+                 splits=(card_splits, cpu_splits), dups=(card_dups, cpu_dups),
+                 alive=(card_state.alive, cpu_state.alive))
+    differ = {k: int((a != b).sum()) for k, (a, b) in masks.items()}
+    counts = {k: (int(card_info[k]), int(cpu_info[k])) for k in card_info if k != "touched_slots"}
+    # the decisions taken before a refine are the ones it counted
+    counts.update(splits_admitted=(int(card_splits.sum()), int(card_info["num_split"])),
+                  dups_admitted=(int(card_dups.sum()), int(card_info["num_dup"])),
+                  capped=(int(card_capped), int(cpu_capped)))
+    err = {k: float((card_params[k] - cpu_params[k]).abs().max()) for k in cpu_params}
+    print(f"splat refine at step {replay['step']} replayed on the CPU: masks differing {differ}; counts "
+          f"(card, CPU) {counts}; max_abs_err " + ", ".join(f"{k} {v:.2e}" for k, v in err.items()))
+    if any(differ.values()) or any(a != b for a, b in counts.values()):
+        raise AssertionError("the CPU replay of a refine took other decisions than the card")
+    if not all(torch.allclose(card_params[k], cpu_params[k], **TOL) for k in cpu_params):
+        raise AssertionError("the CPU replay of a refine is not within TOL of the card's")
+
+    # K2 and K3 at the tuned capacity, where the refining steps launched
+    # them, against their plain versions, then timed
+    gen = torch.Generator(device=trainer.device).manual_seed(SEED + 11)
+    tiles = scene_tiles(trainer, gen)[:3]
+    check = compare_composite("splat refine, tuned capacity", *tiles, gen, exact=False)
+    if not check["ok"]:
+        raise AssertionError("composite at the tuned capacity: a kernel disagrees with its plain version")
+    tuned = composite_times("splat refine, tuned capacity", *tiles, gen)
+    tuned.update(fwd_err=check["fwd_err"], bwd_err=check["bwd_err"])
+    del check
+    symbols = {"composite_fwd": "composite_fwd_kernel", "composite_bwd": "composite_bwd_kernel"}
+    t0 = time.perf_counter()
+    grew = trainer.retune_capacity()  # ends in the probes' copies to the host
+    print(f"splat retune, {len(trainer.cameras)} probe cameras: {1e3 * (time.perf_counter() - t0):.1f} ms "
+          f"on {name} (grew: {grew})")
+    profile_top("splat retune", trainer.retune_capacity, symbols, top=8)
+    profile_top("splat refining phase train step", trainer.train_step, symbols)
+    profile_top("splat refine", lambda: sf.refine_gaussians(
+        trainer.params, trainer.splat_state, cfg, REFINES[-1], scene_extent=trainer.scene_extent,
+        generator=trainer._generator), symbols, top=10)
+    return dict(launches=launches, refines=refines, step_s=step_s, replay_err=err, tuned=tuned,
+                capacity=cfg.rasterize_capacity, row_capacity=cfg.rasterize_row_capacity, overflow=overflow)
+
+
+# -- the splat deep ensemble ---------------------------------------------------
+
+SPLAT_MEMBERS = 5
+
+
+def run_splat_ensemble(device, name) -> dict:
+    """Five members (the splat scene from numpy seeds 0-4, each with its own
+    alive mask) at eval budgets probed on the cameras (``"auto"``), through
+    ``build_ensemble_splat_render_cam``: K2 five times an image; one image
+    against the plain path; five copies of member 0 against its single
+    render (epistemic variance 0); ``get_average_uncertainty_metrics`` over
+    two images (finite metrics, the JSON written); K2 and K3 against their
+    plain versions on member 0's packed tiles at the eval capacity, and K2
+    timed there; an image timed on the host clock and profiled."""
+    import tempfile
+
+    from uncertainty_nerf_gs_torch.eval.evaluator import (
+        EvalOptions,
+        get_average_uncertainty_metrics,
+        write_benchmark_json,
+    )
+    from uncertainty_nerf_gs_torch.ops import backend
+    from uncertainty_nerf_gs_torch.scripts.eval_uncertainty import (
+        _apply_raster_capacity,
+        build_ensemble_splat_render_cam,
+        build_splat_render_fn,
+    )
+
+    t0 = time.perf_counter()
+    trainers = [build_splat(device, member=m) for m in range(SPLAT_MEMBERS)]
+    cams = trainers[0].cameras
+    h, w = cams.height, cams.width
+    _apply_raster_capacity(trainers, cams, "auto")
+    render_cam = build_ensemble_splat_render_cam(trainers, w, h)
+
+    def render(i):
+        return render_cam(*trainers[0].camera(i))
+
+    print(f"splat ensemble: {SPLAT_MEMBERS} members, live Gaussians "
+          f"{[int(t.splat_state.alive.sum()) for t in trainers]}; set-up {time.perf_counter() - t0:.1f} s")
+    backend.reset_launch_counts()
+    kern = render(1)
+    torch.cuda.synchronize()
+    launches = dict(backend.launch_counts)
+    backend.reset_launch_counts()
+    with backend.plain_versions():
+        plain = render(1)
+    if any(backend.launch_counts.values()):
+        raise AssertionError(f"kernels launched inside plain_versions(): {backend.launch_counts}")
+    print(f"splat ensemble image launches {launches}, expected composite_fwd {SPLAT_MEMBERS}")
+    if launches["composite_fwd"] != SPLAT_MEMBERS or launches["composite_bwd"]:
+        raise AssertionError("the splat ensemble did not launch K2 once a member")
+    out_err = {}
+    for k, v in kern.items():
+        out_err[k] = float((v - plain[k]).abs().max())
+        if not torch.isfinite(v).all() or not torch.allclose(v, plain[k], **SPLAT_OUTPUT_TOLS.get(k, SPLAT_FWD_TOL)):
+            raise AssertionError(f"splat ensemble: {k} differs from the plain path by {out_err[k]:.3e}")
+    print("splat ensemble plain path: max_abs_err " + ", ".join(f"{k} {v:.2e}" for k, v in out_err.items()))
+
+    same = build_ensemble_splat_render_cam([trainers[0]] * SPLAT_MEMBERS, w, h)(*trainers[0].camera(1))
+    single = build_splat_render_fn(trainers[0], cams)(1)
+    compared = ("rgb", "depth", "accumulation", "rgb_std")
+    same_err = {k: float((same[k] - single[k]).abs().max()) for k in compared}
+    epi = {k: float(same[k].abs().max()) for k in ("rgb_var_epi", "depth_var_epi")}
+    print(f"splat ensemble of identical members against the single model: max_abs_err {same_err}, "
+          f"epistemic variance up to {epi}")
+    # the members' mean rounds once: within an ulp or two of the single render
+    if not all(torch.allclose(same[k], single[k], rtol=1e-6, atol=1e-6) for k in compared) \
+            or max(epi.values()) > 1e-10:
+        raise AssertionError("identical splat members differ from the single model")
+
+    rng = np.random.default_rng(SEED + 9)
+    gts = [np.clip(render(1 - i)["rgb"].cpu().numpy() + rng.normal(0, 0.05, (h, w, 3)), 0, 1).astype(np.float32)
+           for i in range(2)]
+    keys = ("psnr", "ssim", "lpips_rand", "nll_rgb", "rgb_ause_mae", "rgb_ause_mse", "rgb_ause_rmse",
+            "rgb_auce_abs", "rgb_auce_length", "rgb_auce_neg", "num_rays_per_sec")
+    opts = EvalOptions(experiment_name="chip_smoke", method_name="active-splatfacto-ensemble")
+    backend.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = get_average_uncertainty_metrics(render, gts, opts)["results"]
+        write_benchmark_json(Path(tmp) / "splat.json", res, opts)
+        if json.loads((Path(tmp) / "splat.json").read_text())["results"].keys() != res.keys():
+            raise AssertionError("the benchmark JSON lost results")
+    eval_launches = dict(backend.launch_counts)
+    print(f"splat ensemble evaluation launches {eval_launches}, expected composite_fwd {3 * SPLAT_MEMBERS}")
+    print(f"splat ensemble metrics on {name}: " + ", ".join(f"{k} {res[k]:.6g}" for k in keys))
+    if eval_launches["composite_fwd"] != 3 * SPLAT_MEMBERS:
+        raise AssertionError("the splat ensemble evaluation did not go through K2")
+    if not all(np.isfinite(res[k]) for k in keys):
+        raise AssertionError("the splat ensemble evaluation gave a metric that is not finite")
+
+    # K2 (and K3) at the eval capacity on member 0's packed tiles against
+    # their plain versions; K2 timed there
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    tiles = scene_tiles(trainers[0], gen)[:3]
+    check = compare_composite("splat ensemble member 0, eval capacity", *tiles, gen, exact=False)
+    if not check["ok"]:
+        raise AssertionError("composite at the eval capacity: a kernel disagrees with its plain version")
+    k2 = composite_times("splat ensemble member 0, eval capacity", *tiles, gen, backward=False)["fwd"]
+    k2.update(fwd_err=check["fwd_err"], bwd_err=check["bwd_err"])
+    del check, tiles
+
+    seconds = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        render(1)["rgb"].cpu()
+        seconds.append(time.perf_counter() - t0)
+    print(f"splat ensemble image 1: " + ", ".join(f"{1e3 * s:.1f}" for s in seconds)
+          + f" ms/image, median {1e3 * float(np.median(seconds)):.1f} ms on {name}")
+    profile_top("splat ensemble image 1", lambda: render(1)["rgb"].cpu(),
+                {"composite_fwd": "composite_fwd_kernel"}, top=10)
+    return dict(launches=launches, eval_launches=eval_launches, out_err=out_err, results=res, seconds=seconds,
+                capacity=trainers[0].config.rasterize_capacity, k2=k2)
 
 
 # -- the deep ensemble at full width: K6 ---------------------------------------
@@ -2235,7 +2580,8 @@ def run_ensemble(device, name, other=None) -> dict:
     return dict(k6=k6, plan=chunk["plan"], **images)
 
 
-def kernel_line(run_nerf, train_nerf, resample, nerf_plain, run_splat_, comp, grid, ens) -> list[dict]:
+def kernel_line(run_nerf, train_nerf, resample, nerf_plain, run_splat_, refine, splat_ens, comp, grid,
+                ens) -> list[dict]:
     per = resample["per_launch"]
     # one chunk's two launches as the render makes them: 256 -> 97 with u
     # and edges shared, 96 -> 49 with u shared, at 4096 rays
@@ -2257,20 +2603,28 @@ def kernel_line(run_nerf, train_nerf, resample, nerf_plain, run_splat_, comp, gr
         per_launch=per,
     )]
     full = comp["times"]["full_width"]
-    for name, key, err, replaces in (
-        ("composite_fwd", "fwd", comp["fwd_err"], "uncertainty_nerf_gs_tpu/ops/rasterize_pallas.py:296"),
-        ("composite_bwd", "bwd", comp["bwd_err"], "uncertainty_nerf_gs_tpu/ops/rasterize_pallas.py:329"),
+    shown = ("ms", "plain_ms", "bound_ms", "bound_by", "shape", "rows", "ms_from")
+    for name, key, replaces in (
+        ("composite_fwd", "fwd", "uncertainty_nerf_gs_tpu/ops/rasterize_pallas.py:296"),
+        ("composite_bwd", "bwd", "uncertainty_nerf_gs_tpu/ops/rasterize_pallas.py:329"),
     ):
-        tm = full[key]
-        kernels.append(dict(
+        tm, tuned, ens_k2 = full[key], refine["tuned"][key], splat_ens["k2"]
+        err = max(comp[f"{key}_err"], refine["tuned"][f"{key}_err"], ens_k2[f"{key}_err"])
+        by_path = dict(splat=run_splat_["launches"][name], splat_refine=refine["launches"][name],
+                       splat_ensemble=splat_ens["eval_launches"][name])
+        entry = dict(
             name=name, route="cuda",
             source="uncertainty_nerf_gs_torch/csrc/composite_tiles.cu",
-            replaces=replaces, launches=run_splat_["launches"][name], max_abs_err=err,
+            replaces=replaces, launches=sum(by_path.values()), launches_by_path=by_path, max_abs_err=err,
             ms=tm["ms"], plain_ms=tm["plain_ms"], bound_ms=tm["bound_ms"], bound_by=tm["bound_by"],
             library_ms=None,  # no single PyTorch call computes this function
             c1=comp["times"]["full_width_c1"][key],
             event_ms=tm["event_ms"], ms_from=tm["ms_from"], rows=tm["rows"],
-        ))
+            tuned_capacity={k: tuned[k] for k in shown},
+        )
+        if key == "fwd":
+            entry.update(ensemble_capacity={k: ens_k2[k] for k in shown})
+        kernels.append(entry)
     # a chunk's (or a step's) three lookups: proposal 0, proposal 1, field
     for name, key, err in (("cell_lookup_fwd", "fwd", grid["fwd_err"]),
                            ("cell_lookup_bwd", "bwd", grid["bwd_err"])):
@@ -2394,6 +2748,18 @@ def main() -> int:
     profile_splat(splat)
     print(f"splat done at {time.perf_counter() - t_start:.1f} s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    t0 = time.perf_counter()
+    refining = build_splat_refine()
+    print(f"splat refine: {int(refining.splat_state.alive.sum())} live Gaussians in {refining.config.capacity} "
+          f"slots; set-up {time.perf_counter() - t0:.1f} s")
+    refine = run_splat_refine(refining, name)
+    del refining
+    torch.cuda.empty_cache()
+    print(f"splat refine done at {time.perf_counter() - t_start:.1f} s")
+    splat_ens = run_splat_ensemble(device, name)
+    torch.cuda.empty_cache()
+    print(f"splat ensemble done at {time.perf_counter() - t_start:.1f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
     from uncertainty_nerf_gs_torch.ops import encodings as enc
 
@@ -2405,7 +2771,7 @@ def main() -> int:
     print(f"ensemble done at {time.perf_counter() - t_start:.1f} s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
-    kernels = kernel_line(run_nerf, train_nerf, resample, nerf_plain, run, comp, grid, ens)
+    kernels = kernel_line(run_nerf, train_nerf, resample, nerf_plain, run, refine, splat_ens, comp, grid, ens)
     print(json.dumps({"kernels": kernels}))
     print(name)
     print(json.dumps({"ok": True, "device": {

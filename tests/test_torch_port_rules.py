@@ -15,6 +15,7 @@ import torch
 from uncertainty_nerf_gs_torch.data.synthetic import hemisphere_cameras
 from uncertainty_nerf_gs_torch.engine.splat_trainer import SplatfactoTrainer
 from uncertainty_nerf_gs_torch.engine.trainer import NerfactoTrainer
+from uncertainty_nerf_gs_torch.models.ensemble import ensemble_render_splat
 from uncertainty_nerf_gs_torch.models.nerfacto import NerfactoConfig, NerfactoModel
 from uncertainty_nerf_gs_torch.models import splatfacto
 from uncertainty_nerf_gs_torch.models.splatfacto import SplatfactoConfig
@@ -78,6 +79,21 @@ def test_trainer_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         backend.resolve_device(None)
     assert backend.resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("option", [dict(use_camera_optimizer=True),
+                                    dict(config=dict(rasterize_capacity_auto=True)),
+                                    dict(config=dict(capacity_retune_every=5))],
+                         ids=["camera_optimizer", "capacity_auto", "capacity_retune"])
+def test_splat_trainer_options_without_cuda_raise(monkeypatch, option):
+    """The splat trainer's camera optimizer and capacity tuner run on the
+    card like the rest of it: without one, ``device=None`` raises before
+    any of them runs on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = SplatfactoConfig(capacity=8, num_random=4, **option.get("config", {}))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SplatfactoTrainer(cfg, hemisphere_cameras(2, 4, 4), torch.zeros(2, 4, 4, 3).numpy(), device=None,
+                          use_camera_optimizer=option.get("use_camera_optimizer", False))
 
 
 def test_dispatch_follows_the_tensor():
@@ -162,6 +178,8 @@ def test_plain_versions_switch():
     rasterize_gaussians, splatfacto._rasterize, splatfacto.render_splat,
     SplatfactoTrainer.render_image, cell_lookup, CellLookup.forward,
     NerfactoTrainer.train_step, NerfactoTrainer._loss_fn, packed_cell_lookup, packed_cell_lookup_strided,
+    SplatfactoTrainer.train_step, splatfacto.refine_gaussians, splatfacto.probe_tile_counts,
+    ensemble_render_splat,
 ], ids=lambda f: f.__qualname__)
 def test_no_plain_parameter(fn):
     """The plain path is chosen by ``backend.plain_versions()``, not by an

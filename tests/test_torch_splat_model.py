@@ -6,7 +6,6 @@ last-bit difference in a projection cannot change which Gaussians survive
 truncation. Tolerances are stated in tests/torch_parity.py; the numbers
 behind the trainer's come from ``python tests/torch_parity_report.py``."""
 
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -205,22 +204,22 @@ def test_sh_ramp_and_opacity_reset_match_jax(rng):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=1e-6, rtol=0, err_msg=k)
 
 
-def trainer_pair(num_cameras=3, **overrides):
+def trainer_pair(num_cameras=3, use_camera_optimizer=False, **overrides):
     """The JAX trainer and the port's on the same cameras, images and
     initial parameters: the JAX trainer's, with anisotropic scales drawn
     from a numpy seed, through the converter. (At init every Gaussian is
     isotropic, so its quaternion gradient is float32 noise, which Adam with
     eps 1e-15 turns into a full step of random sign in either package.)"""
-    cfg_kw = _config_kwargs(num_random=120, random_scale=0.5, **overrides)
+    cfg_kw = _config_kwargs(**{"num_random": 120, "random_scale": 0.5, **overrides})
     rng = np.random.default_rng(5)
     images = rng.uniform(size=(num_cameras, H, W, 3)).astype(np.float32)
     jtr = JTrainer(jsf.SplatfactoConfig(**cfg_kw), j_hemisphere(num_cameras, H, W, radius=2.0),
-                   images, seed=0)
+                   images, seed=0, use_camera_optimizer=use_camera_optimizer)
     params = {k: np.array(v) for k, v in jtr.params.items()}
     params["scales"] += rng.uniform(-0.5, 0.3, params["scales"].shape).astype(np.float32)
     jtr.params = {k: jnp.asarray(v) for k, v in params.items()}
     ttr = TTrainer(tsf.SplatfactoConfig(**cfg_kw), t_hemisphere(num_cameras, H, W, radius=2.0),
-                   images, seed=0, device="cpu")
+                   images, seed=0, use_camera_optimizer=use_camera_optimizer, device="cpu")
     ttr.restore({
         "params": splat_params_from_jax(params),
         "splat_alive": np.asarray(jtr.splat_state.alive),
@@ -250,19 +249,6 @@ def test_trainer_steps_match_jax():
     start = {k: np.asarray(v) for k, v in trainer_pair()[0].params.items()}
     for k, v in ttr.params.items():
         assert not np.array_equal(v.detach().numpy(), start[k]) or k == "features_rest", k
-
-
-def test_trainer_refuses_refinement():
-    _, ttr = trainer_pair(warmup_length=1)
-    ttr.train_step()
-    with pytest.raises(NotImplementedError, match="refine"):
-        ttr.train_step()
-    cfg = tsf.SplatfactoConfig(**_config_kwargs(rasterize_capacity_auto=True))
-    with pytest.raises(NotImplementedError, match="capacity"):
-        TTrainer(cfg, t_hemisphere(2, H, W), np.zeros((2, H, W, 3), np.float32), device="cpu")
-    with pytest.raises(NotImplementedError, match="camera"):
-        TTrainer(dataclasses.replace(cfg, rasterize_capacity_auto=False), t_hemisphere(2, H, W),
-                 np.zeros((2, H, W, 3), np.float32), use_camera_optimizer=True, device="cpu")
 
 
 def test_trainer_render_image_matches_jax():

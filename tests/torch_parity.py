@@ -87,9 +87,17 @@ SPLAT_OUTPUT_TOLS = {"depth_std": dict(atol=SPLAT_FWD_ATOL / (2 * 1e-5**0.5), rt
 # Loss terms and the parameters after two trainer steps, port against JAX:
 # the report measures at most 1.3e-6 relative on the loss terms and 9.5e-7
 # absolute on the parameters (opacity logits near -2), so these bars keep a
-# margin of about ten.
+# margin of about ten. The trainer past warmup (tests/test_torch_splat_
+# refine.py: seven steps from JAX's state three steps in, through two
+# refines, whose split samples' 3x3 products round differently, and an
+# opacity reset) holds the same bars: at most 3.1e-6 relative on the loss
+# terms (the NLL of a step after a refine) and 0.128 of the parameter bar
+# (``python tests/torch_parity_report.py splat_refine``).
 SPLAT_LOSS_RTOL = 1e-5
 SPLAT_STEP_PARAM_TOL = dict(atol=1e-6, rtol=1e-5)
+# Adam's moments in the same run, atol relative to the largest entry of the
+# group's moment: at most 0.107 of this bar (the means' second moments).
+SPLAT_MOMENT_TOL = dict(atol=1e-5, rtol=1e-4)
 # Gradients whose magnitudes span decades are held to SPLAT_GRAD_TOL relative
 # to the largest entry of their own family (grad_mismatch): each parameter's
 # gradient is one family, and g_packed's columns form four, PACKED_FAMILIES.

@@ -1,8 +1,8 @@
 """How far the port is from the JAX package on the parity tests' inputs.
 
-    JAX_PLATFORMS=cpu python tests/torch_parity_report.py [nerfacto] [splat] [composite] [train] [ensemble]
+    JAX_PLATFORMS=cpu python tests/torch_parity_report.py [nerfacto] [splat] [composite] [train] [ensemble] [splat_refine]
 
-Each named section, or all five. Nerfacto (tests/test_torch_model.py::test_model_eval_forward_matches_jax):
+Each named section, or all six. Nerfacto (tests/test_torch_model.py::test_model_eval_forward_matches_jax):
 the rays whose lookups flipped a hash-grid cell between the port and JAX's
 eager forward, then per output the largest absolute and relative deviation
 on the other rays, beside the JAX package's own jit-vs-eager deviation.
@@ -27,6 +27,11 @@ test_per_member_render_matches_jax): for the fused render (both proposal
 stride settings) and the per-member render of three members, the rays that
 flipped a cell, then per output the largest absolute and relative deviation
 from JAX's jitted render on the other rays.
+
+Splat refine (tests/test_torch_splat_refine.py::test_trainer_refines_like_jax):
+per step of the run through two refines and an opacity reset, the loss
+terms' largest relative deviation and, per parameter and per group's Adam
+moments, the largest deviation as a share of its bar.
 
 The tolerances in tests/torch_parity.py are set from this report.
 """
@@ -200,7 +205,19 @@ def ensemble() -> None:
             print(f"  {k:20s} max abs {err.max():.3e}  max rel {rel.max():.3e}")
 
 
+def splat_refine() -> None:
+    import test_torch_splat_refine as r
+
+    for step, jtr, ttr, j_l, t_l in r.refining_run():
+        dev = r.trainer_deviations(jtr, ttr)
+        worst = sorted(dev.items(), key=lambda kv: -kv[1])[:3]
+        loss = "" if j_l is None else "loss rel dev " + ", ".join(
+            f"{k} {abs(t_l[k] / j_l[k] - 1):.2e}" for k in j_l if k != "num_alive") + "; "
+        print(f"step {step}: {loss}largest shares of the bars " + ", ".join(f"{k} {v:.3f}" for k, v in worst))
+
+
 if __name__ == "__main__":
-    sections = dict(nerfacto=nerfacto, splat=splat, composite=composite, train=train, ensemble=ensemble)
+    sections = dict(nerfacto=nerfacto, splat=splat, composite=composite, train=train, ensemble=ensemble,
+                    splat_refine=splat_refine)
     for name in sys.argv[1:] or sections:
         sections[name]()

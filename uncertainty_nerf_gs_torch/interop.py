@@ -24,6 +24,11 @@ neither direction imports optax. Both are bit-exact.
 The splat models' parameters are a flat dict with the same names in both
 packages (``SPLAT_PARAM_NAMES``); ``splat_params_from_jax`` and
 ``splat_params_to_jax`` copy them leaf by leaf, also bit-exact.
+``splat_trainer_state_from_jax`` and ``splat_trainer_state_to_jax`` carry
+the JAX ``SplatfactoTrainer.state_dict()`` whole (per attribute the optax
+Adam count, moments and schedule count; the camera tangents and their
+Adam; the alive mask, the step and the last opacity reset), bit-exact both
+ways.
 
 An ensemble's members are one dict of (M, ...) tensors under the state
 dict's names (``stack_params``); ``ensemble_params_from_jax`` takes the JAX
@@ -130,11 +135,11 @@ def _is_empty_node(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields") and not x._fields
 
 
-def _group_states(masked) -> tuple[Any, Any]:
-    """(ScaleByAdamState, ScaleByScheduleState) of one group's chain."""
-    chain = masked.inner_state
+def _chain_states(chain) -> tuple[Any, Any]:
+    """(ScaleByAdamState, ScaleByScheduleState or None) of an optax chain's
+    state: ``optax.adam`` at a constant lr keeps no schedule count."""
     adam = next(s for s in chain if "mu" in getattr(s, "_fields", ()))
-    sched = next(s for s in chain if getattr(s, "_fields", ()) == ("count",))
+    sched = next((s for s in chain if getattr(s, "_fields", ()) == ("count",)), None)
     return adam, sched
 
 
@@ -152,7 +157,7 @@ def trainer_state_from_jax(state: Mapping[str, Any]) -> dict[str, Any]:
     exp_avg: dict[str, torch.Tensor] = {}
     exp_avg_sq: dict[str, torch.Tensor] = {}
     for label, masked in state["opt_state"].inner_states.items():
-        adam, sched = _group_states(masked)
+        adam, sched = _chain_states(masked.inner_state)
         groups[label] = {"adam_count": int(adam.count), "schedule_count": int(sched.count)}
         _moments_from_jax(adam.mu, exp_avg)
         _moments_from_jax(adam.nu, exp_avg_sq)
@@ -189,7 +194,7 @@ def trainer_state_to_jax(state: Mapping[str, Any], like: Mapping[str, Any]) -> d
     opt = state["opt_state"]
     inner = {}
     for label, masked in like["opt_state"].inner_states.items():
-        adam, sched = _group_states(masked)
+        adam, sched = _chain_states(masked.inner_state)
         counts = opt["groups"][label]
         new_adam = adam._replace(
             count=count(counts["adam_count"], adam.count),
@@ -232,6 +237,74 @@ def splat_params_to_jax(params: Mapping[str, torch.Tensor]) -> dict[str, np.ndar
             raise KeyError(f"no splat parameter named {key}")
         out[key] = np.ascontiguousarray(value.detach().cpu().numpy())
     return out
+
+
+def _adam_from_jax(chain) -> tuple[dict[str, Any], int | None]:
+    """The Adam count and moments of an optax chain's state, and its
+    schedule count where it keeps one."""
+    adam, sched = _chain_states(chain)
+    return ({"adam_count": int(adam.count),
+             "exp_avg": torch.from_numpy(np.array(adam.mu)),
+             "exp_avg_sq": torch.from_numpy(np.array(adam.nu))},
+            None if sched is None else int(sched.count))
+
+
+def _adam_to_jax(state: Mapping[str, Any], chain, schedule_count=None) -> tuple:
+    """``chain`` (an optax chain's state) with the Adam count, moments and,
+    where it keeps one, the schedule count replaced."""
+    adam, sched = _chain_states(chain)
+    new_adam = adam._replace(
+        count=np.asarray(state["adam_count"], dtype=np.asarray(adam.count).dtype),
+        mu=np.ascontiguousarray(state["exp_avg"].detach().cpu().numpy()),
+        nu=np.ascontiguousarray(state["exp_avg_sq"].detach().cpu().numpy()),
+    )
+    new_sched = sched if sched is None else sched._replace(
+        count=np.asarray(schedule_count, dtype=np.asarray(sched.count).dtype))
+    return tuple(new_adam if s is adam else new_sched if s is sched else s for s in chain)
+
+
+def splat_trainer_state_from_jax(state: Mapping[str, Any]) -> dict[str, Any]:
+    """JAX ``SplatfactoTrainer.state_dict()`` -> this package's
+    ``SplatfactoTrainer.restore`` input (CPU tensors)."""
+    groups, exp_avg, exp_avg_sq = {}, {}, {}
+    for k, chain in state["opt_state"].items():
+        adam, schedule_count = _adam_from_jax(chain)
+        groups[k] = {"adam_count": adam["adam_count"], "schedule_count": schedule_count}
+        exp_avg[k], exp_avg_sq[k] = adam["exp_avg"], adam["exp_avg_sq"]
+    return {
+        "params": splat_params_from_jax(state["params"]),
+        "opt_state": {"groups": groups, "exp_avg": exp_avg, "exp_avg_sq": exp_avg_sq},
+        "camera_opt": torch.from_numpy(np.array(state["camera_opt"])),
+        "cam_opt_state": _adam_from_jax(state["cam_opt_state"])[0],
+        "splat_alive": np.array(state["splat_alive"]),
+        "step": int(state["step"]),
+        "last_opacity_reset": int(state["last_opacity_reset"]),
+    }
+
+
+def splat_trainer_state_to_jax(state: Mapping[str, Any], like: Mapping[str, Any]) -> dict[str, Any]:
+    """This package's ``SplatfactoTrainer.state_dict()`` -> a JAX
+    ``SplatfactoTrainer.state_dict()`` with the structure, optax classes and
+    dtypes of ``like`` (numpy leaves), for the JAX trainer's ``restore``."""
+    opt = state["opt_state"]
+
+    def scalar(value, old):
+        return np.asarray(value, dtype=np.asarray(old).dtype)
+
+    return {
+        "params": splat_params_to_jax(state["params"]),
+        "opt_state": {
+            k: _adam_to_jax({"adam_count": opt["groups"][k]["adam_count"], "exp_avg": opt["exp_avg"][k],
+                             "exp_avg_sq": opt["exp_avg_sq"][k]},
+                            chain, opt["groups"][k]["schedule_count"])
+            for k, chain in like["opt_state"].items()
+        },
+        "camera_opt": np.ascontiguousarray(state["camera_opt"].detach().cpu().numpy()),
+        "cam_opt_state": _adam_to_jax(state["cam_opt_state"], like["cam_opt_state"]),
+        "splat_alive": np.asarray(state["splat_alive"], dtype=bool),
+        "step": scalar(state["step"], like["step"]),
+        "last_opacity_reset": scalar(state["last_opacity_reset"], like["last_opacity_reset"]),
+    }
 
 
 def stack_params(states: Sequence[Mapping[str, torch.Tensor]]) -> dict[str, torch.Tensor]:

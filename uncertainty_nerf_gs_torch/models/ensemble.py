@@ -20,7 +20,11 @@ the reference's combination rule (``ensemble_pipeline.py:159-190``):
 * without them, ``*_std`` the channel-averaged unbiased std across members
   for rgb, depth and expected depth, and ``*_var`` its square.
 
-``ensemble_render_splat`` is not ported yet (ROADMAP, queue 1, item 4).
+``ensemble_render_splat`` renders a splat ensemble: the members share the
+buffer's capacity and differ in their parameters and alive masks, so they
+stack on a leading axis; each member is one ``render_splat`` (one K2 launch
+a member on the card), and the members' outputs are combined by the same
+rule.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from torch import nn
 from torch.func import functional_call
 
 from uncertainty_nerf_gs_torch.models.nerfacto import NerfactoModel
+from uncertainty_nerf_gs_torch.models.splatfacto import SplatfactoConfig, render_splat
 from uncertainty_nerf_gs_torch.ops.sampling import RayBundle
 
 
@@ -117,3 +122,29 @@ def combine_ensemble_outputs(
                 outputs[k + "_std"] = _channel_mean(torch.std(stacked[k], dim=0, unbiased=True))
                 outputs[k + "_var"] = outputs[k + "_std"] ** 2
     return outputs
+
+
+def ensemble_render_splat(
+    stacked_params: Mapping[str, torch.Tensor],
+    stacked_alive: torch.Tensor,
+    c2w: torch.Tensor,
+    fx: float,
+    fy: float,
+    cx: float,
+    cy: float,
+    width: int,
+    height: int,
+    config: SplatfactoConfig,
+    background: torch.Tensor | None = None,
+) -> dict[str, torch.Tensor]:
+    """The splat ensemble's combined outputs for one camera: each member's
+    ``render_splat`` at the full SH degree, then
+    ``combine_ensemble_outputs`` without the per-Gaussian and overflow
+    keys."""
+    outs = [
+        render_splat(member_params(stacked_params, m), stacked_alive[m], c2w, fx, fy, cx, cy,
+                     width, height, config, sh_deg=config.sh_degree, background=background)
+        for m in range(stacked_alive.shape[0])
+    ]
+    keys = [k for k in outs[0] if k not in ("radii", "visible", "raster_overflow")]
+    return combine_ensemble_outputs(stack_outputs([{k: o[k] for k in keys} for o in outs]))

@@ -13,9 +13,14 @@ Counterpart of ``uncertainty_nerf_gs_tpu/models/splatfacto.py``:
 
 Parameters are a flat dict of tensors with the JAX package's names and
 layouts (``means``, ``scales``, ``quats``, ``opacities``, ``features_dc``,
-``features_rest``, ``log_uncertainties``). Refinement (densify, split,
-cull), ``probe_tile_counts`` and ``tune_rasterize_capacity`` come with the
-refinement slice.
+``features_rest``, ``log_uncertainties``).
+
+Refinement (``refine_gaussians``: densify by duplicating small and
+splitting large high-gradient Gaussians, then cull) keeps the buffer's
+shape: new rows go into dead slots by a cumsum compaction
+(``_compact_into_free``). ``probe_tile_counts`` and
+``tune_rasterize_capacity`` size the rasterizer's per-tile and per-row
+budgets from exact hit counts on probe cameras.
 """
 
 from __future__ import annotations
@@ -24,13 +29,14 @@ import dataclasses
 import math
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from uncertainty_nerf_gs_torch.metrics.image_metrics import ssim
 from uncertainty_nerf_gs_torch.ops import sh as sh_ops
-from uncertainty_nerf_gs_torch.ops.gaussians import project_gaussians
-from uncertainty_nerf_gs_torch.ops.rasterize import rasterize_gaussians
+from uncertainty_nerf_gs_torch.ops.gaussians import Projection, project_gaussians, quat_to_rotmat
+from uncertainty_nerf_gs_torch.ops.rasterize import TileCounts, rasterize_gaussians, tile_hit_counts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,10 +75,10 @@ class SplatfactoConfig:
     tile_chunk: int = 64  # read by the JAX package only: K2 takes every tile in one launch
     rasterize_backend: str = "auto"  # auto | pallas (both K2 / K3); xla | matmul raise
     rasterize_row_capacity: int | None = None  # None = max(4 * capacity, 1024)
-    rasterize_capacity_auto: bool = False  # the port raises: tuning is not ported yet
+    rasterize_capacity_auto: bool = False  # tune_rasterize_capacity at trainer start
     rasterize_capacity_max: int = 4096
     rasterize_capacity_margin: float = 1.25
-    capacity_retune_every: int = 0  # the port raises on > 0, as above
+    capacity_retune_every: int = 0  # re-probe every this many steps, growing only (0: off)
     rasterize_pack_via: str = "gather"  # gather | matmul: the same rows, gathered
     # "moments" = in-pass E[d^2] - E[d]^2; "indirection" = the reference's
     # two-pass (d_i - D)^2 re-rasterize
@@ -187,6 +193,68 @@ def active_sh_degree(step: int, config: SplatfactoConfig) -> int:
     return min(step // config.sh_degree_interval, config.sh_degree)
 
 
+def _project(params, alive, c2w, fx, fy, cx, cy, width, height, config) -> Projection:
+    """The Gaussians in the camera's screen space, the dead slots invalid."""
+    proj = project_gaussians(
+        params["means"], torch.exp(params["scales"]), params["quats"],
+        opengl_to_viewmat(c2w), fx, fy, cx, cy, width, height,
+        near=config.near_plane,
+    )
+    return proj._replace(valid=proj.valid & alive)
+
+
+@torch.no_grad()
+def probe_tile_counts(
+    params: dict[str, torch.Tensor],
+    alive: torch.Tensor,
+    c2w: torch.Tensor,
+    fx: float,
+    fy: float,
+    cx: float,
+    cy: float,
+    width: int,
+    height: int,
+    config: SplatfactoConfig,
+) -> TileCounts:
+    """Exact per-tile and per-row hit counts of one camera: the projection
+    ``render_splat`` makes, then ``ops.rasterize.tile_hit_counts``."""
+    proj = _project(params, alive, c2w, fx, fy, cx, cy, width, height, config)
+    return tile_hit_counts(proj, width, height)
+
+
+def _round_up(x: float, m: int) -> int:
+    return ((int(x) + m - 1) // m) * m
+
+
+def tune_rasterize_capacity(
+    config: SplatfactoConfig,
+    params: dict[str, torch.Tensor],
+    alive: torch.Tensor,
+    cameras,
+    max_probes: int = 8,
+) -> SplatfactoConfig:
+    """``config`` with ``rasterize_capacity`` and ``rasterize_row_capacity``
+    set to the largest tile and row hit counts over up to ``max_probes``
+    evenly spaced cameras, times ``rasterize_capacity_margin``, rounded up
+    (to 64 and 128) and clamped (``rasterize_capacity_max``; the buffer's
+    capacity). At the probed cameras nothing overflows unless the clamp
+    bites."""
+    n_cams = len(cameras)
+    idxs = sorted({int(i) for i in np.linspace(0, n_cams - 1, min(max_probes, n_cams))})
+    max_tile = max_row = 0
+    for i in idxs:
+        counts = probe_tile_counts(
+            params, alive, cameras.camera_to_worlds[i], float(cameras.fx[i]), float(cameras.fy[i]),
+            float(cameras.cx[i]), float(cameras.cy[i]), cameras.width, cameras.height, config,
+        )
+        max_tile = max(max_tile, int(counts.tile.max()))
+        max_row = max(max_row, int(counts.row.max()))
+    m = config.rasterize_capacity_margin
+    cap = min(max(_round_up(max_tile * m, 64), 64), config.rasterize_capacity_max)
+    row_cap = min(max(_round_up(max_row * m, 128), 4 * cap, 1024), int(params["means"].shape[0]))
+    return dataclasses.replace(config, rasterize_capacity=cap, rasterize_row_capacity=row_cap)
+
+
 def _rasterize(proj, opac, payload, width, height, config):
     return rasterize_gaussians(
         proj, opac, payload, width, height,
@@ -218,12 +286,7 @@ def render_splat(
     ``means2d_tap``: optional (capacity, 2) zeros added to the screen
     positions; its gradient is the densification signal.
     """
-    proj = project_gaussians(
-        params["means"], torch.exp(params["scales"]), params["quats"],
-        opengl_to_viewmat(c2w), fx, fy, cx, cy, width, height,
-        near=config.near_plane,
-    )
-    proj = proj._replace(valid=proj.valid & alive)
+    proj = _project(params, alive, c2w, fx, fy, cx, cy, width, height, config)
     if means2d_tap is not None:
         proj = proj._replace(means2d=proj.means2d + means2d_tap)
 
@@ -368,3 +431,178 @@ def reset_opacities(
     out = dict(params)
     out["opacities"] = torch.clamp(params["opacities"], max=math.log(t / (1.0 - t)))
     return out
+
+
+def _compact_into_free(
+    params: dict[str, torch.Tensor],
+    state: SplatState,
+    new_params: dict[str, torch.Tensor],
+    want_new: torch.Tensor,
+) -> tuple[dict[str, torch.Tensor], torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Scatter the rows of ``new_params`` that ``want_new`` marks into the
+    dead slots, in order of rank. Returns (params, alive, num_dropped,
+    written): rows beyond the free slots are dropped and counted; written
+    marks the slots that took a row. Static shapes throughout: every row
+    that takes no slot is sent to a pad row at index ``capacity``, which is
+    cut off after the scatter (JAX's ``mode="drop"``). Several rows write
+    that pad row, in an order the card does not fix; no other slot is
+    written twice."""
+    cap = state.alive.shape[0]
+    dev = state.alive.device
+    free = ~state.alive
+    free_rank = torch.cumsum(free, 0) - 1  # int64: the rank of each free slot
+    num_free = free.sum()
+    new_rank = torch.cumsum(want_new, 0) - 1
+    fits = want_new & (new_rank < num_free)
+    num_dropped = want_new.sum() - fits.sum()
+
+    pad_index = torch.full_like(free_rank, cap)
+    # the slot of the r-th free slot, by rank r; the pad entry is cut
+    slot_of_rank = torch.full((cap + 1,), cap, dtype=torch.int64, device=dev)
+    slot_of_rank[torch.where(free, free_rank, pad_index)] = torch.arange(cap, device=dev)
+    dest = torch.where(fits, slot_of_rank[torch.clamp(new_rank, 0, cap - 1)],
+                       torch.full_like(new_rank, cap))
+
+    def scatter(v: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+        padded = torch.cat([v, torch.zeros((1,) + v.shape[1:], dtype=v.dtype, device=dev)])
+        padded[dest] = rows
+        return padded[:cap]
+
+    out = {k: scatter(v, new_params[k]) for k, v in params.items()}
+    alive = scatter(state.alive, torch.ones_like(want_new))
+    written = scatter(torch.zeros_like(state.alive), torch.ones_like(want_new))
+    return out, alive, num_dropped, written
+
+
+@torch.no_grad()
+def refine_decisions(
+    params: dict[str, torch.Tensor],
+    state: SplatState,
+    config: SplatfactoConfig,
+    step: int,
+    scene_extent: float = 1.0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The admitted decisions of ``refine_gaussians`` at this state: the
+    (capacity,) masks of the slots that split and of those that duplicate,
+    after the budget cap, and the number of candidates the cap turned away."""
+    alive = state.alive
+    avg_grad = state.grad_accum / torch.clamp(state.vis_count, min=1)
+    high_grad = (avg_grad > config.densify_grad_thresh) & alive
+    scales = torch.exp(params["scales"])
+    max_scale = torch.amax(scales, dim=-1)
+
+    do_densify = step < config.stop_split_at
+    check_screen = step > config.stop_screen_size_at
+
+    splits = high_grad & (max_scale > config.densify_size_thresh * scene_extent)
+    if check_screen:
+        splits = splits | (alive & (state.max_radii > config.split_screen_size))
+    dups = high_grad & ~splits
+    splits = splits & do_densify
+    dups = dups & do_densify
+
+    num_budget_capped = torch.zeros((), dtype=torch.int64, device=alive.device)
+    if config.refine_cap_to_budget:
+        # Admit candidates by descending average gradient while their
+        # children fit the free slots: a split funds n_split_samples - 1 new
+        # rows (sample 0 replaces the original in place), a dup one. An
+        # unfunded split leaves its original untouched. The sort is stable,
+        # so equal gradients admit the lower slot first, as in JAX.
+        n_child = config.n_split_samples - 1
+        cost = splits.to(torch.int64) * n_child + dups.to(torch.int64)
+        cand = splits | dups
+        prio = torch.where(cand, avg_grad, torch.full_like(avg_grad, -math.inf))
+        order = torch.argsort(-prio, stable=True)
+        keep = torch.zeros_like(cand)
+        keep[order] = torch.cumsum(cost[order], 0) <= (~alive).sum()
+        num_budget_capped = (cand & ~keep).sum()
+        splits = splits & keep
+        dups = dups & keep
+    return splits, dups, num_budget_capped
+
+
+def refine_gaussians(
+    params: dict[str, torch.Tensor],
+    state: SplatState,
+    config: SplatfactoConfig,
+    step: int,
+    scene_extent: float = 1.0,
+    generator: torch.Generator | None = None,
+    eps: torch.Tensor | None = None,
+) -> tuple[dict[str, torch.Tensor], SplatState, dict[str, torch.Tensor]]:
+    """One splatfacto refinement pass: duplicate small and split large
+    high-gradient Gaussians, then cull by opacity, world scale and screen
+    size, all as masks over the fixed-capacity buffer. Returns new
+    parameter tensors, the strategy state (statistics zeroed) and the
+    counts for logging, with ``touched_slots``: the slots whose Gaussian was
+    replaced, whose optimizer moments the trainer zeroes.
+
+    The split samples are ``eps * scales`` rotated into each Gaussian's
+    frame, with ``eps`` standard normal of shape (n_split_samples,
+    capacity, 3): given, or drawn from ``generator``.
+    """
+    cap = config.capacity
+    alive = state.alive
+    splits, dups, num_budget_capped = refine_decisions(params, state, config, step, scene_extent)
+    scales = torch.exp(params["scales"])
+    check_screen = step > config.stop_screen_size_at
+
+    # -- children: dup copies, then split samples 1..S-1; sample 0 of a
+    # split overwrites its original in place
+    n_samp = config.n_split_samples
+    if eps is None:
+        eps = torch.randn((n_samp, cap, 3), generator=generator, device=alive.device)
+    rot = quat_to_rotmat(params["quats"])  # (N, 3, 3)
+    offsets = torch.einsum("nij,snj->sni", rot, eps * scales[None])
+    split_means = params["means"][None] + offsets  # (S, N, 3)
+    split_scales = torch.log(torch.clamp(scales / 1.6, min=1e-10))
+
+    def child_rows(means_rows, scales_rows):
+        return {k: means_rows if k == "means" else scales_rows if k == "scales" else v
+                for k, v in params.items()}
+
+    children = [child_rows(params["means"], params["scales"])] + [
+        child_rows(split_means[s], split_scales) for s in range(1, n_samp)
+    ]
+    new_rows = {k: torch.cat([c[k] for c in children]) for k in params}
+    want_new = torch.cat([dups] + [splits] * (n_samp - 1))
+
+    params = dict(params)
+    params["means"] = torch.where(splits[:, None], split_means[0], params["means"])
+    params["scales"] = torch.where(splits[:, None], split_scales, params["scales"])
+    params, new_alive, dropped, written = _compact_into_free(params, state, new_rows, want_new)
+
+    # -- cull. A slot with a non-finite leaf (any leaf, log_uncertainties
+    # included) fails no ordinary test, NaN comparing False, and would hold
+    # its slot for good: it is culled explicitly.
+    cull = torch.sigmoid(params["opacities"]) < config.cull_alpha_thresh
+    finite = torch.ones_like(alive)
+    for v in params.values():
+        finite = finite & torch.isfinite(v.reshape(cap, -1)).all(dim=1)
+    cull = cull | ~finite
+    if step > config.refine_every * config.reset_alpha_every:
+        cull = cull | (
+            torch.amax(torch.exp(params["scales"]), dim=-1) > config.cull_scale_thresh * scene_extent
+        )
+        if check_screen:
+            cull = cull | (state.max_radii > config.cull_screen_size)
+    new_alive = new_alive & ~cull
+
+    info = {
+        "num_alive": new_alive.sum(),
+        "num_split": splits.sum(),
+        "num_dup": dups.sum(),
+        "num_culled": (cull & alive).sum(),
+        "num_nonfinite": (~finite & alive).sum(),
+        "num_dropped_capacity": dropped,
+        "num_budget_capped": num_budget_capped,
+        "touched_slots": written | splits,
+    }
+    dev = alive.device
+    new_state = SplatState(
+        alive=new_alive,
+        grad_accum=torch.zeros(cap, device=dev),
+        vis_count=torch.zeros(cap, dtype=torch.int32, device=dev),
+        max_radii=torch.zeros(cap, device=dev),
+    )
+    return params, new_state, info

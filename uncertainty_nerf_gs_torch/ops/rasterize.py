@@ -70,7 +70,9 @@ def _num_tiles(size: int) -> int:
 def tile_hit_counts(proj: Projection, width: int, height: int) -> TileCounts:
     """Exact per-tile / per-tile-row intersecting-Gaussian counts, with the
     selection's bbox predicate (ties inclusive), from a 2-D difference array
-    and a double cumsum."""
+    and a double cumsum. The difference array's corners are counted with
+    ``torch.bincount`` (integer counts, the same on every run); an indexed
+    accumulate serialises on the card where many Gaussians share a corner."""
     num_tx, num_ty = _num_tiles(width), _num_tiles(height)
     r = proj.radii
 
@@ -91,16 +93,18 @@ def tile_hit_counts(proj: Projection, width: int, height: int) -> TileCounts:
     x1 = torch.clamp(x_hi, 0, num_tx - 1)
     y0 = torch.clamp(y_lo, 0, num_ty - 1)
     y1 = torch.clamp(y_hi, 0, num_ty - 1)
-    one = live.to(torch.int64)
-    diff = torch.zeros((num_ty + 1, num_tx + 1), dtype=torch.int64, device=r.device)
-    for ys, xs, sign in ((y0, x0, 1), (y0, x1 + 1, -1), (y1 + 1, x0, -1), (y1 + 1, x1 + 1, 1)):
-        diff.index_put_((ys, xs), sign * one, accumulate=True)
-    tile = torch.cumsum(torch.cumsum(diff, dim=0), dim=1)[:num_ty, :num_tx]
+
+    def count(index: torch.Tensor, keep: torch.Tensor, size: int) -> torch.Tensor:
+        # the entries not kept go to an extra bin, cut off
+        return torch.bincount(torch.where(keep, index, size), minlength=size + 1)[:size]
+
+    stride = num_tx + 1
+    size = (num_ty + 1) * stride
+    diff = (count(y0 * stride + x0, live, size) - count(y0 * stride + x1 + 1, live, size)
+            - count((y1 + 1) * stride + x0, live, size) + count((y1 + 1) * stride + x1 + 1, live, size))
+    tile = torch.cumsum(torch.cumsum(diff.reshape(num_ty + 1, stride), dim=0), dim=1)[:num_ty, :num_tx]
     # the row stage tests only the y overlap
-    rdiff = torch.zeros((num_ty + 1,), dtype=torch.int64, device=r.device)
-    one_r = in_y.to(torch.int64)
-    rdiff.index_put_((y0,), one_r, accumulate=True)
-    rdiff.index_put_((y1 + 1,), -one_r, accumulate=True)
+    rdiff = count(y0, in_y, num_ty + 1) - count(y1 + 1, in_y, num_ty + 1)
     row = torch.cumsum(rdiff, dim=0)[:num_ty]
     return TileCounts(tile=tile.to(torch.int32), row=row.to(torch.int32))
 
