@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--k4-against OTHER_CHECKOUT]
+    python3 chip_smoke.py [--k4-against OTHER_CHECKOUT | --splat-repeatable-only [CHECKOUT]]
 
 Builds the port's hand-written CUDA kernels from ``uncertainty_nerf_gs_torch/
 csrc`` with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, all started
@@ -58,7 +58,22 @@ ensemble (five members from numpy seeds 0-4 with their own alive masks,
 through ``build_ensemble_splat_render_cam`` at probed eval budgets: K2
 five times an image, against the plain path, five identical members
 against the single model, ``get_average_uncertainty_metrics`` over two
-images). Exits non-zero,
+images). The splat phases also run the packed-row gather's backward
+(``csrc/packed_rows.cu`` with K5's radix sort): launched on every splat
+training step, twice and bit for bit against its plain version at 384, at
+the tuned capacity and at the splat ensemble's eval capacity, timed beside
+``F.embedding``'s backward and its byte bound; two splat steps from one
+restored snapshot are required bit-identical at 384 and after the first
+and the last refine, and what ``use_deterministic_algorithms`` flags in a
+splat step is listed. After active-nerfacto come its sister methods at full
+width: one chunk in float32 and with bf16 MLPs (``mixed_precision``),
+deviation and times printed; nerfacto-mcdropout (five steps, K1 2, K4 3,
+K5 3 a step; a step repeated bit for bit; a chunk at 10 MC samples bit for
+bit against the plain path with the same masks; an image at 10 samples
+with K1 2 and K4 3 a chunk, timed and profiled beside a deterministic
+one); nerfacto-laplace (``fit_laplace`` over 300 batches of 4,096 rays,
+timed and profiled; its GGN and a chunk's render bit for bit against the
+plain path; an image at 100 samples and density draws). Exits non-zero,
 with no result line, when there is no card or any phase fails. The last line of standard
 output is a JSON object naming the device; the line before it the card's
 name and power limit; before that a ``{"kernels": [...]}`` line with each
@@ -72,6 +87,11 @@ its K6 bit for bit against the plain versions and times them in turns with
 this checkout's at every shape and position set K4 and K6 are timed at; a
 checkout without K6's strided entry makes the strided lookup as its own
 code did, a K6 launch a level and the lerp as PyTorch ops.
+
+``--splat-repeatable-only [CHECKOUT]`` runs only the splat repeatability
+check in its three places, with CHECKOUT's package in place of this one
+(for example the parent commit unpacked with ``git archive``), prints each
+result without requiring it, and ends in a JSON line of the results.
 """
 
 from __future__ import annotations
@@ -87,6 +107,9 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+if len(sys.argv) == 3 and sys.argv[1] == "--splat-repeatable-only":
+    # another checkout's package (the parent's, for example) in place of this one's
+    sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
 from torch_parity import (  # noqa: E402  (the tolerances the CPU tests hold)
     GRID_GRAD_TOL,
     MAX_FLIPPED_RAY_SHARE,
@@ -1145,10 +1168,11 @@ def check_hash_grid(cfg, device, clustered, rendered, other=None) -> dict:
 # -- active-nerfacto at full width ---------------------------------------------
 
 
-def build_nerfacto(device=None, num_cameras=4, size=256):
+def build_nerfacto(device=None, num_cameras=4, size=256, **overrides):
     """Full-width active-nerfacto as the method ships it (camera optimizer
     on), random weights and training images drawn from a numpy seed, the
-    weights through ``interop.params_from_jax``."""
+    weights through ``interop.params_from_jax``. ``overrides`` replace
+    config fields (another method of the family)."""
     from uncertainty_nerf_gs_torch.data.synthetic import hemisphere_cameras
     from uncertainty_nerf_gs_torch.engine.trainer import NerfactoTrainer
     from uncertainty_nerf_gs_torch.interop import (
@@ -1159,7 +1183,8 @@ def build_nerfacto(device=None, num_cameras=4, size=256):
     from uncertainty_nerf_gs_torch.models.nerfacto import NerfactoConfig
 
     cams = hemisphere_cameras(num_cameras, size, size)
-    cfg = NerfactoConfig(uncertainty_channels=1, num_images=num_cameras, background_color="white")
+    cfg = NerfactoConfig(**{**dict(uncertainty_channels=1, num_images=num_cameras, background_color="white"),
+                            **overrides})
     rng = np.random.default_rng(SEED)
     images = rng.uniform(size=(num_cameras, size, size, 3)).astype(np.float32)
     trainer = NerfactoTrainer(cfg, cams, images, seed=SEED, use_camera_optimizer=True,
@@ -1595,6 +1620,237 @@ def audit_determinism(trainer) -> dict:
     return dict(warnings=messages, repeats=counts)
 
 
+# -- nerfacto-mcdropout, nerfacto-laplace and the bf16 MLP at full width -------
+
+# the JAX package's configs/methods.py:69-88 (the port has no configs/ yet)
+MCDROPOUT = dict(uncertainty_channels=0, density_dropout_layers=(-1,), rgb_dropout_layers=(-1,),
+                 dropout_rate=0.2)
+MC_SAMPLES = 10  # nerfacto-mcdropout's mc_samples
+LAPLACE = dict(uncertainty_channels=0, density_activation="softplus")
+LAPLACE_ITERS, LAPLACE_RAYS, LAPLACE_SAMPLES = 300, 4096, 100  # eval_uncertainty.py:136's defaults
+LAPLACE_PROFILED = 30  # fit batches under the profiler
+
+
+def method_spec(mc_samples=0, laplace=False):
+    """The JAX package's MethodSpec fields that the eval renderers read."""
+    import types
+
+    return types.SimpleNamespace(family="nerfacto", mc_samples=mc_samples, laplace=laplace)
+
+
+def eval_chunk(trainer, idx: int = 0):
+    from uncertainty_nerf_gs_torch.cameras.cameras import generate_rays, pixel_grid
+
+    dev = trainer.device
+    chunk = trainer.config.eval_num_rays_per_chunk
+    px, py = pixel_grid(trainer.cameras.height, trainer.cameras.width, dev)
+    return generate_rays(trainer.cameras, torch.full((chunk,), idx, dtype=torch.int64, device=dev),
+                         px[:chunk], py[:chunk])
+
+
+def image_launches(render, chunks: int, label: str, name: str) -> dict:
+    """One image through ``render``: its launches (K1 2 and K4 3 a chunk,
+    no K5), its host-clock time, and its device time and idle share under
+    the profiler; every output finite."""
+    from uncertainty_nerf_gs_torch.ops import backend
+
+    backend.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = {k: v.cpu() for k, v in render(1).items()}  # ends in a copy to the host
+    seconds = time.perf_counter() - t0
+    launches = dict(backend.launch_counts)
+    want = dict(pdf_resample=2 * chunks, cell_lookup_fwd=3 * chunks, cell_lookup_bwd=0)
+    print(f"{label} image: launches {launches}, expected {want}; {1e3 * seconds:.1f} ms on {name}")
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"the {label} image did not launch K1 2 and K4 3 a chunk")
+    if not all(torch.isfinite(v).all() for v in out.values()):
+        raise AssertionError(f"the {label} image is not finite")
+    kernels, wall = device_kernels(lambda: render(1)["rgb"].cpu())
+    busy = 1e-6 * sum(us for _, us in kernels.values())
+    print(f"profile {label} image: wall {1e3 * wall:.1f} ms under the profiler, device busy {1e3 * busy:.1f} ms, "
+          f"idle share {1 - busy / wall:.3f}")
+    return dict(launches=launches, seconds=seconds, busy_ms=1e3 * busy, idle=1 - busy / wall, outputs=out)
+
+
+def run_mcdropout(name) -> dict:
+    """nerfacto-mcdropout at full width: five training steps of 4,096 rays
+    (K1 2, K4 3, K5 3 a step; every group moves), two steps from one
+    restored state bit-identical (the masks come from the trainer's
+    generator, restored), one chunk's MC-dropout render at ``MC_SAMPLES``
+    on the kernel path against the plain path with the same masks bit for
+    bit, and one 256x256 image at ``MC_SAMPLES`` (K1 2 and K4 3 a chunk,
+    whatever the sample count) beside a deterministic image of the same
+    model, each timed and profiled."""
+    from uncertainty_nerf_gs_torch.models.mcdropout import mc_dropout_render
+    from uncertainty_nerf_gs_torch.ops import backend
+    from uncertainty_nerf_gs_torch.ops.mlp import Dropout
+    from uncertainty_nerf_gs_torch.scripts.eval_uncertainty import build_render_fn
+
+    t0 = time.perf_counter()
+    trainer = build_nerfacto(**MCDROPOUT)
+    print(f"nerfacto-mcdropout: {sum(p.numel() for p in trainer.model.parameters())} parameters; set-up "
+          f"{time.perf_counter() - t0:.1f} s")
+    train = train_nerfacto(trainer, name)
+    profile_top("nerfacto-mcdropout train step", lambda: trainer.train_step(NERF_RAYS), NERF_SYMBOLS, top=8)
+    repeat = check_nerfacto_repeatable(trainer)
+    if any(repeat["launches"][k] != v for k, v in dict(pdf_resample=2, cell_lookup_fwd=3, cell_lookup_bwd=3).items()):
+        raise AssertionError(f"a repeated mcdropout step launched {repeat['launches']}")
+
+    rb = eval_chunk(trainer)
+    gen = torch.Generator(device=trainer.device).manual_seed(SEED + 21)
+    dropouts = [Dropout(generator=gen) for _ in range(MC_SAMPLES)]
+    trainer.model.forward_mc(rb, dropouts)  # draws each sample's masks once
+    masks = [d.drawn for d in dropouts]
+    backend.reset_launch_counts()
+    kern = mc_dropout_render(trainer.model, rb, MC_SAMPLES, masks=masks)
+    chunk_launches = dict(backend.launch_counts)
+    backend.reset_launch_counts()
+    with backend.plain_versions():
+        plain = mc_dropout_render(trainer.model, rb, MC_SAMPLES, masks=masks)
+    if any(backend.launch_counts.values()):
+        raise AssertionError(f"kernels launched inside plain_versions(): {backend.launch_counts}")
+    differ = bits_differ(kern, plain)
+    print(f"nerfacto-mcdropout chunk at {MC_SAMPLES} samples: launches {chunk_launches}; against the plain "
+          f"path with the same masks, {sum(differ.values())} output entries not bit-identical; rgb_std up to "
+          f"{float(kern['rgb_std'].max()):.4f}")
+    if sum(differ.values()) or (chunk_launches["pdf_resample"], chunk_launches["cell_lookup_fwd"]) != (2, 3):
+        raise AssertionError("the MC-dropout chunk: another launch plan, or the kernel path differs from the plain path")
+
+    cams = trainer.cameras
+    chunks = -(-cams.height * cams.width // trainer.config.eval_num_rays_per_chunk)
+    mc = image_launches(build_render_fn(trainer, method_spec(mc_samples=MC_SAMPLES), cams), chunks,
+                        f"nerfacto-mcdropout ({MC_SAMPLES} samples)", name)
+    single = image_launches(build_render_fn(trainer, method_spec(), cams), chunks, "nerfacto-mcdropout "
+                            "deterministic", name)
+    spread = {k: float(mc["outputs"][k].max()) for k in ("rgb_std", "depth_std", "expected_depth_std")}
+    print(f"nerfacto-mcdropout image spread, largest: {spread}")
+    if not spread["rgb_std"] > 0:
+        raise AssertionError("the MC-dropout image has no spread")
+    print(f"nerfacto-mcdropout: an image at {MC_SAMPLES} samples takes {mc['busy_ms'] / single['busy_ms']:.2f}x "
+          f"the device time of a deterministic one ({mc['busy_ms']:.1f} / {single['busy_ms']:.1f} ms)")
+    del trainer
+    torch.cuda.empty_cache()
+    return dict(train=train, chunk_launches=chunk_launches, mc={k: v for k, v in mc.items() if k != "outputs"},
+                single={k: v for k, v in single.items() if k != "outputs"})
+
+
+def run_laplace(name) -> dict:
+    """nerfacto-laplace at full width (softplus density): ``fit_laplace``
+    over ``LAPLACE_ITERS`` batches of 4,096 training rays (K1 2 and K4 3 a
+    batch, no K5), timed and profiled; two batches' GGN on the kernel path
+    against the plain path bit for bit; one chunk's ``laplace_render`` with
+    given draws against the plain path bit for bit; one 256x256 image at
+    ``LAPLACE_SAMPLES`` samples and as many density draws (K1 2 and K4 3 a
+    chunk), timed and profiled."""
+    from uncertainty_nerf_gs_torch.cameras.cameras import generate_rays
+    from uncertainty_nerf_gs_torch.models import laplace as lp
+    from uncertainty_nerf_gs_torch.ops import backend
+    from uncertainty_nerf_gs_torch.scripts.eval_uncertainty import _nerfacto_full_image_renderer
+
+    t0 = time.perf_counter()
+    trainer = build_nerfacto(**LAPLACE)
+    cfg, model, dev = trainer.config, trainer.model, trainer.device
+    print(f"nerfacto-laplace: set-up {time.perf_counter() - t0:.1f} s")
+
+    def batches(seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+
+        def batch_iter(step):
+            b = trainer.sample_batch(LAPLACE_RAYS, generator=gen)
+            return generate_rays(trainer.cameras, b["camera_indices"], b["pixel_x"], b["pixel_y"])
+
+        return batch_iter
+
+    backend.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    post = lp.fit_laplace(model, batches(SEED + 11), cfg, n_iters=LAPLACE_ITERS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = dict(backend.launch_counts)
+    want = dict(pdf_resample=2 * LAPLACE_ITERS, cell_lookup_fwd=3 * LAPLACE_ITERS, cell_lookup_bwd=0)
+    print(f"nerfacto-laplace fit, {LAPLACE_ITERS} batches of {LAPLACE_RAYS} rays: {fit_s:.2f} s on {name}; "
+          f"launches {fit_launches}, expected {want}")
+    if any(fit_launches[k] != v for k, v in want.items()):
+        raise AssertionError("the Laplace fit did not launch K1 2 and K4 3 a batch")
+    if not all(torch.isfinite(v).all() and v.max() > 0 for h in post for v in h.values()):
+        raise AssertionError("the Laplace GGN is not finite and positive")
+    # the profiler's summary of all 300 batches takes about a minute: a
+    # tenth of them is profiled, and its device time scaled to the fit's
+    kernels, wall = device_kernels(lambda: lp.fit_laplace(model, batches(SEED + 11), cfg,
+                                                          n_iters=LAPLACE_PROFILED))
+    fit_busy = 1e-3 * sum(us for _, us in kernels.values()) * LAPLACE_ITERS / LAPLACE_PROFILED
+    print(f"profile nerfacto-laplace fit, its first {LAPLACE_PROFILED} batches: wall {wall:.3f} s under the "
+          f"profiler, device busy {1e-3 * fit_busy * LAPLACE_PROFILED / LAPLACE_ITERS:.3f} s, idle share "
+          f"{1 - 1e-3 * fit_busy * LAPLACE_PROFILED / LAPLACE_ITERS / wall:.3f}; scaled to {LAPLACE_ITERS} "
+          f"batches {1e-3 * fit_busy:.2f} s of device time")
+
+    k_post = lp.fit_laplace(model, batches(SEED + 12), cfg, n_iters=2)
+    with backend.plain_versions():
+        p_post = lp.fit_laplace(model, batches(SEED + 12), cfg, n_iters=2)
+    ggn_differ = sum(int((a[k] != b[k]).sum()) for a, b in zip(k_post, p_post) for k in a)
+    rb = eval_chunk(trainer)
+    noise = lp.laplace_draws(tuple(rb.origins.shape[:1]) + (cfg.num_nerf_samples,), LAPLACE_SAMPLES,
+                             LAPLACE_SAMPLES, torch.Generator(device=dev).manual_seed(SEED + 13))
+    backend.reset_launch_counts()
+    kern = lp.laplace_render(model, post, rb, cfg, noise=noise, n_samples=LAPLACE_SAMPLES)
+    with backend.plain_versions():
+        plain = lp.laplace_render(model, post, rb, cfg, noise=noise, n_samples=LAPLACE_SAMPLES)
+    differ = bits_differ(kern, plain)
+    print(f"nerfacto-laplace against the plain path: two batches' GGN {ggn_differ} entries not bit-identical; "
+          f"a chunk's render with the same draws {sum(differ.values())} output entries not bit-identical; "
+          f"rgb_std up to {float(kern['rgb_std'].max()):.4f}, depth_std up to {float(kern['depth_std'].max()):.4f}")
+    if ggn_differ or sum(differ.values()):
+        raise AssertionError("nerfacto-laplace: the kernel path differs from the plain path")
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    render = _nerfacto_full_image_renderer(cfg, lambda rb_: lp.laplace_render(
+        model, post, rb_, cfg, generator=gen, n_samples=LAPLACE_SAMPLES, num_density_draws=LAPLACE_SAMPLES),
+        trainer.cameras, dev)
+    cams = trainer.cameras
+    chunks = -(-cams.height * cams.width // cfg.eval_num_rays_per_chunk)
+    image = image_launches(render, chunks, f"nerfacto-laplace ({LAPLACE_SAMPLES} samples)", name)
+    del trainer, model
+    torch.cuda.empty_cache()
+    return dict(fit_s=fit_s, fit_busy_s=1e-3 * fit_busy, fit_launches=fit_launches,
+                image={k: v for k, v in image.items() if k != "outputs"})
+
+
+def check_bf16(trainer, name) -> dict:
+    """One full-width chunk of active-nerfacto rendered by the trainer's
+    model (float32 MLPs), by the same weights with ``mixed_precision=True``
+    (bf16 MLPs) and with bf16 in the main field only (the proposals'
+    MLPs float32, so the samples stay where float32 puts them): the
+    largest deviation of the rgb, depth and variance outputs from float32,
+    and each chunk's time (CUDA events) and device time."""
+    import dataclasses
+
+    from uncertainty_nerf_gs_torch.models.nerfacto import NerfactoModel
+
+    bf16, main = (NerfactoModel(dataclasses.replace(trainer.config, mixed_precision=True), device=trainer.device)
+                  for _ in range(2))
+    for m in (bf16, main):
+        m.load_state_dict(trainer.model.state_dict())
+    for i in range(main.num_proposal_levels):
+        getattr(main, f"proposal_{i}").mlp.compute_dtype = None
+    rb = eval_chunk(trainer)
+    f32_out, bf16_out, main_out = trainer.model(rb), bf16(rb), main(rb)
+    keys = ("rgb", "depth", "expected_depth", "depth_var", "rgb_var", "accumulation")
+    err = {k: float((f32_out[k] - bf16_out[k]).abs().max()) for k in keys}
+    main_err = {k: float((f32_out[k] - main_out[k]).abs().max()) for k in keys}
+    if not all(torch.isfinite(o[k]).all() for o in (bf16_out, main_out) for k in keys):
+        raise AssertionError("a bf16 chunk is not finite")
+    times = {label: dict(event_ms=time_ms(m, [(rb,)], reps=10), device_ms=device_ms(m, [(rb,)], ""))
+             for label, m in (("f32", trainer.model), ("bf16", bf16))}
+    print(f"bf16 MLPs (mixed_precision) against float32, one chunk of {rb.origins.shape[0]} rays: max_abs_err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in err.items()) + "; bf16 in the main field only: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in main_err.items()) + "; " + ", ".join(
+              f"{k} {v['event_ms']:.2f} ms a chunk ({v['device_ms']:.2f} ms of device time)" for k, v in times.items())
+          + f" on {name}")
+    return dict(max_abs_err=err, main_field_only_max_abs_err=main_err, times=times)
+
+
 # -- active-splatfacto at full width -------------------------------------------
 
 SPLAT_IMAGES, SPLAT_STEPS = 2, 5
@@ -1661,9 +1917,10 @@ def run_splat(trainer, name) -> dict:
         step_s.append(time.perf_counter() - t0)
     launches = dict(backend.launch_counts)
     print(f"splat launches {launches}, expected composite_fwd {SPLAT_IMAGES + SPLAT_STEPS}, "
-          f"composite_bwd {SPLAT_STEPS}")
-    if (launches["composite_fwd"], launches["composite_bwd"]) != (SPLAT_IMAGES + SPLAT_STEPS, SPLAT_STEPS):
-        raise AssertionError("the splat path did not go through the compositing kernels")
+          f"composite_bwd {SPLAT_STEPS}, packed_rows_bwd {SPLAT_STEPS}")
+    if (launches["composite_fwd"], launches["composite_bwd"], launches["packed_rows_bwd"]) != (
+            SPLAT_IMAGES + SPLAT_STEPS, SPLAT_STEPS, SPLAT_STEPS):
+        raise AssertionError("the splat path did not go through the compositing and gather kernels")
     for i, l in enumerate(losses):
         if not all(np.isfinite(v) for v in l.values()):
             raise AssertionError(f"step {i}: loss not finite {l}")
@@ -1726,11 +1983,11 @@ def check_splat_plain(trainer) -> dict:
             raise AssertionError(f"splat render: {k} differs from the plain path by {out_err[k]:.3e}")
     backend.reset_launch_counts()
     k_losses, k_grads = splat_grads(trainer, 2, plain=False)
-    if backend.launch_counts["composite_bwd"] != 1:
-        raise AssertionError("the kernel-path gradients did not launch K3")
+    if backend.launch_counts["composite_bwd"] != 1 or backend.launch_counts["packed_rows_bwd"] != 1:
+        raise AssertionError("the kernel-path gradients did not launch K3 and the gather's backward")
     backend.reset_launch_counts()
     p_losses, p_grads = splat_grads(trainer, 2, plain=True)
-    if backend.launch_counts["composite_fwd"] or backend.launch_counts["composite_bwd"]:
+    if any(backend.launch_counts.values()):
         raise AssertionError(f"the plain-path gradients launched a kernel: {backend.launch_counts}")
     print("splat plain path: outputs max_abs_err " + ", ".join(f"{k} {v:.2e}" for k, v in out_err.items()))
     print("splat plain path: losses " + ", ".join(
@@ -1756,9 +2013,249 @@ def check_splat_plain(trainer) -> dict:
 
 
 def profile_splat(trainer) -> None:
-    symbols = {"composite_fwd": "composite_fwd_kernel", "composite_bwd": "composite_bwd_kernel"}
+    symbols = {"composite_fwd": "composite_fwd_kernel", "composite_bwd": "composite_bwd_kernel",
+               "packed_rows_bwd": PACKED_ROWS_SYMBOL}
     profile_top("splat train step", trainer.train_step, symbols)
     profile_top("splat image 0", lambda: trainer.render_image(0), symbols, top=8)
+
+
+# -- the splat gather's backward, and the splat step's repeatability ----------
+
+PACKED_ROWS_SYMBOL = "packed_rows_sum_kernel"
+
+
+def capture_gather(trainer, cam_idx: int = 2) -> tuple:
+    """The packed-row backward's inputs (g_packed, idx_all, counts, n) in one
+    real step of ``trainer`` at its rasterize budgets (``splat_grads``,
+    which leaves the trainer as it was), recorded at the wrapper."""
+    from uncertainty_nerf_gs_torch.ops import rasterize
+
+    seen = []
+    real = rasterize.packed_rows_bwd
+
+    def record(g, idx, counts, n):
+        seen.append((g.clone(), idx.clone(), counts.clone(), n))
+        return real(g, idx, counts, n)
+
+    rasterize.packed_rows_bwd = record
+    try:
+        splat_grads(trainer, cam_idx, plain=False)
+    finally:
+        rasterize.packed_rows_bwd = real
+    if len(seen) != 1:
+        raise AssertionError(f"a splat step ran the packed-row backward {len(seen)} times, expected 1")
+    return seen[0]
+
+
+def packed_rows_bound_ms(g, counts, n) -> tuple[float, int, int]:
+    """The byte bound: every live slot's row read once and every row of
+    g_src (the pad row's too) written once, at the card's memory rate."""
+    live, d = int(counts.sum()), g.shape[2]
+    nbytes = 4 * d * (live + n + 1)
+    return 1e3 * nbytes / HBM_BYTES_PER_S, nbytes, live
+
+
+def check_packed_rows(label, captured, gen) -> dict:
+    """The gather's backward (``csrc/packed_rows.cu`` with K5's sort) on a
+    real step's inputs: launched twice and required bit-identical, and
+    required equal to ``packed_rows_vjp_reference`` bit for bit (both add
+    each row's entries in ascending (tile, slot) order); F.embedding's
+    backward with the pad row skipped (``embedding_dense_backward``, the
+    library call for the same function, another order) and the float64 sum
+    printed beside them. Then timed over input sets that pass
+    MIN_SET_BYTES: the kernel pipeline's device time per call, the plain
+    version's and the library call's, against the byte bound. These
+    launches are not the main path's: the counters are left as found."""
+    from uncertainty_nerf_gs_torch.ops import backend, rasterize
+
+    saved = dict(backend.launch_counts)
+    g, idx, counts, n = captured
+    t, k, d = g.shape
+
+    def library(g_, idx_, counts_, n_):
+        return torch.ops.aten.embedding_dense_backward(g_, idx_, n_ + 1, n_, False)
+
+    a = rasterize.packed_rows_bwd(g, idx, counts, n)
+    b = rasterize.packed_rows_bwd(g, idx, counts, n)
+    plain = rasterize.packed_rows_vjp_reference(g, idx, counts, n)
+    lib = library(g, idx, counts, n)
+    live = torch.arange(k, device=g.device)[None, :] < counts[:, None]
+    exact = torch.zeros((n + 1, d), dtype=torch.float64, device=g.device)
+    exact.index_add_(0, idx[live], g[live].double())
+    exact[n] = 0.0
+    torch.cuda.synchronize()
+    identical, equal = torch.equal(a, b), torch.equal(a, plain)
+    err = float((a - plain).abs().max())
+    lib_err = float((a - lib).abs().max())
+    err64 = float((a.double() - exact).abs().max())
+    lib64 = float((lib.double() - exact).abs().max())
+    bound, nbytes, num_live = packed_rows_bound_ms(g, counts, n)
+    print(f"packed-row backward {label}: g_packed {tuple(g.shape)}, {num_live} live slots of {t * k}, "
+          f"{n} rows: two launches bit-identical {identical}; against the plain version max_abs_err "
+          f"{err:.3e} (bit for bit: {equal}); against F.embedding's backward {lib_err:.3e}; against "
+          f"float64 {err64:.3e} (F.embedding's {lib64:.3e})")
+    if not (identical and equal and torch.isfinite(a).all()):
+        raise AssertionError(f"packed-row backward {label}: not bit-identical to itself or its plain version")
+    per_set = 4 * g.numel() + 8 * idx.numel()
+    sets = [captured]
+    for _ in range(-(-MIN_SET_BYTES // per_set) - 1):
+        sets.append((g + 1e-3 * torch.randn(g.shape, generator=gen, device=g.device), idx.clone(),
+                     counts.clone(), n))
+    ms = device_ms(rasterize.packed_rows_bwd, sets, "")
+    event_ms = time_ms(rasterize.packed_rows_bwd, sets)
+    plain_ms = device_ms(rasterize.packed_rows_vjp_reference, sets, "")
+    library_ms = device_ms(library, sets, "")
+    traced, _ = device_kernels(lambda: rasterize.packed_rows_bwd(*captured))
+    print(f"packed-row backward {label}: kernel pipeline {ms:.4f} ms of device time a call "
+          f"({event_ms:.4f} ms a call back to back, its host read of the live count included), plain "
+          f"{plain_ms:.4f} ms, F.embedding's backward {library_ms:.4f} ms, bound {bound:.4f} ms (bytes: "
+          f"{nbytes / 1e6:.2f} MB); device kernels of one call: " + ", ".join(
+              f"{kernel_name(name)} x{c} {1e-3 * us:.4f} ms" for name, (c, us) in sorted(traced.items())))
+    backend.launch_counts.update(saved)
+    return dict(ms=ms, event_ms=event_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
+                bound_by="bytes", bytes=nbytes, shape=[t, k, d], live=num_live, rows=n, max_abs_err=err,
+                library_err=lib_err, bit_identical=identical)
+
+
+def _clone_tree(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().clone()
+    if isinstance(x, np.ndarray):
+        return x.copy()
+    if isinstance(x, dict):
+        return {k: _clone_tree(v) for k, v in x.items()}
+    return x
+
+
+def splat_snapshot(trainer) -> dict:
+    """A copy of the splat trainer's whole state: its ``state_dict`` (the
+    Gaussians, every group's Adam moments and counts, the camera tangents
+    and their Adam, the alive mask, the step), the strategy statistics, the
+    config (the tuned budgets), the torch generator and the camera order's
+    numpy generator."""
+    import copy
+
+    return dict(ckpt=_clone_tree(trainer.state_dict()), stats=[x.clone() for x in trainer.splat_state],
+                config=trainer.config, generator=trainer._generator.get_state(),
+                cam_rng=copy.deepcopy(trainer._cam_rng.bit_generator.state))
+
+
+def restore_splat(trainer, snap) -> None:
+    import copy
+
+    from uncertainty_nerf_gs_torch.models import splatfacto as sf
+
+    trainer.restore(snap["ckpt"])
+    trainer.splat_state = sf.SplatState(*(x.clone() for x in snap["stats"]))
+    trainer.config = snap["config"]
+    trainer._generator.set_state(snap["generator"])
+    trainer._cam_rng.bit_generator.state = copy.deepcopy(snap["cam_rng"])
+
+
+def _tree_differ(prefix, a, b, out) -> int:
+    """Adds to ``out`` every leaf of two trees that differs in a bit, with
+    its largest absolute difference; returns the number of leaves."""
+    if isinstance(a, dict):
+        return sum(_tree_differ(f"{prefix}{k}/", a[k], b[k], out) for k in a)
+    if isinstance(a, torch.Tensor):
+        if not torch.equal(a, b):
+            out[prefix[:-1]] = float((a.double() - b.double()).abs().max()) if a.is_floating_point() \
+                else int((a != b).sum())
+        return 1
+    if isinstance(a, np.ndarray):
+        if not np.array_equal(a, b):
+            out[prefix[:-1]] = int((a != b).sum())
+        return 1
+    if a != b:
+        out[prefix[:-1]] = (a, b)
+    return 1
+
+
+def check_splat_repeatable(trainer, label: str, required: bool = True) -> dict:
+    """Two training steps from one restored snapshot (``splat_snapshot``:
+    the same camera, background and refine draws): the losses, every leaf
+    of the Gaussians, every group's Adam moments and counts, the camera
+    tangents with their Adam, the strategy statistics and the step must be
+    equal bit for bit. Prints each differing leaf with its largest
+    deviation. The trainer and the launch counters are left as found;
+    ``required`` fails the run on a difference."""
+    from uncertainty_nerf_gs_torch.ops import backend
+
+    snap = splat_snapshot(trainer)
+    saved = dict(backend.launch_counts)
+    runs = []
+    for _ in range(2):
+        restore_splat(trainer, snap)
+        backend.reset_launch_counts()
+        losses = trainer.train_step()
+        after = splat_snapshot(trainer)
+        runs.append(({k: torch.tensor(v) for k, v in losses.items()}, after, dict(backend.launch_counts)))
+    restore_splat(trainer, snap)
+    backend.launch_counts.clear()
+    backend.launch_counts.update(saved)
+    (l0, s0, n0), (l1, s1, n1) = runs
+    differ: dict = {}
+    items = _tree_differ("loss:", l0, l1, differ)
+    items += _tree_differ("", s0["ckpt"], s1["ckpt"], differ)
+    items += _tree_differ("stats:", dict(enumerate(s0["stats"])), dict(enumerate(s1["stats"])), differ)
+    cfg = trainer.config
+    print(f"splat repeatability, {label} (capacity {cfg.rasterize_capacity}, step {snap['ckpt']['step']}, "
+          f"{int(trainer.splat_state.alive.sum())} alive): two steps from one snapshot, launches "
+          f"{ {k: v for k, v in n0.items() if v} } and { {k: v for k, v in n1.items() if v} }; {len(differ)} "
+          f"of {items} items differ"
+          + (": " + ", ".join(f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v}"
+                              for k, v in sorted(differ.items(), key=lambda kv: str(kv[0])))
+             if differ else " (losses, Gaussians, Adam moments and counts, camera tangents, statistics "
+                            "bit-identical)"))
+    if differ and required:
+        raise AssertionError(f"two splat training steps from one snapshot differ ({label})")
+    return dict(label=label, capacity=cfg.rasterize_capacity, step=snap["ckpt"]["step"], items=items,
+                differ={k: v if isinstance(v, (int, float)) else str(v) for k, v in differ.items()},
+                launches=n0)
+
+
+def audit_splat_determinism(trainer, captured) -> dict:
+    """What PyTorch flags in one splat training step under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` (switched
+    off again, the state restored), and ten backward passes each of the
+    packed-row gather as F.embedding (the formulation it replaced) and as
+    ``PackedRowGather`` at a real step's shape: how many differ from the
+    first."""
+    import warnings
+
+    from uncertainty_nerf_gs_torch.ops import backend
+    from uncertainty_nerf_gs_torch.ops.rasterize import PackedRowGather
+
+    snap = splat_snapshot(trainer)
+    saved = dict(backend.launch_counts)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            trainer.train_step()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    restore_splat(trainer, snap)
+    messages = sorted({" ".join(str(w.message).split())[:200] for w in caught})
+    flagged = [m for m in messages if "determinis" in m.lower()]
+    print(f"splat determinism audit: one step under use_deterministic_algorithms(True, warn_only=True) "
+          f"raised {len(caught)} warnings, {len(messages)} distinct, {len(flagged)} about determinism:")
+    for m in messages:
+        print(f"  {m}")
+    g, idx, counts, n = captured
+    src = torch.randn((n + 1, g.shape[2]), device=g.device)
+    counts_ = {
+        "nn.functional.embedding(padding_idx=n)": repeats(
+            lambda w: torch.nn.functional.embedding(idx, w, padding_idx=n), src, g),
+        "PackedRowGather": repeats(lambda w: PackedRowGather.apply(w, idx, counts), src, g),
+    }
+    backend.launch_counts.clear()
+    backend.launch_counts.update(saved)
+    print(f"splat determinism audit: 10 backward passes each of the packed-row gather {tuple(g.shape)} from "
+          f"{n + 1} rows, how many differ from the first: " + ", ".join(f"{k} {v} of 9" for k, v in counts_.items()))
+    if counts_["PackedRowGather"]:
+        raise AssertionError("the packed-row gather's backward is not repeatable")
+    return dict(warnings=messages, repeats=counts_)
 
 
 # -- active-splatfacto past warmup: refinement, the camera optimizer, the tuner
@@ -1837,10 +2334,13 @@ def run_splat_refine(trainer, name) -> dict:
     start = {k: v.detach().clone() for k, v in trainer.params.items()}
     backend.reset_launch_counts()
     step_s, losses = [], []
+    repeatable = []
     for _ in range(REFINE_STEPS):
         t0 = time.perf_counter()
         losses.append(trainer.train_step())  # ends in a copy of the losses to the host
         step_s.append(time.perf_counter() - t0)
+        if trainer.step in (REFINES[0], REFINES[-1]):
+            repeatable.append(check_splat_repeatable(trainer, f"after the refine at step {trainer.step}"))
         if trainer.step in RESETS or trainer.step - 1 in RESETS:
             groups = trainer.state_dict()["opt_state"]["groups"]
             want = int(trainer.step - 1 in RESETS)
@@ -1855,7 +2355,7 @@ def run_splat_refine(trainer, name) -> dict:
             raise AssertionError(f"refined splat image {idx}: not finite, or shape {images['rgb'].shape}")
     launches = dict(backend.launch_counts)
     del trainer.refine
-    want = dict(composite_fwd=REFINE_STEPS + SPLAT_IMAGES, composite_bwd=REFINE_STEPS)
+    want = dict(composite_fwd=REFINE_STEPS + SPLAT_IMAGES, composite_bwd=REFINE_STEPS, packed_rows_bwd=REFINE_STEPS)
     print(f"splat refine launches {launches}, expected {want}")
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError("the refining splat path did not go through the compositing kernels")
@@ -1925,19 +2425,22 @@ def run_splat_refine(trainer, name) -> dict:
         raise AssertionError("composite at the tuned capacity: a kernel disagrees with its plain version")
     tuned = composite_times("splat refine, tuned capacity", *tiles, gen)
     tuned.update(fwd_err=check["fwd_err"], bwd_err=check["bwd_err"])
-    del check
+    del check, tiles
+    gather = check_packed_rows("at the tuned capacity", capture_gather(trainer), gen)
     symbols = {"composite_fwd": "composite_fwd_kernel", "composite_bwd": "composite_bwd_kernel"}
     t0 = time.perf_counter()
     grew = trainer.retune_capacity()  # ends in the probes' copies to the host
     print(f"splat retune, {len(trainer.cameras)} probe cameras: {1e3 * (time.perf_counter() - t0):.1f} ms "
           f"on {name} (grew: {grew})")
     profile_top("splat retune", trainer.retune_capacity, symbols, top=8)
-    profile_top("splat refining phase train step", trainer.train_step, symbols)
+    profile_top("splat refining phase train step", trainer.train_step,
+                dict(symbols, packed_rows_bwd=PACKED_ROWS_SYMBOL))
     profile_top("splat refine", lambda: sf.refine_gaussians(
         trainer.params, trainer.splat_state, cfg, REFINES[-1], scene_extent=trainer.scene_extent,
         generator=trainer._generator), symbols, top=10)
     return dict(launches=launches, refines=refines, step_s=step_s, replay_err=err, tuned=tuned,
-                capacity=cfg.rasterize_capacity, row_capacity=cfg.rasterize_row_capacity, overflow=overflow)
+                capacity=cfg.rasterize_capacity, row_capacity=cfg.rasterize_row_capacity, overflow=overflow,
+                gather=gather, repeatable=repeatable)
 
 
 # -- the splat deep ensemble ---------------------------------------------------
@@ -2041,6 +2544,8 @@ def run_splat_ensemble(device, name) -> dict:
     k2 = composite_times("splat ensemble member 0, eval capacity", *tiles, gen, backward=False)["fwd"]
     k2.update(fwd_err=check["fwd_err"], bwd_err=check["bwd_err"])
     del check, tiles
+    # the gather's backward at the eval capacity, on a step of member 0
+    gather = check_packed_rows("at the eval capacity", capture_gather(trainers[0]), gen)
 
     seconds = []
     for _ in range(5):
@@ -2052,7 +2557,7 @@ def run_splat_ensemble(device, name) -> dict:
     profile_top("splat ensemble image 1", lambda: render(1)["rgb"].cpu(),
                 {"composite_fwd": "composite_fwd_kernel"}, top=10)
     return dict(launches=launches, eval_launches=eval_launches, out_err=out_err, results=res, seconds=seconds,
-                capacity=trainers[0].config.rasterize_capacity, k2=k2)
+                capacity=trainers[0].config.rasterize_capacity, k2=k2, gather=gather)
 
 
 # -- the deep ensemble at full width: K6 ---------------------------------------
@@ -2581,7 +3086,9 @@ def run_ensemble(device, name, other=None) -> dict:
 
 
 def kernel_line(run_nerf, train_nerf, resample, nerf_plain, run_splat_, refine, splat_ens, comp, grid,
-                ens) -> list[dict]:
+                ens, gather, methods) -> list[dict]:
+    """``methods``: path -> the launch counts of the other nerfacto-family
+    methods' runs (MC-dropout, Laplace), added to K1's, K4's and K5's."""
     per = resample["per_launch"]
     # one chunk's two launches as the render makes them: 256 -> 97 with u
     # and edges shared, 96 -> 49 with u shared, at 4096 rays
@@ -2591,10 +3098,12 @@ def kernel_line(run_nerf, train_nerf, resample, nerf_plain, run_splat_, refine, 
         source="uncertainty_nerf_gs_torch/csrc/pdf_resample.cu",
         replaces="uncertainty_nerf_gs_tpu/ops/pdf_pallas.py:120",
         launches=run_nerf["launches"]["pdf_resample"] + train_nerf["launches"]["pdf_resample"]
-        + sum(v["pdf_resample"] for v in ens["launches"].values()),
+        + sum(v["pdf_resample"] for v in ens["launches"].values())
+        + sum(v["pdf_resample"] for v in methods.values()),
         launches_by_path=dict(render=run_nerf["launches"]["pdf_resample"],
                               train=train_nerf["launches"]["pdf_resample"],
-                              **{f"ensemble_{k}": v["pdf_resample"] for k, v in ens["launches"].items()}),
+                              **{f"ensemble_{k}": v["pdf_resample"] for k, v in ens["launches"].items()},
+                              **{k: v["pdf_resample"] for k, v in methods.items()}),
         max_abs_err=max(resample["max_abs_err"], nerf_plain["edge_err"]),
         ms=sum(p["ms"] for p in render), plain_ms=sum(p["plain_ms"] for p in render),
         bound_ms=sum(p["bound_ms"] for p in render), bound_by=render[0]["bound_by"],
@@ -2630,7 +3139,8 @@ def kernel_line(run_nerf, train_nerf, resample, nerf_plain, run_splat_, refine, 
                            ("cell_lookup_bwd", "bwd", grid["bwd_err"])):
         per = [p[key] for p in grid["per_launch"]]
         by_path = dict(render=run_nerf["launches"][name], train=train_nerf["launches"][name],
-                       **{f"ensemble_{k}": v[name] for k, v in ens["launches"].items()})
+                       **{f"ensemble_{k}": v[name] for k, v in ens["launches"].items()},
+                       **{k: v[name] for k, v in methods.items()})
         entry = dict(
             name=name, route="cuda", source="uncertainty_nerf_gs_torch/csrc/hash_grid.cu",
             replaces="experiments/jobs/403_pallas_gather_probe.py:96",
@@ -2676,7 +3186,53 @@ def kernel_line(run_nerf, train_nerf, resample, nerf_plain, run_splat_, refine, 
         else:
             entry.update(strides=ens["plan"], field_strided=ens["k6"]["main_stride"])
         kernels.append(entry)
+    # the splat gather's backward: not a TPU kernel (the JAX package's is
+    # XLA's transpose of the gather at the line named); timed at the tuned
+    # capacity, where the refining steps run it, and at 384 and the
+    # splat ensemble's eval capacity
+    shapes = dict(capacity_384=gather, tuned_capacity=refine["gather"], eval_capacity=splat_ens["gather"])
+    tuned = refine["gather"]
+    by_path = dict(splat=run_splat_["launches"]["packed_rows_bwd"],
+                   splat_refine=refine["launches"]["packed_rows_bwd"])
+    kernels.append(dict(
+        name="packed_rows_bwd", route="cuda", source="uncertainty_nerf_gs_torch/csrc/packed_rows.cu",
+        replaces="uncertainty_nerf_gs_tpu/ops/rasterize.py:441", tpu_kernel=False,
+        launches=sum(by_path.values()), launches_by_path=by_path,
+        max_abs_err=max(v["max_abs_err"] for v in shapes.values()), deterministic=True,
+        ms=tuned["ms"], plain_ms=tuned["plain_ms"], bound_ms=tuned["bound_ms"], bound_by="bytes",
+        library_ms=tuned["library_ms"],  # F.embedding's backward (embedding_dense_backward)
+        event_ms=tuned["event_ms"], shape=tuned["shape"], live=tuned["live"],
+        by_shape={k: {f: v[f] for f in ("ms", "event_ms", "plain_ms", "library_ms", "bound_ms", "shape",
+                                         "live", "max_abs_err")} for k, v in shapes.items()},
+    ))
     return kernels
+
+
+def splat_repeatable_only(name) -> int:
+    """``--splat-repeatable-only [CHECKOUT]``: ``check_splat_repeatable`` in
+    its three places (the splat scene at capacity 384 after its five steps;
+    the refining scene after the refines at steps 20 and 70), with this
+    checkout's package or CHECKOUT's, each result printed and none
+    required; a JSON line of the results last."""
+    import uncertainty_nerf_gs_torch
+    from uncertainty_nerf_gs_torch.ops import backend
+
+    print(f"package: {Path(uncertainty_nerf_gs_torch.__file__).parent} on {name}")
+    backend.build_kernels()
+    results = []
+    splat = build_splat()
+    for _ in range(SPLAT_STEPS):
+        splat.train_step()
+    results.append(check_splat_repeatable(splat, "at capacity 384", required=False))
+    del splat
+    refining = build_splat_refine()
+    for _ in range(REFINE_STEPS):
+        refining.train_step()
+        if refining.step in (REFINES[0], REFINES[-1]):
+            results.append(check_splat_repeatable(refining, f"after the refine at step {refining.step}",
+                                                  required=False))
+    print(json.dumps({"splat_repeatable": results}))
+    return 0
 
 
 def main() -> int:
@@ -2684,6 +3240,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     args = sys.argv[1:]
+    if args[:1] == ["--splat-repeatable-only"] and len(args) <= 2:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        return splat_repeatable_only(card())
     if args and (len(args) != 2 or args[0] != "--k4-against"):
         print(__doc__, file=sys.stderr)
         return 2
@@ -2739,12 +3299,23 @@ def main() -> int:
     k5 = [(c, us) for k, (c, us) in step.items() if NERF_SYMBOLS["cell_lookup_bwd"] in k]
     print(f"  K5 in the step: {1e-3 * sum(us for _, us in k5):.3f} ms for its 3 calls "
           f"({sum(c for c, _ in k5)} kernels)")
+    check_bf16(nerf, name)
     del nerf
     torch.cuda.empty_cache()
     print(f"nerfacto done at {time.perf_counter() - t_start:.1f} s")
+    mcd = run_mcdropout(name)
+    print(f"nerfacto-mcdropout done at {time.perf_counter() - t_start:.1f} s")
+    lap = run_laplace(name)
+    print(f"nerfacto-laplace done at {time.perf_counter() - t_start:.1f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
     run = run_splat(splat, name)
     check_splat_plain(splat)
+    captured = capture_gather(splat)
+    gather = check_packed_rows("at capacity 384", captured, torch.Generator(device=device).manual_seed(SEED + 13))
+    repeat_splat = check_splat_repeatable(splat, "at capacity 384")
+    audit_splat_determinism(splat, captured)
+    del captured
     profile_splat(splat)
     print(f"splat done at {time.perf_counter() - t_start:.1f} s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
@@ -2771,7 +3342,11 @@ def main() -> int:
     print(f"ensemble done at {time.perf_counter() - t_start:.1f} s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
-    kernels = kernel_line(run_nerf, train_nerf, resample, nerf_plain, run, refine, splat_ens, comp, grid, ens)
+    methods = dict(mcdropout_train=mcd["train"]["launches"], mcdropout_image=mcd["mc"]["launches"],
+                   mcdropout_deterministic_image=mcd["single"]["launches"], laplace_fit=lap["fit_launches"],
+                   laplace_image=lap["image"]["launches"])
+    kernels = kernel_line(run_nerf, train_nerf, resample, nerf_plain, run, refine, splat_ens, comp, grid, ens,
+                          gather, methods)
     print(json.dumps({"kernels": kernels}))
     print(name)
     print(json.dumps({"ok": True, "device": {

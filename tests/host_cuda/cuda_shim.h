@@ -133,6 +133,7 @@ template <class T>
 cudaError_t cudaFuncSetAttribute(T, int, int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline cudaError_t cudaMemcpyAsync(void*, const void*, size_t, int, cudaStream_t) { return cudaSuccess; }
+inline cudaError_t cudaMemsetAsync(void*, int, size_t, cudaStream_t) { return cudaSuccess; }
 
 // Runs `body(lane)` on 32 threads as warp `warp` of block `block`.
 template <class Body>

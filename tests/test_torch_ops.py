@@ -33,6 +33,7 @@ from uncertainty_nerf_gs_torch.ops import raymarch as trm
 from uncertainty_nerf_gs_torch.ops import sampling as tsamp
 from uncertainty_nerf_gs_torch.ops import spatial as tsp
 from uncertainty_nerf_gs_torch.ops.mlp import MLP as TMLP
+from uncertainty_nerf_gs_torch.ops.mlp import Dropout
 from uncertainty_nerf_gs_torch.ops.pdf_resample import (
     resample_edges,
     resample_edges_reference,
@@ -532,10 +533,22 @@ def test_mlp(rng, skips, out_act):
 
 
 def test_mlp_refuses_unported_options():
-    with pytest.raises(NotImplementedError):
-        TMLP(4, 2, 8, 1, dropout_layers=(-1,), dropout_rate=0.2)
-    with pytest.raises(NotImplementedError):
-        TMLP(4, 2, 8, 1, compute_dtype=torch.bfloat16)
+    """Dropout and bf16 compute are ported (tests/test_torch_mcdropout.py);
+    what the MLP still refuses: a dropout rate outside [0, 1), and masks of
+    another shape or dtype than the layer input's, or a Dropout with both
+    or neither of a generator and masks."""
+    for rate in (1.0, -0.1):
+        with pytest.raises(ValueError):
+            TMLP(4, 2, 8, 1, dropout_layers=(-1,), dropout_rate=rate)
+    m = TMLP(4, 2, 8, 1, dropout_layers=(-1,), dropout_rate=0.2, compute_dtype=torch.bfloat16)
+    x = torch.ones(3, 4)
+    for masks in ({"1": torch.ones(3, 7, dtype=torch.bool)}, {"1": torch.ones(3, 8)}):
+        with pytest.raises(ValueError):
+            m(x, Dropout(masks=masks))
+    for kw in ({}, dict(generator=torch.Generator(), masks={})):
+        with pytest.raises(ValueError):
+            Dropout(**kw)
+    assert m(x, Dropout(masks={"1": torch.ones(3, 8, dtype=torch.bool)})).dtype == torch.float32
 
 
 # -- raymarch ----------------------------------------------------------------

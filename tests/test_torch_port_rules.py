@@ -391,6 +391,7 @@ def test_eval_modules_import_without_pil_or_matplotlib():
 
 
 HASH_GRID_CU = REPO / "uncertainty_nerf_gs_torch" / "csrc" / "hash_grid.cu"
+PACKED_ROWS_CU = REPO / "uncertainty_nerf_gs_torch" / "csrc" / "packed_rows.cu"
 
 
 def _k5_source() -> str:
@@ -427,6 +428,33 @@ def test_k5_path_calls_no_library_sort():
         CellLookup.backward, encodings.cell_lookup_bwd, encodings._scratch, encodings._entry))
     assert "cell_lookup_bwd_f32" in path
     assert not any(call in path for call in ("sort(", "argsort", "unique"))
+
+
+def test_packed_rows_source_has_no_atomic():
+    """The splat gather's backward (csrc/packed_rows.cu) adds no float
+    atomically, nor anything else: each element of g_src is one thread's
+    left-to-right sum, stored once; no inline-PTX atom or red either."""
+    import re
+
+    src = "\n".join(line.split("//")[0] for line in PACKED_ROWS_CU.read_text().splitlines())
+    assert "__fadd_rn" in src
+    assert not re.search(r"\batomic\w*\s*\(", src) and not re.search(r"\b(atom|red)\.", src)
+
+
+def test_packed_rows_path_calls_no_library_sort():
+    """The gather's backward on the card sorts with K5's hand-written radix
+    sort (``radix_sort_u32`` in csrc/hash_grid.cu): no torch.sort, argsort or
+    unique on the Python path from PackedRowGather.backward to the launches,
+    and no CUB or Thrust in its source."""
+    from uncertainty_nerf_gs_torch.ops import rasterize
+
+    src = PACKED_ROWS_CU.read_text()
+    assert not any(lib in src for lib in ("cub/", "thrust", "cub::"))
+    path = "".join(inspect.getsource(f) for f in (
+        rasterize.PackedRowGather.backward, rasterize.packed_rows_bwd))
+    assert "radix_sort_u32" in path and "packed_rows_sum" in path
+    assert not any(call in path for call in ("sort(", "argsort", "unique"))
+    assert "radix_sort_u32_scratch_bytes" in HASH_GRID_CU.read_text()
 
 
 def _composite_inputs(t=3, k=5, c=4, dtype=torch.float32):

@@ -159,12 +159,13 @@ def test_make_optimizer_matches_optax(rng):
 # -- trainer -----------------------------------------------------------------
 
 
-def _trainer_pair(rng, camera_opt, masks=None, background="white", density_shift=0.0):
+def _trainer_pair(rng, camera_opt, masks=None, background="white", density_shift=0.0, **config):
     """The JAX and the port's NerfactoTrainer with the camera optimizer, on
     one set of random weights (tables +-2) and random images.
     ``density_shift`` is added to the bias of every density head (the
-    field's and the proposals'): rays then reach high accumulation."""
-    kw = small_config_kwargs(background_color=background)
+    field's and the proposals'): rays then reach high accumulation.
+    ``config`` overrides the small config's fields."""
+    kw = small_config_kwargs(background_color=background, **config)
     images = rng.uniform(0, 1, (N_CAMS, H, W, 3)).astype(np.float32)
     jcams = j_hemisphere(N_CAMS, height=H, width=W, seed=1)
     jtr = JTrainer(jnerf.NerfactoConfig(**kw), jcams, images, use_camera_optimizer=True, masks=masks)

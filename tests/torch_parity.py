@@ -111,6 +111,14 @@ PACKED_FAMILIES = {
     "opacity": slice(5, 6),
     "payload": slice(6, None),
 }
+# The packed-row gather's backward (ops/rasterize.py::PackedRowGather):
+# each Gaussian's row is a sum over the tiles it lands in. The port adds in
+# ascending (tile, slot) order, JAX's gather transpose in another, so on the
+# CPU it is held to jax.vjp and to float64 at the float32 bar TOL (a row
+# sums at most a few dozen unit-normal entries in the tests). On the card
+# csrc/packed_rows.cu adds in the plain version's order: chip_smoke.py
+# requires the two equal bit for bit, and two launches equal bit for bit.
+PACKED_ROWS_TOL = TOL
 # The hash-grid lookup's backward (K5 on the card, autograd through the
 # plain lookup elsewhere) sums each cell's contributions in another order:
 # K5 in a fixed tree over the cell's lookups sorted by id. A cell of a
@@ -272,3 +280,117 @@ def ray_mismatch(want: dict, got: dict, tols=OUTPUT_TOLS) -> np.ndarray:
         miss = miss.reshape(miss.shape[0], -1).any(-1) if miss.ndim else miss
         bad = miss if bad is None else bad | miss
     return bad
+
+
+# The bf16 MLP (``compute_dtype``, the configs' ``mixed_precision``) against
+# flax's nn.Dense(dtype=bf16): both round every layer's input, weight, bias,
+# product and activation to bf16 (8 bits of mantissa, 3.9e-3 relative), and
+# dropout divides by keep_prob rounded to bf16 as jnp's weak-typed scalar
+# is. ``python tests/torch_parity_report.py mcdropout`` measures 0 with and
+# without dropout; the port's float32 MLP is 5.5e-3 to 9.3e-3 of the largest
+# |y| away (seeds 0-5). The bar: atol 1e-3 of the output's largest magnitude
+# (a quarter of one bf16 step there) and no rtol, so a float32 MLP fails it
+# by a factor of 5 or more.
+BF16_MLP_TOL = dict(atol=1e-3, rtol=0.0)
+
+# A whole mixed_precision NerfactoModel (bf16 MLPs in both proposal fields
+# and the main field) against the JAX package's, eval forward on rays that
+# flipped no cell: the float32 hash-grid features differ in their last bits
+# (TOL), which flips a bf16 rounding now and then, and a proposal density's
+# flip moves the next level's samples. Each output is held to atol
+# BF16_MODEL_TOL times its largest magnitude over those rays.
+# ``python tests/torch_parity_report.py mcdropout`` measures at most 2.7e-3
+# (accumulation); the JAX package's own float32 model is 0.22 (rgb) to 0.82
+# (depth_var) from its bf16 one, and so is the port's: bf16 proposal
+# densities move the samples, so mixed precision changes every output.
+BF16_MODEL_TOL = 5e-3
+
+# The Laplace posterior (tests/test_torch_laplace.py): the diagonal and full
+# GGN are sums of squared (and crossed) Jacobians of the rendered colour over
+# every ray of the batches, on rays that flipped no cell; the forward's
+# float32 differences (OUTPUT_TOLS' rgb at 2.8e-4 relative) enter squared.
+# Held leaf by leaf: atol relative to the leaf's largest entry, and rtol.
+# ``python tests/torch_parity_report.py laplace`` measures at most 1.15e-4
+# of the largest entry (trunc_exp's density kernel; softplus 8.8e-5), a
+# margin of about 9. The MC-dropout training batch's gradients hold
+# CPU_TRAIN_GRAD_L2: the port is 1.66e-2 from the jitted JAX gradients on
+# the main field's cells, as far as the JAX package's own eager gradients.
+LAPLACE_GGN_TOL = dict(atol=1e-3, rtol=1e-2)
+
+# Dropout (tests/test_torch_mcdropout.py). The port's MLP applies the same
+# masks as flax's nn.Dropout when they are imposed on both: the MLP, the
+# MC-dropout render and a training batch then hold the f32 bars above. The
+# JAX package draws its masks inside nn.Dropout from flax's rng streams,
+# which torch cannot replay: ``impose_dropout`` replaces each draw with a
+# given mask, and ``record_dropout`` draws each mask as nn.Dropout does and
+# sows it, so that a test can hand the JAX package's own masks to the port.
+# A mask's port name is ``"{mlp}.{layer}"`` (``fields/nerfacto_field.py``):
+# flax names an MLP's dropouts Dropout_0, Dropout_1, ... in layer order.
+def dropout_layers(num_layers: int, layers) -> list[int]:
+    """An MLP's dropout layers in ascending order, ``-1`` the last."""
+    return sorted({num_layers - 1 if d == -1 else d for d in layers})
+
+
+def jax_dropout_name(path: tuple, layers_by_mlp: dict) -> str:
+    """The port's name of the flax Dropout at ``path`` (its module path)."""
+    mlp, drop = (path[-2] if len(path) > 1 else "root"), path[-1]
+    return f"{mlp}.{layers_by_mlp[mlp][int(drop.split('_')[1])]}"
+
+
+def impose_dropout(masks: dict, layers_by_mlp: dict):
+    """A ``flax.linen.intercept_methods`` context in which every
+    non-deterministic nn.Dropout call applies ``masks[name]`` (bool numpy)
+    instead of a draw, as nn.Dropout applies its own."""
+    import flax.linen as nn
+    import jax.numpy as jnp
+    from jax import lax
+
+    def interceptor(next_fun, args, kwargs, context):
+        if not (isinstance(context.module, nn.Dropout) and context.method_name == "__call__"):
+            return next_fun(*args, **kwargs)
+        x = args[0]
+        if kwargs.get("deterministic", context.module.deterministic) or context.module.rate == 0.0:
+            return next_fun(*args, **kwargs)
+        keep = 1.0 - context.module.rate
+        mask = jnp.asarray(masks[jax_dropout_name(context.module.path, layers_by_mlp)])
+        assert mask.shape == x.shape, (context.module.path, mask.shape, x.shape)
+        return lax.select(mask, x / keep, jnp.zeros_like(x))
+
+    return nn.intercept_methods(interceptor)
+
+
+def record_dropout():
+    """A ``flax.linen.intercept_methods`` context in which nn.Dropout draws
+    its mask as it does itself (``make_rng`` of its collection, then
+    ``bernoulli``) and sows it as ``intermediates/.../mask``: apply with
+    ``mutable=["intermediates"]`` to read the masks back."""
+    import flax.linen as nn
+    import jax
+    import jax.numpy as jnp
+    from jax import lax
+
+    def interceptor(next_fun, args, kwargs, context):
+        module = context.module
+        if not (isinstance(module, nn.Dropout) and context.method_name == "__call__"):
+            return next_fun(*args, **kwargs)
+        x = args[0]
+        if kwargs.get("deterministic", module.deterministic) or module.rate == 0.0:
+            return next_fun(*args, **kwargs)
+        keep = 1.0 - module.rate
+        mask = jax.random.bernoulli(module.make_rng(module.rng_collection), p=keep, shape=x.shape)
+        module.sow("intermediates", "mask", mask)
+        return lax.select(mask, x / keep, jnp.zeros_like(x))
+
+    return nn.intercept_methods(interceptor)
+
+
+def recorded_masks(intermediates, layers_by_mlp: dict) -> dict:
+    """``record_dropout``'s sown masks -> {port name: bool numpy mask}."""
+    import jax
+
+    out = {}
+    for path, leaf in jax.tree_util.tree_leaves_with_path(intermediates):
+        keys = tuple(getattr(p, "key", getattr(p, "idx", None)) for p in path)
+        i = keys.index("mask")
+        out[jax_dropout_name(keys[:i], layers_by_mlp)] = np.asarray(leaf)
+    return out

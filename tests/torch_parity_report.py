@@ -1,8 +1,9 @@
 """How far the port is from the JAX package on the parity tests' inputs.
 
-    JAX_PLATFORMS=cpu python tests/torch_parity_report.py [nerfacto] [splat] [composite] [train] [ensemble] [splat_refine]
+    JAX_PLATFORMS=cpu python tests/torch_parity_report.py [nerfacto] [splat] [composite] [train] [ensemble]
+        [splat_refine] [mcdropout] [laplace]
 
-Each named section, or all six. Nerfacto (tests/test_torch_model.py::test_model_eval_forward_matches_jax):
+Each named section, or all eight. Nerfacto (tests/test_torch_model.py::test_model_eval_forward_matches_jax):
 the rays whose lookups flipped a hash-grid cell between the port and JAX's
 eager forward, then per output the largest absolute and relative deviation
 on the other rays, beside the JAX package's own jit-vs-eager deviation.
@@ -32,6 +33,19 @@ Splat refine (tests/test_torch_splat_refine.py::test_trainer_refines_like_jax):
 per step of the run through two refines and an opacity reset, the loss
 terms' largest relative deviation and, per parameter and per group's Adam
 moments, the largest deviation as a share of its bar.
+
+MC-dropout (tests/test_torch_mcdropout.py): the bf16 MLP's largest
+deviation from flax's over the output's largest magnitude (the basis of
+BF16_MLP_TOL), with and without dropout, beside the float32 MLP's; a
+mixed_precision model's outputs against the JAX package's (the basis of
+BF16_MODEL_TOL), beside both float32 models'; the MC
+render's per-output deviations on the rays that kept their cells; and one
+MC-dropout training batch's loss terms and gradients, the port's beside the
+JAX package's own eager evaluation's.
+
+Laplace (tests/test_torch_laplace.py): the diagonal GGN's largest deviation
+per leaf over the leaf's largest entry (the basis of LAPLACE_GGN_TOL) for
+both density activations, and ``laplace_render``'s per-output deviations.
 
 The tolerances in tests/torch_parity.py are set from this report.
 """
@@ -216,8 +230,65 @@ def splat_refine() -> None:
         print(f"step {step}: {loss}largest shares of the bars " + ", ".join(f"{k} {v:.3f}" for k, v in worst))
 
 
+def mcdropout() -> None:
+    import test_torch_mcdropout as m
+    from torch_parity import grad_l2_error
+
+    for drops in ((), (-1,)):
+        got, want, f32 = m.bf16_pair(np.random.default_rng(0), drops)
+        scale = np.abs(want).max()
+        print(f"bf16 MLP, dropout {drops}: port {np.abs(got.numpy() - want).max() / scale:.3e} of the output's "
+              f"largest |y| {scale:.3f}; the float32 MLP {np.abs(f32 - want).max() / scale:.3e}")
+    want, got, want32, got32, flipped = m.mixed_precision_pair(np.random.default_rng(0))
+    print(f"mixed_precision model: {flipped.sum()} of {flipped.size} rays flipped a cell; on the others, the "
+          "largest deviation from the JAX bf16 model over the output's largest |y| (basis of BF16_MODEL_TOL)")
+    for k in sorted(OUTPUT_TOLS):
+        w = want[k][~flipped]
+        scale = np.abs(w).max()
+        print(f"  {k:16s} port bf16 {np.abs(got[k][~flipped] - w).max() / scale:.3e}  JAX float32 "
+              f"{np.abs(want32[k][~flipped] - w).max() / scale:.3e}  port float32 "
+              f"{np.abs(got32[k][~flipped] - w).max() / scale:.3e}")
+    want, got, flipped, *_ = m.mc_render_pair(np.random.default_rng(0))
+    keep = ~flipped
+    print(f"MC render: {flipped.sum()} of {flipped.size} rays flipped a cell")
+    for k in sorted(want):
+        if np.ndim(want[k]) == 0:
+            continue
+        w = want[k].reshape(flipped.size, -1)[keep]
+        err = np.abs(got[k].numpy().reshape(flipped.size, -1)[keep] - w)
+        print(f"  {k:20s} max abs {err.max():.3e}  max rel {(err / np.maximum(np.abs(w), 1e-12)).max():.3e}")
+    want_t, got_t, want_g, ttr, _ = m.mc_trainer_pair(np.random.default_rng(0))
+    eager_t, _, eager_g, _, _ = m.mc_trainer_pair(np.random.default_rng(0), jit=False)
+    for k in want_t:
+        print(f"  {k:16s} port {abs(got_t[k] - want_t[k]) / abs(want_t[k]):.2e}  "
+              f"JAX eager {abs(eager_t[k] - want_t[k]) / abs(want_t[k]):.2e}")
+    rows = sorted(((grad_l2_error(k, p.grad, want_g[k]), grad_l2_error(k, eager_g[k], want_g[k]), k)
+                   for k, p in ttr.params().items()), reverse=True)
+    for port, jax_eager, k in rows[:6]:
+        print(f"  {k:40s} relative L2: port {port:.2e}  JAX eager {jax_eager:.2e}")
+
+
+def laplace() -> None:
+    import test_torch_laplace as lt
+
+    from uncertainty_nerf_gs_torch import interop
+
+    for activation in ("softplus", "trunc_exp"):
+        got, want = lt.fit_pair(np.random.default_rng(0), activation)
+        back = interop.laplace_posterior_to_jax(got)
+        for head in ("density_head", "rgb_head"):
+            for leaf in ("kernel", "bias"):
+                w = np.asarray(getattr(want, head)[leaf])
+                print(f"GGN ({activation}) {head}.{leaf}: max abs dev {np.abs(back[head][leaf] - w).max():.3e} "
+                      f"= {np.abs(back[head][leaf] - w).max() / np.abs(w).max():.3e} of the largest entry")
+    for case in (("white", False), ("last_sample", False), ("white", True)):
+        want, got = lt.render_pair(np.random.default_rng(0), *case)
+        print(f"laplace_render {case}: " + ", ".join(
+            f"{k} {np.abs(got[k] - want[k]).max():.2e}" for k in sorted(want)))
+
+
 if __name__ == "__main__":
     sections = dict(nerfacto=nerfacto, splat=splat, composite=composite, train=train, ensemble=ensemble,
-                    splat_refine=splat_refine)
+                    splat_refine=splat_refine, mcdropout=mcdropout, laplace=laplace)
     for name in sys.argv[1:] or sections:
         sections[name]()

@@ -1600,3 +1600,40 @@ extern "C" int cell_lookup_sort_u32(const float* positions, int n, int num_level
     err = cudaMemcpyAsync(perm_out, s.ids[kl.passes & 1], bytes, cudaMemcpyDeviceToDevice, st);
     return static_cast<int>(err);
 }
+
+// K5's stable radix sort alone, on plain u32 keys below 2^bits (bits in 1 ..
+// 32): sorted_out (num_keys) gets the keys in ascending order and perm_out
+// the stable permutation (the input position of each sorted key; equal keys
+// keep their input order). Used by the splat path's packed-row backward
+// (csrc/packed_rows.cu). Scratch of radix_sort_u32_scratch_bytes bytes,
+// 256-byte aligned.
+extern "C" long long radix_sort_u32_scratch_bytes(int num_keys) {
+    if (num_keys < 0) return -1;
+    Scratch s;
+    return carve(nullptr, num_keys, 1, &s);
+}
+
+extern "C" int radix_sort_u32(const unsigned* keys, int num_keys, int bits, unsigned* sorted_out,
+                              unsigned* perm_out, void* scratch, long long scratch_bytes,
+                              void* stream) {
+    if (num_keys < 0 || bits < 1 || bits > kDigitBits * kMaxPasses)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (num_keys == 0) return 0;
+    Scratch s;
+    if (carve(static_cast<char*>(scratch), num_keys, 1, &s) > scratch_bytes)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const size_t bytes = 4 * static_cast<size_t>(num_keys);
+    const int passes = (bits + kDigitBits - 1) / kDigitBits;
+    cudaError_t err = cudaMemcpyAsync(s.keys[0], keys, bytes, cudaMemcpyDeviceToDevice, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // the histograms add into the digit totals (K5's keys kernel zeroes them)
+    err = cudaMemsetAsync(s.totals, 0, 4 * kRadix * kMaxPasses, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = radix_sort(s, num_keys, passes, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaMemcpyAsync(sorted_out, s.keys[passes & 1], bytes, cudaMemcpyDeviceToDevice, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaMemcpyAsync(perm_out, s.ids[passes & 1], bytes, cudaMemcpyDeviceToDevice, st);
+    return static_cast<int>(err);
+}

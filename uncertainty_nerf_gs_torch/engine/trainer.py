@@ -9,9 +9,12 @@ a param group per label (``engine/optimizers.py``) updates the weights.
 ``render_image`` renders a full image in chunks with the eval forward and
 ignores the pose tangents, as the JAX package does.
 
-The batch and the forward's draws come from the trainer's own
+The batch, the forward's draws and, with ``dropout_rate > 0``
+(nerfacto-mcdropout), the dropout masks come from the trainer's own
 ``torch.Generator`` (seeded ``seed + 1``; the weights' from ``seed``), so
-they are not the JAX package's numbers; the parity tests inject those.
+they are not the JAX package's numbers; the parity tests inject those. Its
+state is part of ``state_dict``, so a restored trainer repeats a step bit
+for bit.
 Refused rather than skipped: ``steps_per_launch > 1`` and
 ``gradient_checkpointing`` (ROADMAP, queue 1, item 6) and the face
 consistency loss (item 7).
@@ -118,7 +121,8 @@ class NerfactoTrainer:
         """Resumable training state: ``params`` (detached views, by name),
         ``opt_state`` (per group the Adam count and the schedule's count;
         per parameter Adam's first and second moments, zeros before the
-        first step) and ``step``."""
+        first step), ``step`` and ``generator`` (the batches', draws' and
+        dropout masks' generator state)."""
         params = self.params()
         groups = {}
         for group in self.optimizer.param_groups:
@@ -136,6 +140,7 @@ class NerfactoTrainer:
             "params": {k: v.detach() for k, v in params.items()},
             "opt_state": {"groups": groups, **moments},
             "step": self.step,
+            "generator": self._generator.get_state(),
         }
 
     def restore(self, ckpt: Mapping[str, Any]) -> None:
@@ -143,7 +148,8 @@ class NerfactoTrainer:
         of the JAX trainer's). ``params`` holds every parameter (e.g.
         ``interop.params_from_jax`` of a flax tree, plus ``camera_opt`` with
         the camera optimizer); without ``opt_state`` the Adam state starts
-        fresh, without ``step`` at 0."""
+        fresh, without ``step`` at 0, and without ``generator`` the
+        generator goes on from where it is."""
         params = {k: torch.as_tensor(v) for k, v in ckpt["params"].items()}
         camera_opt = params.pop("camera_opt", None)
         if (camera_opt is None) != (self.camera_opt is None):
@@ -167,15 +173,17 @@ class NerfactoTrainer:
                     "exp_avg_sq": torch.as_tensor(opt_state["exp_avg_sq"][name]).to(self.device).clone(),
                 }
         self.step = int(ckpt.get("step", 0))
+        if ckpt.get("generator") is not None:
+            self._generator.set_state(ckpt["generator"])
 
     # ------------------------------------------------------------------ data
-    def sample_batch(self, num_rays: int) -> dict[str, torch.Tensor]:
+    def sample_batch(self, num_rays: int, generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
         """Uniform over cameras and pixels, or with masks uniform over the
-        valid-pixel list, from the trainer's generator."""
+        valid-pixel list, from ``generator`` (the trainer's by default)."""
         if self.images is None:
             raise ValueError("this trainer was built without images")
         n, h, w = self.images.shape[:3]
-        gen = self._generator
+        gen = self._generator if generator is None else generator
 
         def randint(high):
             return torch.randint(0, high, (num_rays,), generator=gen, device=self.device)
@@ -194,10 +202,13 @@ class NerfactoTrainer:
 
     # ------------------------------------------------------------------ step
     def _loss_fn(
-        self, batch: Mapping[str, torch.Tensor], step: int, draws: dict[str, Any] | None = None
+        self, batch: Mapping[str, torch.Tensor], step: int, draws: dict[str, Any] | None = None,
+        dropout_masks: dict[str, torch.Tensor] | None = None,
     ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
         """Total loss and its terms at the current weights, with autograd.
-        ``draws`` (``NerfactoModel.draw``'s layout) replaces the generator's."""
+        ``draws`` (``NerfactoModel.draw``'s layout) and ``dropout_masks``
+        replace the generator's. Dropout applies when ``dropout_rate > 0``,
+        as in the JAX trainer."""
         rb = generate_rays(
             self.cameras,
             batch["camera_indices"],
@@ -208,6 +219,9 @@ class NerfactoTrainer:
         outputs = self.model(
             rb, train=True, proposal_anneal=proposal_anneal_factor(step, self.config),
             generator=self._generator, draws=draws,
+            deterministic_dropout=self.config.dropout_rate == 0.0,
+            dropout_generator=None if dropout_masks is not None else self._generator,
+            dropout_masks=dropout_masks,
         )
         return nerfacto_loss(outputs, batch, self.config)
 

@@ -5,7 +5,11 @@ grid layout. The base MLP ends in a shared trunk from which ``density_head``,
 ``geo_head`` and the optional aleatoric ``unc_head`` branch; the color MLP
 (``color_trunk``) ends in a separate ``rgb_head`` before the sigmoid. Module
 and parameter names follow the flax tree, so ``interop.py`` maps weights
-one to one.
+one to one. A ``Dropout`` passed to a forward applies the MLPs' dropout
+(MC-dropout); its masks are named ``base_mlp.{layer}`` and
+``color_trunk.{layer}``. ``forward_mc`` evaluates several dropout draws
+and runs once what no draw changes: the hash-grid lookup and the layers
+before the first dropout.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from torch import nn
 
 from uncertainty_nerf_gs_torch.ops.activations import shifted_softplus, trunc_exp
 from uncertainty_nerf_gs_torch.ops.encodings import CellHashEncoding, sh_encoding
-from uncertainty_nerf_gs_torch.ops.mlp import MLP, init_dense
+from uncertainty_nerf_gs_torch.ops.mlp import MLP, Dropout, init_dense
 from uncertainty_nerf_gs_torch.ops.spatial import contract_to_unit_cube, normalize_aabb
 
 
@@ -52,6 +56,10 @@ def _normalize_positions(positions, use_scene_contraction: bool, aabb):
         selector = inside.to(positions.dtype)
         normalized = torch.clamp(normalized, 0.0, 1.0)
     return normalized, selector
+
+
+def _scope(dropout: Dropout | None, prefix: str) -> Dropout | None:
+    return None if dropout is None else dropout.scoped(prefix)
 
 
 class NerfactoField(nn.Module):
@@ -157,12 +165,19 @@ class NerfactoField(nn.Module):
             return trunc_exp(raw)
         return F.softplus(raw)
 
-    def get_trunk(self, positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """Hash encode + base trunk. Returns (trunk (..., W), selector)."""
+    def _features(self, positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Hash-grid features and the inside-the-box selector."""
         normalized, selector = _normalize_positions(
             positions, self.use_scene_contraction, self.aabb
         )
-        return self.base_mlp(self.encoding(normalized)), selector
+        return self.encoding(normalized), selector
+
+    def get_trunk(
+        self, positions: torch.Tensor, dropout: Dropout | None = None
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Hash encode + base trunk. Returns (trunk (..., W), selector)."""
+        feats, selector = self._features(positions)
+        return self.base_mlp(feats, _scope(dropout, "base_mlp")), selector
 
     def _density_heads(self, trunk: torch.Tensor, selector: torch.Tensor):
         raw = self.density_head(trunk)[..., 0]
@@ -172,10 +187,10 @@ class NerfactoField(nn.Module):
             unc = shifted_softplus(self.unc_head(trunk)[..., 0], self.beta_min)
         return density, unc, raw
 
-    def get_density(self, positions: torch.Tensor):
+    def get_density(self, positions: torch.Tensor, dropout: Dropout | None = None):
         """Density (+ optional aleatoric channel) at positions (..., 3).
         Returns (density, trunk, uncertainty or None, raw density)."""
-        trunk, selector = self.get_trunk(positions)
+        trunk, selector = self.get_trunk(positions, dropout)
         density, unc, raw = self._density_heads(trunk, selector)
         return density, trunk, unc, raw
 
@@ -185,8 +200,15 @@ class NerfactoField(nn.Module):
         directions: torch.Tensor,
         camera_indices: torch.Tensor,
         use_average_appearance: bool = False,
+        dropout: Dropout | None = None,
     ) -> torch.Tensor:
         """Color-MLP penultimate features; per-ray inputs broadcast over samples."""
+        inp = self._color_inputs(trunk, directions, camera_indices, use_average_appearance)
+        return self.color_trunk(inp, _scope(dropout, "color_trunk"))
+
+    def _color_inputs(self, trunk, directions, camera_indices, use_average_appearance):
+        """The color MLP's input: geo features, SH of the direction and the
+        appearance embedding."""
         geo = self.geo_head(trunk)
         sh = sh_encoding(directions, levels=self.sh_levels)
         sh = sh[..., None, :].expand(trunk.shape[:-1] + (sh.shape[-1],))
@@ -202,7 +224,7 @@ class NerfactoField(nn.Module):
                 embed = self.appearance_embedding.weight[camera_indices][..., None, :]
                 embed = embed.expand(shape)
             parts.append(embed)
-        return self.color_trunk(torch.cat(parts, dim=-1))
+        return torch.cat(parts, dim=-1)
 
     def forward_from_feats(
         self,
@@ -211,26 +233,12 @@ class NerfactoField(nn.Module):
         directions: torch.Tensor,
         camera_indices: torch.Tensor,
         use_average_appearance: bool = False,
+        dropout: Dropout | None = None,
     ) -> FieldOutputs:
         """Full field forward from precomputed hash-grid features."""
         return self._outputs(
-            self.base_mlp(feats), selector, directions, camera_indices,
-            use_average_appearance,
-        )
-
-    def _outputs(self, trunk, selector, directions, camera_indices, use_average_appearance):
-        density, unc, raw = self._density_heads(trunk, selector)
-        pen = self.get_color_features(
-            trunk, directions, camera_indices, use_average_appearance
-        )
-        return FieldOutputs(
-            density=density,
-            rgb=torch.sigmoid(self.rgb_head(pen)),
-            uncertainty=unc,
-            density_before_activation=raw,
-            trunk=trunk,
-            color_penultimate=pen,
-        )
+            feats, selector, directions, camera_indices, [dropout], use_average_appearance
+        )[0]
 
     def forward(
         self,
@@ -238,12 +246,51 @@ class NerfactoField(nn.Module):
         directions: torch.Tensor,
         camera_indices: torch.Tensor,
         use_average_appearance: bool = False,
+        dropout: Dropout | None = None,
     ) -> FieldOutputs:
         """positions (R, S, 3); directions (R, 3); camera_indices (R,)."""
-        trunk, selector = self.get_trunk(positions)
-        return self._outputs(
-            trunk, selector, directions, camera_indices, use_average_appearance
+        feats, selector = self._features(positions)
+        return self.forward_from_feats(
+            feats, selector, directions, camera_indices, use_average_appearance, dropout
         )
+
+    def forward_mc(
+        self,
+        positions: torch.Tensor,
+        directions: torch.Tensor,
+        camera_indices: torch.Tensor,
+        dropouts: list[Dropout],
+        use_average_appearance: bool = False,
+    ) -> list[FieldOutputs]:
+        """One forward per dropout draw in ``dropouts``, each equal to
+        ``forward(..., dropout=d)``."""
+        feats, selector = self._features(positions)
+        return self._outputs(
+            feats, selector, directions, camera_indices, dropouts, use_average_appearance
+        )
+
+    def _outputs(
+        self, feats, selector, directions, camera_indices, dropouts, use_average_appearance
+    ) -> list[FieldOutputs]:
+        """The outputs for each draw in ``dropouts`` (None for none), with
+        every layer before a draw first changes anything run once: the base
+        MLP's layers before its first dropout and, where it has none, its
+        trunk, the density heads and the color MLP's layers before its
+        first dropout."""
+        base, color = self.base_mlp, self.color_trunk
+        h = base.layers(feats, feats, 0, stop=base.first_dropout)
+        outs = []
+        for i, d in enumerate(dropouts):
+            if i == 0 or base.drops:
+                trunk = base.layers(h, feats, base.first_dropout, _scope(d, "base_mlp"))
+                density, unc, raw = self._density_heads(trunk, selector)
+                inp = self._color_inputs(trunk, directions, camera_indices, use_average_appearance)
+                hc = color.layers(inp, inp, 0, stop=color.first_dropout)
+            pen = color.layers(hc, inp, color.first_dropout, _scope(d, "color_trunk"))
+            outs.append(FieldOutputs(density=density, rgb=torch.sigmoid(self.rgb_head(pen)),
+                                     uncertainty=unc, density_before_activation=raw, trunk=trunk,
+                                     color_penultimate=pen))
+        return outs
 
     def density_fn(self, positions: torch.Tensor) -> torch.Tensor:
         """Density-only evaluation."""

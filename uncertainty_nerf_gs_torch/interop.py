@@ -37,6 +37,10 @@ package's stacked flax tree (a leading member axis on every leaf) to it.
 eval tables between the JAX layout, (L, T, lanes) rows padded with zeros to a
 multiple of 128 lanes, and the port's (L, T, 8, M, F) without the pad; both
 directions only copy, so the round trip is exact.
+
+``laplace_posterior_from_jax`` and ``laplace_posterior_to_jax`` move the
+nerfacto-laplace diagonal GGN (``models/laplace.py::LaplacePosterior``),
+transposing each head's kernel as a ``Dense`` kernel is; bit-exact both ways.
 """
 
 from __future__ import annotations
@@ -355,3 +359,25 @@ def packed_tables_to_jax(packed: torch.Tensor) -> np.ndarray:
     out = np.zeros((levels, table, lanes), dtype=np.float32)
     out[:, :, :payload] = packed.detach().cpu().numpy().reshape(levels, table, payload)
     return out
+
+
+def laplace_posterior_from_jax(posterior) -> Any:
+    """A JAX ``LaplacePosterior`` (per head a flax tree {"kernel" (in, out),
+    "bias"}) -> this package's (per head {"weight" (out, in), "bias"}),
+    bit-exact."""
+    from uncertainty_nerf_gs_torch.models.laplace import LaplacePosterior
+
+    def head(tree):
+        return {"weight": torch.from_numpy(np.ascontiguousarray(np.asarray(tree["kernel"]).T)),
+                "bias": torch.from_numpy(np.array(tree["bias"]))}
+
+    return LaplacePosterior(density_head=head(posterior.density_head), rgb_head=head(posterior.rgb_head))
+
+
+def laplace_posterior_to_jax(posterior) -> dict[str, dict[str, np.ndarray]]:
+    """This package's ``LaplacePosterior`` -> {head: {"kernel", "bias"}}
+    numpy trees in the JAX package's layout (``LaplacePosterior(**tree)``
+    there), bit-exact."""
+    return {name: {"kernel": np.ascontiguousarray(getattr(posterior, name)["weight"].detach().cpu().numpy().T),
+                   "bias": getattr(posterior, name)["bias"].detach().cpu().numpy().copy()}
+            for name in ("density_head", "rgb_head")}

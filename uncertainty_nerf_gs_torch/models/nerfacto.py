@@ -9,7 +9,11 @@ resampling kernel (K1) and each field's hash grid the cell-lookup kernels
 (K4, K5 in training) on the card. ``forward(train=False)`` is the eval
 forward, under ``torch.no_grad()``; ``forward(train=True)`` is the training
 forward, with autograd, stratified draws and the proposal annealing, and
-``nerfacto_loss`` its loss.
+``nerfacto_loss`` its loss. ``deterministic_dropout=False`` applies the
+field's MLP dropout (nerfacto-mcdropout), its masks drawn from
+``dropout_generator`` or given as ``dropout_masks``; ``forward_mc`` runs
+several dropout draws on one proposal chain and one lookup of the field.
+``mixed_precision`` runs every field's MLP in bf16 (``ops/mlp.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from uncertainty_nerf_gs_torch.fields.nerfacto_field import (
 from uncertainty_nerf_gs_torch.ops import raymarch
 from uncertainty_nerf_gs_torch.ops.backend import resolve_device
 from uncertainty_nerf_gs_torch.ops.encodings import cell_indices
+from uncertainty_nerf_gs_torch.ops.mlp import Dropout
 from uncertainty_nerf_gs_torch.ops.sampling import (
     RayBundle,
     _edges_to_samples,
@@ -246,6 +251,9 @@ class NerfactoModel(nn.Module):
         draws: dict[str, Any] | None = None,
         use_average_appearance: bool = False,
         return_intermediates: bool = False,
+        deterministic_dropout: bool = True,
+        dropout_generator: torch.Generator | None = None,
+        dropout_masks: dict[str, torch.Tensor] | None = None,
     ) -> dict[str, torch.Tensor]:
         """One ray batch. ``train=False``: the eval forward, without
         gradients. ``train=True``: the training forward, with autograd; the
@@ -255,9 +263,13 @@ class NerfactoModel(nn.Module):
         sampling is the eval's. Train mode adds ``weights_list`` and
         ``sdist_list``; ``return_intermediates`` adds the field's last-layer
         inputs, the final samples' geometry and, as ``sdist_list``, the
-        spacing edges each field was queried at."""
+        spacing edges each field was queried at. ``deterministic_dropout=
+        False`` applies the field's dropout with masks from
+        ``dropout_generator`` or ``dropout_masks`` (named as
+        ``fields/nerfacto_field.py`` names them)."""
         kw = dict(use_average_appearance=use_average_appearance,
-                  return_intermediates=return_intermediates)
+                  return_intermediates=return_intermediates,
+                  dropout=None if deterministic_dropout else Dropout(dropout_generator, dropout_masks))
         if not train:
             return self._eval_forward(ray_bundle, **kw)
         if draws is None and generator is not None:
@@ -276,10 +288,44 @@ class NerfactoModel(nn.Module):
         draws: dict[str, Any] | None,
         use_average_appearance: bool,
         return_intermediates: bool,
+        dropout: Dropout | None,
     ) -> dict[str, torch.Tensor]:
-        cfg = self.config
         ray_bundle = self._with_planes(ray_bundle)
         draws = draws or {}
+        rs, weights_list, sdist_list = self._proposals(ray_bundle, proposal_anneal, draws)
+        field_out = self.field(
+            rs.positions,
+            ray_bundle.directions,
+            ray_bundle.camera_indices,
+            use_average_appearance=use_average_appearance,
+            dropout=dropout,
+        )
+        return self._render(field_out, rs, draws, weights_list if train else None,
+                            sdist_list if train or return_intermediates else None,
+                            return_intermediates)
+
+    @torch.no_grad()
+    def forward_mc(
+        self,
+        ray_bundle: RayBundle,
+        dropouts: list[Dropout],
+        use_average_appearance: bool = False,
+    ) -> list[dict[str, torch.Tensor]]:
+        """The eval forward once per dropout draw, each equal to
+        ``forward(deterministic_dropout=False)`` with that draw's masks; the
+        proposal chain (its hash-grid lookups and both resamples) and the
+        field's lookup run once for all of them (``NerfactoField.
+        forward_mc``)."""
+        ray_bundle = self._with_planes(ray_bundle)
+        rs, _, _ = self._proposals(ray_bundle, 1.0, {})
+        outs = self.field.forward_mc(rs.positions, ray_bundle.directions, ray_bundle.camera_indices,
+                                     dropouts, use_average_appearance=use_average_appearance)
+        return [self._render(f, rs, {}, None, None, False) for f in outs]
+
+    def _proposals(self, ray_bundle, proposal_anneal, draws):
+        """The proposal hierarchy: the main field's samples, and each
+        proposal's weights and spacing edges."""
+        cfg = self.config
         pdf_draws = draws.get("pdf", [None] * self.num_proposal_levels)
 
         weights_list, sdist_list = [], []
@@ -292,13 +338,13 @@ class NerfactoModel(nn.Module):
             # sample_pdf detaches the weights, as the JAX package's stop_gradient
             w_annealed = w if proposal_anneal == 1.0 else w**proposal_anneal
             rs = sample_pdf(ray_bundle, rs.spacing_edges, w_annealed, n_next, draws=pdf_draws[i])
+        return rs, weights_list, sdist_list
 
-        field_out = self.field(
-            rs.positions,
-            ray_bundle.directions,
-            ray_bundle.camera_indices,
-            use_average_appearance=use_average_appearance,
-        )
+    def _render(self, field_out, rs, draws, weights_list, sdist_list, return_intermediates):
+        """Composite the main field's outputs; ``weights_list`` and
+        ``sdist_list`` (the proposals', or None) are added with the main
+        field's appended."""
+        cfg = self.config
         density = cfg.average_init_density * field_out.density
         weights = raymarch.render_weights(density, rs.deltas)
 
@@ -321,9 +367,9 @@ class NerfactoModel(nn.Module):
             rgb_var = raymarch.render_uncertainty(betas, weights**2)
             outputs["rgb_var"] = rgb_var
             outputs["rgb_std"] = torch.sqrt(rgb_var)
-        if train:
+        if weights_list is not None:
             outputs["weights_list"] = weights_list + [weights]
-        if train or return_intermediates:
+        if sdist_list is not None:
             outputs["sdist_list"] = sdist_list + [rs.spacing_edges]
         if return_intermediates:
             outputs["trunk"] = field_out.trunk

@@ -14,10 +14,17 @@ _TRUNC_MAX = 15.0
 
 
 class TruncExp(torch.autograd.Function):
+    # forward and setup_context apart, so that torch.func's transforms
+    # (the Laplace fit's vmap of jacrev) can run it
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
-        ctx.save_for_backward(x)
+    def forward(x: torch.Tensor) -> torch.Tensor:
         return torch.exp(torch.clamp(x, max=_TRUNC_MAX))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output) -> None:
+        ctx.save_for_backward(inputs[0])
 
     @staticmethod
     def backward(ctx, g: torch.Tensor) -> torch.Tensor:

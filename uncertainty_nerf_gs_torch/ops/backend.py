@@ -39,7 +39,7 @@ import torch
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNELS = ("pdf_resample", "composite_tiles", "hash_grid")  # sources in csrc/
+KERNELS = ("pdf_resample", "composite_tiles", "hash_grid", "packed_rows")  # sources in csrc/
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -49,7 +49,7 @@ NVCC_FLAGS = (
 # it launches its kernel and nowhere else
 LAUNCH_COUNTERS = (
     "pdf_resample", "composite_fwd", "composite_bwd", "cell_lookup_fwd", "cell_lookup_bwd",
-    "packed_cell_lookup_fwd", "packed_cell_lookup_strided",
+    "packed_cell_lookup_fwd", "packed_cell_lookup_strided", "packed_rows_bwd",
 )
 launch_counts: dict[str, int] = {name: 0 for name in LAUNCH_COUNTERS}
 _libraries: dict[str, ctypes.CDLL] = {}
@@ -153,6 +153,16 @@ def load_library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _libraries[name] = lib
     return lib
+
+
+def entry(library: str, name: str, argtypes: list, restype=ctypes.c_int):
+    """A C entry point of a kernel library, built and loaded at first use,
+    its argument and result types set once."""
+    fn = getattr(load_library(library), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return fn
 
 
 def current_stream_handle(device: torch.device) -> ctypes.c_void_p:

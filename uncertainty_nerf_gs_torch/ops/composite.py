@@ -170,13 +170,9 @@ def _check(packed, pix, counts, img=None, alpha=None, g_img=None, g_alpha=None) 
             raise ValueError(f"{name} must be {want[name]}, got {tuple(x.shape)}")
 
 
-def _entry(name: str, num_pointers: int):
-    """A C entry point of the kernel library, built and loaded at first use."""
-    fn = getattr(backend.load_library(KERNEL), name)
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * num_pointers + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+def _args(num_pointers: int) -> list:
+    """A composite entry point's arguments: its tensors, T, K, C, the stream."""
+    return [ctypes.c_void_p] * num_pointers + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def composite_fwd(
@@ -196,7 +192,7 @@ def _launch_fwd(packed, pix, counts):
     alpha = torch.empty((t, PIXELS), dtype=torch.float32, device=packed.device)
     if t == 0:
         return img, alpha
-    fn = _entry("composite_fwd_f32", 5)
+    fn = backend.entry(KERNEL, "composite_fwd_f32", _args(5))
     with torch.cuda.device(packed.device):
         err = fn(packed.data_ptr(), pix.data_ptr(), counts.data_ptr(), img.data_ptr(),
                  alpha.data_ptr(), t, k, d - 6, backend.current_stream_handle(packed.device))
@@ -230,7 +226,7 @@ def _launch_bwd(packed, pix, counts, img, alpha, g_img, g_alpha):
     g_packed = torch.empty_like(packed)
     if t == 0:
         return g_packed
-    fn = _entry("composite_bwd_f32", 8)
+    fn = backend.entry(KERNEL, "composite_bwd_f32", _args(8))
     with torch.cuda.device(packed.device):
         err = fn(packed.data_ptr(), pix.data_ptr(), counts.data_ptr(), img.data_ptr(),
                  alpha.data_ptr(), g_img.data_ptr(), g_alpha.data_ptr(), g_packed.data_ptr(),

@@ -241,11 +241,8 @@ _ARGTYPES = {
 
 def _entry(name: str):
     """A C entry point of the kernel library, built and loaded at first use."""
-    fn = getattr(backend.load_library(KERNEL), name)
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_longlong if name.endswith("scratch_bytes") else ctypes.c_int
-    return fn
+    restype = _L if name == "cell_lookup_bwd_scratch_bytes" else _I
+    return backend.entry(KERNEL, name, _ARGTYPES[name], restype)
 
 
 def _level_args(cells, resolutions, table_size, features_per_level):

@@ -150,15 +150,6 @@ def _check(weights, s_edges, u) -> tuple[int, int]:
     return _row_stride("s_edges", s_edges), _row_stride("u", u)
 
 
-def _entry(name: str, argtypes: list):
-    """A C entry point of the kernel library, built and loaded at first use."""
-    fn = getattr(backend.load_library(KERNEL), name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
 _RESAMPLE_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                   ctypes.c_longlong, ctypes.c_void_p] + [ctypes.c_int] * 3 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
@@ -187,7 +178,7 @@ def resample_edges(
     out = torch.empty((r, n), dtype=torch.float32, device=weights.device)
     if r == 0:
         return out
-    fn = _entry("pdf_resample_f32", _RESAMPLE_ARGS)
+    fn = backend.entry(KERNEL, "pdf_resample_f32", _RESAMPLE_ARGS)
     with torch.cuda.device(weights.device):
         err = fn(
             weights.data_ptr(), s_edges.data_ptr(), edges_stride, u.data_ptr(), u_stride,
@@ -204,7 +195,7 @@ def launch_floor(num_rays: int, num_bins: int, device: torch.device) -> None:
     """Launches an empty kernel with ``resample_edges``' grid, block and
     shared memory for (num_rays, num_bins): the launch's own cost, timed
     beside K1. Not a launch of K1, so it is not counted."""
-    fn = _entry("pdf_resample_floor_f32", _FLOOR_ARGS)
+    fn = backend.entry(KERNEL, "pdf_resample_floor_f32", _FLOOR_ARGS)
     with torch.cuda.device(device):
         err = fn(num_rays, num_bins, backend.current_stream_handle(device))
     if err != 0:

@@ -12,7 +12,11 @@ static-shape design:
   3. the per-tile rows gathered into one contiguous (T, K, 6 + C) buffer and
      composited by ``ops/composite.py::composite_tiles``: the hand-written
      CUDA kernels K2 (forward) and K3 (backward) on the card, their plain
-     versions on the CPU. Gradients reach the Gaussians through the gather.
+     versions on the CPU. Gradients reach the Gaussians through the gather,
+     whose backward (``PackedRowGather``) reads each tile's live slots only
+     and sums each Gaussian's rows in a fixed order: the hand-written
+     ``csrc/packed_rows.cu`` on the card, ``packed_rows_vjp_reference`` on
+     the CPU, equal bit for bit.
 
 Hits beyond either budget are dropped far to near and reported
 (``max_overflow``). The JAX package's other compositing strategies ("xla",
@@ -21,10 +25,13 @@ Hits beyond either budget are dropped far to near and reported
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from uncertainty_nerf_gs_torch.ops import backend
 
 from uncertainty_nerf_gs_torch.ops.composite import (  # noqa: F401 (re-exported)
     ALPHA_CLAMP,
@@ -36,6 +43,7 @@ from uncertainty_nerf_gs_torch.ops.gaussians import Projection
 
 BACKENDS = ("auto", "pallas")  # both composite with K2 / K3
 PACK_VIAS = ("gather", "matmul")  # identical outputs; the port gathers for both
+PACKED_ROWS_BWD = "packed_rows_bwd"  # the gather's backward: its counter
 
 
 class RasterOutputs(NamedTuple):
@@ -193,6 +201,117 @@ def _tile_pixels(num_tx: int, num_ty: int, device) -> torch.Tensor:
     return offsets[None] + origin[:, None, :]
 
 
+def packed_rows_vjp_reference(
+    g_packed: torch.Tensor, idx_all: torch.Tensor, counts: torch.Tensor, num_rows: int
+) -> torch.Tensor:
+    """Plain backward of the packed-row gather: (num_rows + 1, D) with row r
+    the sum of g_packed over the live slots (t, k < counts[t]) that hold r,
+    and the pad row num_rows zero. Each row's entries are added from left to
+    right in ascending (tile, slot) order, one rank of every row at a time,
+    as ``csrc/packed_rows.cu`` adds them: the two agree bit for bit, and two
+    runs give the same bits on any device."""
+    t, k, d = g_packed.shape
+    live = torch.arange(k, device=g_packed.device)[None, :] < counts[:, None]
+    ids = idx_all[live]  # row-major: ascending (tile, slot)
+    vals = g_packed[live]
+    order = torch.argsort(ids, stable=True)
+    ids, vals = ids[order], vals[order]
+    # each entry's place in its row's run, then the entries grouped by it
+    rank = torch.arange(ids.shape[0], device=ids.device) - torch.searchsorted(ids, ids)
+    by_rank = torch.argsort(rank, stable=True)
+    sizes = torch.bincount(rank).tolist() if ids.numel() else []
+    g_src = torch.zeros((num_rows + 1, d), dtype=g_packed.dtype, device=g_packed.device)
+    for rows, v in zip(ids[by_rank].split(sizes), vals[by_rank].split(sizes)):
+        g_src[rows] = g_src[rows] + v  # each row at most once a rank
+    g_src[num_rows] = 0.0
+    return g_src
+
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def _check_packed_rows(g_packed, idx_all, counts) -> None:
+    """Raise on what ``csrc/packed_rows.cu`` does not take; nothing is
+    copied or cast."""
+    if g_packed.dtype != torch.float32 or g_packed.dim() != 3 or not g_packed.is_contiguous():
+        raise ValueError(f"g_packed must be contiguous float32 (T, K, D), got {g_packed.dtype} "
+                         f"{tuple(g_packed.shape)} strides {g_packed.stride()}")
+    t, k, _ = g_packed.shape
+    if idx_all.dtype != torch.int64 or tuple(idx_all.shape) != (t, k) or idx_all.stride(1) != 1:
+        raise ValueError(f"idx_all must be int64 {(t, k)} with contiguous rows, got {idx_all.dtype} "
+                         f"{tuple(idx_all.shape)} strides {idx_all.stride()}")
+    if counts.dtype != torch.int32 or tuple(counts.shape) != (t,) or not counts.is_contiguous():
+        raise ValueError(f"counts must be contiguous int32 ({t},), got {counts.dtype} {tuple(counts.shape)}")
+    for name, x in (("idx_all", idx_all), ("counts", counts)):
+        if x.device != g_packed.device:
+            raise ValueError(f"{name} is on {x.device}, g_packed on {g_packed.device}")
+
+
+def packed_rows_bwd(
+    g_packed: torch.Tensor, idx_all: torch.Tensor, counts: torch.Tensor, num_rows: int
+) -> torch.Tensor:
+    """The gather's backward on the card: the live slots' keys
+    (``csrc/packed_rows.cu``), K5's stable radix sort of them
+    (``csrc/hash_grid.cu::radix_sort_u32``) and the fixed-order sum. The
+    same function as ``packed_rows_vjp_reference``, bit for bit. Reads the
+    number of live slots back to the host to size the sort."""
+    _check_packed_rows(g_packed, idx_all, counts)
+    if num_rows < 0 or num_rows >= 2**31:
+        raise ValueError(f"num_rows {num_rows} out of range")
+    dev = g_packed.device
+    t, k, d = g_packed.shape
+    offsets = torch.cumsum(counts, dim=0, dtype=torch.int32) - counts
+    num_live = int(counts.sum()) if t else 0
+    bits = max(1, (num_rows - 1).bit_length())  # every key is below num_rows
+    keys, slots, skeys, perm = (torch.empty(num_live, dtype=torch.int32, device=dev) for _ in range(4))
+    g_src = torch.empty((num_rows + 1, d), dtype=torch.float32, device=dev)
+    scratch_bytes = backend.entry("hash_grid", "radix_sort_u32_scratch_bytes", [_I], _L)(num_live)
+    scratch = torch.empty(max(scratch_bytes, 1), dtype=torch.uint8, device=dev)
+
+    def launch(library, name, argtypes, *args):
+        err = backend.entry(library, name, argtypes)(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+    with torch.cuda.device(dev):
+        stream = backend.current_stream_handle(dev)
+        launch("packed_rows", "packed_rows_keys", [_P, _P, _P, _P, _P, _I, _I, _L, _P],
+               idx_all.data_ptr(), counts.data_ptr(), offsets.data_ptr(), keys.data_ptr(), slots.data_ptr(),
+               t, k, idx_all.stride(0) if t else k)
+        launch("hash_grid", "radix_sort_u32", [_P, _I, _I, _P, _P, _P, _L, _P],
+               keys.data_ptr(), num_live, bits, skeys.data_ptr(), perm.data_ptr(), scratch.data_ptr(),
+               scratch.numel())
+        launch("packed_rows", "packed_rows_sum", [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+               skeys.data_ptr(), perm.data_ptr(), slots.data_ptr(), g_packed.data_ptr(), g_src.data_ptr(),
+               num_live, num_rows, d)
+    backend.count_launch(PACKED_ROWS_BWD)
+    return g_src
+
+
+class PackedRowGather(torch.autograd.Function):
+    """packed[t, k] = src[idx_all[t, k]], (T, K, D) from (n + 1, D) rows
+    (row n the pad row). The backward reads each tile's first ``counts[t]``
+    slots only (the rest hold the pad row, whose gradient is dropped) and
+    sums each row's gradient in a fixed order: ``packed_rows_bwd`` after a
+    forward on the card, ``packed_rows_vjp_reference`` otherwise, even when
+    autograd runs it after a ``backend.plain_versions()`` block has closed."""
+
+    @staticmethod
+    def forward(ctx, src, idx_all, counts):
+        ctx.kernel = backend.use_kernel(src)
+        ctx.num_rows = src.shape[0] - 1
+        ctx.save_for_backward(idx_all, counts)
+        return F.embedding(idx_all, src)
+
+    @staticmethod
+    def backward(ctx, g_packed):
+        idx_all, counts = ctx.saved_tensors
+        g_packed = g_packed.contiguous()
+        if ctx.kernel:
+            return packed_rows_bwd(g_packed, idx_all, counts, ctx.num_rows), None, None
+        return packed_rows_vjp_reference(g_packed, idx_all, counts, ctx.num_rows), None, None
+
+
 def select_and_pack(
     proj: Projection,
     opacities: torch.Tensor,
@@ -210,15 +329,13 @@ def select_and_pack(
         raise ValueError(f"pack_via must be one of {PACK_VIAS}, got {pack_via!r}")
     sel = _selection(proj, opacities, payload, width, height, capacity, row_capacity)
     idx_all = sel["idx_all"]
+    # _compact puts a tile's hits in its first slots and the pad row n in
+    # every slot after them, so the live slots are the first `counts`
+    counts = (idx_all < sel["n"]).sum(dim=1).to(torch.int32)
     return SelectPack(
-        # (T, K, 6 + C) row gather. As an embedding lookup its backward sums
-        # each Gaussian's rows by a sort and skips the pad row, which fills
-        # every slot past a tile's count: as an indexed gather, its backward
-        # serialised those ~2e5 duplicate pad indices (59 of a step's 67 ms
-        # of device time at the splat benchmark shape on an H100)
-        packed=F.embedding(idx_all, sel["packed_src"], padding_idx=sel["n"]),
+        packed=PackedRowGather.apply(sel["packed_src"], idx_all, counts),  # (T, K, 6 + C)
         pix=_tile_pixels(sel["num_tx"], sel["num_ty"], idx_all.device),
-        counts=(idx_all < sel["n"]).sum(dim=1).to(torch.int32),
+        counts=counts,
         overflows=sel["overflows"],
         num_tiles=sel["num_tiles"],
     )

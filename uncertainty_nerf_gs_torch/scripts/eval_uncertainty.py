@@ -10,9 +10,15 @@ frames: ``build_splat_render_fn`` (one trained model, the splat branch of
 the JAX ``build_render_fn``) and ``build_ensemble_splat_render_cam`` (its
 members stacked), on the config's fixed eval background, with
 ``_apply_raster_capacity`` to set or probe the rasterizer's budgets for the
-eval cameras. They take in-memory members (``interop.stack_params``) or
-trainers and cameras; loading runs from checkpoints and the CLI's ``main``
-wait for ``engine/checkpointing.py`` (ROADMAP, queue 1, item 6).
+eval cameras. ``build_chunk_render_fn`` and ``build_render_fn`` are the
+per-method renderers of one trained model: the plain forward (nerfacto,
+active-nerfacto), MC-dropout (``models/mcdropout.py``, with the eval-time
+``mc_samples`` override) and Laplace (``models/laplace.py``: the GGN is fit
+on every call; its cache file, ``load_ggn_cache``/``save_ggn_cache``, waits
+for ``engine/checkpointing.py``, ROADMAP queue 1 item 6). They take
+in-memory members (``interop.stack_params``) or trainers and cameras;
+loading runs from checkpoints and the CLI's ``main`` wait for
+``engine/checkpointing.py`` (ROADMAP, queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -120,6 +126,91 @@ def build_splat_render_fn(trainer, eval_cameras: Cameras) -> Callable[[int], dic
         return {k: v for k, v in out.items() if k not in ("radii", "visible")}
 
     return render
+
+
+def build_chunk_render_fn(
+    trainer,
+    spec,
+    mc_samples: int = 10,
+    laplace_iters: int = 300,
+    laplace_samples: int = 100,
+    prior_prec: float = 1.0,
+    seed: int = 0,
+    *,
+    batch_iter: Callable | None = None,
+    draws=None,
+) -> Callable:
+    """The nerfacto family's predictive chunk renderer ``rb -> outputs`` of
+    one trained model (``NerfactoTrainer``). ``spec`` names the method by
+    the JAX package's ``MethodSpec`` fields ``family``, ``mc_samples`` and
+    ``laplace`` (the port's ``configs/`` is ROADMAP queue 1 item 9):
+
+    * ``mc_samples > 0``: ``mc_dropout_render`` with ``mc_samples`` (the
+      eval-time override; 0 takes the method's) samples, masks from a
+      generator seeded ``seed + 7``, or ``draws`` (one mask dict a sample,
+      used for every chunk, as the JAX package reuses its key);
+    * ``laplace``: ``fit_laplace`` over ``laplace_iters`` batches of 4,096
+      training rays (``batch_iter(step)``, by default drawn by the
+      trainer's sampler from a generator seeded ``seed + 11``), fit on
+      every call (no GGN cache yet, queue 1 item 6), then
+      ``laplace_render`` with normal draws from a generator seeded ``seed +
+      7``, or ``draws`` (``laplace_draws``' layout, every chunk);
+    * otherwise the eval forward with the average appearance."""
+    if spec.family == "splatfacto":
+        raise ValueError("splatfacto renders frames, not ray chunks")
+    from uncertainty_nerf_gs_torch.models.laplace import fit_laplace, laplace_render
+    from uncertainty_nerf_gs_torch.models.mcdropout import mc_dropout_render
+
+    model, config, device = trainer.model, trainer.config, trainer.device
+    noise = torch.Generator(device=device).manual_seed(seed + 7)
+    if spec.mc_samples > 0:
+        m = mc_samples or spec.mc_samples
+
+        def chunk_fn(rb):
+            return mc_dropout_render(model, rb, m, generator=None if draws else noise, masks=draws)
+
+        return chunk_fn
+
+    if spec.laplace:
+        if batch_iter is None:
+            batches = torch.Generator(device=device).manual_seed(seed + 11)
+
+            def batch_iter(step):
+                # 4,096 rays a batch, as the reference fits its GGN on the
+                # training batches
+                batch = trainer.sample_batch(4096, generator=batches)
+                return generate_rays(trainer.cameras, batch["camera_indices"], batch["pixel_x"],
+                                     batch["pixel_y"])
+
+        posterior = fit_laplace(model, batch_iter, config, n_iters=laplace_iters)
+
+        def chunk_fn(rb):
+            return laplace_render(model, posterior, rb, config, noise=draws,
+                                  generator=None if draws else noise, n_samples=laplace_samples,
+                                  prior_prec=prior_prec)
+
+        chunk_fn.posterior = posterior
+        return chunk_fn
+
+    def chunk_fn(rb):
+        return model(rb, train=False, use_average_appearance=True)
+
+    return chunk_fn
+
+
+def build_render_fn(trainer, spec, eval_cameras: Cameras, mc_samples: int = 10, laplace_iters: int = 300,
+                    laplace_samples: int = 100, prior_prec: float = 1.0, seed: int = 0,
+                    **injected) -> Callable[[int], dict[str, torch.Tensor]]:
+    """The per-method predictive renderer ``i -> outputs`` of eval camera
+    i: the splat family through ``build_splat_render_fn``, the nerfacto
+    family through ``build_chunk_render_fn`` in full-image chunks.
+    ``injected`` passes ``batch_iter`` and ``draws`` on."""
+    if spec.family == "splatfacto":
+        return build_splat_render_fn(trainer, eval_cameras)
+    chunk_fn = build_chunk_render_fn(trainer, spec, mc_samples=mc_samples, laplace_iters=laplace_iters,
+                                     laplace_samples=laplace_samples, prior_prec=prior_prec, seed=seed,
+                                     **injected)
+    return _nerfacto_full_image_renderer(trainer.config, chunk_fn, eval_cameras, trainer.device)
 
 
 def _apply_raster_capacity(trainers: Sequence, cameras: Cameras, setting) -> None:
