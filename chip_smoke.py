@@ -73,11 +73,28 @@ bit against the plain path with the same masks; an image at 10 samples
 with K1 2 and K4 3 a chunk, timed and profiled beside a deterministic
 one); nerfacto-laplace (``fit_laplace`` over 300 batches of 4,096 rays,
 timed and profiled; its GGN and a chunk's render bit for bit against the
-plain path; an image at 100 samples and density draws). Exits non-zero,
+plain path; an image at 100 samples and density draws). Last comes the
+CLI phase (``run_cli``), driven through the entry points a user calls: a
+Blender tree written by the port's ``write_blender_dataset`` (8 + 4 views
+at 256x256), full-width active-nerfacto trained by ``scripts.train.main``
+(300 steps, a checkpoint every 100, 50 steps a launch as one captured CUDA
+graph replayed), a run stopped at 200 and resumed with ``--load-dir``
+whose last checkpoint must equal the straight run's bit for bit, 50 steps
+at 50 a launch against 50 single steps from one snapshot (losses and
+state bit for bit, the same K1/K4/K5 launches, each timed and profiled),
+one step with gradient checkpointing against one without (gradients bit
+for bit; the peak memory at 4,096 and 16,384 rays), then
+``scripts.eval_uncertainty.main`` on the run, on a fused two-member
+ensemble with a seed-1 run (K6), on nerfacto-mcdropout at 10 samples, on
+nerfacto-laplace twice (the second from the GGN cache, the same metrics)
+and on active-splatfacto (K2/K3 and the packed-row backward in its
+training, ``--raster-capacity auto``), every metric finite. Exits non-zero,
 with no result line, when there is no card or any phase fails. The last line of standard
 output is a JSON object naming the device; the line before it the card's
 name and power limit; before that a ``{"kernels": [...]}`` line with each
-kernel's launches, error, times and bound.
+kernel's launches (the CLI phase's by run, a captured step's times its
+replays), error, times and bound, and a ``{"cli": ...}`` line with each CLI
+run's wall time, rate and metrics.
 
 ``--k4-against OTHER_CHECKOUT`` also builds that checkout's ``uncertainty_
 nerf_gs_torch/csrc/hash_grid.cu`` (for example the parent commit unpacked
@@ -3085,6 +3102,283 @@ def run_ensemble(device, name, other=None) -> dict:
     return dict(k6=k6, plan=chunk["plan"], **images)
 
 
+# -- the CLI phase: a run from the command line, resume, the K-step graph ------
+
+CLI_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
+CLI_SIZE, CLI_TRAIN_VIEWS, CLI_TEST_VIEWS = 256, 8, 4
+CLI_STEPS, CLI_SAVE, CLI_STOP, CLI_SHORT = 300, 100, 200, 100
+CLI_K = 50  # steps a launch, the CLI's default
+CLI_MC_SAMPLES, CLI_LAPLACE_ITERS = 10, 50
+# per-step launches of a nerfacto-family training step
+NERF_STEP_LAUNCHES = dict(pdf_resample=2, cell_lookup_fwd=3, cell_lookup_bwd=3)
+TIMING_KEYS = ("num_rays_per_sec", "fps", "compile_and_first_render_sec")
+
+
+def cli_train(label, argv, runs) -> Path:
+    """``scripts.train.main(argv)`` with the launch counters set to 0 just
+    before and read just after; its wall time and rate printed."""
+    import gc
+
+    from uncertainty_nerf_gs_torch.ops import backend
+    from uncertainty_nerf_gs_torch.scripts import train
+
+    steps = int(argv[argv.index("--max-num-iterations") + 1])
+    start = 0
+    if "--load-dir" in argv:
+        from uncertainty_nerf_gs_torch.engine.checkpointing import latest_checkpoint
+
+        start = int(latest_checkpoint(Path(argv[argv.index("--load-dir") + 1])).name[5:14])
+    backend.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train.main([str(a) for a in argv])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(backend.launch_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs[label] = dict(kind="train", wall_s=wall, steps=steps - start, steps_per_s=(steps - start) / wall,
+                       launches=launches)
+    print(f"cli {label}: {steps - start} steps in {wall:.1f} s, {(steps - start) / wall:.1f} steps/s (set-up, "
+          f"checkpoints and the graph's capture included); launches {launches}")
+    return out
+
+
+def cli_eval(label, argv, runs) -> dict:
+    """``scripts.eval_uncertainty.main(argv)`` likewise; every metric it
+    wrote must be finite."""
+    import gc
+
+    from uncertainty_nerf_gs_torch.ops import backend
+    from uncertainty_nerf_gs_torch.scripts import eval_uncertainty
+
+    backend.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(None):
+        out = eval_uncertainty.main([str(a) for a in argv])
+    wall = time.perf_counter() - t0
+    launches = dict(backend.launch_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    results = out["results"]
+    payload = json.loads(Path(argv[argv.index("--output-path") + 1]).read_text())
+    bad = [k for k, v in results.items() if not np.isfinite(v)]
+    if bad or payload["results"] != results:
+        raise AssertionError(f"cli {label}: metrics not finite {bad}, or the JSON differs from the results")
+    runs[label] = dict(kind="eval", wall_s=wall, launches=launches, method=payload["method_name"],
+                       approximations=payload["approximations"], metrics=results)
+    print(f"cli {label}: {wall:.1f} s, {payload['method_name']}, launches {launches}; metrics " + ", ".join(
+        f"{k} {v:.6g}" for k, v in sorted(results.items())))
+    return results
+
+
+def check_launched(label, runs, names) -> None:
+    got = runs[label]["launches"]
+    missing = [n for n in names if not got[n]]
+    if missing:
+        raise AssertionError(f"cli {label}: {missing} never launched ({got})")
+
+
+def check_cli_graph(trainer, name) -> dict:
+    """From one restored snapshot of the CLI run, ``train(CLI_K,
+    steps_per_launch=CLI_K)`` (WARMUP_STEPS eager steps, the capture, the
+    replays) against ``train(CLI_K, steps_per_launch=1)``: the losses and
+    the whole state bit for bit, the same K1/K4/K5 launches. Then each way
+    again from there (the K-step launch all replays), timed on the host
+    clock and profiled: ms a step, device busy time and idle share."""
+    from uncertainty_nerf_gs_torch.ops import backend
+
+    snap = _clone_tree(trainer.state_dict())
+    want = {n: CLI_K * v for n, v in NERF_STEP_LAUNCHES.items()}
+    out = {}
+
+    def timed(k):
+        losses = []
+        backend.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train(CLI_K, NERF_RAYS, steps_per_launch=k, callback=lambda i, l: losses.append(l))
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / CLI_K
+        got = {n: backend.launch_counts[n] for n in want}
+        if got != want:
+            raise AssertionError(f"steps_per_launch {k}: launches {got} for {CLI_K} steps, expected {want}")
+        return ms, losses
+
+    for k in (1, CLI_K):
+        trainer.restore(_clone_tree(snap))
+        first_ms, losses = timed(k)
+        out[k] = dict(first_ms=first_ms, losses=losses, state=_clone_tree(trainer.state_dict()))
+        out[k]["ms"], _ = timed(k)
+        kernels = profile_top(f"cli train {CLI_K} steps, steps_per_launch {k}",
+                              lambda: trainer.train(CLI_K, NERF_RAYS, steps_per_launch=k), NERF_SYMBOLS, top=3)
+        out[k]["busy_ms"] = 1e-3 * sum(us for _, us in kernels.values()) / CLI_K if kernels else None
+    differ: dict = {}
+    items = _tree_differ("", out[1]["state"], out[CLI_K]["state"], differ) + 1
+    if out[1]["losses"] != out[CLI_K]["losses"]:
+        differ["losses"] = True
+    print(f"cli graph check: {CLI_K} steps as one launch (a captured step replayed) against {CLI_K} single "
+          f"steps from one snapshot: launches {want} each way; {len(differ)} of {items} items differ" + (
+              f": {list(differ)[:8]}" if differ else " (losses, parameters, Adam's moments and counts, step, "
+              "generator bit-identical)"))
+    for k in (1, CLI_K):
+        busy = out[k]["busy_ms"]
+        print(f"cli steps_per_launch {k}: {out[k]['ms']:.2f} ms a step on the host clock ({out[k]['first_ms']:.2f} "
+              f"in the first launch from the snapshot), device busy "
+              + (f"{busy:.2f} ms a step" if busy else "not measured") + f" on {name}")
+    trainer.restore(snap)
+    if differ:
+        raise AssertionError(f"the K-step launch differs from single steps: {list(differ)[:8]}")
+    return {k: dict(ms=v["ms"], first_ms=v["first_ms"], busy_ms=v["busy_ms"]) for k, v in out.items()}
+
+
+def check_cli_grad_checkpoint(trainer) -> dict:
+    """One step's gradients with the forward recomputed in the backward and
+    without, from one snapshot: bit for bit; the peak memory a step adds
+    over what it starts with, at 4,096 and 16,384 rays, each way; and three
+    checkpointed steps as one captured launch against three plain single
+    steps, bit for bit."""
+    import gc
+
+    snap = _clone_tree(trainer.state_dict())
+    peaks = {}
+    for rays in (NERF_RAYS, 4 * NERF_RAYS):
+        grads = {}
+        for ckpt in (False, True):
+            trainer.restore(_clone_tree(snap))
+            trainer.gradient_checkpointing = ckpt
+            trainer.optimizer.zero_grad(set_to_none=True)
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            batch = trainer.sample_batch(rays)
+            total, losses = trainer._loss_fn(batch, trainer._step_t)
+            total.backward()
+            torch.cuda.synchronize()
+            peaks[(rays, ckpt)] = (torch.cuda.max_memory_allocated() - base) / 1e9
+            grads[ckpt] = {k: p.grad.detach().clone() for k, p in trainer.params().items()}
+            # a loss kept alive keeps its autograd graph, and with it the
+            # parameters' gradient accumulators on this (the default)
+            # stream, which a later capture on its own stream cannot join
+            del total, losses
+            print(f"cli grad checkpoint {ckpt}, {rays} rays: a step's peak memory over its start "
+                  f"{peaks[(rays, ckpt)]:.3f} GB ({base / 1e9:.2f} GB held before it)")
+        differ = [k for k in grads[False] if not torch.equal(grads[False][k], grads[True][k])]
+        print(f"cli grad checkpoint, {rays} rays: {len(differ)} of {len(grads[False])} gradients differ")
+        if differ:
+            raise AssertionError(f"gradient checkpointing changed the gradients: {differ[:8]}")
+    # the checkpointed step captured and replayed, against plain single steps
+    states = []
+    for ckpt, k in ((False, 1), (True, 3)):
+        trainer.restore(_clone_tree(snap))
+        trainer.gradient_checkpointing = ckpt
+        trainer.train(3, NERF_RAYS, steps_per_launch=k)
+        states.append(_clone_tree(trainer.state_dict()))
+    differ: dict = {}
+    items = _tree_differ("", states[0], states[1], differ)
+    print(f"cli grad checkpoint, 3 steps at 3 a launch against 3 plain single steps: {len(differ)} of {items} "
+          "state items differ")
+    if differ:
+        raise AssertionError(f"the checkpointed K-step launch differs: {list(differ)[:8]}")
+    trainer.gradient_checkpointing = False
+    trainer.restore(snap)
+    return {f"{rays}_{'checkpointed' if c else 'plain'}": v for (rays, c), v in peaks.items()}
+
+
+def run_cli(name) -> dict:
+    """The CLI phase: a Blender tree written by the port (CLI_TRAIN_VIEWS
+    and CLI_TEST_VIEWS views at CLI_SIZE), full-width active-nerfacto
+    trained through ``scripts.train.main`` (CLI_STEPS steps, a checkpoint
+    every CLI_SAVE, CLI_K steps a launch), a run stopped at CLI_STOP and
+    resumed with ``--load-dir`` whose last checkpoint must equal the
+    straight run's bit for bit, the K-step graph check and the gradient
+    checkpointing check from the trained state, then
+    ``scripts.eval_uncertainty.main`` on the run, on a fused two-member
+    ensemble with a seed-1 run (K6), on nerfacto-mcdropout, on
+    nerfacto-laplace twice (the second reads the GGN cache: the same
+    metrics) and on active-splatfacto (K2/K3 and the packed-row backward in
+    its training)."""
+    import shutil
+
+    from uncertainty_nerf_gs_torch.data.synthetic import write_blender_dataset
+    from uncertainty_nerf_gs_torch.engine import checkpointing as ck
+    from uncertainty_nerf_gs_torch.scripts.train import build_trainer
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    scene = write_blender_dataset(CLI_DIR / "scene", CLI_TRAIN_VIEWS, CLI_TEST_VIEWS, CLI_SIZE, CLI_SIZE)
+    print(f"cli: wrote a Blender tree of {CLI_TRAIN_VIEWS} + {CLI_TEST_VIEWS} views at {CLI_SIZE}x{CLI_SIZE} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    runs: dict[str, dict] = {}
+
+    def train_args(method, out, steps, *extra):
+        return [method, "--data", scene, "--dataparser", "blender-data", "--output-dir", CLI_DIR / out,
+                "--max-num-iterations", steps, "--steps-per-save", CLI_SAVE, "--steps-per-launch", CLI_K,
+                "--log-every", CLI_SAVE, *extra]
+
+    straight = cli_train("active_nerfacto", train_args("active-nerfacto", "straight", CLI_STEPS), runs)
+    want = {n: CLI_STEPS * v for n, v in NERF_STEP_LAUNCHES.items()}
+    if {n: runs["active_nerfacto"]["launches"][n] for n in want} != want:
+        raise AssertionError(f"the CLI run's launches {runs['active_nerfacto']['launches']}, expected {want}")
+    cli_train("active_nerfacto_to_stop", train_args("active-nerfacto", "resumed", CLI_STOP), runs)
+    resumed = cli_train("active_nerfacto_resumed",
+                        train_args("active-nerfacto", "resumed", CLI_STEPS, "--load-dir", CLI_DIR / "resumed"), runs)
+    a, b = ck.load_checkpoint(ck.checkpoint_path(straight, CLI_STEPS)), ck.load_checkpoint(
+        ck.checkpoint_path(resumed, CLI_STEPS))
+    differ: dict = {}
+    items = _tree_differ("", a, b, differ)
+    print(f"cli resume: step-{CLI_STEPS:09d}.ckpt of the run resumed at {CLI_STOP} against the straight run's: "
+          f"{len(differ)} of {items} items differ" + (
+              f": {differ}" if differ else " (parameters, Adam's moments and counts, generator, step)"))
+    if differ or a["step"] != CLI_STEPS:
+        raise AssertionError(f"the resumed run differs from the straight run: {list(differ)[:8]}")
+    del a, b
+    for d in (straight, resumed):  # the disk holds the last checkpoint of each run
+        for p in d.glob("step-*.ckpt"):
+            if p != ck.latest_checkpoint(d):
+                p.unlink()
+
+    trainer, _, _ = build_trainer("active-nerfacto", scene, "blender-data")
+    trainer.restore(ck.load_latest(straight)[0])
+    graph = check_cli_graph(trainer, name)
+    memory = check_cli_grad_checkpoint(trainer)
+    del trainer
+    torch.cuda.empty_cache()
+
+    cli_eval("eval_active_nerfacto", ["--load-config", straight, "--output-path", CLI_DIR / "an.json"], runs)
+    seed1 = cli_train("active_nerfacto_seed1", train_args("active-nerfacto", "seed1", CLI_SHORT, "--seed", 1), runs)
+    cli_eval("eval_ensemble_fused", ["--load-config", straight, "--load-config", seed1,
+                                     "--output-path", CLI_DIR / "ens.json"], runs)
+    check_launched("eval_ensemble_fused", runs, ["packed_cell_lookup_fwd", "packed_cell_lookup_strided",
+                                                 "pdf_resample"])
+    mcd = cli_train("nerfacto_mcdropout", train_args("nerfacto-mcdropout", "mcd", CLI_SHORT), runs)
+    cli_eval("eval_nerfacto_mcdropout", ["--load-config", mcd, "--output-path", CLI_DIR / "mcd.json",
+                                         "--mc-samples", CLI_MC_SAMPLES], runs)
+    lap = cli_train("nerfacto_laplace", train_args("nerfacto-laplace", "lap", CLI_SHORT), runs)
+    metrics = []
+    for i in range(2):
+        cache = ck.ggn_cache_path(lap, CLI_LAPLACE_ITERS)
+        print(f"cli laplace eval {i}: the GGN cache {'exists' if cache.exists() else 'does not exist yet'}")
+        metrics.append(cli_eval(f"eval_nerfacto_laplace_{i}", ["--load-config", lap, "--output-path",
+                                                               CLI_DIR / f"lap{i}.json", "--laplace-iters",
+                                                               CLI_LAPLACE_ITERS], runs))
+    same = {k: metrics[0][k] == metrics[1][k] for k in metrics[0] if k not in TIMING_KEYS}
+    print(f"cli laplace: fit and eval {runs['eval_nerfacto_laplace_0']['wall_s']:.1f} s, from the cache "
+          f"{runs['eval_nerfacto_laplace_1']['wall_s']:.1f} s; metrics bit-identical: {all(same.values())}")
+    if not all(same.values()):
+        raise AssertionError(f"the eval from the GGN cache differs: {[k for k, v in same.items() if not v]}")
+    splat = cli_train("active_splatfacto", train_args("active-splatfacto", "splat", CLI_SHORT), runs)
+    check_launched("active_splatfacto", runs, ["composite_fwd", "composite_bwd", "packed_rows_bwd"])
+    cli_eval("eval_active_splatfacto", ["--load-config", splat, "--output-path", CLI_DIR / "splat.json",
+                                        "--raster-capacity", "auto"], runs)
+    check_launched("eval_active_splatfacto", runs, ["composite_fwd"])
+    for label in ("eval_active_nerfacto", "nerfacto_mcdropout", "eval_nerfacto_mcdropout", "nerfacto_laplace"):
+        check_launched(label, runs, ["pdf_resample", "cell_lookup_fwd"])
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    return dict(runs=runs, graph=graph, memory=memory)
+
+
 def kernel_line(run_nerf, train_nerf, resample, nerf_plain, run_splat_, refine, splat_ens, comp, grid,
                 ens, gather, methods) -> list[dict]:
     """``methods``: path -> the launch counts of the other nerfacto-family
@@ -3342,11 +3636,23 @@ def main() -> int:
     print(f"ensemble done at {time.perf_counter() - t_start:.1f} s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
+    cli = run_cli(name)
+    print(f"cli done at {time.perf_counter() - t_start:.1f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
     methods = dict(mcdropout_train=mcd["train"]["launches"], mcdropout_image=mcd["mc"]["launches"],
                    mcdropout_deterministic_image=mcd["single"]["launches"], laplace_fit=lap["fit_launches"],
                    laplace_image=lap["image"]["launches"])
     kernels = kernel_line(run_nerf, train_nerf, resample, nerf_plain, run, refine, splat_ens, comp, grid, ens,
                           gather, methods)
+    for entry in kernels:  # the CLI phase's runs, a path each
+        for label, r in cli["runs"].items():
+            n = r["launches"].get(entry["name"], 0)
+            if n:
+                entry["launches_by_path"][f"cli_{label}"] = n
+                entry["launches"] += n
+    print(json.dumps({"cli": {k: {f: v for f, v in r.items() if f != "launches"} for k, r in cli["runs"].items()},
+                      "graph": cli["graph"], "grad_checkpoint_peak_gb": cli["memory"]}))
     print(json.dumps({"kernels": kernels}))
     print(name)
     print(json.dumps({"ok": True, "device": {

@@ -390,6 +390,50 @@ def test_eval_modules_import_without_pil_or_matplotlib():
     assert proc.returncode == 0, proc.stderr
 
 
+CLI_MODULES = [
+    "uncertainty_nerf_gs_torch.configs.flags",
+    "uncertainty_nerf_gs_torch.configs.methods",
+    "uncertainty_nerf_gs_torch.data.corruption",
+    "uncertainty_nerf_gs_torch.data.dataparsers",
+    "uncertainty_nerf_gs_torch.data.datasets",
+    "uncertainty_nerf_gs_torch.data.image_io",
+    "uncertainty_nerf_gs_torch.data.png",
+    "uncertainty_nerf_gs_torch.data.synthetic",
+    "uncertainty_nerf_gs_torch.engine.checkpointing",
+    "uncertainty_nerf_gs_torch.scripts.eval_uncertainty",
+    "uncertainty_nerf_gs_torch.scripts.train",
+    "uncertainty_nerf_gs_torch.utils.images",
+    "uncertainty_nerf_gs_torch.utils.writer",
+]
+
+
+def test_cli_modules_import_without_pil_yaml_or_matplotlib():
+    """The card's machine has no PIL, PyYAML or matplotlib: the data layer,
+    the checkpoints and the CLIs import without them; only non-PNG images,
+    blender-downscale's LANCZOS copies, a block-YAML config and the plots
+    import them, inside the function that needs them."""
+    code = ("import sys\nfor m in ('PIL', 'yaml', 'matplotlib'):\n    sys.modules[m] = None\n"
+            + "".join(f"import {m}\n" for m in CLI_MODULES)
+            + "assert not any(k.split('.')[0] in ('PIL', 'yaml', 'matplotlib') and v is not None "
+              "for k, v in sys.modules.items())\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("cli", ["train", "eval_uncertainty"])
+def test_cli_without_device_raises_without_cuda(monkeypatch, tmp_path, cli):
+    """Both CLIs run on the card unless ``--device cpu`` asks for the CPU."""
+    from uncertainty_nerf_gs_torch.scripts import eval_uncertainty, train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        if cli == "train":
+            train.main(["active-nerfacto", "--data", str(tmp_path), "--output-dir", str(tmp_path / "run")])
+        else:
+            eval_uncertainty.main(["--load-config", str(tmp_path), "--output-path", str(tmp_path / "m.json")])
+
+
 HASH_GRID_CU = REPO / "uncertainty_nerf_gs_torch" / "csrc" / "hash_grid.cu"
 PACKED_ROWS_CU = REPO / "uncertainty_nerf_gs_torch" / "csrc" / "packed_rows.cu"
 

@@ -392,13 +392,22 @@ def test_trainer_trains_and_resumes(rng):
 
 @pytest.mark.parametrize("what", ["steps_per_launch", "gradient_checkpointing", "face_consistency"])
 def test_trainer_refuses_unported_options(what):
+    """The face consistency loss is refused (ROADMAP queue 1, item 7).
+    ``steps_per_launch > 1`` and ``gradient_checkpointing`` are ported
+    now: they run (and equal the plain loop bit for bit,
+    tests/test_torch_checkpointing.py); a launch of fewer than one step is
+    refused."""
     kw = small_config_kwargs()
     cams = t_hemisphere(N_CAMS, height=H, width=W, seed=1)
     images = np.zeros((N_CAMS, H, W, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "steps_per_launch":
-            TTrainer(tnerf.NerfactoConfig(**kw), cams, images, device="cpu").train(2, 8, steps_per_launch=2)
-        elif what == "gradient_checkpointing":
-            TTrainer(tnerf.NerfactoConfig(**kw), cams, images, gradient_checkpointing=True, device="cpu")
-        else:
+    if what == "steps_per_launch":
+        trainer = TTrainer(tnerf.NerfactoConfig(**kw), cams, images, device="cpu")
+        assert np.isfinite(trainer.train(2, 8, steps_per_launch=2)["total_loss"]) and trainer.step == 2
+        with pytest.raises(ValueError, match="steps_per_launch"):
+            trainer.train(2, 8, steps_per_launch=0)
+    elif what == "gradient_checkpointing":
+        trainer = TTrainer(tnerf.NerfactoConfig(**kw), cams, images, gradient_checkpointing=True, device="cpu")
+        assert np.isfinite(trainer.train_step(8)["total_loss"])
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             TTrainer(tnerf.NerfactoConfig(**kw, face_consistency_mult=0.1), cams, images, device="cpu")

@@ -7,7 +7,7 @@ Adam (eps 1e-15) per Gaussian attribute with the splatfacto learning rates
 opacities 5e-2, features_dc 2.5e-3, features_rest 2.5e-3 / 20,
 log_uncertainties 2.5e-3), and the screen-space gradient tap that feeds the
 strategy state. Each group's lr is set from its schedule at the group's own
-count of updates, as optax counts them (``optimizers.apply_updates``).
+count of updates, as optax counts them (``_apply_updates``).
 
 After ``warmup_length`` the refinement schedule runs between steps, as in
 the JAX trainer: every ``refine_every`` steps ``refine_gaussians`` densifies
@@ -31,11 +31,7 @@ import torch
 
 from uncertainty_nerf_gs_torch.cameras.cameras import Cameras
 from uncertainty_nerf_gs_torch.cameras.lie import compose_poses, exp_map_SO3xR3
-from uncertainty_nerf_gs_torch.engine.optimizers import (
-    OptimizerGroupConfig,
-    apply_updates,
-    exp_decay_schedule,
-)
+from uncertainty_nerf_gs_torch.engine.optimizers import OptimizerGroupConfig, exp_decay_schedule
 from uncertainty_nerf_gs_torch.models import splatfacto as sf
 from uncertainty_nerf_gs_torch.ops.backend import resolve_device
 
@@ -48,6 +44,18 @@ SPLAT_GROUPS: dict[str, OptimizerGroupConfig] = {
     "features_rest": OptimizerGroupConfig(lr=2.5e-3 / 20, lr_final=2.5e-3 / 20, max_steps=30_000),
     "log_uncertainties": OptimizerGroupConfig(lr=2.5e-3, lr_final=2.5e-3, max_steps=30_000),
 }
+
+
+def _apply_updates(opt: torch.optim.Adam) -> None:
+    """One update: the group's lr from its schedule at its count of
+    updates made so far (optax's count), Adam's step, then the count
+    advances. The splat steps are not captured, so the lr is a host
+    float."""
+    for group in opt.param_groups:
+        group["lr"] = exp_decay_schedule(group["config"])(group["count"])
+    opt.step()
+    for group in opt.param_groups:
+        group["count"] += 1
 
 
 def _adam_state(opt: torch.optim.Adam) -> dict:
@@ -240,7 +248,7 @@ class SplatfactoTrainer:
         self.cam_optimizer.zero_grad(set_to_none=False)
         total.backward()
         for opt in self.optimizers.values():
-            apply_updates(opt)
+            _apply_updates(opt)
         if self.use_camera_optimizer:
             self.cam_optimizer.step()
         self.splat_state = sf.accumulate_stats(
@@ -320,10 +328,14 @@ class SplatfactoTrainer:
               f"{self.config.rasterize_capacity} row_capacity={self.config.rasterize_row_capacity}")
         return True
 
-    def train(self, num_steps: int, log_every: int = 0) -> dict[str, float]:
+    def train(self, num_steps: int, log_every: int = 0, writer=None) -> dict[str, float]:
+        """``num_steps`` steps; ``writer.write(step, losses)`` after every
+        one, as in the JAX trainer."""
         losses: dict[str, float] = {}
         for i in range(num_steps):
             losses = self.train_step()
+            if writer is not None:
+                writer.write(self.step, losses)
             if log_every and (i + 1) % log_every == 0:
                 print(f"step {self.step}: " + ", ".join(f"{k}={v:.4f}" for k, v in losses.items()))
         return losses

@@ -4,34 +4,54 @@ Counterpart of ``NerfactoTrainer`` in
 ``uncertainty_nerf_gs_tpu/engine/trainer.py``: per step a batch of rays is
 drawn from the images on the device, rays are generated inside the loss so
 that the camera optimizer's pose tangents receive gradients, the model's
-training forward and ``nerfacto_loss`` run with autograd, and one Adam with
-a param group per label (``engine/optimizers.py``) updates the weights.
-``render_image`` renders a full image in chunks with the eval forward and
-ignores the pose tangents, as the JAX package does.
+training forward and ``nerfacto_loss`` run with autograd, and one
+``ScheduledAdam`` with a param group per label (``engine/optimizers.py``)
+updates the weights. ``render_image`` renders a full image in chunks with
+the eval forward and ignores the pose tangents, as the JAX package does.
+
+One step function, ``_device_step``, serves every path. It reads nothing
+back to the host: the step counter, the proposal anneal, the groups' lr and
+Adam's counts are tensors on the device, and the losses stay there.
+``steps_per_launch = 1`` runs it eagerly, one host read of the losses a
+step. ``steps_per_launch = K > 1`` is the counterpart of the JAX package's
+one-launch ``lax.scan``: on the card the step is captured once into a
+``torch.cuda.CUDAGraph`` (after ``WARMUP_STEPS`` eager steps on a side
+stream, as PyTorch's graph rules ask) and replayed, each replay's losses
+copied into row i of a (K, n_losses) device buffer that is read once a
+launch; on the CPU the same function runs K times in a loop without host
+reads. The trainer's generator is registered with the graph, so replays
+draw what eager steps would, and a replay adds the captured step's kernel
+launches to ``ops.backend``'s counters. Both give the same bits.
+
+``gradient_checkpointing`` recomputes the model's forward in the backward
+(``torch.utils.checkpoint``, non-reentrant, the JAX package's
+``jax.checkpoint``). The forward's draws are taken before it, and its
+dropout masks are drawn once and replayed on the recompute
+(``ops.mlp.ReplayDropout``), so both runs see the same numbers.
 
 The batch, the forward's draws and, with ``dropout_rate > 0``
 (nerfacto-mcdropout), the dropout masks come from the trainer's own
 ``torch.Generator`` (seeded ``seed + 1``; the weights' from ``seed``), so
 they are not the JAX package's numbers; the parity tests inject those. Its
 state is part of ``state_dict``, so a restored trainer repeats a step bit
-for bit.
-Refused rather than skipped: ``steps_per_launch > 1`` and
-``gradient_checkpointing`` (ROADMAP, queue 1, item 6) and the face
-consistency loss (item 7).
+for bit. Unlike the JAX trainer, whose ``train`` restarts its key at ``seed
++ 1`` on every call, the generator carries on from call to call.
+Refused rather than skipped: the face consistency loss (ROADMAP, queue 1,
+item 7).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Mapping
+from typing import Any, Callable, Mapping, NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from uncertainty_nerf_gs_torch.cameras.cameras import Cameras, generate_rays, pixel_grid
 from uncertainty_nerf_gs_torch.engine.optimizers import (
     OptimizerGroupConfig,
     apply_updates,
-    label_params,
     make_optimizer,
 )
 from uncertainty_nerf_gs_torch.models.nerfacto import (
@@ -40,7 +60,22 @@ from uncertainty_nerf_gs_torch.models.nerfacto import (
     nerfacto_loss,
     proposal_anneal_factor,
 )
+from uncertainty_nerf_gs_torch.ops import backend
 from uncertainty_nerf_gs_torch.ops.backend import resolve_device
+from uncertainty_nerf_gs_torch.ops.mlp import Dropout, ReplayDropout
+
+# eager steps before the first capture of a step into a CUDA graph
+WARMUP_STEPS = 2
+
+
+class _CapturedStep(NamedTuple):
+    """One training step captured into a CUDA graph: ``losses`` is the
+    graph's output buffer, ``launches`` the kernel launches a replay
+    makes."""
+
+    graph: torch.cuda.CUDAGraph
+    losses: torch.Tensor
+    launches: dict[str, int]
 
 
 class NerfactoTrainer:
@@ -58,6 +93,7 @@ class NerfactoTrainer:
         tangent leaf starting at zero, as its own param group.
       optimizer_groups: per-group configs (``DEFAULT_GROUPS`` if None).
       masks: (N, H, W) bool, True for pixels the sampler may draw.
+      gradient_checkpointing: recompute the forward in the backward.
       device: ``None`` is the card; raises when there is none.
     """
 
@@ -73,10 +109,6 @@ class NerfactoTrainer:
         gradient_checkpointing: bool = False,
         device: str | torch.device | None = None,
     ):
-        if gradient_checkpointing:
-            raise NotImplementedError(
-                "gradient_checkpointing is not ported yet (ROADMAP, queue 1, item 6)"
-            )
         if config.face_consistency_mult > 0.0:
             raise NotImplementedError(
                 "face_consistency_loss is not ported yet (ROADMAP, queue 1, item 7)"
@@ -106,7 +138,12 @@ class NerfactoTrainer:
         )
         self.optimizer_groups = optimizer_groups
         self.optimizer = make_optimizer(self.params(), optimizer_groups)
+        self.gradient_checkpointing = gradient_checkpointing
+        # the step on the host, and on the device for the captured step
         self.step = 0
+        self._step_t = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._loss_names: list[str] | None = None
+        self._graphs: dict[int, _CapturedStep] = {}  # rays a batch -> captured step
 
     def params(self) -> dict[str, torch.Tensor]:
         """Every trained leaf by name: the model's state-dict names, and
@@ -126,16 +163,14 @@ class NerfactoTrainer:
         params = self.params()
         groups = {}
         for group in self.optimizer.param_groups:
-            st = self.optimizer.state.get(group["params"][0], {})
             groups[group["name"]] = {
-                "adam_count": int(st["step"]) if st else 0,
-                "schedule_count": group["count"],
+                "adam_count": int(group["adam_count"]),
+                "schedule_count": int(group["count"]),
             }
         moments: dict[str, dict[str, torch.Tensor]] = {"exp_avg": {}, "exp_avg_sq": {}}
         for name, p in params.items():
-            st = self.optimizer.state.get(p, {})
             for key, out in moments.items():
-                out[name] = st[key].detach() if st else torch.zeros_like(p.detach())
+                out[name] = self.optimizer.state[p][key].detach()
         return {
             "params": {k: v.detach() for k, v in params.items()},
             "opt_state": {"groups": groups, **moments},
@@ -149,7 +184,8 @@ class NerfactoTrainer:
         ``interop.params_from_jax`` of a flax tree, plus ``camera_opt`` with
         the camera optimizer); without ``opt_state`` the Adam state starts
         fresh, without ``step`` at 0, and without ``generator`` the
-        generator goes on from where it is."""
+        generator goes on from where it is. A captured step is dropped: the
+        next launch captures one again."""
         params = {k: torch.as_tensor(v) for k, v in ckpt["params"].items()}
         camera_opt = params.pop("camera_opt", None)
         if (camera_opt is None) != (self.camera_opt is None):
@@ -158,21 +194,20 @@ class NerfactoTrainer:
         with torch.no_grad():
             if camera_opt is not None:
                 self.camera_opt.copy_(camera_opt)
+        self._graphs.clear()
         self.optimizer = make_optimizer(self.params(), self.optimizer_groups)
         opt_state = ckpt.get("opt_state")
         if opt_state is not None:
-            labels = label_params(self.params())
             for group in self.optimizer.param_groups:
-                group["count"] = int(opt_state["groups"][group["name"]]["schedule_count"])
-            for name, p in self.params().items():
-                count = opt_state["groups"][labels[name]]["adam_count"]
-                self.optimizer.state[p] = {
-                    # torch.optim.Adam's own layout: a float32 step on the host
-                    "step": torch.tensor(float(count), dtype=torch.float32),
-                    "exp_avg": torch.as_tensor(opt_state["exp_avg"][name]).to(self.device).clone(),
-                    "exp_avg_sq": torch.as_tensor(opt_state["exp_avg_sq"][name]).to(self.device).clone(),
-                }
+                counts = opt_state["groups"][group["name"]]
+                group["count"].fill_(int(counts["schedule_count"]))
+                group["adam_count"].fill_(int(counts["adam_count"]))
+            with torch.no_grad():
+                for name, p in self.params().items():
+                    for key in ("exp_avg", "exp_avg_sq"):
+                        self.optimizer.state[p][key].copy_(torch.as_tensor(opt_state[key][name]))
         self.step = int(ckpt.get("step", 0))
+        self._step_t.fill_(self.step)
         if ckpt.get("generator") is not None:
             self._generator.set_state(ckpt["generator"])
 
@@ -202,13 +237,13 @@ class NerfactoTrainer:
 
     # ------------------------------------------------------------------ step
     def _loss_fn(
-        self, batch: Mapping[str, torch.Tensor], step: int, draws: dict[str, Any] | None = None,
+        self, batch: Mapping[str, torch.Tensor], step: int | torch.Tensor, draws: dict[str, Any] | None = None,
         dropout_masks: dict[str, torch.Tensor] | None = None,
     ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
         """Total loss and its terms at the current weights, with autograd.
         ``draws`` (``NerfactoModel.draw``'s layout) and ``dropout_masks``
         replace the generator's. Dropout applies when ``dropout_rate > 0``,
-        as in the JAX trainer."""
+        as in the JAX trainer. ``step`` may be the device's counter."""
         rb = generate_rays(
             self.cameras,
             batch["camera_indices"],
@@ -216,25 +251,85 @@ class NerfactoTrainer:
             batch["pixel_y"],
             pose_adjustment=self.camera_opt,
         )
-        outputs = self.model(
-            rb, train=True, proposal_anneal=proposal_anneal_factor(step, self.config),
-            generator=self._generator, draws=draws,
-            deterministic_dropout=self.config.dropout_rate == 0.0,
-            dropout_generator=None if dropout_masks is not None else self._generator,
-            dropout_masks=dropout_masks,
-        )
+        if draws is None:
+            draws = self.model.draw(rb.origins.shape[0], self._generator)
+        dropout = (Dropout(masks=dropout_masks) if dropout_masks is not None
+                   else ReplayDropout(self._generator))
+        anneal = proposal_anneal_factor(step, self.config)
+
+        def forward(rb):
+            return self.model(rb, train=True, proposal_anneal=anneal, draws=draws,
+                              deterministic_dropout=self.config.dropout_rate == 0.0, dropout=dropout)
+
+        if self.gradient_checkpointing:
+            # the trainer's generator is not one checkpoint preserves; the
+            # draws and masks above make the recompute repeat the forward
+            outputs = checkpoint(forward, rb, use_reentrant=False, preserve_rng_state=False)
+        else:
+            outputs = forward(rb)
         return nerfacto_loss(outputs, batch, self.config)
 
-    def train_step(self, num_rays_per_batch: int = 4096) -> dict[str, float]:
-        """One step: a batch, the loss, its gradients, one update."""
-        batch = self.sample_batch(num_rays_per_batch)
+    def _device_step(self, num_rays: int) -> torch.Tensor:
+        """One step (a batch, the loss, its gradients, one update) with no
+        host read: the loss terms and the total, (n_losses,) on the
+        device, in ``_loss_names``' order."""
+        batch = self.sample_batch(num_rays)
         self.optimizer.zero_grad(set_to_none=True)
-        total, losses = self._loss_fn(batch, self.step)
+        total, losses = self._loss_fn(batch, self._step_t)
         total.backward()
         apply_updates(self.optimizer)
+        self._step_t += 1
+        self._loss_names = [*losses, "total_loss"]
+        return torch.stack([*(v.detach() for v in losses.values()), total.detach()])
+
+    def train_step(self, num_rays_per_batch: int = 4096) -> dict[str, float]:
+        """One step, eagerly; its losses read back to the host."""
+        values = self._device_step(num_rays_per_batch).tolist()
         self.step += 1
-        losses["total_loss"] = total
-        return {k: float(v.detach()) for k, v in losses.items()}
+        return dict(zip(self._loss_names, values))
+
+    def _capture(self, num_rays: int) -> _CapturedStep:
+        """``_device_step`` captured into a CUDA graph, with the trainer's
+        generator registered. The capture records without running; its
+        launch counts are taken back and become the replays'."""
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self._generator)
+        before = dict(backend.launch_counts)
+        self.optimizer.zero_grad(set_to_none=True)
+        with torch.cuda.graph(graph):
+            losses = self._device_step(num_rays)
+        launches = {k: backend.launch_counts[k] - n for k, n in before.items()}
+        backend.launch_counts.update(before)
+        return _CapturedStep(graph, losses, launches)
+
+    def _launch(self, length: int, num_rays: int) -> np.ndarray:
+        """``length`` steps with one host read: (length, n_losses)."""
+        if self.device.type != "cuda":
+            rows = torch.stack([self._device_step(num_rays) for _ in range(length)])
+            self.step += length
+            return rows.cpu().numpy()
+        rows, done = [], 0
+        captured = self._graphs.get(num_rays)
+        if captured is None:
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                while done < min(WARMUP_STEPS, length):
+                    rows.append(self._device_step(num_rays))
+                    done += 1
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            if done < length:
+                captured = self._graphs[num_rays] = self._capture(num_rays)
+        buffer = torch.empty((length, len(self._loss_names)), device=self.device)
+        for i, row in enumerate(rows):
+            buffer[i].copy_(row)
+        for i in range(done, length):
+            captured.graph.replay()
+            buffer[i].copy_(captured.losses)
+        if done < length:
+            backend.count_replays(captured.launches, length - done)
+        self.step += length
+        return buffer.cpu().numpy()
 
     def train(
         self,
@@ -245,21 +340,28 @@ class NerfactoTrainer:
         writer=None,
         steps_per_launch: int = 1,
     ) -> dict[str, float]:
-        """``num_steps`` steps; ``writer.write(step, losses)`` every 10th and
-        the last, ``callback(i, losses)`` after each."""
-        if steps_per_launch > 1:
-            raise NotImplementedError(
-                "steps_per_launch > 1 is not ported yet (ROADMAP, queue 1, item 6)"
-            )
+        """``num_steps`` steps, ``steps_per_launch`` of them a launch (one
+        host read each); ``writer.write(step, losses)`` every 10th and the
+        last, ``callback(i, losses)`` after each, as in the JAX trainer."""
+        if steps_per_launch < 1:
+            raise ValueError(f"steps_per_launch must be at least 1, got {steps_per_launch}")
         losses: dict[str, float] = {}
-        for i in range(num_steps):
-            losses = self.train_step(num_rays_per_batch)
-            if writer is not None and (i % 10 == 0 or i == num_steps - 1):
-                writer.write(self.step, losses)
-            if log_every and (i + 1) % log_every == 0:
-                print(f"step {i + 1}: " + ", ".join(f"{k}={v:.4f}" for k, v in losses.items()))
-            if callback is not None:
-                callback(i, losses)
+        i = 0
+        while i < num_steps:
+            if steps_per_launch == 1:
+                rows = [list(self.train_step(num_rays_per_batch).values())]
+            else:
+                rows = self._launch(min(steps_per_launch, num_steps - i), num_rays_per_batch).tolist()
+            base = self.step - len(rows)
+            for j, row in enumerate(rows):
+                losses = dict(zip(self._loss_names, row))
+                if writer is not None and ((i + j) % 10 == 0 or i + j == num_steps - 1):
+                    writer.write(base + j + 1, losses)
+                if log_every and (i + j + 1) % log_every == 0:
+                    print(f"step {i + j + 1}: " + ", ".join(f"{k}={v:.4f}" for k, v in losses.items()))
+                if callback is not None:
+                    callback(i + j, losses)
+            i += len(rows)
         return losses
 
     # ------------------------------------------------------------- rendering

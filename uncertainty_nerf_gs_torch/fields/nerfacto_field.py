@@ -14,6 +14,7 @@ before the first dropout.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple, Sequence
 
 import torch
@@ -42,6 +43,13 @@ def _check_layout(grid_layout: str) -> None:
         )
 
 
+@functools.lru_cache(maxsize=None)
+def _box(aabb: tuple, device: torch.device) -> torch.Tensor:
+    """The (2, 3) box on ``device``, made once: a captured training step
+    (``NerfactoTrainer``'s CUDA graph) cannot hold a host-to-device copy."""
+    return torch.as_tensor(aabb, dtype=torch.float32, device=device)
+
+
 def _normalize_positions(positions, use_scene_contraction: bool, aabb):
     """Hash-grid inputs in [0, 1]^3 and the inside-the-box selector."""
     if use_scene_contraction:
@@ -50,7 +58,7 @@ def _normalize_positions(positions, use_scene_contraction: bool, aabb):
             positions.shape[:-1], dtype=positions.dtype, device=positions.device
         )
     else:
-        box = torch.as_tensor(aabb, dtype=torch.float32, device=positions.device)
+        box = _box(tuple(tuple(float(v) for v in row) for row in aabb), positions.device)
         normalized = normalize_aabb(positions, box)
         inside = torch.all((normalized >= 0.0) & (normalized <= 1.0), dim=-1)
         selector = inside.to(positions.dtype)

@@ -8,7 +8,8 @@ sorted by the predicted uncertainty (ascending); each point is the mean of
 the kept errors (``mae``/``mse``) or its root (``rmse``); both curves are
 normalized by their joint maximum, and AUSE is the trapezoid integral of
 their difference over the ratios. Each curve is one stable sort and one
-cumulative sum; ties keep their index order, as ``jnp.argsort`` does.
+cumulative sum, taken on the host so that it adds in one order on the card
+too; ties keep their index order, as ``jnp.argsort`` does.
 """
 
 from __future__ import annotations
@@ -33,6 +34,17 @@ def keep_counts(ratio_removed: torch.Tensor, n_valid: torch.Tensor) -> torch.Ten
     tensor."""
     keep = ((1.0 - ratio_removed) * n_valid.to(torch.float32)).to(torch.int32)
     return torch.minimum(torch.clamp(keep, min=1), n_valid)
+
+
+def _prefix_sums(x: torch.Tensor) -> torch.Tensor:
+    """``torch.cumsum`` of a 1-D tensor, added in one fixed order on the card
+    too: CUDA's 1-D floating-point cumsum is a CUB scan whose partial sums
+    meet in no fixed order, so the same image scored twice moved AUSE in its
+    last bits. The host's sequential sum takes a few hundred microseconds
+    for an image's pixels."""
+    if x.device.type == "cpu":
+        return torch.cumsum(x, dim=0)
+    return torch.cumsum(x.cpu(), dim=0).to(x.device)
 
 
 def ause(
@@ -66,7 +78,7 @@ def ause(
         if to_tail is not None:
             order_key = order_key + to_tail  # invalid entries sort last
         order = torch.sort(order_key, stable=True).indices
-        prefix_mean = torch.cumsum(err_vec[order], dim=0) / counts
+        prefix_mean = _prefix_sums(err_vec[order]) / counts
         vals = prefix_mean[keep.long() - 1]
         return torch.sqrt(vals) if err_type == "rmse" else vals
 

@@ -254,6 +254,7 @@ class NerfactoModel(nn.Module):
         deterministic_dropout: bool = True,
         dropout_generator: torch.Generator | None = None,
         dropout_masks: dict[str, torch.Tensor] | None = None,
+        dropout: Dropout | None = None,
     ) -> dict[str, torch.Tensor]:
         """One ray batch. ``train=False``: the eval forward, without
         gradients. ``train=True``: the training forward, with autograd; the
@@ -266,10 +267,13 @@ class NerfactoModel(nn.Module):
         spacing edges each field was queried at. ``deterministic_dropout=
         False`` applies the field's dropout with masks from
         ``dropout_generator`` or ``dropout_masks`` (named as
-        ``fields/nerfacto_field.py`` names them)."""
+        ``fields/nerfacto_field.py`` names them), or from ``dropout``, a
+        source used as it is."""
+        if not deterministic_dropout and dropout is None:
+            dropout = Dropout(dropout_generator, dropout_masks)
         kw = dict(use_average_appearance=use_average_appearance,
                   return_intermediates=return_intermediates,
-                  dropout=None if deterministic_dropout else Dropout(dropout_generator, dropout_masks))
+                  dropout=None if deterministic_dropout else dropout)
         if not train:
             return self._eval_forward(ray_bundle, **kw)
         if draws is None and generator is not None:
@@ -336,7 +340,10 @@ class NerfactoModel(nn.Module):
             w = raymarch.render_weights(d, rs.deltas)
             weights_list.append(w)
             # sample_pdf detaches the weights, as the JAX package's stop_gradient
-            w_annealed = w if proposal_anneal == 1.0 else w**proposal_anneal
+            if isinstance(proposal_anneal, torch.Tensor):  # computed on the device
+                w_annealed = torch.where(proposal_anneal == 1.0, w, w**proposal_anneal)
+            else:
+                w_annealed = w if proposal_anneal == 1.0 else w**proposal_anneal
             rs = sample_pdf(ray_bundle, rs.spacing_edges, w_annealed, n_next, draws=pdf_draws[i])
         return rs, weights_list, sdist_list
 
@@ -394,7 +401,7 @@ def nerfacto_loss(
     if config.uncertainty_channels:
         # torch.maximum, as jnp.maximum, halves the gradient at a tie
         var = torch.maximum(
-            outputs["rgb_var"], outputs["rgb_var"].new_tensor(config.rendered_uncertainty_eps)
+            outputs["rgb_var"], outputs["rgb_var"].new_full((), config.rendered_uncertainty_eps)
         )
         losses["nll_loss"] = (
             torch.mean((pred - gt) ** 2 / (2.0 * var[..., None]))
@@ -416,9 +423,16 @@ def nerfacto_loss(
     return total, losses
 
 
-def proposal_anneal_factor(step: int, config: NerfactoConfig) -> float:
+def proposal_anneal_factor(step: int | torch.Tensor, config: NerfactoConfig) -> float | torch.Tensor:
     """Nerfacto's proposal-weight annealing, bias(x, s) = s x / ((s - 1) x + 1)
-    with x = clip(step / n, 0, 1), in float32 as the JAX package computes it."""
+    with x = clip(step / n, 0, 1), in float32 as the JAX package computes it.
+    A step held on the device gives a float32 0-dim tensor there, the same
+    bits as the host's float."""
+    if isinstance(step, torch.Tensor):
+        x = torch.clamp(step.to(torch.float32) / float(np.float32(config.proposal_weights_anneal_max_num_iters)),
+                        0.0, 1.0)
+        s = float(np.float32(config.proposal_weights_anneal_slope))
+        return s * x / ((s - 1.0) * x + 1.0)
     f32 = np.float32
     x = np.clip(f32(step) / f32(config.proposal_weights_anneal_max_num_iters), f32(0), f32(1))
     s = f32(config.proposal_weights_anneal_slope)

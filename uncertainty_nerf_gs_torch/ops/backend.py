@@ -93,6 +93,13 @@ def count_launch(name: str) -> None:
     launch_counts[name] += 1
 
 
+def count_replays(launches: dict[str, int], replays: int) -> None:
+    """Adds ``replays`` times a captured CUDA graph's launches: a replay
+    launches the kernels its capture recorded without running a wrapper."""
+    for name, n in launches.items():
+        launch_counts[name] += n * replays
+
+
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0

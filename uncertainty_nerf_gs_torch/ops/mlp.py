@@ -78,6 +78,20 @@ class Dropout:
         return _Scoped(self, prefix)
 
 
+class ReplayDropout(Dropout):
+    """Draws each name's mask from ``generator`` the first time and gives
+    the same mask when the name comes again: a forward recomputed under
+    ``torch.utils.checkpoint`` applies the masks the first run drew."""
+
+    def __init__(self, generator: torch.Generator):
+        super().__init__(generator=generator)
+
+    def keep(self, name: str, shape: torch.Size, keep_prob: float, device) -> torch.Tensor:
+        if name in self.drawn:
+            return self.drawn[name]
+        return super().keep(name, shape, keep_prob, device)
+
+
 class _Scoped(Dropout):
     def __init__(self, parent: Dropout, prefix: str):
         self.parent, self.prefix = parent, prefix

@@ -94,11 +94,13 @@ def _edges_to_samples(
 
 def _linspace01(n: int, device: torch.device) -> torch.Tensor:
     """``jnp.linspace(0, 1, n)`` to the bit: arange(n) times the float32
-    reciprocal of n - 1, with the last entry exactly 1."""
-    step = 1.0 / torch.tensor(max(n - 1, 1), dtype=torch.float32)
-    out = torch.arange(n, dtype=torch.float32).mul_(step)
-    out[-1] = 1.0
-    return out.to(device)
+    reciprocal of n - 1, with the last entry exactly 1. Made on ``device``
+    (float32 multiplies round alike everywhere), with no host-to-device
+    copy, so that a captured CUDA graph can hold it."""
+    step = float(1.0 / torch.tensor(max(n - 1, 1), dtype=torch.float32))
+    out = torch.arange(n, dtype=torch.float32, device=device).mul_(step)
+    out[-1:].fill_(1.0)
+    return out
 
 
 def _check_draws(draws: torch.Tensor | None, shape, device) -> torch.Tensor | None:

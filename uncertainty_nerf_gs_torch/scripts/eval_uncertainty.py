@@ -1,34 +1,56 @@
-"""Render functions of the uncertainty evaluation.
+"""`unc-eval` on the card: uncertainty evaluation of trained runs.
 
-Counterpart of the render side of ``uncertainty_nerf_gs_tpu/scripts/
-eval_uncertainty.py``: ``_nerfacto_full_image_renderer`` renders a camera's
-full image in fixed-size ray chunks through any chunk function, and
-``build_ensemble_chunk_fn`` builds the deep ensemble's chunk function, fused
-(one shared proposal chain and one packed lookup a field, K6 on the card) or
-per member (each member's own forward). The splat family renders whole
-frames: ``build_splat_render_fn`` (one trained model, the splat branch of
-the JAX ``build_render_fn``) and ``build_ensemble_splat_render_cam`` (its
-members stacked), on the config's fixed eval background, with
-``_apply_raster_capacity`` to set or probe the rasterizer's budgets for the
-eval cameras. ``build_chunk_render_fn`` and ``build_render_fn`` are the
-per-method renderers of one trained model: the plain forward (nerfacto,
+Counterpart of ``uncertainty_nerf_gs_tpu/scripts/eval_uncertainty.py``, with
+its flags and its JSON. ``main`` reloads each run's ``config.json`` (or
+``config.yml``) and latest ``step-*.ckpt`` (``_load_run``), parses the test
+split (``_eval_cameras_and_images``), builds the method's predictive
+renderer and writes ``{experiment_name, method_name, checkpoint,
+approximations, results}`` through ``eval/evaluator.py``. One run renders
+through ``build_render_fn``: the plain forward (nerfacto,
 active-nerfacto), MC-dropout (``models/mcdropout.py``, with the eval-time
-``mc_samples`` override) and Laplace (``models/laplace.py``: the GGN is fit
-on every call; its cache file, ``load_ggn_cache``/``save_ggn_cache``, waits
-for ``engine/checkpointing.py``, ROADMAP queue 1 item 6). They take
-in-memory members (``interop.stack_params``) or trainers and cameras;
-loading runs from checkpoints and the CLI's ``main`` wait for
-``engine/checkpointing.py`` (ROADMAP, queue 1, item 6).
+``--mc-samples``), Laplace (``models/laplace.py``; the GGN is read from the
+run's ``ggn_v2_{n}.npz`` cache, or fit and written there, in the JAX
+package's layout) or the splat render. Several runs are a deep ensemble
+(``build_ensemble_render_fn``): the nerfacto family fused (one shared
+proposal chain and one member-packed lookup a field, K6 on the card) or per
+member, the splat family stacked, at ``--raster-capacity`` probed or set.
+
+``--table-dtype`` defaults to ``f32`` here (the JAX package's default is
+bf16): bf16 and int8 packed tables are not ported yet (ROADMAP, queue 1,
+item 7), and the JSON's ``approximations`` record ``"table_dtype": "f32"``.
+``--table-fold 2/4`` is refused as the JAX package refuses it. ``--device``
+(an addition: the card by default) takes ``cpu`` for a try without one.
+
+Usage:
+    python -m uncertainty_nerf_gs_torch.scripts.eval_uncertainty \\
+        --load-config outputs/run1 [--load-config outputs/run2 ...] \\
+        --output-path metrics.json [--mc-samples 10] [--laplace-iters 300]
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import json
+from pathlib import Path
 from typing import Callable, Mapping, Sequence
 
 import torch
 
 from uncertainty_nerf_gs_torch.cameras.cameras import Cameras, generate_rays, pixel_grid
+from uncertainty_nerf_gs_torch.data.dataparsers import DATAPARSERS
+from uncertainty_nerf_gs_torch.data.datasets import load_images
+from uncertainty_nerf_gs_torch.engine.checkpointing import (
+    latest_checkpoint,
+    load_ggn_cache,
+    load_latest,
+    save_ggn_cache,
+)
+from uncertainty_nerf_gs_torch.eval.evaluator import (
+    EvalOptions,
+    get_average_uncertainty_metrics,
+    write_benchmark_json,
+)
 from uncertainty_nerf_gs_torch.interop import stack_params
 from uncertainty_nerf_gs_torch.models import splatfacto as sf
 from uncertainty_nerf_gs_torch.models.ensemble import ensemble_render, ensemble_render_splat
@@ -139,26 +161,27 @@ def build_chunk_render_fn(
     *,
     batch_iter: Callable | None = None,
     draws=None,
+    run_dir: Path | None = None,
 ) -> Callable:
     """The nerfacto family's predictive chunk renderer ``rb -> outputs`` of
     one trained model (``NerfactoTrainer``). ``spec`` names the method by
-    the JAX package's ``MethodSpec`` fields ``family``, ``mc_samples`` and
-    ``laplace`` (the port's ``configs/`` is ROADMAP queue 1 item 9):
+    its ``MethodSpec`` fields ``family``, ``mc_samples`` and ``laplace``:
 
     * ``mc_samples > 0``: ``mc_dropout_render`` with ``mc_samples`` (the
       eval-time override; 0 takes the method's) samples, masks from a
       generator seeded ``seed + 7``, or ``draws`` (one mask dict a sample,
       used for every chunk, as the JAX package reuses its key);
-    * ``laplace``: ``fit_laplace`` over ``laplace_iters`` batches of 4,096
-      training rays (``batch_iter(step)``, by default drawn by the
-      trainer's sampler from a generator seeded ``seed + 11``), fit on
-      every call (no GGN cache yet, queue 1 item 6), then
+    * ``laplace``: the GGN from ``run_dir``'s cache for ``laplace_iters``
+      where there is one, else ``fit_laplace`` over ``laplace_iters``
+      batches of 4,096 training rays (``batch_iter(step)``, by default
+      drawn by the trainer's sampler from a generator seeded ``seed +
+      11``), written to the cache when ``run_dir`` is given; then
       ``laplace_render`` with normal draws from a generator seeded ``seed +
       7``, or ``draws`` (``laplace_draws``' layout, every chunk);
     * otherwise the eval forward with the average appearance."""
     if spec.family == "splatfacto":
         raise ValueError("splatfacto renders frames, not ray chunks")
-    from uncertainty_nerf_gs_torch.models.laplace import fit_laplace, laplace_render
+    from uncertainty_nerf_gs_torch.models.laplace import laplace_render
     from uncertainty_nerf_gs_torch.models.mcdropout import mc_dropout_render
 
     model, config, device = trainer.model, trainer.config, trainer.device
@@ -172,17 +195,11 @@ def build_chunk_render_fn(
         return chunk_fn
 
     if spec.laplace:
-        if batch_iter is None:
-            batches = torch.Generator(device=device).manual_seed(seed + 11)
-
-            def batch_iter(step):
-                # 4,096 rays a batch, as the reference fits its GGN on the
-                # training batches
-                batch = trainer.sample_batch(4096, generator=batches)
-                return generate_rays(trainer.cameras, batch["camera_indices"], batch["pixel_x"],
-                                     batch["pixel_y"])
-
-        posterior = fit_laplace(model, batch_iter, config, n_iters=laplace_iters)
+        posterior = None if run_dir is None else load_ggn_cache(run_dir, laplace_iters, device)
+        if posterior is None:
+            posterior = _fit_ggn(trainer, config, laplace_iters, seed, batch_iter)
+            if run_dir is not None:
+                save_ggn_cache(run_dir, laplace_iters, posterior)
 
         def chunk_fn(rb):
             return laplace_render(model, posterior, rb, config, noise=draws,
@@ -198,13 +215,29 @@ def build_chunk_render_fn(
     return chunk_fn
 
 
+def _fit_ggn(trainer, config, laplace_iters: int, seed: int, batch_iter: Callable | None):
+    """``fit_laplace`` over ``laplace_iters`` batches, by default 4,096
+    training rays each (the reference fits its GGN on its training
+    batches) from a generator seeded ``seed + 11``."""
+    from uncertainty_nerf_gs_torch.models.laplace import fit_laplace
+
+    if batch_iter is None:
+        batches = torch.Generator(device=trainer.device).manual_seed(seed + 11)
+
+        def batch_iter(step):
+            batch = trainer.sample_batch(4096, generator=batches)
+            return generate_rays(trainer.cameras, batch["camera_indices"], batch["pixel_x"], batch["pixel_y"])
+
+    return fit_laplace(trainer.model, batch_iter, config, n_iters=laplace_iters)
+
+
 def build_render_fn(trainer, spec, eval_cameras: Cameras, mc_samples: int = 10, laplace_iters: int = 300,
                     laplace_samples: int = 100, prior_prec: float = 1.0, seed: int = 0,
                     **injected) -> Callable[[int], dict[str, torch.Tensor]]:
     """The per-method predictive renderer ``i -> outputs`` of eval camera
     i: the splat family through ``build_splat_render_fn``, the nerfacto
     family through ``build_chunk_render_fn`` in full-image chunks.
-    ``injected`` passes ``batch_iter`` and ``draws`` on."""
+    ``injected`` passes ``batch_iter``, ``draws`` and ``run_dir`` on."""
     if spec.family == "splatfacto":
         return build_splat_render_fn(trainer, eval_cameras)
     chunk_fn = build_chunk_render_fn(trainer, spec, mc_samples=mc_samples, laplace_iters=laplace_iters,
@@ -254,3 +287,207 @@ def build_ensemble_splat_render_cam(trainers: Sequence, width: int, height: int)
                                      background=background)
 
     return render_cam
+
+
+# -- runs from disk and the CLI --------------------------------------------------
+
+
+def _load_run_config(run_dir: Path) -> dict:
+    """A run's config: ``config.json``, else ``config.yml`` (the reference
+    writes YAML; the train CLIs of both packages write both files)."""
+    run_dir = Path(run_dir)
+    if (run_dir / "config.json").exists():
+        return json.loads((run_dir / "config.json").read_text())
+    if (run_dir / "config.yml").exists():
+        text = (run_dir / "config.yml").read_text()
+        try:
+            return json.loads(text)
+        except json.JSONDecodeError:
+            import yaml  # block-style YAML, from the JAX package's writer
+
+            return yaml.safe_load(text)
+    raise FileNotFoundError(f"no config.json/config.yml under {run_dir}")
+
+
+def _load_run(run_dir: Path, device: str | torch.device | None = None):
+    """(trainer, spec, run config, checkpoint step) of a run: its trainer
+    rebuilt from the config on ``device`` and restored from its latest
+    checkpoint (the nerfacto family's weights and step; the splat family's
+    whole state)."""
+    from uncertainty_nerf_gs_torch.scripts.train import build_trainer
+
+    run_dir = Path(run_dir)
+    run_cfg = _load_run_config(run_dir)
+    trainer, spec, _ = build_trainer(
+        run_cfg["method"], run_cfg["data"], run_cfg["dataparser"],
+        run_cfg.get("seed", 0), run_cfg.get("parser_kwargs"), run_cfg.get("overrides"),
+        camera_opt=run_cfg.get("camera_opt", "default"), device=device,
+    )
+    got = load_latest(run_dir)
+    if got is None:
+        raise FileNotFoundError(f"no checkpoint under {run_dir}")
+    state, step = got
+    if spec.family == "splatfacto":
+        trainer.restore(state)
+    else:
+        trainer.restore({"params": state["params"], "step": state["step"]})
+    return trainer, spec, run_cfg, step
+
+
+def _eval_cameras_and_images(run_cfg: dict):
+    outputs = DATAPARSERS[run_cfg["dataparser"]](Path(run_cfg["data"]), "test",
+                                                 **(run_cfg.get("parser_kwargs") or {}))
+    return outputs, load_images(outputs)
+
+
+def _camera_render(render_cam: Callable, cameras: Cameras) -> Callable[[int], dict[str, torch.Tensor]]:
+    def render(i: int) -> dict[str, torch.Tensor]:
+        return render_cam(cameras.camera_to_worlds[i], float(cameras.fx[i]), float(cameras.fy[i]),
+                          float(cameras.cx[i]), float(cameras.cy[i]))
+
+    return render
+
+
+def build_ensemble_render_fn(
+    run_dirs: Sequence[Path],
+    main_stride_scale: float = 0.0,
+    table_dtype: str = "f32",
+    table_fold: int = 1,
+    ensemble_mode: str = "fused",
+    table_split: bool = False,
+    raster_capacity=None,
+    device: str | torch.device | None = None,
+):
+    """The eval-time deep ensemble of M runs: (render(i), the test split's
+    outputs, its images). The nerfacto family renders through
+    ``build_ensemble_chunk_fn``, the splat family through
+    ``build_ensemble_splat_render_cam`` at ``raster_capacity``."""
+    trainers, specs = [], []
+    for d in run_dirs:
+        t, spec, _, _ = _load_run(d, device)
+        trainers.append(t)
+        specs.append(spec)
+    spec, base = specs[0], trainers[0]
+    eval_outputs, eval_images = _eval_cameras_and_images(_load_run_config(Path(run_dirs[0])))
+    cameras = eval_outputs.cameras.to(base.device)
+    if spec.family == "splatfacto":
+        _apply_raster_capacity(trainers, cameras, raster_capacity)
+        render_cam = build_ensemble_splat_render_cam(trainers, cameras.width, cameras.height)
+        return _camera_render(render_cam, cameras), eval_outputs, eval_images
+    stacked = stack_params([{k: v.detach() for k, v in t.params().items()} for t in trainers])
+    chunk_fn = build_ensemble_chunk_fn(base.model, stacked, main_stride_scale, table_dtype, table_fold,
+                                       ensemble_mode, table_split)
+    render = _nerfacto_full_image_renderer(base.config, chunk_fn, cameras, base.device)
+    return render, eval_outputs, eval_images
+
+
+def main(argv: list[str] | None = None) -> dict:
+    ap = argparse.ArgumentParser(description="uncertainty evaluation")
+    ap.add_argument("--load-config", action="append", required=True,
+                    help="run dir (repeat for ensembles, >=2 members)")
+    ap.add_argument("--output-path", default="metrics.json")
+    ap.add_argument("--render-output-path", default=None)
+    ap.add_argument("--save-rendered-images", action="store_true")
+    ap.add_argument("--save-raw-outputs", action="store_true",
+                    help="dump per-image raw arrays (raw_XXX.npz)")
+    ap.add_argument("--eval-depth-unc", action="store_true")
+    ap.add_argument("--plot-ause", action="store_true")
+    ap.add_argument("--mc-samples", type=int, default=10)
+    ap.add_argument("--laplace-iters", type=int, default=300)
+    ap.add_argument("--laplace-samples", type=int, default=100)
+    ap.add_argument("--prior-prec", type=float, default=1.0)
+    ap.add_argument("--dataset-path", default=None,
+                    help="dir with depth_gt_XX.npy + scale_parameters.txt")
+    ap.add_argument("--lpips-weights", default=None,
+                    help=".npz of converted official AlexNet LPIPS weights; without it scores are "
+                         "reported as lpips_rand, not lpips")
+    ap.add_argument("--experiment-name", default="experiment")
+    ap.add_argument("--unc-min", type=float, default=0.0,
+                    help="lower edge of the fixed std-map color window")
+    ap.add_argument("--unc-max", type=float, default=1.0,
+                    help="upper edge of the fixed std-map color window")
+    ap.add_argument("--table-dtype", default="f32", choices=("bf16", "f32", "int8"),
+                    help="fused ensemble eval-table precision; only f32 is ported")
+    ap.add_argument("--table-fold", type=int, default=1,
+                    help="fused eval tables: cells folded per gather row")
+    ap.add_argument("--table-split", action="store_true",
+                    help="fused eval tables: lane-split each level into sub-gathers")
+    ap.add_argument("--main-stride-scale", type=float, default=0.0,
+                    help="fused-ensemble render: evaluate the main field's coarse grid levels at "
+                         "strided ray anchors (0 = exact)")
+    ap.add_argument("--raster-capacity", default=None,
+                    help="splat eval rasterize capacity: an integer, or 'auto' to probe the "
+                         "overflow-free per-tile maxima on the eval cameras")
+    ap.add_argument("--ensemble-mode", default="fused", choices=("fused", "per-member"),
+                    help="'fused' shares one proposal chain across members; 'per-member' runs each "
+                         "member's own chain (the reference's semantics)")
+    ap.add_argument("--device", default=None,
+                    help="torch device to evaluate on; the card by default, 'cpu' for a try without one")
+    args = ap.parse_args(argv)
+    if args.table_fold in (2, 4):
+        ap.error("--table-fold 2/4 is disabled, as in the JAX package (its folded gather runs out of "
+                 "memory at the ensemble tables' shapes and is slower where it fits); use --table-fold 1.")
+    device = resolve_device(args.device)
+
+    lpips_params = None
+    if args.lpips_weights:
+        from uncertainty_nerf_gs_torch.ops.lpips import load_params
+
+        lpips_params = load_params(args.lpips_weights)
+
+    run_dirs = [Path(p) for p in args.load_config]
+    if len(run_dirs) > 1:
+        render_fn, eval_outputs, eval_images = build_ensemble_render_fn(
+            run_dirs, main_stride_scale=args.main_stride_scale, table_dtype=args.table_dtype,
+            table_fold=args.table_fold, ensemble_mode=args.ensemble_mode.replace("-", "_"),
+            table_split=args.table_split, raster_capacity=args.raster_capacity, device=device,
+        )
+        method_name = "ensemble"
+        ckpt = ";".join(str(latest_checkpoint(d)) for d in run_dirs)
+    else:
+        trainer, spec, run_cfg, _ = _load_run(run_dirs[0], device)
+        eval_outputs, eval_images = _eval_cameras_and_images(run_cfg)
+        if spec.family == "splatfacto":
+            _apply_raster_capacity([trainer], eval_outputs.cameras, args.raster_capacity)
+        render_fn = build_render_fn(
+            trainer, spec, eval_outputs.cameras, args.mc_samples, args.laplace_iters,
+            args.laplace_samples, args.prior_prec, run_dir=run_dirs[0],
+        )
+        method_name = spec.name
+        ckpt = str(latest_checkpoint(run_dirs[0]))
+
+    # the eval-time approximations behind the numbers, as the JAX package
+    # records them
+    fused = len(run_dirs) > 1 and args.ensemble_mode == "fused"
+    approximations = {
+        "table_dtype": args.table_dtype if fused else "f32",
+        "main_stride_scale": args.main_stride_scale if fused else 0.0,
+        "proposal_anchor_stride": fused,
+        "table_fold": args.table_fold if len(run_dirs) > 1 else 1,
+        "table_split": bool(args.table_split) if fused else False,
+        "n_members": len(run_dirs),
+        "shared_proposal_chain": fused,
+    }
+    options = EvalOptions(
+        output_path=Path(args.output_path),
+        approximations=approximations,
+        render_output_path=Path(args.render_output_path) if args.render_output_path else None,
+        save_rendered_images=args.save_rendered_images,
+        save_raw_outputs=args.save_raw_outputs,
+        eval_depth_unc=args.eval_depth_unc,
+        plot_ause=args.plot_ause,
+        unc_min=args.unc_min,
+        unc_max=args.unc_max,
+        dataset_path=Path(args.dataset_path) if args.dataset_path else None,
+        experiment_name=args.experiment_name,
+        method_name=method_name,
+        checkpoint=ckpt,
+    )
+    out = get_average_uncertainty_metrics(render_fn, eval_images, options, lpips_params=lpips_params)
+    write_benchmark_json(options.output_path, out["results"], options)
+    print(json.dumps(out["results"], indent=2, default=float))
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,28 @@
+"""Image-export helpers; counterpart of ``uncertainty_nerf_gs_tpu/utils/
+images.py``."""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def to_u8(img: np.ndarray) -> np.ndarray:
+    """[0, 1] float image -> u8."""
+    return (np.clip(np.asarray(img), 0, 1) * 255).astype(np.uint8)
+
+
+def colorize(x: np.ndarray, lo: float | None = None,
+             hi: float | None = None) -> np.ndarray:
+    """Scalar map -> u8 rgb via matplotlib's jet (imported here: the card's
+    machine has no matplotlib). ``lo``/``hi`` pin the normalization window;
+    the default is the map's own min/max. Channelled maps (H, W, C) are
+    reduced to their per-pixel mean first."""
+    import matplotlib.cm as cm
+
+    x = np.asarray(x, np.float32)
+    if x.ndim == 3:
+        x = x.mean(-1)
+    lo = float(np.nanmin(x)) if lo is None else lo
+    hi = float(np.nanmax(x)) if hi is None else hi
+    x = np.clip((x - lo) / max(hi - lo, 1e-12), 0.0, 1.0)
+    return (cm.jet(x)[..., :3] * 255).astype(np.uint8)
