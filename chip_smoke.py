@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--k4-against OTHER_CHECKOUT | --splat-repeatable-only [CHECKOUT]]
+    python3 chip_smoke.py [--k4-against OTHER_CHECKOUT | --splat-repeatable-only [CHECKOUT] | --sparse-only]
 
 Builds the port's hand-written CUDA kernels from ``uncertainty_nerf_gs_torch/
 csrc`` with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, all started
@@ -88,13 +88,34 @@ for bit; the peak memory at 4,096 and 16,384 rays), then
 ensemble with a seed-1 run (K6), on nerfacto-mcdropout at 10 samples, on
 nerfacto-laplace twice (the second from the GGN cache, the same metrics)
 and on active-splatfacto (K2/K3 and the packed-row backward in its
-training, ``--raster-capacity auto``), every metric finite. Exits non-zero,
-with no result line, when there is no card or any phase fails. The last line of standard
+training, ``--raster-capacity auto``), every metric finite. Last comes the
+sparse phase (``run_sparse``), the sparse-view study through the same entry
+points: a 100 + 4-view Blender tree at 256x256, full-width active-nerfacto
+trained with ``--dataparser sparse-blender`` (12 views; the run's rebuilt
+trainer has the hybrid layout and the face-consistency loss, which
+``events.jsonl`` logs), 300 steps at 50 a launch and a seed-1 run of 100;
+K4 and K5 at the hybrid shapes (per-level tables: the main field's 8
+dense levels up to 153^3 cells beside 8 hashed, the proposals' 4 + 1 and
+3 + 2), K4 bit for bit and its cell read back, K5 twice bit for bit and
+within GRID_GRAD_TOL, at uniform positions and a sparse step's, timed
+beside their bounds; a sparse step against its plain path (the face loss
+among the losses), two steps from one state bit-identical, 50 steps as
+one graph launch against 50 single steps, the step profiled and
+``dense_corner_to_cell_rows`` timed on its own; then
+``scripts.eval_uncertainty.main`` on the run and on the fused two-member
+ensemble at bf16 (the default), f32 and int8 (K1 2, K6 3 a chunk),
+``--table-fold 2`` and ``--table-split`` equal to the unfolded metrics
+bit for bit, K6 on each dtype's per-level tables bit for bit against its
+plain version and timed beside its bound, and for the record the 12-view
+PSNR beside a run of the cell layout. Exits non-zero, with no result line,
+when there is no card or any phase fails. The last line of standard
 output is a JSON object naming the device; the line before it the card's
 name and power limit; before that a ``{"kernels": [...]}`` line with each
 kernel's launches (the CLI phase's by run, a captured step's times its
-replays), error, times and bound, and a ``{"cli": ...}`` line with each CLI
-run's wall time, rate and metrics.
+replays; the sparse phase's hybrid K4/K5 and each table dtype's K6 as
+entries of their own), error, times and bound, a ``{"cli": ...}`` line with
+each CLI run's wall time, rate and metrics, and a ``{"sparse": ...}`` line
+with the sparse phase's.
 
 ``--k4-against OTHER_CHECKOUT`` also builds that checkout's ``uncertainty_
 nerf_gs_torch/csrc/hash_grid.cu`` (for example the parent commit unpacked
@@ -105,6 +126,9 @@ this checkout's at every shape and position set K4 and K6 are timed at; a
 checkout without K6's strided entry makes the strided lookup as its own
 code did, a K6 launch a level and the lerp as PyTorch ops.
 
+``--sparse-only`` runs only the sparse phase (``run_sparse``) and prints
+its kernel entries.
+
 ``--splat-repeatable-only [CHECKOUT]`` runs only the splat repeatability
 check in its three places, with CHECKOUT's package in place of this one
 (for example the parent commit unpacked with ``git archive``), prints each
@@ -114,6 +138,7 @@ result without requiring it, and ends in a JSON line of the results.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import subprocess
 import sys
@@ -773,10 +798,12 @@ def decoded_cells(code) -> torch.Tensor:
 
 
 def grid_lookups(pos, res, table):
-    """(L, n) int64: each lookup's cell, by the plain ``cell_indices``."""
+    """(L, n) int64: each lookup's cell, by the plain ``cell_indices``;
+    ``table`` one size or a per-level list (the hybrid layout's)."""
     from uncertainty_nerf_gs_torch.ops.encodings import cell_indices
 
-    return torch.stack([cell_indices(pos, r, table)[0] for r in res])
+    sizes = table if isinstance(table, (list, tuple)) else [table] * len(res)
+    return torch.stack([cell_indices(pos, r, t)[0] for r, t in zip(res, sizes)])
 
 
 def level_mismatch(got, want, tol=GRID_GRAD_TOL) -> int:
@@ -813,14 +840,16 @@ def k5_against_plain(cells, pos, res, table, f, g_out) -> dict:
     g_only, none = enc.cell_lookup_bwd(cells, pos, res, table, f, g_out, False)
     ref_cells, ref_pos = enc.cell_lookup_vjp_reference(cells, pos, res, table, f, g_out)
     torch.cuda.synchronize()
+    # level by level: a stacked gradient's levels, or per-level tables' own
+    g, again, only, ref = (list(x) for x in (g_cells, again_cells, g_only, ref_cells))
     return dict(
-        e_c=(g_cells - ref_cells).abs().max().item(), e_p=(g_pos - ref_pos).abs().max().item(),
-        top_c=ref_cells.abs().max().item(), top_p=ref_pos.abs().max().item(),
-        bad_c=level_mismatch(g_cells, ref_cells),
+        e_c=max((a - b).abs().max().item() for a, b in zip(g, ref)), e_p=(g_pos - ref_pos).abs().max().item(),
+        top_c=max(b.abs().max().item() for b in ref), top_p=ref_pos.abs().max().item(),
+        bad_c=level_mismatch(g, ref),
         bad_p=int(grad_mismatch(g_pos, ref_pos, GRID_GRAD_TOL).sum()),
-        finite=bool(torch.isfinite(g_cells).all() and torch.isfinite(g_pos).all()),
-        same=torch.equal(g_cells, again_cells) and torch.equal(g_pos, again_pos),
-        same_without_pos=none is None and torch.equal(g_only, g_cells),
+        finite=bool(all(torch.isfinite(a).all() for a in g) and torch.isfinite(g_pos).all()),
+        same=all(torch.equal(a, b) for a, b in zip(g, again)) and torch.equal(g_pos, again_pos),
+        same_without_pos=none is None and all(torch.equal(a, b) for a, b in zip(only, g)),
     )
 
 
@@ -923,6 +952,17 @@ def capture_render_positions(trainer, idx: int = 1) -> list[list[torch.Tensor]]:
     return [seen[c] for c in sorted(keep)]
 
 
+# The float32 entry points of a checkout from before per-level tables (the
+# parent of the change that gave K4, K5 and K6 per-level tables, and K6 bf16
+# and int8 rows): one stacked table, one size.
+_VP, _VI, _VL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+OTHER_ARGTYPES = {
+    "cell_lookup_fwd_f32": [_VP, _VP, _VP, _VI, _VI, _VL, _VI, _VI, _VP, _VP],
+    "packed_cell_lookup_fwd_f32": [_VP, _VP, _VP, _VI, _VI, _VI, _VI, _VI, _VP, _VP],
+    "packed_cell_lookup_strided_fwd_f32": [_VP, _VP, _VP, _VP, _VI, _VI, _VI, _VI, _VI, _VI, _VP, _VP, _VP],
+}
+
+
 def other_k4(checkout):
     """Starts ``nvcc`` on another checkout's ``hash_grid.cu`` (for example
     the parent commit unpacked with ``git archive``) with the port's flags,
@@ -933,7 +973,6 @@ def other_k4(checkout):
     ``.k6_strided(packed, positions, t_mid, res, table, strides)``: the
     strided lookup as that checkout's K6 makes it where it has no strided
     entry (a K6 launch a level, the lerp as PyTorch ops)."""
-    import ctypes
     import hashlib
     from types import SimpleNamespace
 
@@ -956,18 +995,21 @@ def other_k4(checkout):
         lib = ctypes.CDLL(str(out))
         k4, k6 = lib.cell_lookup_fwd_f32, lib.packed_cell_lookup_fwd_f32
         for fn, name in ((k4, "cell_lookup_fwd_f32"), (k6, "packed_cell_lookup_fwd_f32")):
-            fn.argtypes, fn.restype = enc._ARGTYPES[name], ctypes.c_int
+            fn.argtypes, fn.restype = OTHER_ARGTYPES[name], ctypes.c_int
         strided = getattr(lib, "packed_cell_lookup_strided_fwd_f32", None)
 
         def run_k4(cells, pos, res, table, f):
             got = torch.empty((pos.shape[0], cells.shape[0] * f), dtype=torch.float32, device=cells.device)
-            err = k4(pos.data_ptr(), cells.data_ptr(), got.data_ptr(), pos.shape[0],
-                     *enc._level_args(cells, res, table, f), backend.current_stream_handle(cells.device))
+            err = k4(pos.data_ptr(), cells.data_ptr(), got.data_ptr(), pos.shape[0], cells.shape[0],
+                     cells.shape[1] * 128, table, f, (ctypes.c_int * len(res))(*res),
+                     backend.current_stream_handle(cells.device))
             if err != 0:
                 raise RuntimeError(f"the other K4's launch failed: CUDA error {err}")
             return got
 
-        def run_k6(packed, pos, res, table):
+        def run_k6(packed, pos, res, table, scales=None):
+            if isinstance(packed, (list, tuple)):  # the plain strided version's one level
+                packed, table = torch.stack(list(packed)), table[0]
             levels, _, _, m, f = packed.shape
             got = torch.empty((m, pos.shape[0], levels * f), dtype=torch.float32, device=packed.device)
             err = k6(pos.data_ptr(), packed.data_ptr(), got.data_ptr(), pos.shape[0], levels, table, m, f,
@@ -978,7 +1020,7 @@ def other_k4(checkout):
 
         def run_k6_strided(packed, pos, t_mid, res, table, strides):
             if strided is not None:
-                strided.argtypes = enc._ARGTYPES["packed_cell_lookup_strided_fwd_f32"]
+                strided.argtypes = OTHER_ARGTYPES["packed_cell_lookup_strided_fwd_f32"]
                 levels, _, _, m, f = packed.shape
                 got = torch.empty((m, *pos.shape[:2], levels * f), dtype=torch.float32, device=packed.device)
                 err = strided(pos.data_ptr(), t_mid.data_ptr(), packed.data_ptr(), got.data_ptr(),
@@ -1011,7 +1053,7 @@ def k4_times(name, cells, sets, res, table, f, positions, other=None) -> dict:
     tm = kernel_times(f"{name} K4 {positions}", lambda p, g: enc.cell_lookup_fwd(cells, p, res, table, f),
                       lambda p, g: enc.cell_lookup_reference(cells, p, res, table, f), sets,
                       "cell_lookup_fwd_kernel")
-    blocks = cells.reshape(levels, -1, 8, f)
+    blocks = [t.reshape(-1, 8, f) for t in cells]  # the levels of a stacked table, or per-level tables
     lib_sets = [[grid_lookups(p, res, table)] for p, _ in sets]
     library_ms = time_ms(lambda ix: [blocks[l].index_select(0, ix[l]) for l in range(levels)], lib_sets)
     uniq = sum(int(torch.unique(row).numel()) for row in lib_sets[0][0])
@@ -1377,10 +1419,12 @@ def train_nerfacto(trainer, name) -> dict:
 def nerfacto_step(trainer, batch, draws, plain: bool) -> tuple[dict, dict, torch.Tensor, dict]:
     """One step's loss terms, gradients, per-ray cells and forward outputs at the trainer's
     state, without an update, as ``NerfactoTrainer._loss_fn`` computes
-    them. With ``plain`` the forward runs inside ``backend.plain_versions()``
+    them (the face-consistency loss on ``draws["face_vertices"]`` where the
+    config has it). With ``plain`` the forward runs inside ``backend.plain_versions()``
     and autograd runs the backward after the block has closed: it follows
     the forward's path."""
     from uncertainty_nerf_gs_torch.cameras.cameras import generate_rays
+    from uncertainty_nerf_gs_torch.engine.trainer import encoding_face_loss
     from uncertainty_nerf_gs_torch.models.nerfacto import nerfacto_loss, proposal_anneal_factor
     from uncertainty_nerf_gs_torch.ops import backend
 
@@ -1393,6 +1437,10 @@ def nerfacto_step(trainer, batch, draws, plain: bool) -> tuple[dict, dict, torch
         out = trainer.model(rb, train=True, draws=draws,
                             proposal_anneal=proposal_anneal_factor(trainer.step, trainer.config))
         total, losses = nerfacto_loss(out, batch, trainer.config)
+        if trainer.config.face_consistency_mult > 0.0:
+            fc = trainer.config.face_consistency_mult * encoding_face_loss(trainer.model, draws["face_vertices"])
+            losses["face_consistency_loss"] = fc
+            total = total + fc
     total.backward()
     grads = {k: p.grad.detach().clone() for k, p in params.items()}
     for p in params.values():
@@ -1477,9 +1525,15 @@ def check_nerfacto_train_plain(trainer) -> dict:
     (``diagnose_first_resampler``)."""
     from uncertainty_nerf_gs_torch.ops import backend
 
+    from uncertainty_nerf_gs_torch.ops.encodings import face_vertices
+
     gen = torch.Generator(device=trainer.device).manual_seed(SEED + 300)
     batch = trainer.sample_batch(NERF_RAYS)
     draws = trainer.model.draw(NERF_RAYS, gen)
+    if trainer.config.face_consistency_mult > 0.0:
+        enc = trainer.model.field.encoding
+        draws["face_vertices"] = face_vertices([enc.resolutions[lvl] for lvl in enc.cell_levels()],
+                                               trainer.config.face_consistency_samples, gen)
     backend.reset_launch_counts()
     with record_resampler() as k_calls:
         k_losses, k_grads, k_cells, k_out = nerfacto_step(trainer, batch, draws, plain=False)
@@ -2659,15 +2713,15 @@ def record_k6():
 
     calls, dense, strided = [], enc.packed_cell_lookup_fwd, enc.packed_cell_lookup_strided_fwd
 
-    def record_dense(packed, positions, resolutions, table_size):
+    def record_dense(packed, positions, resolutions, table_size, scales=None):
         calls.append(dict(kind="dense", packed=packed, pos=positions.clone(), res=tuple(resolutions),
-                          table=table_size))
-        return dense(packed, positions, resolutions, table_size)
+                          table=table_size, scales=scales))
+        return dense(packed, positions, resolutions, table_size, scales)
 
-    def record_strided(packed, positions, t_mid, resolutions, table_size, strides):
+    def record_strided(packed, positions, t_mid, resolutions, table_size, strides, scales=None):
         calls.append(dict(kind="strided", packed=packed, pos=positions.clone(), t=t_mid.clone(),
-                          res=tuple(resolutions), table=table_size, strides=tuple(strides)))
-        return strided(packed, positions, t_mid, resolutions, table_size, strides)
+                          res=tuple(resolutions), table=table_size, strides=tuple(strides), scales=scales))
+        return strided(packed, positions, t_mid, resolutions, table_size, strides, scales)
 
     enc.packed_cell_lookup_fwd, enc.packed_cell_lookup_strided_fwd = record_dense, record_strided
     try:
@@ -2680,10 +2734,14 @@ def k6_call(c, other=None):
     """K6 on a recorded call: this checkout's entry, or ``other``'s (``other_k4``)."""
     from uncertainty_nerf_gs_torch.ops import encodings as enc
 
+    if other is not None:
+        if c["kind"] == "dense":
+            return other.k6(c["packed"], c["pos"], c["res"], c["table"])
+        return other.k6_strided(c["packed"], c["pos"], c["t"], c["res"], c["table"], c["strides"])
     if c["kind"] == "dense":
-        return (other.k6 if other else enc.packed_cell_lookup_fwd)(c["packed"], c["pos"], c["res"], c["table"])
-    return (other.k6_strided if other else enc.packed_cell_lookup_strided_fwd)(
-        c["packed"], c["pos"], c["t"], c["res"], c["table"], c["strides"])
+        return enc.packed_cell_lookup_fwd(c["packed"], c["pos"], c["res"], c["table"], c.get("scales"))
+    return enc.packed_cell_lookup_strided_fwd(c["packed"], c["pos"], c["t"], c["res"], c["table"], c["strides"],
+                                              c.get("scales"))
 
 
 def k6_plain(c):
@@ -2691,9 +2749,17 @@ def k6_plain(c):
     from uncertainty_nerf_gs_torch.ops import encodings as enc
 
     if c["kind"] == "dense":
-        return enc.packed_cell_lookup_reference(c["packed"], c["pos"], c["res"], c["table"])
+        return enc.packed_cell_lookup_reference(c["packed"], c["pos"], c["res"], c["table"], c.get("scales"))
     return enc.packed_cell_lookup_strided_reference(c["packed"], c["pos"], c["t"], c["res"], c["table"],
-                                                    c["strides"])
+                                                    c["strides"], c.get("scales"))
+
+
+def k6_levels(c) -> tuple[list, list[int]]:
+    """(per-level packed tables, per-level cell counts) of a recorded K6
+    call: a stacked tensor and one size, or per-level lists (hybrid)."""
+    from uncertainty_nerf_gs_torch.ops.encodings import _per_level_tables
+
+    return _per_level_tables(c["packed"], c["table"], len(c["res"]))
 
 
 def k6_lookups(c) -> list[torch.Tensor]:
@@ -2702,6 +2768,7 @@ def k6_lookups(c) -> list[torch.Tensor]:
     from uncertainty_nerf_gs_torch.ops.encodings import cell_indices
 
     out = []
+    _, sizes = k6_levels(c)
     for lvl, r in enumerate(c["res"]):
         k = c["strides"][lvl] if c["kind"] == "strided" else 1
         pos = c["pos"].reshape(-1, 3)
@@ -2710,7 +2777,7 @@ def k6_lookups(c) -> list[torch.Tensor]:
             na = (s - 1) // k + 2
             idx = torch.clamp(torch.arange(na, device=pos.device) * k, max=s - 1)
             pos = c["pos"][:, idx].reshape(-1, 3)
-        out.append(cell_indices(pos, r, c["table"])[0])
+        out.append(cell_indices(pos, r, sizes[lvl])[0])
     return out
 
 
@@ -2750,14 +2817,15 @@ def chunk_rays(cams, cam_idx, chunk_idx, chunk, device):
 def k6_bound_ms(c, lookups) -> tuple[float, str, int, int]:
     """Least time of one K6 call on its inputs: positions (and t_mid) read
     once, each distinct packed row that its lookups need once (8 M F
-    floats), the whole (M, n, L F) output written once; or its float
-    operations, the lerp's at the strided levels included. Returns (ms,
-    bound_by, bytes, operations)."""
-    levels, _, _, m, f = c["packed"].shape
+    elements of the rows' type: 4, 2 or 1 bytes), the whole (M, n, L F)
+    float32 output written once; or its float operations, the lerp's at the
+    strided levels included. Returns (ms, bound_by, bytes, operations)."""
+    tables, _ = k6_levels(c)
+    levels, (_, _, m, f) = len(tables), tables[0].shape
     n = c["pos"].numel() // 3
     strided = c["kind"] == "strided"
     unique = sum(int(torch.unique(ix).numel()) for ix in lookups)
-    nbytes = (12 + 4 * strided) * n + unique * 8 * m * f * 4 + 4 * m * n * levels * f
+    nbytes = (12 + 4 * strided) * n + unique * 8 * m * f * tables[0].element_size() + 4 * m * n * levels * f
     ops = sum(ix.numel() for ix in lookups) * K6_OPS(f, m)
     if strided:
         ops += n * sum(k > 1 for k in c["strides"]) * K6_LERP_OPS(f, m)
@@ -2774,21 +2842,23 @@ def k6_times(label, calls, other=None) -> dict:
     ops) is held equal to the plain version and timed in turns with this
     one, every device kernel of a call counted: other, this, this, other."""
     c0 = calls[0]
-    levels, _, _, m, f = c0["packed"].shape
+    packed, sizes = k6_levels(c0)
+    levels, (_, _, m, f) = len(packed), packed[0].shape
     n = c0["pos"].numel() // 3
     sets = [(c,) for c in calls]
     symbol = K6_SYMBOL if c0["kind"] == "dense" else K6S_SYMBOL
     tm = kernel_times(f"K6 {label}", k6_call, k6_plain, sets, symbol)
     lookups = [k6_lookups(c) for c in calls]
-    packed = c0["packed"]
     library_ms = time_ms(lambda ix: [packed[l].index_select(0, ix[l]) for l in range(levels)],
                          [[ix] for ix in lookups])
     bound, bound_by, nbytes, ops = k6_bound_ms(c0, lookups[0])
     n_lookups = sum(ix.numel() for ix in lookups[0])
-    tm.update(label=label, kind=c0["kind"], shape=[n, levels, m, f, c0["table"]], bound_ms=bound,
-              bound_by=bound_by, bytes=nbytes, operations=ops, lookups=n_lookups, library_ms=library_ms,
-              strides=list(c0.get("strides", [1] * levels)))
-    print(f"K6 {label} ({c0['kind']}, {n} samples x {levels} levels x {m} members, F={f}, strides "
+    dtype = str(packed[0].dtype).replace("torch.", "")
+    tm.update(label=label, kind=c0["kind"], dtype=dtype,
+              shape=[n, levels, m, f, c0["table"] if isinstance(c0["table"], int) else list(sizes)],
+              bound_ms=bound, bound_by=bound_by, bytes=nbytes, operations=ops, lookups=n_lookups,
+              library_ms=library_ms, strides=list(c0.get("strides", [1] * levels)))
+    print(f"K6 {label} ({c0['kind']}, {dtype}, {n} samples x {levels} levels x {m} members, F={f}, strides "
           f"{'/'.join(map(str, tm['strides']))}): kernel {tm['ms']:.4f} ms on the device ({tm['event_ms']:.4f} "
           f"ms a call back to back), plain {tm['plain_ms']:.4f} ms, bound {bound:.4f} ms ({bound_by}: "
           f"{nbytes / 1e6:.1f} MB, {n_lookups} lookups); index_select of the same rows, {levels} calls, "
@@ -3018,7 +3088,7 @@ def ensemble_images(model, stacked, cams, device, name) -> dict:
 
     cfg = model.config
     renders = {mode: _nerfacto_full_image_renderer(
-        cfg, build_ensemble_chunk_fn(model, stacked, ensemble_mode=mode), cams, device)
+        cfg, build_ensemble_chunk_fn(model, stacked, table_dtype="f32", ensemble_mode=mode), cams, device)
         for mode in ("fused", "per_member")}
     rng = np.random.default_rng(SEED + 8)
     gts = [np.clip(renders["per_member"](1 - i)["rgb"].cpu().numpy()
@@ -3379,6 +3449,392 @@ def run_cli(name) -> dict:
     return dict(runs=runs, graph=graph, memory=memory)
 
 
+# -- the sparse phase: the sparse-view study, the hybrid layout and the face loss -
+
+SPARSE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_sparse"
+SPARSE_SIZE, SPARSE_FRAMES, SPARSE_TEST_VIEWS = 256, 100, 4  # sparse-blender's permutations index 100 frames
+SPARSE_VIEWS = 12  # the training views: the first 12 of the seed-1 permutation
+SPARSE_STEPS, SPARSE_SHORT = 300, 100
+SPARSE_DTYPES = ("bf16", "f32", "int8")  # bf16 first: the eval CLI's default
+# a fused chunk's launches: K1 twice, K6 strided once a proposal, K6 once for the field
+SPARSE_FUSED_PLAN = dict(pdf_resample=2, packed_cell_lookup_strided=2, packed_cell_lookup_fwd=1, cell_lookup_fwd=0)
+
+
+def hybrid_tables(enc) -> tuple[list, list[int], tuple, int]:
+    """(per-level tables as a ``HybridHashEncoding``'s forward builds them,
+    the dense levels expanded and the hashed ones in place; their sizes;
+    the resolutions; F), detached."""
+    from uncertainty_nerf_gs_torch.ops.encodings import dense_corner_to_cell_rows
+
+    tables, hi = [], 0
+    with torch.no_grad():
+        for lvl, (res, dense) in enumerate(zip(enc.resolutions, enc.is_dense)):
+            if dense:
+                tables.append(dense_corner_to_cell_rows(getattr(enc, f"corners_{lvl}"), int(res),
+                                                        enc.features_per_level))
+            else:
+                tables.append(enc.cells[hi].detach())
+                hi += 1
+    return tables, enc.level_sizes, tuple(int(r) for r in enc.resolutions), enc.features_per_level
+
+
+def encoded_tables(sizes, features, device) -> list[torch.Tensor]:
+    """Per-level tables whose cells hold their own index k in every corner,
+    as (k % 1024, k // 1024, 0, ...): a lookup's features round to its cell
+    (``decoded_cells``)."""
+    out = []
+    for size in sizes:
+        cpr = 128 // (8 * features)
+        n_rows = -(-size // cpr)
+        k = torch.arange(n_rows * cpr, device=device, dtype=torch.float32)
+        code = torch.zeros(k.shape[0], 8, features, device=device)
+        code[..., 0] = (k % 1024)[:, None]
+        code[..., 1] = torch.div(k, 1024, rounding_mode="floor")[:, None]
+        out.append(code.reshape(n_rows, 128))
+    return out
+
+
+def check_hybrid_grid(trainer, device, clustered) -> dict:
+    """K4 and K5 at the hybrid layout's full-width shapes: each field's
+    per-level tables as its forward builds them (the main field's 8 dense
+    levels of up to 153^3 = 3,581,577 cells beside 8 hashed of 2^19, the
+    proposals' 4 + 1 and 3 + 2), at uniform positions and at a sparse
+    training step's (forward hooks): K4 bit for bit against its plain
+    version, its cell read back from cells that store their own index; K5
+    launched twice a case and required bit for bit, within GRID_GRAD_TOL of
+    the plain backward level by level, its keys and sort equal to the
+    reference's; each timed beside its bound."""
+    from uncertainty_nerf_gs_torch.ops import encodings as enc
+
+    failed, per_launch, fwd_err, bwd_err = [], [], 0.0, 0.0
+    cfg = trainer.config
+    fields = trainer.model._fields()
+    names = [f"proposal_{i}" for i in range(len(fields) - 1)] + ["field"]
+    samples = list(cfg.num_proposal_samples) + [cfg.num_nerf_samples]
+    for i, (name, field) in enumerate(zip(names, fields)):
+        tables, sizes, res, f = hybrid_tables(field.encoding)
+        levels, n = len(res), NERF_RAYS * samples[i]
+        gen = torch.Generator(device=device).manual_seed(SEED + 500 + i)
+        pos = lookup_positions(res, n, gen, device)
+        sets = [(pos, torch.randn(n, levels * f, generator=gen, device=device)),
+                (torch.rand(n, 3, generator=gen, device=device),
+                 torch.randn(n, levels * f, generator=gen, device=device))]
+        c_sets = [(c[i], torch.randn(c[i].shape[0], levels * f, generator=gen, device=device)) for c in clustered]
+        dense = sum(field.encoding.is_dense)
+        print(f"hybrid {name}: {dense} dense levels (res {list(res[:dense])}) + {levels - dense} hashed, "
+              f"sizes {sizes}, keys of {enc.key_bits(levels, sizes)[1]} bits")
+        code_tables = encoded_tables(sizes, f, device)
+        for label, ss in (("uniform", sets[:1]), ("training", c_sets)):
+            for p, g in ss:
+                k4, plain = enc.cell_lookup_fwd(tables, p, res, sizes, f), enc.cell_lookup_reference(
+                    tables, p, res, sizes, f)
+                fwd_err = max(fwd_err, (k4 - plain).abs().max().item())
+                chosen = decoded_cells(enc.cell_lookup_fwd(code_tables, p, res, sizes, f).reshape(-1, levels, f))
+                wrong = int((chosen != grid_lookups(p, res, sizes)).sum())
+                k5 = k5_against_plain(tables, p, res, sizes, f, g)
+                sort = check_sort(p, res, sizes)
+                bwd_err = max(bwd_err, k5["e_c"], k5["e_p"])
+                print(f"hybrid {name} {label} ({p.shape[0]} samples): K4 {int((k4 != plain).sum())} features "
+                      f"differ from the plain version's bits, {wrong} lookups read another cell; K5 max err "
+                      f"cells {k5['e_c']:.3e} of {k5['top_c']:.3e}, positions {k5['e_p']:.3e}, "
+                      f"{k5['bad_c']} + {k5['bad_p']} entries outside GRID_GRAD_TOL, two launches "
+                      f"bit-identical {k5['same']} (and without the position gradient {k5['same_without_pos']}); "
+                      f"keys/sort equal {sort['keys_equal'] and sort['sorted_equal'] and sort['perm_equal']}, "
+                      f"{sort['distinct']} distinct cells, longest run {sort['longest_run']}")
+                if not torch.equal(k4, plain) or wrong:
+                    failed.append(f"{name} {label}: K4 differs from its plain version")
+                if k5["bad_c"] or k5["bad_p"] or not (k5["same"] and k5["same_without_pos"] and k5["finite"]):
+                    failed.append(f"{name} {label}: K5 off its plain version or not repeatable")
+                if not (sort["keys_equal"] and sort["sorted_equal"] and sort["perm_equal"]):
+                    failed.append(f"{name} {label}: K5's keys or sort differ")
+        del code_tables
+        fwd = k4_times(f"hybrid {name}", tables, sets, res, sizes, f, "uniform")
+        fwd_training = k4_times(f"hybrid {name}", tables, c_sets, res, sizes, f, "training")
+        bwd = {}
+        for label, ss in (("uniform", sets), ("training", c_sets)):
+            tm = kernel_times(f"hybrid {name} K5 {label}",
+                              lambda p, g: enc.cell_lookup_bwd(tables, p, res, sizes, f, g, True),
+                              lambda p, g: enc.cell_lookup_vjp_reference(tables, p, res, sizes, f, g), ss,
+                              "cell_lookup_bwd_", K5_KERNELS)
+            nn_ = ss[0][0].shape[0]
+            uniq = sum(int(torch.unique(row).numel()) for row in grid_lookups(ss[0][0], res, sizes))
+            bound, bound_by, nbytes, ops = grid_bound_ms(nn_, levels, f, uniq, True)
+            tm.update(field=name, positions=label, shape=[nn_, levels, f, list(sizes)], bound_ms=bound,
+                      bound_by=bound_by, bytes=nbytes, operations=ops, unique_cells=uniq, library_ms=None)
+            print(f"K5 hybrid {name} ({nn_} samples x {levels} levels, {label} positions): kernel "
+                  f"{tm['ms']:.4f} ms on the device ({tm['event_ms']:.4f} ms a call back to back), plain "
+                  f"{tm['plain_ms']:.4f} ms, bound {bound:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, {uniq} "
+                  f"distinct cells); {tm['kernel_launches']:.0f} kernels a call")
+            bwd[label] = tm
+        per_launch.append(dict(fwd=fwd, fwd_training=fwd_training, bwd=bwd["uniform"], bwd_training=bwd["training"]))
+        del tables
+    if failed:
+        raise AssertionError("hybrid hash grid: " + "; ".join(failed))
+    for key in ("fwd", "fwd_training", "bwd", "bwd_training"):
+        chunk = [p[key] for p in per_launch]
+        print(f"a sparse step's three {'K4' if key.startswith('fwd') else 'K5'} calls, {chunk[0]['positions']} "
+              f"positions: {sum(c['ms'] for c in chunk):.4f} ms, bound {sum(c['bound_ms'] for c in chunk):.4f} ms")
+    return dict(fwd_err=fwd_err, bwd_err=bwd_err, per_launch=per_launch)
+
+
+def expansion_times(trainer, step_busy_ms) -> dict:
+    """``dense_corner_to_cell_rows`` alone, as a sparse step runs it: every
+    dense level of the three fields expanded (forward), and with the slice
+    transpose of its backward (autograd's, from gradients made once), on
+    leaves detached from the trainer's: device time from the profiler (every
+    kernel the calls ran), else CUDA events; the bytes its forward writes,
+    and its share of the step's device time."""
+    from uncertainty_nerf_gs_torch.ops.encodings import dense_corner_to_cell_rows
+
+    grids = [(getattr(fd.encoding, f"corners_{lvl}").detach().clone().requires_grad_(True), int(r),
+              fd.encoding.features_per_level)
+             for fd in trainer.model._fields() for lvl, (r, d) in enumerate(zip(fd.encoding.resolutions,
+                                                                                fd.encoding.is_dense)) if d]
+    written = sum(4 * r**3 * 8 * f for _, r, f in grids)
+
+    def forward():
+        return [dense_corner_to_cell_rows(g, r, f) for g, r, f in grids]
+
+    grads = [torch.ones_like(o) for o in forward()]
+
+    def both():
+        torch.autograd.backward(forward(), grads)
+        for g, _, _ in grids:
+            g.grad = None
+
+    fwd_ms, both_ms = device_ms(forward, [()], ""), device_ms(both, [()], "")
+    share = both_ms / step_busy_ms if step_busy_ms else None
+    print(f"dense_corner_to_cell_rows: {len(grids)} dense levels of the three fields, forward {fwd_ms:.3f} ms "
+          f"of device time ({written / 1e6:.1f} MB of float32 cell rows written), forward and backward "
+          f"{both_ms:.3f} ms" + (f", {share:.1%} of a sparse step's {step_busy_ms:.2f} ms of device time"
+                                 if share else ""))
+    return dict(levels=len(grids), fwd_ms=fwd_ms, fwd_bwd_ms=both_ms, bytes_written=written, share=share)
+
+
+def sparse_k6(run_dirs, device, name) -> dict:
+    """K6 on the sparse ensemble's tables at each dtype: two runs loaded as
+    ``eval_uncertainty`` loads them, packed per dtype (per-level lists: the
+    hybrid layout), one fused chunk of test rays recorded; each of its three
+    K6 launches held bit for bit against its plain version, the chunk's
+    kernel path against its plain path bit for bit, and each launch timed
+    beside its bound (the rows' bytes at the dtype) and ``index_select`` of
+    the same rows; then a test image through the eval's renderer,
+    profiled."""
+    from uncertainty_nerf_gs_torch.interop import stack_params
+    from uncertainty_nerf_gs_torch.ops import backend
+    from uncertainty_nerf_gs_torch.parallel.ensemble_fused import (
+        build_fused_ensemble_render,
+        pack_ensemble_tables,
+    )
+    from uncertainty_nerf_gs_torch.scripts.eval_uncertainty import (
+        _eval_cameras_and_images,
+        _load_run,
+        _nerfacto_full_image_renderer,
+        build_ensemble_chunk_fn,
+    )
+
+    trainers = [_load_run(d, device)[0] for d in run_dirs]
+    model = trainers[0].model
+    stacked = stack_params([{k: v.detach() for k, v in t.params().items() if k != "camera_opt"}
+                            for t in trainers])
+    del trainers
+    cams = _eval_cameras_and_images(json.loads((Path(run_dirs[0]) / "config.json").read_text()))[0].cameras
+    chunk = model.config.eval_num_rays_per_chunk
+    rb = chunk_rays(cams, 0, cams.height * cams.width // chunk // 2, chunk, device)
+    render = build_fused_ensemble_render(model)
+    out, err = {}, 0.0
+    for dtype in SPARSE_DTYPES:
+        packed = pack_ensemble_tables(model, stacked, table_dtype=dtype)
+        nbytes = sum(t.numel() * t.element_size() for v in packed.values()
+                     for t in (v["tables"] if isinstance(v, dict) else v))
+        backend.reset_launch_counts()
+        with record_k6() as calls:
+            kern = render(stacked, packed, rb)
+        launches = {k: backend.launch_counts[k] for k in SPARSE_FUSED_PLAN}
+        with backend.plain_versions():
+            plain = render(stacked, packed, rb)
+        differ_out = sum(bits_differ(kern, plain).values())
+        differ = [int((k6_call(c) != k6_plain(c)).sum()) for c in calls]
+        err = max(err, max((k6_call(c) - k6_plain(c)).abs().max().item() for c in calls))
+        field = packed["field"]["tables"] if isinstance(packed["field"], dict) else packed["field"]
+        print(f"sparse K6 {dtype}: packed tables {nbytes / 1e9:.3f} GB ({len(field)} per-level field tables); "
+              f"a chunk's launches {launches}, expected {SPARSE_FUSED_PLAN}; its "
+              f"{len(calls)} K6 launches differ from their plain versions in {differ} features; the chunk's "
+              f"kernel path against its plain path: {differ_out} output entries not bit-identical")
+        if launches != SPARSE_FUSED_PLAN or any(differ) or differ_out:
+            raise AssertionError(f"sparse K6 {dtype}: off its plan or its plain version")
+        out[dtype] = [k6_times(f"sparse {dtype} launch {j}", [c]) for j, c in enumerate(calls)]
+        per = out[dtype]
+        image = _nerfacto_full_image_renderer(model.config, build_ensemble_chunk_fn(model, stacked, table_dtype=dtype),
+                                              cams, device)
+        image(0)["rgb"].cpu()  # warm-up: the pack and the first chunk
+        profile_top(f"sparse fused {dtype} image ({cams.height}x{cams.width})", lambda: image(0)["rgb"].cpu(),
+                    ENSEMBLE_SYMBOLS, top=8)
+        print(f"sparse K6 {dtype}: a chunk's {len(per)} launches {sum(t['ms'] for t in per):.4f} ms, bound "
+              f"{sum(t['bound_ms'] for t in per):.4f} ms, plain {sum(t['plain_ms'] for t in per):.4f} ms, "
+              f"index_select {sum(t['library_ms'] for t in per):.4f} ms on {name}")
+        del packed, calls
+        torch.cuda.empty_cache()
+    return dict(times=out, err=err)
+
+
+def run_sparse(name) -> dict:
+    """The sparse phase, through the entry points a user calls: a Blender
+    tree of SPARSE_FRAMES + SPARSE_TEST_VIEWS views written by the port,
+    full-width active-nerfacto trained by ``scripts.train.main`` with
+    ``--dataparser sparse-blender`` (seed1, 12 views: the hybrid layout and
+    the face-consistency loss, as the JAX package switches them), 300 steps
+    at 50 a launch, and a seed-1 run of 100; K4/K5 at the hybrid shapes
+    (``check_hybrid_grid``); a sparse step against its plain path, two
+    steps from one state, 50 steps as one graph launch against 50 single
+    steps, the step's times and ``dense_corner_to_cell_rows``' share; then
+    ``scripts.eval_uncertainty.main`` on the run and on the fused two-member
+    ensemble at bf16 (the default), f32 and int8, with ``--table-fold 2``
+    and ``--table-split`` (bf16) equal to the unfolded run bit for bit; K6
+    on each dtype (``sparse_k6``); last, for the record, the 12-view PSNR
+    beside a run of the cell layout with the same steps."""
+    import shutil
+
+    from uncertainty_nerf_gs_torch.data.synthetic import write_blender_dataset
+    from uncertainty_nerf_gs_torch.engine import checkpointing as ck
+    from uncertainty_nerf_gs_torch.ops import backend
+    from uncertainty_nerf_gs_torch.scripts.eval_uncertainty import _load_run
+
+    shutil.rmtree(SPARSE_DIR, ignore_errors=True)
+    device = torch.device("cuda")
+    t0 = time.perf_counter()
+    scene = write_blender_dataset(SPARSE_DIR / "scene", SPARSE_FRAMES, SPARSE_TEST_VIEWS, SPARSE_SIZE, SPARSE_SIZE)
+    print(f"sparse: wrote a Blender tree of {SPARSE_FRAMES} + {SPARSE_TEST_VIEWS} views at "
+          f"{SPARSE_SIZE}x{SPARSE_SIZE} in {time.perf_counter() - t0:.1f} s")
+    runs: dict[str, dict] = {}
+    parser = json.dumps({"seed_name": "seed1", "num_images": SPARSE_VIEWS})
+
+    def train_args(out, steps, *extra):
+        return ["active-nerfacto", "--data", scene, "--dataparser", "sparse-blender", "--parser-kwargs", parser,
+                "--output-dir", SPARSE_DIR / out, "--max-num-iterations", steps, "--steps-per-save", steps,
+                "--steps-per-launch", CLI_K, "--log-every", steps, *extra]
+
+    hybrid = cli_train("sparse_hybrid", train_args("hybrid", SPARSE_STEPS), runs)
+    want = {n: SPARSE_STEPS * v for n, v in NERF_STEP_LAUNCHES.items()}
+    if {n: runs["sparse_hybrid"]["launches"][n] for n in want} != want:
+        raise AssertionError(f"the sparse run's launches {runs['sparse_hybrid']['launches']}, expected {want}")
+    trainer, spec, run_cfg, step = _load_run(hybrid, device)
+    events = [json.loads(line) for line in (hybrid / "events.jsonl").read_text().splitlines()]
+    face = [e["value"] for e in events if e.get("name") == "face_consistency_loss"]
+    print(f"sparse run: config.json {run_cfg['dataparser']} {run_cfg['parser_kwargs']}; the rebuilt trainer's "
+          f"grid_layout {trainer.config.grid_layout!r}, face_consistency_mult {trainer.config.face_consistency_mult}, "
+          f"{len(trainer.cameras)} training views, step {step}; face_consistency_loss in events.jsonl "
+          f"{len(face)} times, last {face[-1] if face else None}")
+    if (trainer.config.grid_layout != "hybrid" or trainer.config.face_consistency_mult != 1.0 or not face
+            or len(trainer.cameras) != SPARSE_VIEWS):
+        raise AssertionError("the sparse run did not train the hybrid layout with the face-consistency loss")
+    del trainer
+    seed1 = cli_train("sparse_hybrid_seed1", train_args("seed1", SPARSE_SHORT, "--seed", 1), runs)
+
+    # the kernels at the hybrid shapes, and the step, from the trained state
+    from uncertainty_nerf_gs_torch.scripts.train import build_trainer
+
+    trainer, _, _ = build_trainer("active-nerfacto", scene, "sparse-blender",
+                                  parser_kwargs={"seed_name": "seed1", "num_images": SPARSE_VIEWS})
+    trainer.restore(ck.load_latest(hybrid)[0])
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    print(f"sparse trainer: {n_params} parameters (hybrid layout)")
+    grid = check_hybrid_grid(trainer, device, capture_lookup_positions(trainer))
+    step_plain = check_nerfacto_train_plain(trainer)
+    if "face_consistency_loss" not in step_plain["losses"]:
+        raise AssertionError("the sparse step's losses lack the face-consistency loss")
+    repeat = check_nerfacto_repeatable(trainer)
+    graph = check_cli_graph(trainer, name)
+    backend.reset_launch_counts()
+    traced = profile_top("sparse train step", lambda: trainer.train_step(NERF_RAYS), NERF_SYMBOLS)
+    busy_ms = 1e-3 * sum(us for _, us in traced.values()) if traced else None
+    expansion = expansion_times(trainer, busy_ms)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # the evaluations, through the CLI
+    single = cli_eval("sparse_eval_hybrid", ["--load-config", hybrid, "--output-path", SPARSE_DIR / "one.json"], runs)
+    check_launched("sparse_eval_hybrid", runs, ["pdf_resample", "cell_lookup_fwd"])
+    metrics = {}
+    for dtype in SPARSE_DTYPES:
+        flags = [] if dtype == "bf16" else ["--table-dtype", dtype]
+        label = f"sparse_eval_ensemble_{dtype}"
+        metrics[dtype] = cli_eval(label, ["--load-config", hybrid, "--load-config", seed1, "--output-path",
+                                          SPARSE_DIR / f"ens_{dtype}.json", *flags], runs)
+        got = runs[label]
+        lc = got["launches"]
+        if (got["approximations"]["table_dtype"] != dtype or lc["cell_lookup_fwd"]
+                or 2 * lc["packed_cell_lookup_fwd"] != lc["pdf_resample"]
+                or lc["packed_cell_lookup_strided"] != lc["pdf_resample"] or not lc["pdf_resample"]):
+            raise AssertionError(f"{label}: launches {lc} off the fused plan K1 2, K6 3 a chunk")
+    for flags, label in ((["--table-fold", "2"], "fold2"), (["--table-split"], "split")):
+        m = cli_eval(f"sparse_eval_ensemble_bf16_{label}", ["--load-config", hybrid, "--load-config", seed1,
+                                                            "--output-path", SPARSE_DIR / f"ens_{label}.json",
+                                                            *flags], runs)
+        differ = [k for k in m if k not in TIMING_KEYS and m[k] != metrics["bf16"][k]]
+        print(f"sparse eval bf16 {label}: {len(differ)} metrics differ from the unfolded run's bits")
+        if differ:
+            raise AssertionError(f"sparse eval {label} differs from the unfolded tables: {differ}")
+    print("sparse ensemble metrics by table dtype: " + "; ".join(
+        f"{dt} psnr {m['psnr']:.6g} nll {m['nll_rgb']:.6g} ause_mse {m['rgb_ause_mse']:.6g}"
+        for dt, m in metrics.items()))
+    k6 = sparse_k6([hybrid, seed1], device, name)
+
+    # for the record: the cell layout at the same views and steps
+    cli_train("sparse_cell", train_args("cell", SPARSE_STEPS, "--overrides", json.dumps({"grid_layout": "cell"})),
+              runs)
+    cell = cli_eval("sparse_eval_cell", ["--load-config", SPARSE_DIR / "cell", "--output-path",
+                                         SPARSE_DIR / "cell.json"], runs)
+    print(f"sparse {SPARSE_VIEWS}-view PSNR after {SPARSE_STEPS} steps (no bar): hybrid + face-consistency "
+          f"{single['psnr']:.4f} dB, cell layout {cell['psnr']:.4f} dB on {name}")
+    shutil.rmtree(SPARSE_DIR, ignore_errors=True)
+    return dict(runs=runs, grid=grid, step_plain=step_plain, repeat=repeat, graph=graph, expansion=expansion,
+                busy_ms=busy_ms, k6=k6, psnr=dict(hybrid=single["psnr"], cell=cell["psnr"]),
+                metrics={dt: {k: m[k] for k in ("psnr", "nll_rgb", "rgb_ause_mse")} for dt, m in metrics.items()})
+
+
+def sparse_kernel_entries(sparse) -> list[dict]:
+    """The sparse phase's shapes and table dtypes, entries of their own
+    under K4, K5 and K6: K4 and K5 on per-level tables (launches: the
+    hybrid runs' training and single-run eval; times: a sparse step's three
+    calls at its positions), K6 per dtype on per-level tables (launches:
+    that dtype's fused evals; times: a fused chunk's launches)."""
+    runs, grid = sparse["runs"], sparse["grid"]
+    hybrid = {k: v for k, v in runs.items() if k not in ("sparse_cell", "sparse_eval_cell")}
+    src = "uncertainty_nerf_gs_torch/csrc/hash_grid.cu"
+    replaces = "experiments/jobs/403_pallas_gather_probe.py:96"
+    out = []
+    for name, key, err in (("cell_lookup_fwd", "fwd_training", grid["fwd_err"]),
+                           ("cell_lookup_bwd", "bwd_training", grid["bwd_err"])):
+        per = [p[key] for p in grid["per_launch"]]
+        uniform = [p["fwd" if name == "cell_lookup_fwd" else "bwd"] for p in grid["per_launch"]]
+        by_path = {f"cli_{k}": v["launches"][name] for k, v in hybrid.items() if v["launches"].get(name)}
+        entry = dict(name=f"{name}:hybrid", route="cuda", source=src, replaces=replaces,
+                     launches=sum(by_path.values()), launches_by_path=by_path, max_abs_err=err,
+                     ms=sum(p["ms"] for p in per), plain_ms=sum(p["plain_ms"] for p in per),
+                     bound_ms=sum(p["bound_ms"] for p in per), bound_by=per[-1]["bound_by"],
+                     library_ms=None, per_launch=per,
+                     uniform=dict(ms=sum(p["ms"] for p in uniform), bound_ms=sum(p["bound_ms"] for p in uniform)))
+        if name == "cell_lookup_fwd":
+            entry.update(index_select_ms=sum(p["library_ms"] for p in per))
+        else:
+            entry.update(deterministic=True)
+        out.append(entry)
+    for dtype, per_launch in sparse["k6"]["times"].items():
+        labels = [k for k in hybrid if k.startswith(f"sparse_eval_ensemble_{dtype}")]
+        for name, kind, symbol in (("packed_cell_lookup_fwd", "dense", K6_SYMBOL),
+                                   ("packed_cell_lookup_strided", "strided", K6S_SYMBOL)):
+            per = [t for t in per_launch if t["kind"] == kind]
+            by_path = {f"cli_{k}": hybrid[k]["launches"][name] for k in labels}
+            out.append(dict(name=f"{name}:hybrid_{dtype}", route="cuda", source=src, replaces=replaces,
+                            symbol=symbol, dtype=dtype, launches=sum(by_path.values()), launches_by_path=by_path,
+                            max_abs_err=sparse["k6"]["err"], ms=sum(p["ms"] for p in per),
+                            plain_ms=sum(p["plain_ms"] for p in per), bound_ms=sum(p["bound_ms"] for p in per),
+                            bound_by=per[-1]["bound_by"], library_ms=None,
+                            index_select_ms=sum(p["library_ms"] for p in per), per_launch=per))
+    return out
+
+
 def kernel_line(run_nerf, train_nerf, resample, nerf_plain, run_splat_, refine, splat_ens, comp, grid,
                 ens, gather, methods) -> list[dict]:
     """``methods``: path -> the launch counts of the other nerfacto-family
@@ -3538,6 +3994,16 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         return splat_repeatable_only(card())
+    if args == ["--sparse-only"]:
+        from uncertainty_nerf_gs_torch.ops import backend
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        name = card()
+        backend.build_kernels()
+        sparse = run_sparse(name)
+        print(json.dumps({"kernels": sparse_kernel_entries(sparse)}))
+        return 0
     if args and (len(args) != 2 or args[0] != "--k4-against"):
         print(__doc__, file=sys.stderr)
         return 2
@@ -3630,7 +4096,7 @@ def main() -> int:
 
     for f in enc.PACKED_FEATURES:
         print(f"K6 dynamic shared memory a block (M = {NUM_MEMBERS}, F = {f}): " + ", ".join(
-            f"{enc._entry('packed_cell_lookup_shared_bytes')(levels, NUM_MEMBERS, f)} B at L = {levels}"
+            f"{enc._entry('packed_cell_lookup_shared_bytes')(levels, NUM_MEMBERS, f, 0)} B at L = {levels}"
             for levels in (5, 16)))
     ens = run_ensemble(device, name, other)
     print(f"ensemble done at {time.perf_counter() - t_start:.1f} s; peak device memory "
@@ -3639,20 +4105,37 @@ def main() -> int:
     cli = run_cli(name)
     print(f"cli done at {time.perf_counter() - t_start:.1f} s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    sparse = run_sparse(name)
+    print(f"sparse done at {time.perf_counter() - t_start:.1f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
     methods = dict(mcdropout_train=mcd["train"]["launches"], mcdropout_image=mcd["mc"]["launches"],
                    mcdropout_deterministic_image=mcd["single"]["launches"], laplace_fit=lap["fit_launches"],
                    laplace_image=lap["image"]["launches"])
     kernels = kernel_line(run_nerf, train_nerf, resample, nerf_plain, run, refine, splat_ens, comp, grid, ens,
                           gather, methods)
-    for entry in kernels:  # the CLI phase's runs, a path each
-        for label, r in cli["runs"].items():
+    # the CLI phase's runs, a path each; of the sparse phase's, the cell run
+    # and its eval, and every run's K1 (its hybrid K4/K5 and its K6 have
+    # entries of their own)
+    paths = dict(cli["runs"], **{k: v for k, v in sparse["runs"].items() if k in ("sparse_cell", "sparse_eval_cell")})
+    for entry in kernels:
+        for label, r in paths.items():
             n = r["launches"].get(entry["name"], 0)
             if n:
                 entry["launches_by_path"][f"cli_{label}"] = n
                 entry["launches"] += n
+    for label, r in sparse["runs"].items():
+        if label not in paths and r["launches"].get("pdf_resample"):
+            kernels[0]["launches_by_path"][f"cli_{label}"] = r["launches"]["pdf_resample"]
+            kernels[0]["launches"] += r["launches"]["pdf_resample"]
+    kernels += sparse_kernel_entries(sparse)
     print(json.dumps({"cli": {k: {f: v for f, v in r.items() if f != "launches"} for k, r in cli["runs"].items()},
                       "graph": cli["graph"], "grad_checkpoint_peak_gb": cli["memory"]}))
+    print(json.dumps({"sparse": {
+        "runs": {k: {f: v for f, v in r.items() if f != "launches"} for k, r in sparse["runs"].items()},
+        "graph": sparse["graph"], "expansion": sparse["expansion"], "step_busy_ms": sparse["busy_ms"],
+        "psnr": sparse["psnr"], "metrics_by_table_dtype": sparse["metrics"],
+        "step_plain_max_grad_l2_err": sparse["step_plain"]["max_grad_l2_err"]}}))
     print(json.dumps({"kernels": kernels}))
     print(name)
     print(json.dumps({"ok": True, "device": {

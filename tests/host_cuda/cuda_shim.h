@@ -49,6 +49,16 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 using std::isnan;
+inline unsigned __float_as_uint(float x) {
+    unsigned u;
+    std::memcpy(&u, &x, 4);
+    return u;
+}
+inline float __uint_as_float(unsigned u) {
+    float x;
+    std::memcpy(&x, &u, 4);
+    return x;
+}
 template <class T>
 T __ldg(const T* p) { return *p; }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
@@ -113,12 +123,14 @@ inline unsigned atomicAdd(unsigned* p, unsigned v) {
 }
 
 // K6's helpers: the block's dynamic shared memory (the harness sizes it;
-// one block runs at a time), its mbarrier and its bulk row copies
+// one block runs at a time), its mbarrier (an arrival without copies, too)
+// and its bulk row copies
 inline std::vector<float4> k6_host_shared;
 inline float* k6_shared() { return reinterpret_cast<float*>(k6_host_shared.data()); }
 inline void bar_init(unsigned long long*) {}
 inline void bar_expect(unsigned long long*, unsigned) {}
-inline void copy_row_bulk(float* dst, const float* src, unsigned bytes, unsigned long long*) {
+inline void bar_arrive(unsigned long long*) {}
+inline void copy_row_bulk(float* dst, const void* src, unsigned bytes, unsigned long long*) {
     std::memcpy(dst, src, bytes);
 }
 // on the card every lane's own wait makes the copies visible to it; here the

@@ -179,15 +179,26 @@ K6_CASES = [
 ]
 
 
-def _run_k6_host(exe, tmp_path, packed, pos, res, t_mid=None, strides=None):
-    """K6's host build on these inputs: (M, n, L * F); the strided entry's
-    arguments where ``t_mid`` (R, S) and ``strides`` are given."""
-    levels, table, _, m, feats = packed.shape
-    n = pos.size // 3
+K6_DTYPES = {np.float32: 0, "bf16": 1, np.int8: 2}  # csrc/hash_grid.cu's K6Type
+
+
+def _run_k6_host(exe, tmp_path, packed, pos, res, t_mid=None, strides=None, scales=None, dtype=np.float32):
+    """K6's host build on these inputs: (M, n, L * F). ``packed`` a stacked
+    (L, T, 8, M, F) array or a per-level list (the hybrid layout's), of
+    ``dtype`` (bf16 given as its uint16 bits), int8 with its ``scales``;
+    the strided entry's arguments where ``t_mid`` (R, S) and ``strides`` are
+    given."""
+    tables = list(packed)
+    _, _, m, feats = tables[0].shape
+    levels, n = len(tables), pos.size // 3
     pos.tofile(tmp_path / "positions.bin")
-    packed.tofile(tmp_path / "packed.bin")
     np.asarray(res, np.int32).tofile(tmp_path / "resolutions.bin")
-    args = [str(exe), str(tmp_path), str(n), str(levels), str(table), str(m), str(feats)]
+    np.asarray([t.shape[0] for t in tables], np.int32).tofile(tmp_path / "sizes.bin")
+    for lvl, t in enumerate(tables):
+        np.ascontiguousarray(t).tofile(tmp_path / f"level_{lvl}.bin")
+    if scales is not None:
+        np.asarray(scales, np.float32).tofile(tmp_path / "scales.bin")
+    args = [str(exe), str(tmp_path), str(n), str(levels), str(m), str(feats), str(K6_DTYPES[dtype])]
     if t_mid is not None:
         t_mid.tofile(tmp_path / "t_mid.bin")
         np.asarray(strides, np.int32).tofile(tmp_path / "strides.bin")
@@ -392,22 +403,25 @@ def recorded_edges(module):
         module.sample_uniform, module.sample_pdf = saved
 
 
-def fused_pair(jmodel, tmodel, stacked, tstacked, jb, tb, **kw):
-    """Both packages' fused renders of one chunk (JAX's jitted) with their
-    shared chains' edges: (want, got, JAX sdist, port sdist)."""
+def fused_pair(jmodel, tmodel, stacked, tstacked, jb, tb, table_dtype=None, jit=True, **kw):
+    """Both packages' fused renders of one chunk (JAX's jitted unless
+    ``jit`` is False) on ``table_dtype`` tables ("bf16", "int8"; float32 by
+    default) with their shared chains' edges: (want, got, JAX sdist, port
+    sdist)."""
+    jdtype = {None: None, "bf16": jnp.bfloat16, "int8": jnp.int8}[table_dtype]
     with recorded_edges(jef) as j_edges:
         render = jef.build_fused_ensemble_render(jmodel, **kw).__wrapped__
         jstacked = jax.tree_util.tree_map(jnp.asarray, stacked)
-        packed = jef.pack_ensemble_tables(jmodel, jstacked)
+        packed = jef.pack_ensemble_tables(jmodel, jstacked, table_dtype=jdtype)
 
         def run(p, t, rb):
             j_edges.clear()
             return render(p, t, rb), list(j_edges)
 
-        want, j_sdist = jax.jit(run)(jstacked, packed, jb)
+        want, j_sdist = (jax.jit(run) if jit else run)(jstacked, packed, jb)
     with recorded_edges(tef) as t_edges:
         got = tef.build_fused_ensemble_render(tmodel, **kw)(
-            tstacked, tef.pack_ensemble_tables(tmodel, tstacked), tb)
+            tstacked, tef.pack_ensemble_tables(tmodel, tstacked, table_dtype=table_dtype), tb)
     return ({k: np.asarray(v) for k, v in want.items()}, {k: v.numpy() for k, v in got.items()},
             j_sdist, list(t_edges))
 
@@ -540,17 +554,42 @@ def test_fused_render_close_to_per_member(rng):
 
 
 @pytest.mark.parametrize("option", ["table_dtype", "table_fold", "table_split", "hybrid"])
-def test_fused_refuses_what_is_not_ported(option):
-    kw = {"grid_layout": "hybrid"} if option == "hybrid" else {}
+def test_fused_refuses_what_is_not_ported(rng, option):
+    """The table options and the hybrid layout, refused before they were
+    ported, now render: bf16 tables within a few bf16 steps of float32
+    (tests/test_torch_eval_tables.py holds them against the JAX package),
+    folded (4 cells a row) and split tables bit for bit equal to the
+    unfolded float32 render, and a hybrid ensemble's fused render finite
+    with an epistemic variance."""
+    _, tmodel, _, tstacked = ensemble_pair(grid_layout="hybrid") if option == "hybrid" else ensemble_pair()
+    _, tb = bundles(rng)
+    render = tef.build_fused_ensemble_render(tmodel)
+    base = render(tstacked, tef.pack_ensemble_tables(tmodel, tstacked), tb)
     if option == "hybrid":
-        with pytest.raises(NotImplementedError):  # the field refuses it first
-            ensemble_pair(1, **kw)
+        assert any(k.startswith("field.encoding.corners_") for k in tstacked)
+        assert all(torch.isfinite(v).all() for v in base.values())
+        assert float(base["rgb_var_epi"].mean()) > 0
         return
-    _, tmodel, _, tstacked = ensemble_pair(1)
-    args = {"table_dtype": dict(table_dtype=torch.bfloat16), "table_fold": dict(table_fold=4),
+    args = {"table_dtype": dict(table_dtype="bf16"), "table_fold": dict(table_fold=4),
             "table_split": dict(table_split=True)}[option]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tef.pack_ensemble_tables(tmodel, tstacked, **args)
+    if option == "table_split":  # levels past max_bytes, in at most two parts
+        packed = tef.pack_ensemble_tables(tmodel, tstacked)
+        packed = {k: None if v is None else tenc.split_packed_tables(v, real_lanes=None, max_bytes=
+                  0.6 * max(t[0].numel() * t.element_size() * t.shape[0] for t in v))
+                  for k, v in packed.items()}
+        assert any(isinstance(t, tuple) for v in packed.values() for t in v["tables"])
+    else:
+        packed = tef.pack_ensemble_tables(tmodel, tstacked, **args)
+    got = render(tstacked, packed, tb)
+    for k, v in base.items():
+        if option == "table_dtype":
+            assert torch.isfinite(got[k]).all(), k
+        else:
+            assert torch.equal(got[k], v), k
+    if option == "table_dtype":
+        assert float((got["rgb"] - base["rgb"]).abs().max()) < 0.05
+        with pytest.raises(ValueError, match="table_dtype"):
+            tef.pack_ensemble_tables(tmodel, tstacked, table_dtype="fp8")
 
 
 @pytest.mark.parametrize("mode", ["fused", "per_member"])
@@ -562,13 +601,13 @@ def test_eval_chunk_and_image_functions(rng, mode):
     from uncertainty_nerf_gs_torch.data.synthetic import hemisphere_cameras
 
     _, tmodel, _, tstacked = ensemble_pair()
-    chunk_fn = tscript.build_ensemble_chunk_fn(tmodel, tstacked, ensemble_mode=mode)
+    chunk_fn = tscript.build_ensemble_chunk_fn(tmodel, tstacked, ensemble_mode=mode)  # bf16 tables
     cams = hemisphere_cameras(2, 6, 7, seed=1)
     cfg = TConfig(**tiny_config_kwargs(eval_num_rays_per_chunk=16))
     image = tscript._nerfacto_full_image_renderer(cfg, chunk_fn, cams, device="cpu")(1)
     px, py = pixel_grid(6, 7, torch.device("cpu"))
     px, py = torch.cat([px, torch.zeros(6)]), torch.cat([py, torch.zeros(6)])
-    packed = tef.pack_ensemble_tables(tmodel, tstacked)
+    packed = tef.pack_ensemble_tables(tmodel, tstacked, table_dtype="bf16")  # the default, as in JAX
     chunks = []
     for s in range(0, 48, 16):
         rb = generate_rays(cams, torch.ones(16, dtype=torch.int64), px[s:s + 16], py[s:s + 16])
@@ -581,5 +620,5 @@ def test_eval_chunk_and_image_functions(rng, mode):
     for k, v in image.items():
         assert v.shape == (6, 7) + direct[k].shape[1:], k
         assert torch.equal(v.reshape(direct[k].shape), direct[k]), k
-    with pytest.raises(NotImplementedError):
-        tscript.build_ensemble_chunk_fn(tmodel, tstacked, table_dtype="bf16")
+    with pytest.raises(ValueError, match="table_dtype"):
+        tscript.build_ensemble_chunk_fn(tmodel, tstacked, table_dtype="f16")

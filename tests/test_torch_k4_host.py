@@ -10,9 +10,11 @@ nothing fused (``-ffp-contract=off``, as ``__fmul_rn``/``__fadd_rn`` are on
 the card). The output must equal ``cell_lookup_reference`` bit for bit, as
 ``chip_smoke.py`` requires on the card, with the source as it is and with
 each read forced for every level (``kK4OwnMaxRuns`` rewritten to 0: shared
-reads only; to 32: own reads only). What this cannot show: that nvcc builds
-the source, and anything about the card's memory system or speed
-(``chip_smoke.py``). Skips where there is no g++.
+reads only; to 32: own reads only), on stacked tables (one size a level)
+and on the hybrid layout's per-level tables (res^3-cell dense levels beside
+hashed ones, each level's table its own buffer). What this cannot show:
+that nvcc builds the source, and anything about the card's memory system or
+speed (``chip_smoke.py``). Skips where there is no g++.
 """
 
 import shutil
@@ -64,13 +66,15 @@ def k4_host(tmp_path_factory) -> dict:
     return exes
 
 
-def _inputs(rng, levels, max_res, table, n, features, along_rays):
-    """Cells uniform in +-2; positions uniform, or in runs of 64 samples
-    along short rays (neighbours share the coarse levels' cells), with the
-    first rows on the cube's corners, just outside it and on cell faces."""
+def _inputs(rng, levels, max_res, table, n, features, along_rays, hybrid=False):
+    """Per-level tables uniform in +-2 (the hybrid layout's: res^3 cells at
+    its dense levels) with their sizes; positions uniform, or in runs of 64
+    samples along short rays (neighbours share the coarse levels' cells),
+    with the first rows on the cube's corners, just outside it and on cell
+    faces."""
     res = enc.hash_grid_resolutions(levels, 16, max_res)
-    n_rows = -(-table * 8 * features // 128)
-    cells = rng.uniform(-2, 2, (levels, n_rows, 128)).astype(np.float32)
+    sizes = [int(r) ** 3 if hybrid and enc.hybrid_is_dense(int(r), table) else table for r in res]
+    tables = [rng.uniform(-2, 2, (-(-size * 8 * features // 128), 128)).astype(np.float32) for size in sizes]
     if along_rays:
         start = rng.uniform(0, 1, (n // 64 + 1, 1, 3))
         step = rng.normal(size=(n // 64 + 1, 1, 3)) * 2e-3
@@ -82,34 +86,47 @@ def _inputs(rng, levels, max_res, table, n, features, along_rays):
         rows += (rng.integers(0, int(r) + 1, (2, 3)) / np.float32(r)).tolist()
     pos = pos.astype(np.float32)
     pos[: min(len(rows), n)] = np.float32(rows)[:n]
-    return cells, np.ascontiguousarray(pos), res
+    return tables, sizes, np.ascontiguousarray(pos), res
 
 
 CASES = [
-    # name, levels, max_res, table, n, features, along rays
-    ("proposal_f2", 5, 128, 2**12, 300, 2, False),
-    ("field_f2_rays", 16, 2048, 2**14, 200, 2, True),
-    ("f1_rays", 4, 512, 2**12, 150, 1, True),
-    ("f4", 4, 512, 2**12, 100, 4, False),
-    ("f8_two_passes", 16, 512, 2**13, 70, 8, True),
-    ("f16", 5, 256, 2**12, 40, 16, False),
-    ("f2_32_levels", 32, 4096, 2**14, 40, 2, False),
-    ("table_not_pow2", 6, 256, 3000, 100, 2, False),
-    ("ragged_warp", 5, 128, 2**12, 33, 2, True),
+    # name, levels, max_res, table, n, features, along rays, hybrid
+    ("proposal_f2", 5, 128, 2**12, 300, 2, False, False),
+    ("field_f2_rays", 16, 2048, 2**14, 200, 2, True, False),
+    ("f1_rays", 4, 512, 2**12, 150, 1, True, False),
+    ("f4", 4, 512, 2**12, 100, 4, False, False),
+    ("f8_two_passes", 16, 512, 2**13, 70, 8, True, False),
+    ("f16", 5, 256, 2**12, 40, 16, False, False),
+    ("f2_32_levels", 32, 4096, 2**14, 40, 2, False, False),
+    ("table_not_pow2", 6, 256, 3000, 100, 2, False, False),
+    ("ragged_warp", 5, 128, 2**12, 33, 2, True, False),
+    ("hybrid_field_rays", 8, 512, 2**10, 200, 2, True, True),  # 3 dense levels (res 16-31) of 8
+    ("hybrid_proposal", 5, 128, 2**11, 150, 2, False, True),
+    ("hybrid_f1", 6, 256, 2**11, 90, 1, True, True),
 ]
+
+
+def run_k4_host(exe, tmp_path, tables, sizes, pos, res, features):
+    """K4's host build on per-level tables: (n, L * F)."""
+    n, levels = pos.shape[0], len(tables)
+    pos.tofile(tmp_path / "positions.bin")
+    np.asarray(res, np.int32).tofile(tmp_path / "resolutions.bin")
+    np.asarray(sizes, np.int32).tofile(tmp_path / "sizes.bin")
+    for lvl, t in enumerate(tables):
+        t.tofile(tmp_path / f"level_{lvl}.bin")
+    subprocess.run([str(exe), str(tmp_path), str(n), str(levels), str(features)], check=True, timeout=120)
+    return np.fromfile(tmp_path / "out.bin", np.float32).reshape(n, levels * features)
 
 
 @pytest.mark.parametrize("reads", list(READS))
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
 def test_k4_source_matches_plain_version(k4_host, tmp_path, rng, case, reads):
-    _, levels, max_res, table, n, features, along_rays = case
-    cells, pos, res = _inputs(rng, levels, max_res, table, n, features, along_rays)
-    pos.tofile(tmp_path / "positions.bin")
-    cells.tofile(tmp_path / "cells.bin")
-    np.asarray(res, np.int32).tofile(tmp_path / "resolutions.bin")
-    subprocess.run([str(k4_host[reads]), str(tmp_path), str(n), str(levels), str(cells.shape[1]),
-                    str(table), str(features)], check=True, timeout=120)
-    got = np.fromfile(tmp_path / "out.bin", np.float32).reshape(n, levels * features)
-    want = enc.cell_lookup_reference(torch.from_numpy(cells), torch.from_numpy(pos),
-                                     tuple(int(r) for r in res), table, features).numpy()
+    _, levels, max_res, table, n, features, along_rays, hybrid = case
+    tables, sizes, pos, res = _inputs(rng, levels, max_res, table, n, features, along_rays, hybrid)
+    if hybrid:
+        assert any(s != table for s in sizes) and table in sizes
+    got = run_k4_host(k4_host[reads], tmp_path, tables, sizes, pos, res, features)
+    cells = [torch.from_numpy(t) for t in tables] if hybrid else torch.from_numpy(np.stack(tables))
+    want = enc.cell_lookup_reference(cells, torch.from_numpy(pos), tuple(int(r) for r in res),
+                                     sizes if hybrid else table, features).numpy()
     assert np.array_equal(got, want), f"{int((got != want).sum())} of {got.size} features differ"

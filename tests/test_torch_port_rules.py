@@ -469,7 +469,7 @@ def test_k5_path_calls_no_library_sort():
     src = HASH_GRID_CU.read_text()
     assert "#include" in src and not any(lib in src for lib in ("cub/", "thrust", "cub::"))
     path = "".join(inspect.getsource(f) for f in (
-        CellLookup.backward, encodings.cell_lookup_bwd, encodings._scratch, encodings._entry))
+        CellLookup.backward, encodings.cell_lookup_bwd, encodings._bwd, encodings._scratch, encodings._entry))
     assert "cell_lookup_bwd_f32" in path
     assert not any(call in path for call in ("sort(", "argsort", "unique"))
 

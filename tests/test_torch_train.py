@@ -239,17 +239,35 @@ def _flipped_rays(jtr, ttr, tree, jb, tb, draws, rng_key, step) -> tuple[np.ndar
     return (want != got).any(axis=1), t_out
 
 
+def _jax_face_vertices(jtr, rng_key) -> list[torch.Tensor]:
+    """The face-consistency loss's vertices JAX's trainer draws under
+    ``_loss_fn(..., rng_key, ...)``: ``jax.random.randint`` of the key
+    folded with 0xFACE and then with the level, one draw a cell-stored level
+    of the main field."""
+    from uncertainty_nerf_gs_tpu.ops.encodings import hash_grid_resolutions, hybrid_is_dense
+
+    cfg = jtr.config
+    res = hash_grid_resolutions(cfg.num_levels, cfg.base_res, cfg.max_res)
+    key = jax.random.fold_in(rng_key, 0xFACE)
+    levels = [lvl for lvl, r in enumerate(res)
+              if cfg.grid_layout == "cell" or not hybrid_is_dense(int(r), 2**cfg.log2_hashmap_size)]
+    return [_t(jax.random.randint(jax.random.fold_in(key, lvl), (cfg.face_consistency_samples, 3), 1,
+                                  int(res[lvl]))).long() for lvl in levels]
+
+
 def train_loss_and_grads(rng, camera_opt, background="white", num_rays=96, step=300, seed=3,
-                         jit=True, density_shift=0.0, outputs=None):
+                         jit=True, density_shift=0.0, outputs=None, config=None):
     """One batch's loss terms and gradients in both packages (JAX's under
-    ``jax.jit`` unless ``jit`` is False). Rays whose
+    ``jax.jit`` unless ``jit`` is False), ``config`` overriding the small
+    config's fields (with the face-consistency loss on, JAX's vertices are
+    replayed too). Rays whose
     lookups flipped a cell are replaced by fresh rays until none flips (the
     batch keeps its size, so that JAX's draws for each row stay the same).
     Returns (want_terms, got_terms, want_grads and got_grads by torch name,
     rays replaced); a dict passed as ``outputs`` receives the port's
     forward outputs on the final batch."""
     jtr, ttr, tree, images = _trainer_pair(rng, camera_opt, background=background,
-                                           density_shift=density_shift)
+                                           density_shift=density_shift, **(config or {}))
 
     def fresh(n):
         return np.stack([rng.integers(0, N_CAMS, n), rng.integers(0, H, n), rng.integers(0, W, n)], axis=1)
@@ -257,6 +275,8 @@ def train_loss_and_grads(rng, camera_opt, background="white", num_rays=96, step=
     rows = fresh(num_rays)
     rng_key = jax.random.PRNGKey(seed)
     draws = _jax_draws(jtr, rng_key, num_rays)
+    if jtr.config.face_consistency_mult > 0.0:
+        draws["face_vertices"] = _jax_face_vertices(jtr, rng_key)
     replaced = 0
     for _ in range(6):
         jb, tb = _batches(images, rows)
@@ -392,11 +412,11 @@ def test_trainer_trains_and_resumes(rng):
 
 @pytest.mark.parametrize("what", ["steps_per_launch", "gradient_checkpointing", "face_consistency"])
 def test_trainer_refuses_unported_options(what):
-    """The face consistency loss is refused (ROADMAP queue 1, item 7).
-    ``steps_per_launch > 1`` and ``gradient_checkpointing`` are ported
-    now: they run (and equal the plain loop bit for bit,
-    tests/test_torch_checkpointing.py); a launch of fewer than one step is
-    refused."""
+    """Each option the trainer once refused now runs: ``steps_per_launch >
+    1`` and ``gradient_checkpointing`` (equal to the plain loop bit for bit,
+    tests/test_torch_checkpointing.py; a launch of fewer than one step is
+    refused), and the face consistency loss, which joins the losses
+    (tests/test_torch_hybrid.py holds it against the JAX trainer)."""
     kw = small_config_kwargs()
     cams = t_hemisphere(N_CAMS, height=H, width=W, seed=1)
     images = np.zeros((N_CAMS, H, W, 3), np.float32)
@@ -409,5 +429,6 @@ def test_trainer_refuses_unported_options(what):
         trainer = TTrainer(tnerf.NerfactoConfig(**kw), cams, images, gradient_checkpointing=True, device="cpu")
         assert np.isfinite(trainer.train_step(8)["total_loss"])
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TTrainer(tnerf.NerfactoConfig(**kw, face_consistency_mult=0.1), cams, images, device="cpu")
+        trainer = TTrainer(tnerf.NerfactoConfig(**kw, face_consistency_mult=0.1), cams, images, device="cpu")
+        losses = trainer.train_step(8)
+        assert losses["face_consistency_loss"] > 0 and np.isfinite(losses["total_loss"])

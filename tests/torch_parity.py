@@ -238,7 +238,8 @@ def rays(rng: np.random.Generator, n: int, num_images: int = 3):
 def lookup_cells_jax(config, ray_bundle, sdist_list) -> np.ndarray:
     """The JAX side of ``NerfactoModel.lookup_cells``, with the JAX package's
     own functions: (R, K) cell index of every hash-grid lookup of the eval
-    forward (scene contraction on), given its per-field spacing edges
+    forward (scene contraction on; the cell or hybrid layout; an mlp
+    proposal makes none), given its per-field spacing edges
     (``apply(train=True)["sdist_list"]``)."""
     # imported here: chip_smoke.py reads this module's tolerances on a
     # machine without JAX
@@ -253,18 +254,24 @@ def lookup_cells_jax(config, ray_bundle, sdist_list) -> np.ndarray:
         fars=jnp.full_like(ray_bundle.fars, config.far_plane),
     )
     grids = [
-        (a.get("num_levels", 5), 16, a.get("max_res", 128), a.get("log2_hashmap_size", 17))
+        None if a.get("field_type", config.proposal_field_type) == "mlp"  # no lookup
+        else (a.get("num_levels", 5), 16, a.get("max_res", 128), a.get("log2_hashmap_size", 17))
         for a in config.proposal_net_args
     ] + [(config.num_levels, config.base_res, config.max_res, config.log2_hashmap_size)]
     n = rb.origins.shape[0]
     cols = []
-    for (levels, min_res, max_res, log2), edges in zip(grids, sdist_list):
+    for grid, edges in zip(grids, sdist_list):
+        if grid is None:
+            continue
+        levels, min_res, max_res, log2 = grid
         pos = jsamp._edges_to_samples(
             rb, edges, jsamp.spacing_piecewise, jsamp.spacing_piecewise_inv
         ).positions
         flat = jsp.contract_to_unit_cube(pos).reshape(-1, 3)
         for res in jenc.hash_grid_resolutions(levels, min_res, max_res):
-            idx, _ = jenc.cell_indices(flat, int(res), 2**log2)
+            # the hybrid layout's dense levels hold res^3 cells
+            dense = config.grid_layout == "hybrid" and jenc.hybrid_is_dense(int(res), 2**log2)
+            idx, _ = jenc.cell_indices(flat, int(res), int(res) ** 3 if dense else 2**log2)
             cols.append(np.asarray(idx).reshape(n, -1))
     return np.concatenate(cols, axis=1).astype(np.int64)
 
@@ -430,9 +437,26 @@ CLI_METRIC_TOLS = {
     "active-nerfacto": {"default": _CLI_EXACT, "ssim": _CLI_SSIM, **{k: _CLI_AUSE for k in _AUSE_KEYS}},
     "active-splatfacto": {"default": _CLI_EXACT, "ssim": _CLI_SSIM, **{k: _CLI_AUSE for k in _AUSE_KEYS}},
     "ensemble": {"default": _CLI_EXACT, "ssim": _CLI_SSIM, **{k: _CLI_AUSE for k in _AUSE_KEYS}},
+    "ensemble-hybrid-bf16": {"default": _CLI_EXACT, "ssim": _CLI_SSIM, **{k: _CLI_AUSE for k in _AUSE_KEYS}},
     "nerfacto-mcdropout": {"default": dict(atol=1e-5, rtol=1e-3), "ssim": _CLI_SSIM,
                            "rgb_avg_var": dict(atol=0.0, rtol=0.1), "rgb_auce_length": dict(atol=0.0, rtol=0.05),
                            **{k: _CLI_SAMPLED_AUSE for k in _AUSE_KEYS}},
     "nerfacto-laplace": {"default": dict(atol=1e-5, rtol=1e-3), "ssim": dict(atol=1e-5, rtol=5e-3),
                          "rgb_avg_var": dict(atol=0.0, rtol=1e-2), **{k: _CLI_SAMPLED_AUSE for k in _AUSE_KEYS}},
 }
+
+# The fused ensemble's bf16 and int8 tables (tests/test_torch_eval_tables.py).
+# A bf16 lookup rounds each weight and each product to bf16 and the float32
+# sum of the 8 products to bf16, in both packages; where the sums are taken
+# in another order a sum near a bf16 rounding boundary could round the other
+# way, so BF16_LOOKUP_TOL allows one bf16 step (2^-8 relative) of the
+# level's largest entry. ``python tests/torch_parity_report.py tables``
+# measures 0: the port's bf16 lookup equals the JAX package's eager one bit
+# for bit. The int8 lookup's arithmetic is float32 (exact int8 values, the
+# scale on the weight) and holds TOL (1.4e-7 of a level's largest entry).
+# A fused render on bf16 or int8 tables holds OUTPUT_TOLS against the JAX
+# package's eager render (rgb at most 2.7e-4, the float32 MLPs' noise); the
+# JAX package's jitted bf16 render is up to 2.7e-2 (rgb) from its own eager
+# one, as XLA fuses the bf16 products into the sum without their rounding,
+# so the jitted render is not the reference there.
+BF16_LOOKUP_TOL = dict(atol=2.0**-8)

@@ -287,8 +287,64 @@ def laplace() -> None:
             f"{k} {np.abs(got[k] - want[k]).max():.2e}" for k in sorted(want)))
 
 
+def tables() -> None:
+    """The eval tables (tests/test_torch_eval_tables.py): the bf16 and int8
+    lookups' deviation from the JAX package's, relative to each level's
+    largest entry; the fused render on bf16 and int8 tables against the JAX
+    package's eager and jitted renders; and the face-consistency training
+    batch (tests/test_torch_hybrid.py)."""
+    import jax.numpy as jnp
+    import test_torch_eval_tables as tt
+    import test_torch_train as ttrain
+    import torch
+    from torch_parity import grad_l2_error
+
+    from uncertainty_nerf_gs_tpu.ops import encodings as jenc
+    from uncertainty_nerf_gs_tpu.parallel import ensemble_fused as jef
+    from uncertainty_nerf_gs_torch.ops import encodings as tenc
+    from uncertainty_nerf_gs_torch.parallel import ensemble_fused as tef
+
+    for seed in range(4):
+        rng = np.random.default_rng(seed)
+        for _, m, feats, res, sizes in tt.LOOKUP_CASES:
+            port, jrows = tt._level_rows(rng, m, feats, sizes)
+            for dtype in ("bf16", "int8"):
+                tp, tj = tt._packed_forms(port, jrows, dtype)
+                pts = rng.uniform(0, 1, (150, 3)).astype(np.float32)
+                want = np.asarray(jenc.packed_cell_lookup(tj, jnp.asarray(pts), res, sizes, m, feats), np.float32)
+                got = tenc.packed_cell_lookup(tp, torch.from_numpy(pts), res, sizes, m, feats).numpy()
+                scale = np.abs(want.reshape(-1, len(res), feats)).max(axis=(0, 2))
+                dev = (np.abs(got - want).reshape(-1, len(res), feats).max(axis=(0, 2)) / scale).max()
+                print(f"lookup {dtype} M={m} F={feats} seed {seed}: max deviation {dev:.3e} of a level's "
+                      f"largest entry, {int((got != want).sum())} of {got.size} features differ")
+    for seed in range(3):
+        rng = np.random.default_rng(seed)
+        jmodel, tmodel, stacked, tstacked = tt.ensemble_pair(**tt.HYBRID)
+        jb, tb = tt.bundles(rng)
+        jst = jax.tree_util.tree_map(jnp.asarray, stacked)
+        for dtype in ("bf16", "int8"):
+            packed = jef.pack_ensemble_tables(jmodel, jst, table_dtype=tt.JDTYPES[dtype])
+            fn = jef.build_fused_ensemble_render(jmodel).__wrapped__
+            eager, jitted = fn(jst, packed, jb), jax.jit(fn)(jst, packed, jb)
+            with torch.no_grad():
+                got = tef.build_fused_ensemble_render(tmodel)(
+                    tstacked, tef.pack_ensemble_tables(tmodel, tstacked, table_dtype=dtype), tb)
+            for k in ("rgb", "depth"):
+                e, j, g = (np.asarray(x[k], np.float32) for x in (eager, jitted, got))
+                print(f"fused {dtype} seed {seed} {k}: port against JAX eager {np.abs(g - e).max():.3e}, "
+                      f"JAX jitted against its eager {np.abs(j - e).max():.3e}")
+    result = ttrain.train_loss_and_grads(np.random.default_rng(0), "zero", "white",
+                                         config=dict(grid_layout="hybrid", face_consistency_mult=1.0))
+    want_terms, got_terms, want_grads, got_grads, replaced = result
+    print(f"face-consistency batch: face loss {got_terms['face_consistency_loss']:.6e} against "
+          f"{want_terms['face_consistency_loss']:.6e}; {replaced} rays replaced")
+    rows = sorted(((grad_l2_error(k, got_grads[k], w), k) for k, w in want_grads.items()), reverse=True)
+    for err, k in rows[:6]:
+        print(f"  {k:40s} relative L2 {err:.2e}")
+
+
 if __name__ == "__main__":
     sections = dict(nerfacto=nerfacto, splat=splat, composite=composite, train=train, ensemble=ensemble,
-                    splat_refine=splat_refine, mcdropout=mcdropout, laplace=laplace)
+                    splat_refine=splat_refine, mcdropout=mcdropout, laplace=laplace, tables=tables)
     for name in sys.argv[1:] or sections:
         sections[name]()

@@ -11,8 +11,8 @@
 //   scaled = pos * res                         (no fma contraction)
 //   base   = min(floor(clamp(scaled, 0, float(res * (1 - 1e-7)))), res - 1)
 //   frac   = scaled - base
-//   idx    = bx + res * (by + res * bz)        where res^3 <= table_size,
-//            (bx * 1 ^ by * 2654435761 ^ bz * 805459861) % table_size
+//   idx    = bx + res * (by + res * bz)        where res^3 <= T_l,
+//            (bx * 1 ^ by * 2654435761 ^ bz * 805459861) % T_l
 //                                              otherwise, in uint32
 //   w[c]   = (wx[c >> 2] * wy[(c >> 1) & 1]) * wz[c & 1],  wx = (1 - fx, fx)
 //   K4: out[i, l * F + f] = sum_c w[c] * cell[l, idx, c, f], summed in the
@@ -20,8 +20,14 @@
 //   K5: g_cells[l, idx, c, f] = sum over the lookups (i, l) of that cell of
 //                               w[c] * g_out[i, l * F + f]
 //       g_pos[i, d] = sum_l res_l * sum_c dw[c]/dfrac_d * <cell[l, idx, c, :], g_out[i, l, :]>
-// The cells are the JAX package's (L, n_rows, 128) rows read as (L, n_rows *
-// 128 / (8 F), 8, F): a cell is 8 F consecutive floats (64 B at F = 2).
+// Each level has a table of its own, T_l cells (the JAX package's per-level
+// tables: a stacked (L, n_rows, 128) cell layout, or the hybrid layout's
+// res^3-cell dense levels beside its table_size-cell hashed ones), reached
+// through a base pointer a level in the kernels' per-level constants, so that
+// no level is copied to sit beside another. A level's (n_rows, 128) rows read
+// as (n_rows * 128 / (8 F), 8, F): a cell is 8 F consecutive floats (64 B at
+// F = 2). Offsets into a table are 64-bit: a hybrid dense level packed for
+// the ensemble passes 2^32 bytes.
 // The cell index must equal the plain version's bit for bit: a sample moved
 // into the neighbouring cell reads other corners, and the features jump by
 // the table's scale. So scaled, frac and the weights are formed with
@@ -67,9 +73,9 @@
 //   - The warp stages its samples' outputs in shared memory (32 floats a
 //     sample a pass over the levels, 16.9 KB a block) and writes them as
 //     whole lines of float4s, not F scalars a thread at a stride.
-//   - Power-of-two tables (every table CellHashEncoding builds) reduce the
-//     hash with & (table_size - 1) in place of a 32-bit division; the two
-//     give the same index.
+//   - A level whose table is a power of two (every hashed level the
+//     encodings build) reduces the hash with & (T_l - 1) in place of a
+//     32-bit division; the two give the same index.
 // The choices (one level in flight, the threshold, the stage's width, 8
 // blocks an SM, the cell taken from the locating lane rather than located
 // again by every lane) were timed on an H100 against the alternatives
@@ -85,12 +91,15 @@
 // that changes from launch to launch. K5 therefore sorts the lookups by cell
 // and sums each cell's run in a fixed order, with no float atomic:
 //   1. keys: one thread per (sample, level slot), a sample's levels padded to
-//      a power of two of adjacent lanes. It writes the 32-bit key (level
-//      above the cell index; at most 31 bits) and, where g_pos is asked for,
-//      reads the cell and sums the sample's levels by a butterfly of warp
-//      shuffles, in a fixed order, into g_pos: one plain store a sample.
+//      a power of two of adjacent lanes. It writes the 32-bit key (the
+//      level's first key, the cells of the levels before it summed, plus the
+//      cell index: level-major, then by cell; below 2^31) and, where g_pos
+//      is asked for, reads the cell and sums the sample's levels by a
+//      butterfly of warp shuffles, in a fixed order, into g_pos: one plain
+//      store a sample.
 //   2. a stable LSD radix sort of (key, lookup id), 8-bit digits (3 passes
-//      for the field's 23 bits and the proposals' 20): per pass a 256-bin
+//      for the field's 23 bits, the hybrid field's 24 and the proposals' up
+//      to 20): per pass a 256-bin
 //      histogram of each 4,096-key tile (integer atomics in shared memory),
 //      an exclusive scan over (digit, tile), and a scatter that ranks each
 //      key among its warp's equal digits with __match_any_sync, stages the
@@ -140,11 +149,15 @@ constexpr int kChunk = 32 * kReduceRounds;
 constexpr int kWarpsPerBlock = kThreads / 32;
 
 struct Levels {
-    float res[kMaxLevels];  // float(res), the factor of scaled
-    float hi[kMaxLevels];   // float(res * (1 - 1e-7)) rounded from double
+    float res[kMaxLevels];        // float(res), the factor of scaled
+    float hi[kMaxLevels];         // float(res * (1 - 1e-7)) rounded from double
     int ires[kMaxLevels];
-    unsigned dense;         // bit l: level l indexes densely
-    unsigned hash_mask;     // table_size - 1 where it is a power of two, else 0
+    unsigned size[kMaxLevels];    // T_l, the cells of level l's table
+    unsigned mask[kMaxLevels];    // T_l - 1 where it is a power of two, else 0
+    unsigned key0[kMaxLevels];    // K5: level l's first key, T_0 + ... + T_(l-1)
+    const void* table[kMaxLevels];  // level l's cells (K6: its packed rows)
+    float* grad[kMaxLevels];      // K5: level l's gradient, zero-filled, the table's shape
+    unsigned dense;               // bit l: level l indexes densely
 };
 
 struct Cell {
@@ -152,8 +165,7 @@ struct Cell {
     float w[3][2];  // per axis: (1 - frac, frac)
 };
 
-__device__ __forceinline__ Cell locate(const float p[3], const Levels& lv, int l,
-                                       unsigned table_size) {
+__device__ __forceinline__ Cell locate(const float p[3], const Levels& lv, int l) {
     Cell cell;
     int b[3];
     const int res = lv.ires[l];
@@ -172,7 +184,7 @@ __device__ __forceinline__ Cell locate(const float p[3], const Levels& lv, int l
         const unsigned h = static_cast<unsigned>(b[0]) ^
                            static_cast<unsigned>(b[1]) * 2654435761u ^
                            static_cast<unsigned>(b[2]) * 805459861u;
-        cell.idx = lv.hash_mask ? h & lv.hash_mask : h % table_size;
+        cell.idx = lv.mask[l] ? h & lv.mask[l] : h % lv.size[l];
     }
     return cell;
 }
@@ -316,9 +328,7 @@ __device__ __forceinline__ void k4_shared_sum(float4 v, const float frac[3], int
 // thread) and 6 above (85), or it takes up to 255 at F >= 4.
 template <int F>
 __global__ void __launch_bounds__(kK4Threads, F <= 2 ? 8 : 6) cell_lookup_fwd_kernel(
-    const float* __restrict__ positions, const float* __restrict__ cells,
-    float* __restrict__ out, int n, int num_levels, long long level_stride,
-    unsigned table_size, Levels lv) {
+    const float* __restrict__ positions, float* __restrict__ out, int n, int num_levels, Levels lv) {
     using K = K4Lanes<F>;
     constexpr int kWidth = kK4Stage > F ? kK4Stage : F;  // staged floats a sample a pass
     constexpr int kStride = kWidth + 1;  // padded against bank conflicts
@@ -340,9 +350,9 @@ __global__ void __launch_bounds__(kK4Threads, F <= 2 ? 8 : 6) cell_lookup_fwd_ke
     for (int l0 = 0; l0 < num_levels; l0 += levels_a_pass) {
         const int l1 = l0 + levels_a_pass < num_levels ? l0 + levels_a_pass : num_levels;
         for (int l = l0; l < l1; ++l) {
-            const Cell cell = locate(p, lv, l, table_size);
+            const Cell cell = locate(p, lv, l);
             const bool shared = k4_runs(cell.idx, lane) > kK4OwnMaxRuns;
-            const float4* level_cells = reinterpret_cast<const float4*>(cells + l * level_stride);
+            const float4* level_cells = static_cast<const float4*>(lv.table[l]);
             if constexpr (F <= 2) {
                 // Either read loads 2F float4s a lane, through the same load
                 // instructions: a shared read's float4 k is part q of round
@@ -505,6 +515,23 @@ __global__ void __launch_bounds__(kK4Threads, F <= 2 ? 8 : 6) cell_lookup_fwd_ke
 //     it up.
 // A warp's shared memory is its own and __syncwarp its only barrier. The
 // launch's dynamic shared memory (k6_layout) holds kK6Warps such regions.
+//
+// The rows come in three types, as the JAX package's packed tables do
+// (uncertainty_nerf_gs_tpu/ops/encodings.py::packed_cell_lookup):
+//   - float32, as above;
+//   - bf16, half the bytes; its lookup is the JAX package's bf16 one: each
+//     corner weight rounded to bf16, each product w[c] * value rounded to
+//     bf16, the 8 products summed in k4_tree's order in float32 and the sum
+//     rounded to bf16 (round_bf16: to nearest, ties to even, as PyTorch's
+//     float-to-bf16 conversion), so that it equals ops/encodings.py::
+//     packed_cell_lookup_reference bit for bit;
+//   - int8, a quarter of the bytes, with the level's scale s_l folded into
+//     the weights: w[c] * s_l rounded once, times the row's value as a
+//     float, summed as for float32.
+// Rows whose bytes are a multiple of 16 (every float32 and bf16 row, int8 at
+// even M F) are copied by cp.async.bulk; an int8 row of 8, 24, 40 or 56
+// bytes is copied by the warp's lanes word by word, and the barrier's phase
+// then completes with lane 0's arrival alone.
 
 constexpr int kK6Warps = 1;
 constexpr int kK6Threads = 32 * kK6Warps;
@@ -515,32 +542,34 @@ constexpr int kK6Stage = 80;  // staged output floats a sample a pass, all membe
 // where all 32 differ). Both give the same bits.
 constexpr int kK6CopyRunsMax = 32;
 
+// The packed rows' element types: float32, bf16 (its bits) and int8.
+enum K6Type { kK6F32 = 0, kK6BF16 = 1, kK6Int8 = 2 };
+typedef unsigned short bf16_bits;
+
 struct K6Args {
     const float* positions;  // (n, 3)
     const float* t_mid;      // (n,), rays of `samples` samples; strided levels only
-    const float* packed;     // (L, T, 8, M, F)
+    const float* scales;     // int8 rows: level l's scale at scales[l]; null otherwise
     float* out;              // (M, n, L F)
-    long long level_stride;  // T 8 M F floats
     int n, num_levels, members, samples;
-    unsigned table_size;
+    int row_bytes;           // a packed row: 8 M F elements
+    int bulk;                // rows copied by cp.async.bulk: row_bytes a multiple of 16
     int stride[kMaxLevels];  // K_l; 1 at every level of the dense entry
 };
 
 // A warp's region of shared memory, in floats: 32 rows, their cells' indices,
 // the anchors' features, the output stage and the copies' mbarrier.
 struct K6Layout {
-    int row;            // 8 M F floats of a packed row
-    int row_stride;     // row + 4: 16-byte aligned
+    int row_stride;     // a row rounded up to 16 bytes, + 4 floats
     int anchor_stride;  // M F, odd
     int levels_a_pass;
     int stage_stride;   // levels_a_pass F, odd; the row where a pass covers whole rows
     int index_at, anchors_at, stage_at, bar_at, floats;
 };
 
-__host__ __device__ inline K6Layout k6_layout(int members, int features, int num_levels) {
+__host__ __device__ inline K6Layout k6_layout(int row_bytes, int members, int features, int num_levels) {
     K6Layout k;
-    k.row = 8 * members * features;
-    k.row_stride = k.row + 4;
+    k.row_stride = (row_bytes + 15) / 16 * 4 + 4;
     k.anchor_stride = (members * features) | 1;
     const int per_pass = kK6Stage / (members * features);
     k.levels_a_pass = per_pass < 1 ? 1 : per_pass < num_levels ? per_pass : num_levels;
@@ -558,8 +587,8 @@ __host__ __device__ inline K6Layout k6_layout(int members, int features, int num
 
 #ifdef __CUDACC__
 // Device-only helpers; the host test harness (tests/host_cuda/cuda_shim.h)
-// stands in for k6_shared, bar_init, bar_expect, copy_row_bulk and bar_wait.
-// The launch's dynamic shared memory:
+// stands in for k6_shared, bar_init, bar_expect, bar_arrive, copy_row_bulk
+// and bar_wait. The launch's dynamic shared memory:
 __device__ __forceinline__ float* k6_shared() {
     extern __shared__ float4 k6_smem[];
     return reinterpret_cast<float*>(k6_smem);
@@ -581,9 +610,14 @@ __device__ __forceinline__ void bar_expect(unsigned long long* bar, unsigned byt
                  "r"(bytes) : "memory");
 }
 
+// The arrival of a phase that waits for no copy.
+__device__ __forceinline__ void bar_arrive(unsigned long long* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(shared_address(bar)) : "memory");
+}
+
 // One whole row from global to shared memory by the copy engine (16-byte
 // aligned, a multiple of 16 bytes); its bytes complete the barrier's phase.
-__device__ __forceinline__ void copy_row_bulk(float* dst, const float* src, unsigned bytes,
+__device__ __forceinline__ void copy_row_bulk(float* dst, const void* src, unsigned bytes,
                                               unsigned long long* bar) {
     asm volatile(
         "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
@@ -600,6 +634,20 @@ __device__ __forceinline__ void bar_wait(unsigned long long* bar, unsigned phase
         "r"(phase) : "memory");
 }
 #endif
+
+// float -> bf16 -> float, to nearest with ties to even (PyTorch's
+// float-to-bf16 conversion; a NaN becomes its quiet NaN 0x7FC0).
+__device__ __forceinline__ float round_bf16(float x) {
+    const unsigned u = __float_as_uint(x);
+    if ((u & 0x7fffffffu) > 0x7f800000u) return __uint_as_float(0x7fc00000u);
+    return __uint_as_float((u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u);
+}
+
+__device__ __forceinline__ float k6_value(float v) { return v; }
+__device__ __forceinline__ float k6_value(bf16_bits v) {
+    return __uint_as_float(static_cast<unsigned>(v) << 16);
+}
+__device__ __forceinline__ float k6_value(signed char v) { return static_cast<float>(v); }
 
 // Where a warp's samples lie: the first sample `base`, `valid` of 32 in the
 // launch, and (ray, sample) of the lane's own, the first and the last (rays
@@ -675,7 +723,7 @@ __device__ __forceinline__ K6Lookup k6_locate(const K6Args& a, const Levels& lv,
         const int b = w.s / job.k;
         lk.t[0] = t[w.s], lk.t[1] = t[b * job.k], lk.t[2] = t[min((b + 1) * job.k, a.samples - 1)];
     }
-    lk.cell = locate(q, lv, job.level, a.table_size);
+    lk.cell = locate(q, lv, job.level);
     const unsigned idx = lk.cell.idx;
     const unsigned prev = __shfl_up_sync(kFull, idx, 1);
     const unsigned starts = __ballot_sync(kFull, lane == 0 || prev != idx);
@@ -687,19 +735,32 @@ __device__ __forceinline__ K6Lookup k6_locate(const K6Args& a, const Levels& lv,
     return lk;
 }
 
-// Puts the copies of the job's rows into the warp's rows in flight.
-__device__ __forceinline__ void k6_copy(const K6Args& a, const K6Layout& k, const K6Job& job,
-                                        const K6Lookup& lk, float* mine, int lane) {
+// Puts the copies of the job's rows into the warp's rows in flight (rows of
+// a size cp.async.bulk does not take: copies them, word by word).
+__device__ __forceinline__ void k6_copy(const K6Args& a, const Levels& lv, const K6Layout& k,
+                                        const K6Job& job, const K6Lookup& lk, float* mine, int lane) {
     unsigned* index = reinterpret_cast<unsigned*>(mine + k.index_at);
     if (lk.writes) index[lk.slot] = lk.cell.idx;
     __syncwarp();
-    const float* level = a.packed + job.level * a.level_stride;
+    // 64-bit offsets: a dense level packed for M members passes 2^32 bytes
+    const char* level = static_cast<const char*>(lv.table[job.level]);
     unsigned long long* bar = reinterpret_cast<unsigned long long*>(mine + k.bar_at);
-    if (lane == 0) bar_expect(bar, static_cast<unsigned>(lk.slots * k.row * 4));
-    __syncwarp();
-    if (lane < lk.slots)
-        copy_row_bulk(mine + lane * k.row_stride, level + static_cast<long long>(index[lane]) * k.row,
-                      static_cast<unsigned>(k.row * 4), bar);
+    if (a.bulk) {
+        if (lane == 0) bar_expect(bar, static_cast<unsigned>(lk.slots * a.row_bytes));
+        __syncwarp();
+        if (lane < lk.slots)
+            copy_row_bulk(mine + lane * k.row_stride, level + static_cast<long long>(index[lane]) * a.row_bytes,
+                          static_cast<unsigned>(a.row_bytes), bar);
+    } else {
+        const int words = a.row_bytes / 4;
+        for (int e = lane; e < lk.slots * words; e += 32) {
+            const int s = e / words, w = e - s * words;
+            mine[s * k.row_stride + w] =
+                reinterpret_cast<const float*>(level + static_cast<long long>(index[s]) * a.row_bytes)[w];
+        }
+        __syncwarp();
+        if (lane == 0) bar_arrive(bar);
+    }
 }
 
 template <int F>
@@ -716,19 +777,34 @@ __device__ __forceinline__ void load_shared(const float* src, float (&v)[F]) {
     }
 }
 
-// Member m's F features of one lookup from its row in shared memory.
-template <int F>
+// Member m's F features of one lookup from its row (of element type T) in
+// shared memory, with the weights as k6_finish prepares them for T.
+template <int F, class T>
 __device__ __forceinline__ void k6_member(const float* row, const float (&w)[8], int m, int members,
                                           float (&v)[F]) {
+    constexpr bool kBf16 = sizeof(T) == 2;
     float x[8][F];
+    if constexpr (sizeof(T) == 4) {
 #pragma unroll
-    for (int c = 0; c < 8; ++c) load_shared<F>(row + (c * members + m) * F, x[c]);
+        for (int c = 0; c < 8; ++c) load_shared<F>(row + (c * members + m) * F, x[c]);
+    } else {
+        const T* r = reinterpret_cast<const T*>(row);
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+#pragma unroll
+            for (int f = 0; f < F; ++f) x[c][f] = k6_value(r[(c * members + m) * F + f]);
+        }
+    }
 #pragma unroll
     for (int f = 0; f < F; ++f) {
         float prod[8];
 #pragma unroll
-        for (int c = 0; c < 8; ++c) prod[c] = __fmul_rn(w[c], x[c][f]);
+        for (int c = 0; c < 8; ++c) {
+            prod[c] = __fmul_rn(w[c], x[c][f]);
+            if constexpr (kBf16) prod[c] = round_bf16(prod[c]);
+        }
         v[f] = k4_tree(prod);
+        if constexpr (kBf16) v[f] = round_bf16(v[f]);
     }
 }
 
@@ -744,7 +820,7 @@ __device__ __forceinline__ float k6_lerp_weight(float t, float t_left, float t_r
 // Waits for the job's rows, sums the lane's lookup for every member into the
 // stage (a strided level: into the anchors' features, then lerps the lane's
 // sample from them), and frees the rows.
-template <int F>
+template <int F, class T>
 __device__ __forceinline__ void k6_finish(const K6Args& a, const K6Layout& k, const K6Warp& wp,
                                           const K6Job& job, const K6Lookup& lk, float* mine,
                                           unsigned phase, int lane) {
@@ -752,7 +828,11 @@ __device__ __forceinline__ void k6_finish(const K6Args& a, const K6Layout& k, co
     const float* row = mine + lk.slot * k.row_stride;
     float w[8];
 #pragma unroll
-    for (int c = 0; c < 8; ++c) w[c] = corner_weight(lk.cell, c);
+    for (int c = 0; c < 8; ++c) {
+        w[c] = corner_weight(lk.cell, c);
+        if constexpr (sizeof(T) == 2) w[c] = round_bf16(w[c]);
+        if constexpr (sizeof(T) == 1) w[c] = __fmul_rn(w[c], a.scales[job.level]);
+    }
     const int members = a.members;
     // member m's staged outputs: 32 samples at stage_stride
     float* stage = mine + k.stage_at + lane * k.stage_stride + job.level % k.levels_a_pass * F;
@@ -761,7 +841,7 @@ __device__ __forceinline__ void k6_finish(const K6Args& a, const K6Layout& k, co
 #pragma unroll 4
         for (int m = 0; m < members; ++m) {
             float v[F];
-            k6_member<F>(row, w, m, members, v);
+            k6_member<F, T>(row, w, m, members, v);
 #pragma unroll
             for (int f = 0; f < F; ++f) stage[m * member_stage + f] = v[f];
         }
@@ -770,7 +850,7 @@ __device__ __forceinline__ void k6_finish(const K6Args& a, const K6Layout& k, co
 #pragma unroll 4
         for (int m = 0; m < members; ++m) {
             float v[F];
-            k6_member<F>(row, w, m, members, v);
+            k6_member<F, T>(row, w, m, members, v);
 #pragma unroll
             for (int f = 0; f < F; ++f) anchors[lane * k.anchor_stride + m * F + f] = v[f];
         }
@@ -828,7 +908,7 @@ __device__ __forceinline__ void k6_flush(const K6Args& a, const K6Layout& k, con
 }
 
 // One warp's 32 samples, every level (both entries).
-template <int F>
+template <int F, class T>
 __device__ __forceinline__ void k6_warp(const K6Args& a, const Levels& lv) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const long long first = (static_cast<long long>(blockIdx.x) * kK6Warps + warp) * 32;
@@ -843,7 +923,7 @@ __device__ __forceinline__ void k6_warp(const K6Args& a, const Levels& lv) {
     w.r1 = last / a.samples, w.s1 = last - w.r1 * a.samples;
     const float* own = a.positions + 3LL * w.g;
     const float p[3] = {own[0], own[1], own[2]};
-    const K6Layout k = k6_layout(a.members, F, a.num_levels);
+    const K6Layout k = k6_layout(a.row_bytes, a.members, F, a.num_levels);
     float* mine = k6_shared() + warp * k.floats;
     // a job's rows are copied and summed in turn; the next job's positions
     // load meanwhile
@@ -856,8 +936,8 @@ __device__ __forceinline__ void k6_warp(const K6Args& a, const Levels& lv) {
         const K6Lookup lk = k6_locate(a, lv, w, job, q, lane);
         const K6Job next = k6_next(a, w, job);
         if (next.level < a.num_levels) k6_position(a, w, next, p, lane, q);
-        k6_copy(a, k, job, lk, mine, lane);
-        k6_finish<F>(a, k, w, job, lk, mine, phase, lane);
+        k6_copy(a, lv, k, job, lk, mine, lane);
+        k6_finish<F, T>(a, k, w, job, lk, mine, phase, lane);
         const int l = job.level;
         if (job.round + 1 == job.rounds && ((l + 1) % k.levels_a_pass == 0 || l + 1 == a.num_levels))
             k6_flush<F>(a, k, w, mine + k.stage_at, l - l % k.levels_a_pass, l + 1, lane);
@@ -866,14 +946,14 @@ __device__ __forceinline__ void k6_warp(const K6Args& a, const Levels& lv) {
     }
 }
 
-template <int F>
+template <int F, class T>
 __global__ void __launch_bounds__(kK6Threads) packed_lookup_fwd_kernel(K6Args a, Levels lv) {
-    k6_warp<F>(a, lv);
+    k6_warp<F, T>(a, lv);
 }
 
-template <int F>
+template <int F, class T>
 __global__ void __launch_bounds__(kK6Threads) packed_lookup_strided_kernel(K6Args a, Levels lv) {
-    k6_warp<F>(a, lv);
+    k6_warp<F, T>(a, lv);
 }
 
 // -- K5, stage 1: keys, and the position gradient -----------------------------
@@ -883,10 +963,9 @@ __global__ void __launch_bounds__(kK6Threads) packed_lookup_strided_kernel(K6Arg
 // sort's digit totals. Every thread reaches the shuffles: none returns early.
 template <int F, int kSlots>
 __global__ void __launch_bounds__(kThreads) cell_lookup_bwd_keys_kernel(
-    const float* __restrict__ positions, const float* __restrict__ cells,
-    const float* __restrict__ g_out, float* __restrict__ g_pos, unsigned* __restrict__ keys,
-    unsigned* __restrict__ totals, int n, int num_levels, long long level_stride,
-    unsigned table_size, int cell_bits, Levels lv) {
+    const float* __restrict__ positions, const float* __restrict__ g_out,
+    float* __restrict__ g_pos, unsigned* __restrict__ keys, unsigned* __restrict__ totals, int n,
+    int num_levels, Levels lv) {
     if (blockIdx.x == 0)
         for (int k = threadIdx.x; k < kMaxPasses * kRadix; k += kThreads) totals[k] = 0u;
     const long long g = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
@@ -896,15 +975,15 @@ __global__ void __launch_bounds__(kThreads) cell_lookup_bwd_keys_kernel(
     float grad[3] = {0.0f, 0.0f, 0.0f};
     if (sample && l < num_levels) {
         const float p[3] = {positions[3 * i], positions[3 * i + 1], positions[3 * i + 2]};
-        const Cell cell = locate(p, lv, l, table_size);
+        const Cell cell = locate(p, lv, l);
         const long long t = i * num_levels + l;
-        keys[t] = (static_cast<unsigned>(l) << cell_bits) | cell.idx;
+        keys[t] = lv.key0[l] + cell.idx;
         if (g_pos != nullptr) {
             float g[F];
 #pragma unroll
             for (int f = 0; f < F; ++f) g[f] = g_out[t * F + f];
             float v[8 * F];
-            load_cell<F>(cells + l * level_stride + static_cast<long long>(cell.idx) * (8 * F), v);
+            load_cell<F>(static_cast<const float*>(lv.table[l]) + static_cast<long long>(cell.idx) * (8 * F), v);
 #pragma unroll
             for (int c = 0; c < 8; ++c) {
                 float dot = 0.0f;
@@ -1097,7 +1176,7 @@ __global__ void __launch_bounds__(kSortThreads) cell_lookup_bwd_scatter_kernel(
 // -- K5, stage 3: the segmented reduction over the sorted entries --------------
 
 // One warp a chunk of kChunk sorted entries. A cell's run that starts and
-// ends in the chunk is stored into g_cells; the chunk's first run, where it
+// ends in the chunk is stored into its level's gradient; the chunk's first run, where it
 // began in an earlier chunk, goes to head[chunk]; its last run, where it
 // begins in this chunk and goes on past it, to tail[chunk], and its key to
 // tail_key[chunk] (kNoKey otherwise).
@@ -1105,9 +1184,8 @@ template <int F>
 __global__ void __launch_bounds__(kThreads) cell_lookup_bwd_reduce_kernel(
     const unsigned* __restrict__ skeys, const unsigned* __restrict__ sids,
     const float* __restrict__ positions, const float* __restrict__ g_out,
-    float* __restrict__ g_cells, float* __restrict__ head, float* __restrict__ tail,
-    unsigned* __restrict__ tail_key, int num_lookups, int num_levels, int cell_bits,
-    long long level_stride, unsigned table_size, Levels lv) {
+    float* __restrict__ head, float* __restrict__ tail, unsigned* __restrict__ tail_key,
+    int num_lookups, int num_levels, Levels lv) {
     constexpr int V = 8 * F;
     const int lane = threadIdx.x & 31;
     const long long chunk = static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -1116,7 +1194,6 @@ __global__ void __launch_bounds__(kThreads) cell_lookup_bwd_reduce_kernel(
     const long long hi = lo + kChunk < num_lookups ? lo + kChunk : num_lookups;
     const unsigned first_key = skeys[lo];
     const bool open_left = lo > 0 && skeys[lo - 1] == first_key;
-    const unsigned cell_mask = (1u << cell_bits) - 1u;
 
     float carry[V];
 #pragma unroll
@@ -1130,12 +1207,13 @@ __global__ void __launch_bounds__(kThreads) cell_lookup_bwd_reduce_kernel(
         float v[V];
 #pragma unroll
         for (int k = 0; k < V; ++k) v[k] = 0.0f;
+        int l = 0;  // the lookup's level: its id is i * L + l
         if (valid) {
             const unsigned id = sids[j];
-            const int l = static_cast<int>(key >> cell_bits);
             const long long i = id / static_cast<unsigned>(num_levels);
+            l = static_cast<int>(id - i * num_levels);
             const float p[3] = {positions[3 * i], positions[3 * i + 1], positions[3 * i + 2]};
-            const Cell cell = locate(p, lv, l, table_size);
+            const Cell cell = locate(p, lv, l);
             float g[F];
 #pragma unroll
             for (int f = 0; f < F; ++f) g[f] = g_out[static_cast<long long>(id) * F + f];
@@ -1176,8 +1254,7 @@ __global__ void __launch_bounds__(kThreads) cell_lookup_bwd_reduce_kernel(
             } else if (j + 1 == hi && next == key) {
                 dst = tail + chunk * V;
             } else {
-                dst = g_cells + static_cast<long long>(key >> cell_bits) * level_stride +
-                      static_cast<long long>(key & cell_mask) * V;
+                dst = lv.grad[l] + static_cast<long long>(key - lv.key0[l]) * V;
             }
             store_floats(dst, v);
         }
@@ -1199,8 +1276,8 @@ __global__ void __launch_bounds__(kThreads) cell_lookup_bwd_reduce_kernel(
 template <int F>
 __global__ void __launch_bounds__(kThreads) cell_lookup_bwd_fixup_kernel(
     const unsigned* __restrict__ skeys, const float* __restrict__ head,
-    const float* __restrict__ tail, const unsigned* __restrict__ tail_key,
-    float* __restrict__ g_cells, long long num_chunks, int cell_bits, long long level_stride) {
+    const float* __restrict__ tail, const unsigned* __restrict__ tail_key, long long num_chunks,
+    int num_levels, Levels lv) {
     constexpr int V = 8 * F;
     constexpr int W = V < 16 ? V : 16;  // values a pass
     const int lane = threadIdx.x & 31;
@@ -1218,8 +1295,9 @@ __global__ void __launch_bounds__(kThreads) cell_lookup_bwd_fixup_kernel(
         break;
     }
     const long long parts = last - chunk + 1;
-    float* dst = g_cells + static_cast<long long>(key >> cell_bits) * level_stride +
-                 static_cast<long long>(key & ((1u << cell_bits) - 1u)) * V;
+    int l = 0;  // the key's level: the last whose first key is not above it
+    while (l + 1 < num_levels && lv.key0[l + 1] <= key) ++l;
+    float* dst = lv.grad[l] + static_cast<long long>(key - lv.key0[l]) * V;
     for (int v0 = 0; v0 < V; v0 += W) {
         float acc[W];
 #pragma unroll
@@ -1238,24 +1316,35 @@ __global__ void __launch_bounds__(kThreads) cell_lookup_bwd_fixup_kernel(
     }
 }
 
-// Per-level constants from the host's resolutions. Returns false on what the
-// kernels do not take.
-bool make_levels(const int* resolutions, int num_levels, int table_size, Levels* lv) {
-    if (num_levels < 1 || num_levels > kMaxLevels || table_size < 1) return false;
+// Per-level constants from the host's resolutions, table sizes and table
+// pointers (grads may be null). Returns false on what the kernels do not take:
+// a level's table must be 16-byte aligned (K4 reads float4s, K5 stores them,
+// K6 copies whole rows).
+bool make_levels(const int* resolutions, int num_levels, const int* sizes, const void* const* tables,
+                 float* const* grads, Levels* lv) {
+    if (num_levels < 1 || num_levels > kMaxLevels) return false;
     lv->dense = 0u;
+    long long key0 = 0;
     for (int l = 0; l < num_levels; ++l) {
-        const int res = resolutions[l];
-        if (res < 1) return false;
+        const int res = resolutions[l], size = sizes[l];
+        if (res < 1 || size < 1) return false;
         lv->ires[l] = res;
         lv->res[l] = static_cast<float>(res);
         // torch.clamp(scaled, 0, res * (1 - 1e-7)) rounds its Python scalar
         // to float32: the same double product, rounded to nearest
         lv->hi[l] = static_cast<float>(static_cast<double>(res) * (1.0 - 1e-7));
         const long long cube = static_cast<long long>(res) * res * res;
-        if (cube <= table_size) lv->dense |= 1u << l;
+        if (cube <= size) lv->dense |= 1u << l;
+        lv->size[l] = static_cast<unsigned>(size);
+        lv->mask[l] = (size & (size - 1)) == 0 ? static_cast<unsigned>(size - 1) : 0u;
+        lv->key0[l] = static_cast<unsigned>(key0);  // K5 checks the total (key_layout)
+        key0 += size;
+        lv->table[l] = tables == nullptr ? nullptr : tables[l];
+        lv->grad[l] = grads == nullptr ? nullptr : grads[l];
+        if (reinterpret_cast<unsigned long long>(lv->table[l]) % 16 != 0 ||
+            reinterpret_cast<unsigned long long>(lv->grad[l]) % 16 != 0)
+            return false;
     }
-    const bool pow2 = (table_size & (table_size - 1)) == 0;
-    lv->hash_mask = pow2 ? static_cast<unsigned>(table_size - 1) : 0u;
     return true;
 }
 
@@ -1267,18 +1356,19 @@ int ceil_log2(long long v) {
     return b;
 }
 
-// The key packs the level above the cell index: cell_bits for the index,
-// at most 31 bits in all.
+// The keys number every level's cells one after the other (level l's from
+// key0[l]): below the cells of all levels summed, at most 2^31.
 struct KeyLayout {
-    int cell_bits;
+    int bits;
     int passes;
 };
 
-bool key_layout(int num_levels, int table_size, KeyLayout* kl) {
-    kl->cell_bits = ceil_log2(table_size);
-    const int bits = ceil_log2(num_levels) + kl->cell_bits;
-    if (bits > 31) return false;
-    kl->passes = bits > 0 ? (bits + kDigitBits - 1) / kDigitBits : 1;
+bool key_layout(int num_levels, const int* sizes, KeyLayout* kl) {
+    long long total = 0;
+    for (int l = 0; l < num_levels; ++l) total += sizes[l];
+    kl->bits = ceil_log2(total);
+    if (kl->bits > 31) return false;
+    kl->passes = kl->bits > 0 ? (kl->bits + kDigitBits - 1) / kDigitBits : 1;
     return true;
 }
 
@@ -1313,17 +1403,14 @@ long long carve(char* base, long long lookups, int features, Scratch* s) {
 }
 
 template <int F>
-cudaError_t launch_keys(const float* positions, const float* cells, const float* g_out,
-                        float* g_pos, const Scratch& s, int n, int num_levels,
-                        long long level_stride, unsigned table_size, int cell_bits,
-                        const Levels& lv, cudaStream_t st) {
+cudaError_t launch_keys(const float* positions, const float* g_out, float* g_pos, const Scratch& s, int n,
+                        int num_levels, const Levels& lv, cudaStream_t st) {
     const int slots = 1 << ceil_log2(num_levels);
     const long long threads = static_cast<long long>(n) * slots;
-#define KEYS_CASE(k)                                                                           \
-    case k:                                                                                    \
-        cell_lookup_bwd_keys_kernel<F, k><<<blocks_for(threads), kThreads, 0, st>>>(           \
-            positions, cells, g_out, g_pos, s.keys[0], s.totals, n, num_levels, level_stride,  \
-            table_size, cell_bits, lv);                                                        \
+#define KEYS_CASE(k)                                                                         \
+    case k:                                                                                  \
+        cell_lookup_bwd_keys_kernel<F, k><<<blocks_for(threads), kThreads, 0, st>>>(         \
+            positions, g_out, g_pos, s.keys[0], s.totals, n, num_levels, lv);                \
         break;
     switch (slots) {
         KEYS_CASE(1) KEYS_CASE(2) KEYS_CASE(4) KEYS_CASE(8) KEYS_CASE(16) KEYS_CASE(32)
@@ -1361,13 +1448,10 @@ cudaError_t radix_sort(const Scratch& s, int num_keys, int passes, cudaStream_t 
 }
 
 template <int F>
-cudaError_t launch_bwd(const float* positions, const float* cells, const float* g_out,
-                       float* g_cells, float* g_pos, const Scratch& s, int n, int num_levels,
-                       long long level_stride, unsigned table_size, const KeyLayout& kl,
-                       const Levels& lv, cudaStream_t st) {
+cudaError_t launch_bwd(const float* positions, const float* g_out, float* g_pos, const Scratch& s, int n,
+                       int num_levels, const KeyLayout& kl, const Levels& lv, cudaStream_t st) {
     const int lookups = n * num_levels;
-    cudaError_t err = launch_keys<F>(positions, cells, g_out, g_pos, s, n, num_levels,
-                                     level_stride, table_size, kl.cell_bits, lv, st);
+    cudaError_t err = launch_keys<F>(positions, g_out, g_pos, s, n, num_levels, lv, st);
     if (err != cudaSuccess) return err;
     err = radix_sort(s, lookups, kl.passes, st);
     if (err != cudaSuccess) return err;
@@ -1376,35 +1460,38 @@ cudaError_t launch_bwd(const float* positions, const float* cells, const float* 
     const long long chunks = (lookups + kChunk - 1) / kChunk;
     const int blocks = static_cast<int>((chunks + kWarpsPerBlock - 1) / kWarpsPerBlock);
     cell_lookup_bwd_reduce_kernel<F><<<blocks, kThreads, 0, st>>>(
-        skeys, sids, positions, g_out, g_cells, s.head, s.tail, s.tail_key, lookups, num_levels,
-        kl.cell_bits, level_stride, table_size, lv);
+        skeys, sids, positions, g_out, s.head, s.tail, s.tail_key, lookups, num_levels, lv);
     cell_lookup_bwd_fixup_kernel<F><<<blocks, kThreads, 0, st>>>(
-        skeys, s.head, s.tail, s.tail_key, g_cells, chunks, kl.cell_bits, level_stride);
+        skeys, s.head, s.tail, s.tail_key, chunks, num_levels, lv);
     return cudaGetLastError();
 }
 
 
+// Bytes of one packed row: 8 M F elements of the type.
+int k6_row_bytes(int members, int features, int dtype) {
+    return 8 * members * features * (dtype == kK6F32 ? 4 : dtype == kK6BF16 ? 2 : 1);
+}
+
 // K6's launch arguments from the entry points' (strides null: the dense
 // entry). False on what the kernel does not take.
-bool k6_args(const float* positions, const float* t_mid, const float* packed, float* out, long long n,
-             int samples, int num_levels, int table_size, int members, int features,
-             const int* resolutions, const int* strides, K6Args* a, Levels* lv) {
-    if (!make_levels(resolutions, num_levels, table_size, lv) || n < 0 ||
+bool k6_args(const float* positions, const float* t_mid, const void* const* tables, const float* scales,
+             float* out, long long n, int samples, int num_levels, const int* sizes, int members,
+             int features, int dtype, const int* resolutions, const int* strides, K6Args* a, Levels* lv) {
+    if (!make_levels(resolutions, num_levels, sizes, tables, nullptr, lv) || n < 0 ||
         n * num_levels >= (1LL << 31) || members < 1 || members > kK6MaxMembers ||
-        (features != 1 && features != 2 && features != 4) ||
-        reinterpret_cast<unsigned long long>(packed) % 16 != 0 ||
-        reinterpret_cast<unsigned long long>(out) % 16 != 0)
+        (features != 1 && features != 2 && features != 4) || dtype < kK6F32 || dtype > kK6Int8 ||
+        (dtype == kK6Int8) != (scales != nullptr) || reinterpret_cast<unsigned long long>(out) % 16 != 0)
         return false;
     a->positions = positions;
     a->t_mid = t_mid;
-    a->packed = packed;
+    a->scales = scales;
     a->out = out;
-    a->level_stride = static_cast<long long>(table_size) * 8 * members * features;
     a->n = static_cast<int>(n);
     a->num_levels = num_levels;
     a->members = members;
     a->samples = samples;
-    a->table_size = static_cast<unsigned>(table_size);
+    a->row_bytes = k6_row_bytes(members, features, dtype);
+    a->bulk = a->row_bytes % 16 == 0;
     for (int l = 0; l < num_levels; ++l) {
         a->stride[l] = strides == nullptr ? 1 : strides[l];
         if (a->stride[l] < 1 || (a->stride[l] > 1 && (samples < 1 || t_mid == nullptr))) return false;
@@ -1413,14 +1500,14 @@ bool k6_args(const float* positions, const float* t_mid, const float* packed, fl
 }
 
 // Dynamic shared memory of a K6 block.
-int k6_shared_bytes(int members, int features, int num_levels) {
-    return kK6Warps * k6_layout(members, features, num_levels).floats * 4;
+int k6_shared_bytes(int members, int features, int dtype, int num_levels) {
+    return kK6Warps * k6_layout(k6_row_bytes(members, features, dtype), members, features, num_levels).floats * 4;
 }
 
-template <int F>
-cudaError_t launch_k6(const K6Args& a, const Levels& lv, bool strided, cudaStream_t st) {
-    auto kernel = strided ? packed_lookup_strided_kernel<F> : packed_lookup_fwd_kernel<F>;
-    const int bytes = k6_shared_bytes(a.members, F, a.num_levels);
+template <int F, class T>
+cudaError_t launch_k6(const K6Args& a, const Levels& lv, int dtype, bool strided, cudaStream_t st) {
+    auto kernel = strided ? packed_lookup_strided_kernel<F, T> : packed_lookup_fwd_kernel<F, T>;
+    const int bytes = k6_shared_bytes(a.members, F, dtype, a.num_levels);
     const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
     const int blocks = (a.n + kK6Threads - 1) / kK6Threads;
@@ -1428,43 +1515,50 @@ cudaError_t launch_k6(const K6Args& a, const Levels& lv, bool strided, cudaStrea
     return cudaGetLastError();
 }
 
-int run_k6(const K6Args& a, const Levels& lv, int features, bool strided, void* stream) {
+template <int F>
+cudaError_t launch_k6_type(const K6Args& a, const Levels& lv, int dtype, bool strided, cudaStream_t st) {
+    switch (dtype) {
+        case kK6F32: return launch_k6<F, float>(a, lv, dtype, strided, st);
+        case kK6BF16: return launch_k6<F, bf16_bits>(a, lv, dtype, strided, st);
+        case kK6Int8: return launch_k6<F, signed char>(a, lv, dtype, strided, st);
+        default: return cudaErrorInvalidValue;
+    }
+}
+
+int run_k6(const K6Args& a, const Levels& lv, int features, int dtype, bool strided, void* stream) {
     if (a.n == 0) return 0;
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (features) {
-        case 1: return static_cast<int>(launch_k6<1>(a, lv, strided, st));
-        case 2: return static_cast<int>(launch_k6<2>(a, lv, strided, st));
-        case 4: return static_cast<int>(launch_k6<4>(a, lv, strided, st));
+        case 1: return static_cast<int>(launch_k6_type<1>(a, lv, dtype, strided, st));
+        case 2: return static_cast<int>(launch_k6_type<2>(a, lv, dtype, strided, st));
+        case 4: return static_cast<int>(launch_k6_type<4>(a, lv, dtype, strided, st));
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
 }  // namespace
 
-// C interface, loaded with ctypes. Device pointers to float32: positions
-// (n, 3) contiguous; cells (L, n_rows, 128) contiguous, level_stride =
-// n_rows * 128 floats, 16-byte aligned; out (n, L * F) contiguous, 16-byte
-// aligned.
-// resolutions is a host array of L ints; features is F in {1, 2, 4, 8, 16};
-// n * L < 2^31. Launches on `stream` and returns cudaGetLastError(), or
-// cudaErrorInvalidValue for arguments the kernel does not take.
-extern "C" int cell_lookup_fwd_f32(const float* positions, const float* cells, float* out,
-                                   int n, int num_levels, long long level_stride,
-                                   int table_size, int features, const int* resolutions,
+// C interface, loaded with ctypes. Host arrays of L entries: resolutions and
+// sizes (T_l, the cells of level l's table) as ints, tables as device
+// pointers, level l's table (T_l cells of 8 F floats: its (n_rows_l, 128)
+// rows, 16-byte aligned). Device pointers to float32: positions (n, 3)
+// contiguous; out (n, L * F) contiguous, 16-byte aligned. features is F in
+// {1, 2, 4, 8, 16}; n * L < 2^31. Launches on `stream` and returns
+// cudaGetLastError(), or cudaErrorInvalidValue for arguments the kernel does
+// not take.
+extern "C" int cell_lookup_fwd_f32(const float* positions, const void* const* tables, float* out, int n,
+                                   int num_levels, const int* sizes, int features, const int* resolutions,
                                    void* stream) {
     Levels lv;
-    if (!make_levels(resolutions, num_levels, table_size, &lv) || n < 0 ||
+    if (!make_levels(resolutions, num_levels, sizes, tables, nullptr, &lv) || n < 0 ||
         static_cast<long long>(n) * num_levels >= (1LL << 31) ||
-        reinterpret_cast<unsigned long long>(cells) % 16 != 0 ||
-        reinterpret_cast<unsigned long long>(out) % 16 != 0 || level_stride % 4 != 0)
+        reinterpret_cast<unsigned long long>(out) % 16 != 0)
         return static_cast<int>(cudaErrorInvalidValue);
     if (n == 0) return 0;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const unsigned ts = static_cast<unsigned>(table_size);
     const int blocks = static_cast<int>((static_cast<long long>(n) + kK4Threads - 1) / kK4Threads);
-#define K4_CASE(f)                                                                      \
-    case f:                                                                             \
-        cell_lookup_fwd_kernel<f><<<blocks, kK4Threads, 0, s>>>(                        \
-            positions, cells, out, n, num_levels, level_stride, ts, lv);                \
+#define K4_CASE(f)                                                                          \
+    case f:                                                                                 \
+        cell_lookup_fwd_kernel<f><<<blocks, kK4Threads, 0, s>>>(positions, out, n, num_levels, lv); \
         break;
     switch (features) {
         K4_CASE(1) K4_CASE(2) K4_CASE(4) K4_CASE(8) K4_CASE(16)
@@ -1475,76 +1569,79 @@ extern "C" int cell_lookup_fwd_f32(const float* positions, const float* cells, f
     return static_cast<int>(cudaGetLastError());
 }
 
-// K6. Device pointers to float32: positions (n, 3) contiguous; packed (L,
-// table_size, 8, M, F) contiguous, 16-byte aligned; out (M, n, L * F)
-// contiguous, 16-byte aligned. resolutions is a host array of L ints;
-// members is M in [1, 8]; features is F in {1, 2, 4}; n * L < 2^31. Launches
-// on `stream` and returns cudaGetLastError(), or cudaErrorInvalidValue for
+// K6. tables: level l's packed rows (T_l, 8, M, F) contiguous, 16-byte
+// aligned, of dtype 0 (float32), 1 (bf16) or 2 (int8; then scales is a
+// device array of L float32 scales, null otherwise); positions (n, 3)
+// contiguous; out (M, n, L * F) float32 contiguous, 16-byte aligned. members
+// is M in [1, 8]; features is F in {1, 2, 4}; n * L < 2^31. Launches on
+// `stream` and returns cudaGetLastError(), or cudaErrorInvalidValue for
 // arguments the kernel does not take.
-extern "C" int packed_cell_lookup_fwd_f32(const float* positions, const float* packed, float* out,
-                                          int n, int num_levels, int table_size, int members,
-                                          int features, const int* resolutions, void* stream) {
+extern "C" int packed_cell_lookup_fwd(const float* positions, const void* const* tables, const float* scales,
+                                      float* out, int n, int num_levels, const int* sizes, int members,
+                                      int features, int dtype, const int* resolutions, void* stream) {
     K6Args a;
     Levels lv;
-    if (!k6_args(positions, nullptr, packed, out, n, 1, num_levels, table_size, members, features,
+    if (!k6_args(positions, nullptr, tables, scales, out, n, 1, num_levels, sizes, members, features, dtype,
                  resolutions, nullptr, &a, &lv))
         return static_cast<int>(cudaErrorInvalidValue);
-    return run_k6(a, lv, features, false, stream);
+    return run_k6(a, lv, features, dtype, false, stream);
 }
 
 // K6's strided entry: positions (rays, samples, 3) and t_mid (rays, samples)
 // contiguous; out (M, rays, samples, L * F); strides a host array of L ints
 // >= 1, K_l of each level (1: looked up at every sample). Otherwise as
-// packed_cell_lookup_fwd_f32, with n = rays * samples.
-extern "C" int packed_cell_lookup_strided_fwd_f32(const float* positions, const float* t_mid,
-                                                  const float* packed, float* out, int rays,
-                                                  int samples, int num_levels, int table_size,
-                                                  int members, int features, const int* resolutions,
-                                                  const int* strides, void* stream) {
+// packed_cell_lookup_fwd, with n = rays * samples.
+extern "C" int packed_cell_lookup_strided_fwd(const float* positions, const float* t_mid,
+                                              const void* const* tables, const float* scales, float* out,
+                                              int rays, int samples, int num_levels, const int* sizes,
+                                              int members, int features, int dtype, const int* resolutions,
+                                              const int* strides, void* stream) {
     K6Args a;
     Levels lv;
     if (rays < 0 || samples < 1 ||
-        !k6_args(positions, t_mid, packed, out, static_cast<long long>(rays) * samples, samples,
-                 num_levels, table_size, members, features, resolutions, strides, &a, &lv))
+        !k6_args(positions, t_mid, tables, scales, out, static_cast<long long>(rays) * samples, samples,
+                 num_levels, sizes, members, features, dtype, resolutions, strides, &a, &lv))
         return static_cast<int>(cudaErrorInvalidValue);
-    return run_k6(a, lv, features, true, stream);
+    return run_k6(a, lv, features, dtype, true, stream);
 }
 
 // Bytes of dynamic shared memory a K6 block takes (kK6Warps warps).
-extern "C" int packed_cell_lookup_shared_bytes(int num_levels, int members, int features) {
-    return k6_shared_bytes(members, features, num_levels);
+extern "C" int packed_cell_lookup_shared_bytes(int num_levels, int members, int features, int dtype) {
+    return k6_shared_bytes(members, features, dtype, num_levels);
 }
 
 // Bytes of scratch K5 (and cell_lookup_sort_u32) needs for n samples, or -1
-// for arguments the kernels do not take (the key would need more than 31
+// for arguments the kernels do not take (the keys would need more than 31
 // bits, or n * L >= 2^31).
-extern "C" long long cell_lookup_bwd_scratch_bytes(int n, int num_levels, int table_size,
-                                                   int features) {
+extern "C" long long cell_lookup_bwd_scratch_bytes(int n, int num_levels, const int* sizes, int features) {
     KeyLayout kl;
-    if (n < 0 || num_levels < 1 || num_levels > kMaxLevels || table_size < 1 ||
-        !key_layout(num_levels, table_size, &kl))
-        return -1;
+    if (n < 0 || num_levels < 1 || num_levels > kMaxLevels) return -1;
+    for (int l = 0; l < num_levels; ++l)
+        if (sizes[l] < 1) return -1;
+    if (!key_layout(num_levels, sizes, &kl)) return -1;
     const long long lookups = static_cast<long long>(n) * num_levels;
     if (lookups >= (1LL << 31)) return -1;
     Scratch s;
     return carve(nullptr, lookups, features, &s);
 }
 
-// As cell_lookup_fwd_f32, with g_out (n, L * F) contiguous, g_cells of the
-// cells' shape, zero-filled by the caller, g_pos (n, 3) or null (then cells
-// is not read), and scratch of cell_lookup_bwd_scratch_bytes bytes, 256-byte
-// aligned. Every cell that a lookup touches is stored once; g_pos is written
-// in full.
-extern "C" int cell_lookup_bwd_f32(const float* positions, const float* cells,
-                                   const float* g_out, float* g_cells, float* g_pos, int n,
-                                   int num_levels, long long level_stride, int table_size,
-                                   int features, const int* resolutions, void* scratch,
+// As cell_lookup_fwd_f32, with g_out (n, L * F) contiguous, g_tables a host
+// array of L device pointers, level l's gradient of its table's shape,
+// zero-filled by the caller, 16-byte aligned, g_pos (n, 3) or null (then the
+// tables are not read), and scratch of cell_lookup_bwd_scratch_bytes bytes,
+// 256-byte aligned. Every cell that a lookup touches is stored once; g_pos is
+// written in full.
+extern "C" int cell_lookup_bwd_f32(const float* positions, const void* const* tables, const float* g_out,
+                                   float* const* g_tables, float* g_pos, int n, int num_levels,
+                                   const int* sizes, int features, const int* resolutions, void* scratch,
                                    long long scratch_bytes, void* stream) {
     Levels lv;
     KeyLayout kl;
-    if (!make_levels(resolutions, num_levels, table_size, &lv) || n < 0 ||
-        !key_layout(num_levels, table_size, &kl))
+    if (!make_levels(resolutions, num_levels, sizes, tables, g_tables, &lv) || n < 0 ||
+        !key_layout(num_levels, sizes, &kl))
         return static_cast<int>(cudaErrorInvalidValue);
+    for (int l = 0; l < num_levels; ++l)
+        if (lv.grad[l] == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     const long long lookups = static_cast<long long>(n) * num_levels;
     if (lookups == 0) return 0;
     Scratch s;
@@ -1552,12 +1649,10 @@ extern "C" int cell_lookup_bwd_f32(const float* positions, const float* cells,
         carve(static_cast<char*>(scratch), lookups, features, &s) > scratch_bytes)
         return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const unsigned ts = static_cast<unsigned>(table_size);
     cudaError_t err;
-#define K5_CASE(f)                                                                              \
-    case f:                                                                                     \
-        err = launch_bwd<f>(positions, cells, g_out, g_cells, g_pos, s, n, num_levels,          \
-                            level_stride, ts, kl, lv, st);                                      \
+#define K5_CASE(f)                                                                   \
+    case f:                                                                          \
+        err = launch_bwd<f>(positions, g_out, g_pos, s, n, num_levels, kl, lv, st);  \
         break;
     switch (features) {
         K5_CASE(1) K5_CASE(2) K5_CASE(4) K5_CASE(8) K5_CASE(16)
@@ -1572,14 +1667,13 @@ extern "C" int cell_lookup_bwd_f32(const float* positions, const float* cells,
 // lookup's key in lookup order (i * L + l), sorted_out the keys sorted, and
 // perm_out the stable permutation (the lookup id of each sorted key). int32
 // outputs, contiguous; scratch as for cell_lookup_bwd_f32.
-extern "C" int cell_lookup_sort_u32(const float* positions, int n, int num_levels,
-                                    int table_size, const int* resolutions, unsigned* keys_out,
-                                    unsigned* sorted_out, unsigned* perm_out, void* scratch,
-                                    long long scratch_bytes, void* stream) {
+extern "C" int cell_lookup_sort_u32(const float* positions, int n, int num_levels, const int* sizes,
+                                    const int* resolutions, unsigned* keys_out, unsigned* sorted_out,
+                                    unsigned* perm_out, void* scratch, long long scratch_bytes, void* stream) {
     Levels lv;
     KeyLayout kl;
-    if (!make_levels(resolutions, num_levels, table_size, &lv) || n < 0 ||
-        !key_layout(num_levels, table_size, &kl))
+    if (!make_levels(resolutions, num_levels, sizes, nullptr, nullptr, &lv) || n < 0 ||
+        !key_layout(num_levels, sizes, &kl))
         return static_cast<int>(cudaErrorInvalidValue);
     const long long lookups = static_cast<long long>(n) * num_levels;
     if (lookups == 0) return 0;
@@ -1587,8 +1681,7 @@ extern "C" int cell_lookup_sort_u32(const float* positions, int n, int num_level
     if (lookups >= (1LL << 31) || carve(static_cast<char*>(scratch), lookups, 1, &s) > scratch_bytes)
         return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    cudaError_t err = launch_keys<1>(positions, nullptr, nullptr, nullptr, s, n, num_levels, 0,
-                                     static_cast<unsigned>(table_size), kl.cell_bits, lv, st);
+    cudaError_t err = launch_keys<1>(positions, nullptr, nullptr, s, n, num_levels, lv, st);
     if (err != cudaSuccess) return static_cast<int>(err);
     const size_t bytes = 4 * static_cast<size_t>(lookups);
     err = cudaMemcpyAsync(keys_out, s.keys[0], bytes, cudaMemcpyDeviceToDevice, st);

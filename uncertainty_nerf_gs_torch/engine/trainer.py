@@ -36,8 +36,13 @@ they are not the JAX package's numbers; the parity tests inject those. Its
 state is part of ``state_dict``, so a restored trainer repeats a step bit
 for bit. Unlike the JAX trainer, whose ``train`` restarts its key at ``seed
 + 1`` on every call, the generator carries on from call to call.
-Refused rather than skipped: the face consistency loss (ROADMAP, queue 1,
-item 7).
+
+``face_consistency_mult > 0`` adds the JAX trainer's face-consistency loss
+(``encoding_face_loss``): the mean of ``ops/encodings.py::
+face_consistency_loss`` over the main field's cell-stored levels (every
+level of the cell layout, the hashed levels of the hybrid one), its
+vertices drawn from the trainer's generator after the forward's draws (or
+given as ``draws["face_vertices"]``), so that a captured step replays them.
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ from uncertainty_nerf_gs_torch.models.nerfacto import (
 )
 from uncertainty_nerf_gs_torch.ops import backend
 from uncertainty_nerf_gs_torch.ops.backend import resolve_device
+from uncertainty_nerf_gs_torch.ops.encodings import face_lanes, face_vertices
 from uncertainty_nerf_gs_torch.ops.mlp import Dropout, ReplayDropout
 
 # eager steps before the first capture of a step into a CUDA graph
@@ -76,6 +82,28 @@ class _CapturedStep(NamedTuple):
     graph: torch.cuda.CUDAGraph
     losses: torch.Tensor
     launches: dict[str, int]
+
+
+def encoding_face_loss(model: NerfactoModel, vertices: list[torch.Tensor]) -> torch.Tensor:
+    """The JAX trainer's ``_encoding_face_loss``: the mean of the
+    face-consistency penalty over the main field's cell-stored levels
+    (``cell_levels()``: every level of the cell layout, the hashed levels of
+    the hybrid one, whose dense levels share corners exactly), ``vertices``
+    one (K, 3) draw a level. The features of every level are read by one
+    index into the stacked ``cells``, so that the backward writes their
+    gradient in one sorted accumulation."""
+    enc = model.field.encoding
+    levels = enc.cell_levels()
+    # a level of res < 2 has no interior vertex: its term is 0, as in JAX
+    live = [(j, lvl, v) for j, (lvl, v) in enumerate(zip(levels, vertices)) if int(enc.resolutions[lvl]) >= 2]
+    if not live:
+        return next(model.parameters()).new_zeros(())
+    per_level = enc.cells[0].numel()
+    lanes = torch.stack([face_lanes(v, int(enc.resolutions[lvl]), enc.table_size, enc.features_per_level)
+                         + j * per_level for j, lvl, v in live])
+    vals = enc.cells.reshape(-1)[lanes]  # (levels, 8, K, F)
+    terms = torch.mean(torch.var(vals, dim=1, correction=0), dim=(1, 2))
+    return sum(terms[i] for i in range(len(live))) / len(levels)
 
 
 class NerfactoTrainer:
@@ -109,10 +137,6 @@ class NerfactoTrainer:
         gradient_checkpointing: bool = False,
         device: str | torch.device | None = None,
     ):
-        if config.face_consistency_mult > 0.0:
-            raise NotImplementedError(
-                "face_consistency_loss is not ported yet (ROADMAP, queue 1, item 7)"
-            )
         self.device = resolve_device(device)
         self.config = config
         self.cameras = cameras.to(self.device)
@@ -253,6 +277,14 @@ class NerfactoTrainer:
         )
         if draws is None:
             draws = self.model.draw(rb.origins.shape[0], self._generator)
+        cfg = self.config
+        face = cfg.face_consistency_mult > 0.0
+        if face:
+            vertices = draws.get("face_vertices")
+            if vertices is None:
+                enc = self.model.field.encoding
+                vertices = face_vertices([enc.resolutions[lvl] for lvl in enc.cell_levels()],
+                                         cfg.face_consistency_samples, self._generator)
         dropout = (Dropout(masks=dropout_masks) if dropout_masks is not None
                    else ReplayDropout(self._generator))
         anneal = proposal_anneal_factor(step, self.config)
@@ -267,7 +299,12 @@ class NerfactoTrainer:
             outputs = checkpoint(forward, rb, use_reentrant=False, preserve_rng_state=False)
         else:
             outputs = forward(rb)
-        return nerfacto_loss(outputs, batch, self.config)
+        total, losses = nerfacto_loss(outputs, batch, self.config)
+        if face:
+            fc = cfg.face_consistency_mult * encoding_face_loss(self.model, vertices)
+            losses["face_consistency_loss"] = fc
+            total = total + fc
+        return total, losses
 
     def _device_step(self, num_rays: int) -> torch.Tensor:
         """One step (a batch, the loss, its gradients, one update) with no

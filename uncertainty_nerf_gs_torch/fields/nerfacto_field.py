@@ -1,7 +1,8 @@
 """Nerfacto-style radiance field (hash grid + MLPs) with uncertainty hooks.
 
-Counterpart of ``uncertainty_nerf_gs_tpu/fields/nerfacto_field.py``, cell
-grid layout. The base MLP ends in a shared trunk from which ``density_head``,
+Counterpart of ``uncertainty_nerf_gs_tpu/fields/nerfacto_field.py``, with
+the cell and hybrid grid layouts (``grid_layout``; ``ops/encodings.py``).
+The base MLP ends in a shared trunk from which ``density_head``,
 ``geo_head`` and the optional aleatoric ``unc_head`` branch; the color MLP
 (``color_trunk``) ends in a separate ``rgb_head`` before the sigmoid. Module
 and parameter names follow the flax tree, so ``interop.py`` maps weights
@@ -9,7 +10,9 @@ one to one. A ``Dropout`` passed to a forward applies the MLPs' dropout
 (MC-dropout); its masks are named ``base_mlp.{layer}`` and
 ``color_trunk.{layer}``. ``forward_mc`` evaluates several dropout draws
 and runs once what no draw changes: the hash-grid lookup and the layers
-before the first dropout.
+before the first dropout. ``ProposalDensityField(field_type="mlp")`` is the
+JAX package's gather-free proposal: the NeRF frequency encoding of the
+normalized position (5 frequencies and the input) into its MLP.
 """
 
 from __future__ import annotations
@@ -22,7 +25,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from uncertainty_nerf_gs_torch.ops.activations import shifted_softplus, trunc_exp
-from uncertainty_nerf_gs_torch.ops.encodings import CellHashEncoding, sh_encoding
+from uncertainty_nerf_gs_torch.ops.encodings import (
+    CellHashEncoding,
+    HybridHashEncoding,
+    nerf_encoding,
+    sh_encoding,
+)
 from uncertainty_nerf_gs_torch.ops.mlp import MLP, Dropout, init_dense
 from uncertainty_nerf_gs_torch.ops.spatial import contract_to_unit_cube, normalize_aabb
 
@@ -36,11 +44,19 @@ class FieldOutputs(NamedTuple):
     color_penultimate: torch.Tensor  # (..., S, W) rgb_head inputs
 
 
-def _check_layout(grid_layout: str) -> None:
-    if grid_layout != "cell":
+# The JAX package's layouts; "corner" (tcnn's eight corner gathers a lookup)
+# has no kernel in the port yet (ROADMAP, queue 1, item 7).
+_GRID_LAYOUTS = {"cell": CellHashEncoding, "hybrid": HybridHashEncoding, "corner": None}
+
+
+def _encoding(grid_layout: str, **kw) -> nn.Module:
+    if grid_layout not in _GRID_LAYOUTS:
+        raise ValueError(f"unknown grid_layout {grid_layout!r}; one of {sorted(_GRID_LAYOUTS)}")
+    if _GRID_LAYOUTS[grid_layout] is None:
         raise NotImplementedError(
-            f"grid_layout={grid_layout!r} is not ported yet (only 'cell')"
+            f"grid_layout={grid_layout!r} is not ported yet (ROADMAP, queue 1, item 7: the corner layout)"
         )
+    return _GRID_LAYOUTS[grid_layout](**kw)
 
 
 @functools.lru_cache(maxsize=None)
@@ -104,7 +120,6 @@ class NerfactoField(nn.Module):
         generator: torch.Generator | None = None,
     ):
         super().__init__()
-        _check_layout(grid_layout)
         self.use_scene_contraction = use_scene_contraction
         self.aabb = aabb
         self.num_uncertainty_channels = num_uncertainty_channels
@@ -115,7 +130,8 @@ class NerfactoField(nn.Module):
         self.appearance_embed_dim = appearance_embed_dim
         kw = dict(device=device, generator=generator)
 
-        self.encoding = CellHashEncoding(
+        self.encoding = _encoding(
+            grid_layout,
             num_levels=num_levels,
             min_res=base_res,
             max_res=max_res,
@@ -306,8 +322,9 @@ class NerfactoField(nn.Module):
 
 
 class ProposalDensityField(nn.Module):
-    """Small density-only hash field for the proposal hierarchy (nerfacto's
-    ``HashMLPDensityField``)."""
+    """Small density-only field for the proposal hierarchy: nerfacto's
+    ``HashMLPDensityField`` (``field_type="hash"``), or the JAX package's
+    gather-free ``"mlp"`` variant (frequency encoding, no grid)."""
 
     def __init__(
         self,
@@ -322,28 +339,35 @@ class ProposalDensityField(nn.Module):
         aabb: Any = None,
         compute_dtype: Any = None,
         field_type: str = "hash",
+        num_frequencies: int = 5,
         grid_layout: str = "cell",
         *,
         device: torch.device | None = None,
         generator: torch.Generator | None = None,
     ):
         super().__init__()
-        if field_type != "hash":
-            raise NotImplementedError(f"proposal field_type={field_type!r} is not ported yet")
-        _check_layout(grid_layout)
+        if field_type not in ("hash", "mlp"):
+            raise ValueError(f"unknown proposal field_type {field_type!r}")
+        self.field_type = field_type
+        self.num_frequencies = num_frequencies
         self.use_scene_contraction = use_scene_contraction
         self.aabb = aabb
         kw = dict(device=device, generator=generator)
-        self.encoding = CellHashEncoding(
-            num_levels=num_levels,
-            min_res=base_res,
-            max_res=max_res,
-            log2_hashmap_size=log2_hashmap_size,
-            features_per_level=features_per_level,
-            **kw,
-        )
+        if field_type == "mlp":
+            in_dim = 3 + 3 * 2 * num_frequencies  # the input, then sin and cos of each frequency
+        else:
+            self.encoding = _encoding(
+                grid_layout,
+                num_levels=num_levels,
+                min_res=base_res,
+                max_res=max_res,
+                log2_hashmap_size=log2_hashmap_size,
+                features_per_level=features_per_level,
+                **kw,
+            )
+            in_dim = self.encoding.output_dim
         self.mlp = MLP(
-            self.encoding.output_dim,
+            in_dim,
             num_layers=num_layers,
             layer_width=hidden_dim,
             out_dim=1,
@@ -359,4 +383,9 @@ class ProposalDensityField(nn.Module):
         normalized, selector = _normalize_positions(
             positions, self.use_scene_contraction, self.aabb
         )
-        return self.density_from_feats(self.encoding(normalized), selector)
+        if self.field_type == "mlp":
+            feats = nerf_encoding(normalized, num_frequencies=self.num_frequencies, min_freq_exp=0.0,
+                                  max_freq_exp=float(self.num_frequencies - 1), include_input=True)
+        else:
+            feats = self.encoding(normalized)
+        return self.density_from_feats(feats, selector)

@@ -8,7 +8,9 @@ the flax module names, so a tree path maps to a dotted key leaf by leaf:
 * ``Dense.kernel`` (in, out) <-> ``Linear.weight`` (out, in), transposed;
 * ``Dense.bias`` <-> ``Linear.bias``;
 * ``Embed.embedding`` <-> ``Embedding.weight``;
-* ``cells`` is copied as is, in the JAX package's (L, n_rows, 128) layout.
+* ``cells`` is copied as is, in the JAX package's (L, n_rows, 128) layout,
+  and so is a hybrid grid's ``corners_{lvl}`` ((res + 1, res + 1, (res + 1)
+  F)), which is not a kernel.
 
 Both directions only copy and transpose, so the round trip is bit-exact.
 
@@ -61,6 +63,11 @@ def _flatten(tree: Mapping[str, Any], prefix: tuple[str, ...] = (), skip=None):
             yield path, np.asarray(value)
 
 
+def _is_table(name: str) -> bool:
+    """A hash grid's table leaf, copied as is: ``cells`` or ``corners_{lvl}``."""
+    return name == "cells" or (name.startswith("corners_") and name[len("corners_"):].isdigit())
+
+
 def _torch_leaf(path: tuple[str, ...], leaf: np.ndarray) -> tuple[str, torch.Tensor]:
     """A flax tree path and leaf -> the state-dict key and tensor."""
     *mods, name = path
@@ -68,7 +75,7 @@ def _torch_leaf(path: tuple[str, ...], leaf: np.ndarray) -> tuple[str, torch.Ten
         name, leaf = "weight", leaf.T
     elif name == "embedding":
         name = "weight"
-    elif name not in ("bias", "cells") and path != ("camera_opt",):
+    elif name != "bias" and not _is_table(name) and path != ("camera_opt",):
         raise KeyError(f"no torch counterpart for leaf {'/'.join(path)}")
     return ".".join(mods + [name]), torch.from_numpy(np.array(leaf, order="C"))
 
@@ -87,7 +94,8 @@ def draw_params(
     bias_scale: float = 0.5,
 ) -> dict[str, Any]:
     """A flax param tree of ``tree``'s structure with fresh float32 numpy
-    draws: cells uniform in [-cell_scale, cell_scale), kernels normal with
+    draws: cells and hybrid corner grids uniform in [-cell_scale,
+    cell_scale), kernels normal with
     std kernel_scale / sqrt(fan_in), everything else normal with std
     bias_scale. These scales give peaked compositing weights; init-scale
     tables (+-1e-4) give near-constant densities, which leave the PDF
@@ -98,7 +106,7 @@ def draw_params(
             out[key] = draw_params(value, rng, cell_scale, kernel_scale, bias_scale)
             continue
         shape = np.shape(value)
-        if key == "cells":
+        if _is_table(key):
             leaf = rng.uniform(-cell_scale, cell_scale, shape)
         elif key == "kernel":
             leaf = rng.normal(size=shape) * (kernel_scale / np.sqrt(shape[0]))
@@ -117,7 +125,7 @@ def _jax_leaf(key: str, value: torch.Tensor) -> tuple[list[str], np.ndarray]:
             name = "embedding"
         else:
             name, leaf = "kernel", leaf.T
-    elif name not in ("bias", "cells", "camera_opt"):
+    elif name not in ("bias", "camera_opt") and not _is_table(name):
         raise KeyError(f"no flax counterpart for {key}")
     return mods + [name], np.ascontiguousarray(leaf)
 

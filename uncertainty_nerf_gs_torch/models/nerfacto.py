@@ -74,9 +74,12 @@ class NerfactoConfig:
     use_scene_contraction: bool = True
     aabb: Any = None
     background_color: str = "last_sample"  # random | last_sample | white | black
-    # proposal fields: "hash" only in the port so far
+    # proposal fields: "hash" (nerfstudio's) or "mlp" (the JAX package's
+    # gather-free frequency-encoded MLP); per net through
+    # proposal_net_args[i]["field_type"]
     proposal_field_type: str = "hash"
-    # hash-grid layout: "cell" only in the port so far
+    # hash-grid layout: "cell" or "hybrid" (canonical corner grids at the
+    # dense levels, hashed cells above); "corner" is not ported yet
     grid_layout: str = "cell"
     proposal_net_args: tuple = (
         dict(num_levels=5, max_res=128, log2_hashmap_size=17, hidden_dim=16),
@@ -224,20 +227,23 @@ class NerfactoModel(nn.Module):
         Two runs that agree here read the same cells. Where they differ, a
         sample crossed a cell face between the runs; the cell layout stores
         each cell's corners on their own, so the features jump there and the
-        two runs' outputs for that ray are not comparable."""
+        two runs' outputs for that ray are not comparable. An mlp proposal
+        makes no lookup."""
         ray_bundle = self._with_planes(ray_bundle)
         num_rays = ray_bundle.origins.shape[0]
         cols = []
         for field, edges in zip(self._fields(), sdist_list):
+            enc = getattr(field, "encoding", None)
+            if enc is None:
+                continue
             positions = _edges_to_samples(
                 ray_bundle, edges, spacing_piecewise, spacing_piecewise_inv
             ).positions
             normalized, _ = _normalize_positions(
                 positions, field.use_scene_contraction, field.aabb
             )
-            enc = field.encoding
-            for res in enc.resolutions:
-                idx, _ = cell_indices(normalized.reshape(-1, 3), int(res), enc.table_size)
+            for res, size in zip(enc.resolutions, enc.level_sizes):
+                idx, _ = cell_indices(normalized.reshape(-1, 3), int(res), size)
                 cols.append(idx.reshape(num_rays, -1))
         return torch.cat(cols, dim=1)
 

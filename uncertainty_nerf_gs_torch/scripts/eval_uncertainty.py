@@ -15,11 +15,14 @@ package's layout) or the splat render. Several runs are a deep ensemble
 proposal chain and one member-packed lookup a field, K6 on the card) or per
 member, the splat family stacked, at ``--raster-capacity`` probed or set.
 
-``--table-dtype`` defaults to ``f32`` here (the JAX package's default is
-bf16): bf16 and int8 packed tables are not ported yet (ROADMAP, queue 1,
-item 7), and the JSON's ``approximations`` record ``"table_dtype": "f32"``.
-``--table-fold 2/4`` is refused as the JAX package refuses it. ``--device``
-(an addition: the card by default) takes ``cpu`` for a try without one.
+The fused ensemble's packed tables take the JAX package's options:
+``--table-dtype`` bf16 (the default, as in the JAX package), f32 or int8,
+``--table-fold`` and ``--table-split``, recorded in the JSON's
+``approximations`` as the JAX package records them. Fold and split are
+exact relayouts that change no value; the JAX package refuses
+``--table-fold 2/4`` for a TPU compiler's memory, which the port, where a
+fold is a view of the same rows, does not need. ``--device`` (an addition:
+the card by default) takes ``cpu`` for a try without one.
 
 Usage:
     python -m uncertainty_nerf_gs_torch.scripts.eval_uncertainty \\
@@ -100,7 +103,7 @@ def build_ensemble_chunk_fn(
     model: NerfactoModel,
     stacked_params: Mapping[str, torch.Tensor],
     main_stride_scale: float = 0.0,
-    table_dtype: str = "f32",
+    table_dtype: str = "bf16",
     table_fold: int = 1,
     ensemble_mode: str = "fused",
     table_split: bool = False,
@@ -108,15 +111,13 @@ def build_ensemble_chunk_fn(
     """The nerfacto-family ensemble's chunk renderer ``rb -> combined
     outputs``: ``ensemble_mode="fused"`` packs the members' tables once and
     renders through ``build_fused_ensemble_render``; ``"per_member"``
-    renders each member's own forward (``ensemble_render``). Only float32
-    tables are ported (``table_dtype="f32"``; the JAX package's default is
-    bf16)."""
+    renders each member's own forward (``ensemble_render``). ``table_dtype``
+    ("bf16", the JAX package's default, "f32" or "int8"), ``table_fold`` and
+    ``table_split`` shape the fused path's packed tables."""
     stacked = {k: v for k, v in stacked_params.items() if k != "camera_opt"}
     if ensemble_mode == "fused":
-        if table_dtype != "f32":
-            raise NotImplementedError(f"table_dtype={table_dtype!r} is not ported yet "
-                                      "(ROADMAP, queue 1, item 7)")
-        packed = pack_ensemble_tables(model, stacked, table_fold=table_fold, table_split=table_split)
+        packed = pack_ensemble_tables(model, stacked, table_dtype=table_dtype, table_fold=table_fold,
+                                      table_split=table_split)
         fused = build_fused_ensemble_render(model, main_stride_scale=main_stride_scale)
 
         def chunk_fn(rb):
@@ -351,7 +352,7 @@ def _camera_render(render_cam: Callable, cameras: Cameras) -> Callable[[int], di
 def build_ensemble_render_fn(
     run_dirs: Sequence[Path],
     main_stride_scale: float = 0.0,
-    table_dtype: str = "f32",
+    table_dtype: str = "bf16",
     table_fold: int = 1,
     ensemble_mode: str = "fused",
     table_split: bool = False,
@@ -406,12 +407,14 @@ def main(argv: list[str] | None = None) -> dict:
                     help="lower edge of the fixed std-map color window")
     ap.add_argument("--unc-max", type=float, default=1.0,
                     help="upper edge of the fixed std-map color window")
-    ap.add_argument("--table-dtype", default="f32", choices=("bf16", "f32", "int8"),
-                    help="fused ensemble eval-table precision; only f32 is ported")
+    ap.add_argument("--table-dtype", default="bf16", choices=("bf16", "f32", "int8"),
+                    help="fused ensemble eval-table precision (int8: per-level scales folded into the "
+                         "trilerp weights)")
     ap.add_argument("--table-fold", type=int, default=1,
-                    help="fused eval tables: cells folded per gather row")
+                    help="fused eval tables: cells folded per row (an exact relayout, a view here)")
     ap.add_argument("--table-split", action="store_true",
-                    help="fused eval tables: lane-split each level into sub-gathers")
+                    help="fused eval tables: lane-split each level into parts (an exact relayout, views "
+                         "here)")
     ap.add_argument("--main-stride-scale", type=float, default=0.0,
                     help="fused-ensemble render: evaluate the main field's coarse grid levels at "
                          "strided ray anchors (0 = exact)")
@@ -424,9 +427,8 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--device", default=None,
                     help="torch device to evaluate on; the card by default, 'cpu' for a try without one")
     args = ap.parse_args(argv)
-    if args.table_fold in (2, 4):
-        ap.error("--table-fold 2/4 is disabled, as in the JAX package (its folded gather runs out of "
-                 "memory at the ensemble tables' shapes and is slower where it fits); use --table-fold 1.")
+    if args.table_fold < 1:
+        ap.error(f"--table-fold must be at least 1, got {args.table_fold}")
     device = resolve_device(args.device)
 
     lpips_params = None

@@ -16,9 +16,10 @@ resumes from a run's latest checkpoint (parameters, Adam state, step and
 the trainer's generator). ``--device`` (an addition: the card by default)
 takes ``cpu`` for a try without one.
 
-Refused, with the ROADMAP item that ports them: ``--viewer-port`` (queue 1,
-item 9), and the sparse-view parsers' switch of the nerfacto family to
-``grid_layout="hybrid"`` with ``face_consistency_mult=1.0`` (item 7).
+The sparse-view parsers switch the nerfacto family to
+``grid_layout="hybrid"`` with ``face_consistency_mult=1.0`` unless
+``--overrides`` names a ``grid_layout``, as the JAX package does. Refused,
+with the ROADMAP item that ports it: ``--viewer-port`` (queue 1, item 9).
 
 Usage:
     python -m uncertainty_nerf_gs_torch.scripts.train active-nerfacto \\
@@ -47,8 +48,8 @@ from uncertainty_nerf_gs_torch.engine.checkpointing import (
 from uncertainty_nerf_gs_torch.ops.backend import resolve_device
 from uncertainty_nerf_gs_torch.utils.writer import ScalarWriter
 
-# Dataparsers whose point is few-view supervision; the JAX package switches
-# the nerfacto family's grid layout for them (see build_trainer).
+# Dataparsers whose point is few-view supervision; the nerfacto family trains
+# them with the hybrid layout and the face-consistency loss (build_trainer).
 SPARSE_VIEW_DATAPARSERS = frozenset({"sparse-nerfstudio", "sparse-blender", "sparse-mipnerf360"})
 
 
@@ -72,11 +73,10 @@ def build_trainer(method_name: str, data: Path, dataparser: str,
     cfg = spec.model_config
     if (spec.family == "nerfacto" and dataparser in SPARSE_VIEW_DATAPARSERS
             and "grid_layout" not in (config_overrides or {})):
-        raise NotImplementedError(
-            f"the JAX package trains {dataparser} with grid_layout='hybrid' and "
-            "face_consistency_mult=1.0, which are not ported yet (ROADMAP, queue 1, item 7); "
-            "pass a grid_layout override to train another layout"
-        )
+        # corner sharing is a protective prior under few-view supervision:
+        # the coarse levels as canonical corner grids, and the penalty that
+        # softly restores it at the hashed ones
+        cfg = dataclasses.replace(cfg, grid_layout="hybrid", face_consistency_mult=1.0)
     if config_overrides:
         cfg = dataclasses.replace(cfg, **config_overrides)
 
