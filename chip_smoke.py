@@ -107,15 +107,44 @@ ensemble at bf16 (the default), f32 and int8 (K1 2, K6 3 a chunk),
 ``--table-fold 2`` and ``--table-split`` equal to the unfolded metrics
 bit for bit, K6 on each dtype's per-level tables bit for bit against its
 plain version and timed beside its bound, and for the record the 12-view
-PSNR beside a run of the cell layout. Exits non-zero, with no result line,
-when there is no card or any phase fails. The last line of standard
-output is a JSON object naming the device; the line before it the card's
-name and power limit; before that a ``{"kernels": [...]}`` line with each
-kernel's launches (the CLI phase's by run, a captured step's times its
-replays; the sparse phase's hybrid K4/K5 and each table dtype's K6 as
-entries of their own), error, times and bound, a ``{"cli": ...}`` line with
-each CLI run's wall time, rate and metrics, and a ``{"sparse": ...}`` line
-with the sparse phase's.
+PSNR beside a run of the cell layout. Between the CLI and the sparse
+phases come two more on the CLI phase's tree (``run_corner``,
+``run_tools``; the tree is removed after them). The corner phase: the
+corner (tcnn) layout's lookup, K7 (``hash_lookup_fwd``) bit for bit
+against its plain version at the three fields' full-width corner shapes, a
+ragged count, F = 1 and 4, at uniform and at training forwards' positions
+and on tables whose entries hold their own slot; K8 (its deterministic
+backward) twice bit for bit and within GRID_GRAD_TOL of autograd, its
+positions-only mode's g_pos equal to its own; K5's positions-only mode
+against its full backward; K7, K8 and both positions-only modes timed
+beside their bounds and K7 beside ``F.embedding_bag``; full-width
+active-nerfacto with ``--overrides '{"grid_layout": "corner"}'`` trained
+by ``scripts.train.main`` (300 steps at 50 a launch: K1 2, K7 3, K8 3 a
+step; a seed-1 run of 100), a step against its plain path, two steps from
+one state, 50 steps as one graph launch against 50 single steps, the step
+profiled; the two runs evaluated as an ensemble (per member: K1 2 and K7 3
+a chunk a member) with ``--save-rendered-images`` (every PNG decodes) and
+the run alone, its PSNR beside the cell-layout CLI run's. The tools
+phase: ``scripts.render.main`` (orbit and interpolate; rgb, depth, rgb_std)
+on a nerfacto and a splat run, every PNG frame equal to the render
+function's u8 image, every GIF decoded by ``data/gif.py``;
+``scripts.pose_gradient.main`` on a cell and a corner run (K5 / K8 in
+their positions-only mode, one chunk's Jacobian against the plain path's,
+on the corner run a finite difference at fixed sample distances);
+``scripts.viewer`` served on a single run and a fused two-member ensemble,
+every mode's PNG equal to ``render_pose``'s image; and
+``scripts.train.main --viewer-port`` with frames requested through the
+run, whose checkpoint equals a run without the viewer bit for bit. Exits
+non-zero, with no result line, when there is no card, any phase fails or
+a kernel of the path never launched. The last line of standard output is
+a JSON object naming the device; the line before it the card's name and
+power limit; before that a ``{"kernels": [...]}`` line with each kernel's
+launches (the CLI, corner and tools phases' by run, a captured step's
+times its replays; the sparse phase's hybrid K4/K5, each table dtype's K6,
+and K5's and K8's positions-only modes as entries of their own), error,
+times and bound, a ``{"corner": ..., "tools": ...}`` line, a ``{"cli":
+...}`` line with each CLI run's wall time, rate and metrics, and a
+``{"sparse": ...}`` line with the sparse phase's.
 
 ``--k4-against OTHER_CHECKOUT`` also builds that checkout's ``uncertainty_
 nerf_gs_torch/csrc/hash_grid.cu`` (for example the parent commit unpacked
@@ -3178,6 +3207,9 @@ CLI_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
 CLI_SIZE, CLI_TRAIN_VIEWS, CLI_TEST_VIEWS = 256, 8, 4
 CLI_STEPS, CLI_SAVE, CLI_STOP, CLI_SHORT = 300, 100, 200, 100
 CLI_K = 50  # steps a launch, the CLI's default
+# single steps the graph check profiles: the profiler's own reading of a
+# traced run grows with its events, 50 eager steps took it 40-90 s
+GRAPH_PROFILED_STEPS = 5
 CLI_MC_SAMPLES, CLI_LAPLACE_ITERS = 10, 50
 # per-step launches of a nerfacto-family training step
 NERF_STEP_LAUNCHES = dict(pdf_resample=2, cell_lookup_fwd=3, cell_lookup_bwd=3)
@@ -3248,17 +3280,18 @@ def check_launched(label, runs, names) -> None:
         raise AssertionError(f"cli {label}: {missing} never launched ({got})")
 
 
-def check_cli_graph(trainer, name) -> dict:
+def check_cli_graph(trainer, name, step_launches=NERF_STEP_LAUNCHES) -> dict:
     """From one restored snapshot of the CLI run, ``train(CLI_K,
     steps_per_launch=CLI_K)`` (WARMUP_STEPS eager steps, the capture, the
     replays) against ``train(CLI_K, steps_per_launch=1)``: the losses and
     the whole state bit for bit, the same K1/K4/K5 launches. Then each way
     again from there (the K-step launch all replays), timed on the host
-    clock and profiled: ms a step, device busy time and idle share."""
+    clock; then profiled (GRAPH_PROFILED_STEPS single steps, one K-step
+    launch): ms a step, device busy time and idle share."""
     from uncertainty_nerf_gs_torch.ops import backend
 
     snap = _clone_tree(trainer.state_dict())
-    want = {n: CLI_K * v for n, v in NERF_STEP_LAUNCHES.items()}
+    want = {n: CLI_K * v for n, v in step_launches.items()}
     out = {}
 
     def timed(k):
@@ -3279,9 +3312,10 @@ def check_cli_graph(trainer, name) -> dict:
         first_ms, losses = timed(k)
         out[k] = dict(first_ms=first_ms, losses=losses, state=_clone_tree(trainer.state_dict()))
         out[k]["ms"], _ = timed(k)
-        kernels = profile_top(f"cli train {CLI_K} steps, steps_per_launch {k}",
-                              lambda: trainer.train(CLI_K, NERF_RAYS, steps_per_launch=k), NERF_SYMBOLS, top=3)
-        out[k]["busy_ms"] = 1e-3 * sum(us for _, us in kernels.values()) / CLI_K if kernels else None
+        steps = GRAPH_PROFILED_STEPS if k == 1 else CLI_K  # a K-step launch is profiled whole
+        kernels = profile_top(f"cli train {steps} steps, steps_per_launch {k}",
+                              lambda: trainer.train(steps, NERF_RAYS, steps_per_launch=k), NERF_SYMBOLS, top=3)
+        out[k]["busy_ms"] = 1e-3 * sum(us for _, us in kernels.values()) / steps if kernels else None
     differ: dict = {}
     items = _tree_differ("", out[1]["state"], out[CLI_K]["state"], differ) + 1
     if out[1]["losses"] != out[CLI_K]["losses"]:
@@ -3368,7 +3402,7 @@ def run_cli(name) -> dict:
     ensemble with a seed-1 run (K6), on nerfacto-mcdropout, on
     nerfacto-laplace twice (the second reads the GGN cache: the same
     metrics) and on active-splatfacto (K2/K3 and the packed-row backward in
-    its training)."""
+    its training). The tree stays for the corner and tools phases."""
     import shutil
 
     from uncertainty_nerf_gs_torch.data.synthetic import write_blender_dataset
@@ -3445,8 +3479,9 @@ def run_cli(name) -> dict:
     check_launched("eval_active_splatfacto", runs, ["composite_fwd"])
     for label in ("eval_active_nerfacto", "nerfacto_mcdropout", "eval_nerfacto_mcdropout", "nerfacto_laplace"):
         check_launched(label, runs, ["pdf_resample", "cell_lookup_fwd"])
-    shutil.rmtree(CLI_DIR, ignore_errors=True)
-    return dict(runs=runs, graph=graph, memory=memory)
+    # the tree stays for the corner and tools phases, which remove it
+    return dict(runs=runs, graph=graph, memory=memory,
+                dirs=dict(scene=scene, straight=straight, seed1=seed1, splat=splat))
 
 
 # -- the sparse phase: the sparse-view study, the hybrid layout and the face loss -
@@ -3835,6 +3870,742 @@ def sparse_kernel_entries(sparse) -> list[dict]:
     return out
 
 
+# -- the corner phase: the corner (tcnn) layout through K7 and K8 ---------------
+
+CORNER_STEPS, CORNER_SHORT = 300, 100  # the cell-layout CLI runs' steps, for the PSNR beside them
+K7_OPS = lambda f: 12 + 8 * (10 + 2 * f)  # noqa: E731  (locate; a corner's slot, weight, product and sum)
+K8_KERNELS = 12  # device kernels a K8 call: keys, 3 sort passes of 3, the reduction and the fixup
+K8_OPS = lambda f: 12 + 8 * (10 + 2 * f) + 8 * (4 * f + 10)  # noqa: E731  (and the position gradient)
+K8_POS_OPS = lambda f: K8_OPS(f) - 8 * 2 * f  # noqa: E731  (no table gradient's products and sums)
+CORNER_FIELDS = ("proposal_0", "proposal_1", "field")
+# a corner step's and a corner chunk's launches
+CORNER_STEP_LAUNCHES = dict(pdf_resample=2, hash_lookup_fwd=3, hash_lookup_bwd=3)
+CORNER_SYMBOLS = {"pdf_resample": "pdf_resample_kernel", "hash_lookup_fwd": "hash_lookup_fwd_kernel",
+                  "hash_lookup_bwd": "hash_lookup_bwd_"}
+
+
+def corner_table(levels, log2, features, gen, device) -> torch.Tensor:
+    """An (L, T, F) corner table uniform in +-2 (interop.draw_params' scale)."""
+    return torch.rand(levels, 2**log2, features, generator=gen, device=device) * 4.0 - 2.0
+
+
+def encoded_table(table) -> torch.Tensor:
+    """The table with every entry holding its own slot s, as (s % 1024, s //
+    1024, 0, ...), or s at F = 1: a lookup's features are then the weighted
+    slots of its 8 corners, which differ from corner to corner, so that any
+    other slot shows in the features' bits."""
+    levels, size, f = table.shape
+    s = torch.arange(size, device=table.device, dtype=torch.float32)
+    code = torch.zeros_like(table)
+    if f == 1:
+        code[..., 0] = s
+    else:
+        code[..., 0] = s % 1024
+        code[..., 1] = torch.div(s, 1024, rounding_mode="floor")
+    return code
+
+
+def corner_entries(pos, res, size) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """(slots (n L, 8) into the levels stacked (level l's from l T), weights
+    (n L, 8), distinct entries) of every lookup, by the plain
+    ``hash_corner_slots``: ``F.embedding_bag``'s indices and weights."""
+    from uncertainty_nerf_gs_torch.ops.encodings import hash_corner_slots
+
+    slots, weights = [], []
+    for lvl, r in enumerate(res):
+        s, w = hash_corner_slots(pos, int(r), size)
+        slots.append(s + lvl * size)
+        weights.append(w)
+    slots = torch.stack(slots, 1).reshape(-1, 8)
+    return slots, torch.stack(weights, 1).reshape(-1, 8), int(torch.unique(slots).numel())
+
+
+def corner_bound_ms(n, levels, features, entries, mode) -> tuple[float, str, int, int]:
+    """Least time of one call on these inputs. ``mode`` "fwd" (K7):
+    positions read once, each 8-byte (F = 2) entry that a lookup reads
+    moved once (``entries`` distinct; pass every corner read, 8 n L, for the
+    bound that counts them all), the features written once. "bwd" (K8):
+    positions, g_out and the touched entries read, each touched entry's
+    gradient and the positions' gradient written. "positions" (K8's
+    positions-only mode): the same reads, and only the positions' gradient
+    written. Returns (ms, bound_by, bytes, operations)."""
+    lookups = n * levels
+    entry_bytes = entries * 4 * features
+    nbytes = 12 * n + entry_bytes + 4 * features * lookups
+    ops = lookups * K7_OPS(features)
+    if mode == "bwd":
+        nbytes += entry_bytes + 12 * n
+        ops = lookups * K8_OPS(features)
+    elif mode == "positions":
+        nbytes += 12 * n
+        ops = lookups * K8_POS_OPS(features)
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations"), nbytes, ops
+
+
+def k8_against_plain(table, pos, res, f, g_out) -> dict:
+    """K8 twice, and its positions-only mode, against autograd through the
+    plain lookup: the errors, the entries outside GRID_GRAD_TOL (the table
+    level by level), and whether the launches gave the same bits."""
+    from uncertainty_nerf_gs_torch.ops import encodings as enc
+
+    g_t, g_p = enc.hash_lookup_bwd(table, pos, res, f, g_out)
+    again_t, again_p = enc.hash_lookup_bwd(table, pos, res, f, g_out)
+    none, only_p = enc.hash_lookup_bwd(table, pos, res, f, g_out, need_table=False)
+    ref_t, ref_p = enc.hash_encoding_vjp_reference(table, pos, res, f, g_out)
+    torch.cuda.synchronize()
+    return dict(
+        e_t=(g_t - ref_t).abs().max().item(), e_p=(g_p - ref_p).abs().max().item(),
+        top_t=ref_t.abs().max().item(), top_p=ref_p.abs().max().item(),
+        bad_t=level_mismatch(g_t, ref_t), bad_p=int(grad_mismatch(g_p, ref_p, GRID_GRAD_TOL).sum()),
+        finite=bool(torch.isfinite(g_t).all() and torch.isfinite(g_p).all()),
+        same=torch.equal(g_t, again_t) and torch.equal(g_p, again_p),
+        positions_only_same=none is None and torch.equal(only_p, g_p),
+    )
+
+
+def corner_times(name, table, res, f, sets, label) -> dict:
+    """K7 and K8 per call over ``sets`` of (positions, g_out), each beside
+    its plain version, its bounds (each distinct entry once; every corner
+    read) and, for K7, ``F.embedding_bag(mode="sum", per_sample_weights=)``
+    over the same 8 slots and weights a lookup (the yardstick: one PyTorch
+    call that computes the same sum; the port never calls it); K8's
+    positions-only mode beside K8."""
+    import torch.nn.functional as F
+
+    from uncertainty_nerf_gs_torch.ops import encodings as enc
+
+    n, levels = sets[0][0].shape[0], len(res)
+    size = table.shape[1]
+    fwd = kernel_times(f"{name} K7 {label}", lambda p, g: enc.hash_lookup_fwd(table, p, res, f),
+                       lambda p, g: enc.hash_encoding_lookup_reference(table, p, res, f), sets,
+                       "hash_lookup_fwd_kernel")
+    bwd = kernel_times(f"{name} K8 {label}", lambda p, g: enc.hash_lookup_bwd(table, p, res, f, g),
+                       lambda p, g: enc.hash_encoding_vjp_reference(table, p, res, f, g), sets, "lookup_bwd_",
+                       K8_KERNELS)
+    pos_only = kernel_times(f"{name} K8 positions only {label}",
+                            lambda p, g: enc.hash_lookup_bwd(table, p, res, f, g, need_table=False),
+                            lambda p, g: enc.hash_encoding_vjp_reference(table, p, res, f, g, need_table=False), sets,
+                            "hash_lookup_bwd_keys")
+    flat = table.reshape(-1, f)
+    bags = []
+    for p, _ in sets:
+        slots, weights, _ = corner_entries(p, res, size)
+        bags.append((slots, weights))
+    library_ms = time_ms(lambda s, w: F.embedding_bag(s, flat, mode="sum", per_sample_weights=w), bags)
+    uniq = corner_entries(sets[0][0], res, size)[2]
+    for tm, mode in ((fwd, "fwd"), (bwd, "bwd"), (pos_only, "positions")):
+        bound, by, nbytes, ops = corner_bound_ms(n, levels, f, uniq, mode)
+        every, _, every_bytes, _ = corner_bound_ms(n, levels, f, 8 * n * levels, mode)
+        tm.update(field=name, positions=label, shape=[n, levels, f, size], bound_ms=bound, bound_by=by,
+                  bytes=nbytes, operations=ops, unique_entries=uniq, every_read_bound_ms=every,
+                  every_read_bytes=every_bytes, library_ms=library_ms if tm is fwd else None)
+    for kname, tm in (("K7", fwd), ("K8", bwd), ("K8 positions only", pos_only)):
+        print(f"{kname} {name} ({n} samples x {levels} levels, {label} positions): kernel {tm['ms']:.4f} ms on "
+              f"the device ({tm['event_ms']:.4f} ms a call back to back), plain {tm['plain_ms']:.4f} ms, bound "
+              f"{tm['bound_ms']:.4f} ms ({tm['bound_by']}: {tm['bytes'] / 1e6:.1f} MB, {uniq} distinct entries of "
+              f"{8 * n * levels} corner reads; {tm['every_read_bound_ms']:.4f} ms, "
+              f"{tm['every_read_bytes'] / 1e6:.1f} MB counting every corner read)"
+              + (f"; F.embedding_bag of the same slots and weights {library_ms:.4f} ms" if tm is fwd else ""))
+    print(f"  K8 {name} {label}: " + ", ".join(f"{kernel_name(k)} {v:.4f} ms" for k, v in bwd["parts"].items())
+          + f"; the zero-fill and the wrapper's other device work {sum(bwd['others'].values()):.4f} ms")
+    return dict(fwd=fwd, bwd=bwd, positions_only=pos_only)
+
+
+def check_corner_grid(cfg, device, clustered) -> dict:
+    """K7 and K8 against their plain versions at the corner layout's three
+    full-width shapes (4,096 rays; the proposals' 5 levels at 2^17, the
+    field's 16 at 2^19), a ragged count, F = 1 and F = 4: K7 bit for bit at
+    uniform positions (edges, faces and a little outside included), at a
+    real training forward's (``clustered``) and on tables whose entries
+    store their own slot; K8 twice bit for bit, within GRID_GRAD_TOL of
+    autograd through the plain lookup (the table level by level, the
+    positions against their largest entry), and its positions-only mode
+    equal to its position gradient bit for bit. Timed at the three shapes
+    at the training forwards' positions (``corner_times``)."""
+    from uncertainty_nerf_gs_torch.ops import encodings as enc
+
+    rays = cfg.eval_num_rays_per_chunk
+    cases = [(name, levels, max_res, log2, rays * spr, 2, i) for i, (name, levels, max_res, log2, spr)
+             in enumerate(grid_shapes(cfg))]
+    cases += [("ragged", cfg.num_levels, cfg.max_res, cfg.log2_hashmap_size, 1001, 2, None),
+              ("f4", 4, 512, 12, 777, 4, None), ("f1", 4, 512, 12, 777, 1, None)]
+    fwd_err = bwd_err = 0.0
+    failed, per_launch = [], []
+    for i, (name, levels, max_res, log2, n, f, field) in enumerate(cases):
+        gen = torch.Generator(device=device).manual_seed(SEED + 700 + i)
+        res = tuple(int(r) for r in enc.hash_grid_resolutions(levels, 16, max_res))
+        table = corner_table(levels, log2, f, gen, device)
+        pos = lookup_positions(res, n, gen, device)
+        position_sets = [("uniform", pos)] + ([("training", c[field]) for c in clustered] if field is not None else [])
+        for label, p in position_sets:
+            for tname, t in (("", table), (", slot-coded table", encoded_table(table))):
+                got = enc.hash_lookup_fwd(t, p, res, f)
+                want = enc.hash_encoding_lookup_reference(t, p, res, f)
+                differ = int((got != want).sum())
+                fwd_err = max(fwd_err, (got - want).abs().max().item())
+                print(f"corner {name} n={p.shape[0]} L={levels} F={f} table 2^{log2}, {label} positions{tname}: "
+                      f"K7 {differ} of {got.numel()} features not bit-identical to the plain version's")
+                if differ or not torch.isfinite(got).all():
+                    failed.append(f"{name} {label}{tname}: {differ} K7 features differ from the plain version's")
+        g_out = torch.randn(n, levels * f, generator=gen, device=device)
+        k8 = k8_against_plain(table, pos, res, f, g_out)
+        print(f"corner {name}: K8 table max_abs_err {k8['e_t']:.3e} (largest |g| {k8['top_t']:.3e}, {k8['bad_t']} "
+              f"outside the level bar), positions max_abs_err {k8['e_p']:.3e} (largest |g| {k8['top_p']:.3e}, "
+              f"{k8['bad_p']} outside); a second K8 launch bit-identical: {k8['same']}; the positions-only mode's "
+              f"g_pos bit-identical: {k8['positions_only_same']}")
+        if k8["bad_t"] or k8["bad_p"] or not k8["finite"]:
+            failed.append(f"{name}: K8 disagrees with the plain backward")
+        if not (k8["same"] and k8["positions_only_same"]):
+            failed.append(f"{name}: two K8 launches, or its positions-only mode, differ")
+        bwd_err = max(bwd_err, k8["e_t"], k8["e_p"])
+        if field is None:
+            continue
+        c_sets = [(c[field], torch.randn(c[field].shape[0], levels * f, generator=gen, device=device))
+                  for c in clustered]
+        c_k8 = k8_against_plain(table, c_sets[0][0], res, f, c_sets[0][1])
+        print(f"corner {name} training positions: K8 table {c_k8['e_t']:.3e} ({c_k8['bad_t']} outside), "
+              f"positions {c_k8['e_p']:.3e} ({c_k8['bad_p']} outside); bit-identical {c_k8['same']}, "
+              f"positions-only {c_k8['positions_only_same']}")
+        if c_k8["bad_t"] or c_k8["bad_p"] or not (c_k8["finite"] and c_k8["same"] and c_k8["positions_only_same"]):
+            failed.append(f"{name} training positions: K8 disagrees with the plain backward or itself")
+        bwd_err = max(bwd_err, c_k8["e_t"], c_k8["e_p"])
+        per_launch.append(dict(training=corner_times(name, table, res, f, c_sets, "training")))
+    if failed:
+        raise AssertionError("corner grid: " + "; ".join(failed))
+    for label in ("training",):
+        for key, kname in (("fwd", "K7"), ("bwd", "K8"), ("positions_only", "K8 positions only")):
+            calls = [p[label][key] for p in per_launch]
+            print(f"a corner step's three {kname} calls, {label} positions: {sum(c['ms'] for c in calls):.4f} ms, "
+                  f"plain {sum(c['plain_ms'] for c in calls):.4f} ms, bound {sum(c['bound_ms'] for c in calls):.4f} ms"
+                  + (f", F.embedding_bag {sum(c['library_ms'] for c in calls):.4f} ms" if key == "fwd" else ""))
+    return dict(fwd_err=fwd_err, bwd_err=bwd_err, per_launch=per_launch)
+
+
+def k5_positions_only_times(cfg, device) -> dict:
+    """K5's positions-only mode (the pose gradient's backward through K4:
+    no table needs a gradient) at the cell layout's three full-width shapes,
+    against K5's full backward: its g_pos bit for bit, and times beside the
+    bound of what it reads (positions, g_out, the touched cells) and writes
+    (the positions' gradient)."""
+    from uncertainty_nerf_gs_torch.ops import encodings as enc
+
+    out, failed = [], []
+    for i, (name, levels, max_res, log2, spr) in enumerate(grid_shapes(cfg)):
+        gen = torch.Generator(device=device).manual_seed(SEED + 750 + i)
+        n = cfg.eval_num_rays_per_chunk * spr
+        cells, pos, res, table = grid_inputs(levels, max_res, log2, n, gen, device)
+        sets = [(pos, torch.randn(n, levels * 2, generator=gen, device=device)),
+                (torch.rand(n, 3, generator=gen, device=device), torch.randn(n, levels * 2, generator=gen, device=device))]
+        full = enc.cell_lookup_bwd(cells, sets[0][0], res, table, 2, sets[0][1], True)
+        only = enc.cell_lookup_bwd(cells, sets[0][0], res, table, 2, sets[0][1], True, need_cells=False)
+        torch.cuda.synchronize()
+        if not (only[0] is None and torch.equal(only[1], full[1])):
+            failed.append(name)
+        tm = kernel_times(f"{name} K5 positions only",
+                          lambda p, g: enc.cell_lookup_bwd(cells, p, res, table, 2, g, True, need_cells=False),
+                          lambda p, g: _plain_cell_pos_vjp(cells, p, res, table, g), sets, "cell_lookup_bwd_keys")
+        uniq = sum(int(torch.unique(row).numel()) for row in grid_lookups(pos, res, table))
+        nbytes = 12 * n + uniq * 64 + 8 * n * levels + 12 * n
+        ops = n * levels * K5_OPS(2, True)
+        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+        tm.update(field=name, shape=[n, levels, 2, table], bound_ms=1e3 * max(by_bytes, by_ops),
+                  bound_by="bytes" if by_bytes >= by_ops else "operations", bytes=nbytes, library_ms=None,
+                  full_ms=device_ms(lambda p, g: enc.cell_lookup_bwd(cells, p, res, table, 2, g), sets,
+                                    "cell_lookup_bwd_"))
+        print(f"K5 positions only {name}: {tm['ms']:.4f} ms on the device against the full backward's "
+              f"{tm['full_ms']:.4f} ms; plain {tm['plain_ms']:.4f} ms; bound {tm['bound_ms']:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB); g_pos bit-identical to the full backward's: {name not in failed}")
+        out.append(tm)
+    if failed:
+        raise AssertionError(f"K5's positions-only g_pos differs from the full backward's: {failed}")
+    return dict(per_launch=out)
+
+
+def _plain_cell_pos_vjp(cells, pos, res, table, g):
+    from uncertainty_nerf_gs_torch.ops import encodings as enc
+
+    p = pos.detach().requires_grad_(True)
+    with torch.enable_grad():
+        return torch.autograd.grad(enc.cell_lookup_reference(cells, p, res, table, 2), [p], g)[0]
+
+
+def check_png_dir(label, directory) -> int:
+    """Every PNG under ``directory`` decodes (``data/png.py::read_png``);
+    returns how many."""
+    from uncertainty_nerf_gs_torch.data.png import read_png
+
+    files = sorted(Path(directory).glob("*.png"))
+    for p in files:
+        img = read_png(p)
+        if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+            raise AssertionError(f"{label}: {p.name} decodes to {img.dtype} {img.shape}")
+    if not files:
+        raise AssertionError(f"{label}: no PNG written under {directory}")
+    print(f"{label}: {len(files)} PNGs written by the port's codec decode ({', '.join(p.name for p in files[:6])}, ...)")
+    return len(files)
+
+
+def run_corner(name, cli) -> dict:
+    """The corner phase, on the CLI phase's Blender tree: K7/K8 at the
+    corner layout's full-width shapes (``check_corner_grid``) and K5's
+    positions-only mode (``k5_positions_only_times``); full-width
+    active-nerfacto with ``--overrides '{"grid_layout": "corner"}'`` trained
+    by ``scripts.train.main`` (CORNER_STEPS at CLI_K a launch, K1 2, K7 3
+    and K8 3 a step) and a seed-1 run of CORNER_SHORT; from the trained
+    state a step against its plain path, two steps from one state, CLI_K
+    steps as one graph launch against CLI_K single steps, and the step
+    profiled; then ``scripts.eval_uncertainty.main`` on the two runs as an
+    ensemble with ``--save-rendered-images`` (per member: K1 2 and K7 3 a
+    chunk a member; every PNG decodes) and on the run alone, its PSNR
+    printed beside the cell-layout CLI run's (``cli``: the CLI phase's
+    result) for the record."""
+    from uncertainty_nerf_gs_torch.engine import checkpointing as ck
+    from uncertainty_nerf_gs_torch.ops import backend
+    from uncertainty_nerf_gs_torch.ops.encodings import corner_is_dense
+    from uncertainty_nerf_gs_torch.scripts.train import build_trainer
+
+    device = torch.device("cuda")
+    runs: dict[str, dict] = {}
+    scene = cli["dirs"]["scene"]
+    corner = json.dumps({"grid_layout": "corner"})
+
+    def train_args(out, steps, *extra):
+        return ["active-nerfacto", "--data", scene, "--dataparser", "blender-data", "--output-dir", CLI_DIR / out,
+                "--max-num-iterations", steps, "--steps-per-save", steps, "--steps-per-launch", CLI_K,
+                "--log-every", CLI_K, "--overrides", corner, *extra]
+
+    run = cli_train("corner", train_args("corner", CORNER_STEPS), runs)
+    want = {n: CORNER_STEPS * v for n, v in CORNER_STEP_LAUNCHES.items()}
+    got = {n: runs["corner"]["launches"][n] for n in want}
+    if got != want or runs["corner"]["launches"]["cell_lookup_fwd"]:
+        raise AssertionError(f"the corner run's launches {runs['corner']['launches']}, expected {want}")
+    seed1 = cli_train("corner_seed1", train_args("corner_seed1", CORNER_SHORT, "--seed", 1), runs)
+
+    trainer, _, _ = build_trainer("active-nerfacto", scene, "blender-data", config_overrides={"grid_layout": "corner"})
+    trainer.restore(ck.load_latest(run)[0])
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    enc = trainer.model.field.encoding
+    dense = [int(r) for r in enc.resolutions if corner_is_dense(int(r), enc.table_size)]
+    print(f"corner trainer: {n_params} parameters; the main field's table {tuple(enc.table.shape)}, "
+          f"{enc.table.numel()} parameters, {enc.table.numel() * 4 / 1e6:.1f} MB; dense levels at res {dense}")
+    grid = check_corner_grid(trainer.config, device, capture_lookup_positions(trainer))
+    k5_pos = k5_positions_only_times(trainer.config, device)
+    step_plain = check_nerfacto_train_plain(trainer)
+    repeat = check_nerfacto_repeatable(trainer)
+    if {k: repeat["launches"][k] for k in CORNER_STEP_LAUNCHES} != CORNER_STEP_LAUNCHES:
+        raise AssertionError(f"a repeated corner step launched {repeat['launches']}, expected {CORNER_STEP_LAUNCHES}")
+    graph = check_cli_graph(trainer, name, CORNER_STEP_LAUNCHES)
+    backend.reset_launch_counts()
+    traced = profile_top("corner train step", lambda: trainer.train_step(NERF_RAYS), CORNER_SYMBOLS)
+    busy_ms = 1e-3 * sum(us for _, us in traced.values()) if traced else None
+    del trainer
+    torch.cuda.empty_cache()
+
+    images = CLI_DIR / "corner_images"
+    cli_eval("corner_eval_ensemble", ["--load-config", run, "--load-config", seed1, "--output-path",
+                                      CLI_DIR / "corner_ens.json", "--save-rendered-images",
+                                      "--render-output-path", images], runs)
+    lc = runs["corner_eval_ensemble"]["launches"]
+    # per member: a chunk's K1 2 and K7 3 for each of the two members; no K6, no K4
+    if (lc["packed_cell_lookup_fwd"] or lc["packed_cell_lookup_strided"] or lc["cell_lookup_fwd"]
+            or not lc["pdf_resample"] or 2 * lc["hash_lookup_fwd"] != 3 * lc["pdf_resample"]):
+        raise AssertionError(f"corner ensemble eval: launches {lc} off the per-member plan K1 2, K7 3 a member")
+    pngs = check_png_dir("corner ensemble eval --save-rendered-images", images)
+    single = cli_eval("corner_eval", ["--load-config", run, "--output-path", CLI_DIR / "corner.json"], runs)
+    cell_psnr = cli["runs"]["eval_active_nerfacto"]["metrics"]["psnr"]
+    print(f"corner: PSNR after {CORNER_STEPS} steps (no bar) {single['psnr']:.4f} dB against the cell layout's "
+          f"{cell_psnr:.4f} dB at the same steps on {name}; the corner ensemble's {runs['corner_eval_ensemble']['metrics']['psnr']:.4f} dB")
+    return dict(runs=runs, grid=grid, k5_positions_only=k5_pos, step_plain=step_plain, repeat=repeat, graph=graph,
+                busy_ms=busy_ms, pngs=pngs, psnr=dict(corner=single["psnr"], cell=cell_psnr), dirs=[run, seed1])
+
+
+# -- the tools phase: the render, pose-gradient and viewer CLIs ----------------
+
+TOOLS_FRAMES = 3  # frames a trajectory
+POSE_CHUNK = 1024  # the pose-gradient CLI's --chunk (its default 256 takes 4x the launches and the time)
+# The pose Jacobian on the kernel path against the plain path, on one chunk's
+# rays whose lookups stayed in their cells: K4/K7 and K1 give the plain
+# versions' bits, so the forwards are the same and the Jacobians differ by
+# K5's or K8's position gradient against autograd's. Held entry by entry
+# against the chunk's largest |J| and each entry's own, at GRID_GRAD_TOL.
+POSE_JAC_TOL = GRID_GRAD_TOL
+# A central finite difference of the render along the tangent's direction 0
+# (step POSE_FD_STEP) against the Jacobian's column, on the POSE_FD_PIXELS
+# pixels of largest |J|, on the corner run. The Jacobian, as the JAX
+# package's, holds the samples' distances along the ray (the resampler's
+# weights carry no gradient), so the difference renders the moved rays at
+# the unmoved render's sample distances (``rgb_at_distances``); a render
+# that resamples moves its samples with the pose, and is not the derivative
+# asked for. The corner layout's render is continuous in the pose, so the
+# quotient converges to the Jacobian; the step moves the finest level's
+# positions by about a twentieth of a cell, where the trilinear lookup's
+# derivative is piecewise. The cell layout's features jump at every cell
+# face, and at this step about half of a ray's weighted samples cross one
+# at the finest levels: a difference quotient there measures the jumps, so
+# the cell run is held by the plain path's Jacobian alone. The loose bar:
+# |FD - J| <= 0.5 |J| + 0.05 max|J| on at least three quarters of the
+# pixels.
+POSE_FD_STEP, POSE_FD_PIXELS, POSE_FD_SHARE = 1e-4, 16, 0.75
+
+
+def free_port() -> int:
+    """A TCP port on localhost that nothing listens on now."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def check_render_cli(label, run_dir, traj) -> dict:
+    """``scripts.render.main`` on a run: every frame's PNG decodes to what
+    the render function returns after ``to_u8``/``colorize`` (the same
+    render function, called again: the renders repeat bit for bit); each
+    GIF decodes through ``data/gif.py::read_gif`` to its frames, the jet
+    maps exactly and rgb within ``UNIFORM_BOUND``."""
+    from uncertainty_nerf_gs_torch.data.gif import UNIFORM_BOUND, read_gif
+    from uncertainty_nerf_gs_torch.data.png import read_png
+    from uncertainty_nerf_gs_torch.ops import backend
+    from uncertainty_nerf_gs_torch.scripts import render
+    from uncertainty_nerf_gs_torch.scripts.eval_uncertainty import _eval_cameras_and_images, _load_run, build_render_fn
+
+    out = CLI_DIR / f"render_{label}_{traj}"
+    outputs = ["rgb", "depth", "rgb_std"]
+    backend.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(None):
+        render.main(["--load-config", str(run_dir), "--output-dir", str(out), "--traj", traj, "--num-frames",
+                     str(TOOLS_FRAMES), "--outputs", *outputs])
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in backend.launch_counts.items() if v}
+    trainer, spec, run_cfg, _ = _load_run(run_dir)
+    eval_outputs, _ = _eval_cameras_and_images(run_cfg)
+    traj_json = json.loads((out / "trajectory.json").read_text())
+    c2ws = np.asarray(traj_json["c2ws"], np.float32)
+    fn = render.orbit_path if traj == "orbit" else render.interpolate_path
+    if not np.array_equal(c2ws, fn(eval_outputs.cameras, TOOLS_FRAMES)):
+        raise AssertionError(f"render {label} {traj}: trajectory.json differs from the path function's")
+    render_fn = build_render_fn(trainer, spec, render.path_cameras(eval_outputs.cameras, c2ws), run_dir=run_dir)
+    differ, gif_err = {}, {}
+    for i in range(TOOLS_FRAMES):
+        outs = render_fn(i)
+        for k in outputs:
+            want = render.frame_image(k, outs[k])
+            got = read_png(out / f"{k}_{i:04d}.png")
+            differ[f"{k}_{i}"] = int((got != want).sum()) if got.shape == want.shape else -1
+    for k in outputs:
+        frames, delays = read_gif(out / f"{k}.gif")
+        pngs = np.stack([read_png(out / f"{k}_{i:04d}.png") for i in range(TOOLS_FRAMES)])
+        gif_err[k] = int(np.abs(frames.astype(np.int64) - pngs).max()) if frames.shape == pngs.shape else -1
+    bad = {k: v for k, v in differ.items() if v}
+    print(f"render {label} {traj}: {TOOLS_FRAMES} frames x {outputs} in {wall:.1f} s, launches {launches}; PNG frames "
+          f"differing from the render function's u8 images: {bad or 'none'}; GIF frames' largest deviation from the "
+          f"PNG frames {gif_err} (bar: rgb {UNIFORM_BOUND}, jet maps 0)")
+    if bad or gif_err["rgb"] > UNIFORM_BOUND or gif_err["rgb"] < 0 or any(
+            gif_err[k] != 0 for k in outputs if k != "rgb"):
+        raise AssertionError(f"render {label} {traj}: frames or GIFs differ")
+    del trainer
+    torch.cuda.empty_cache()
+    return dict(wall_s=wall, launches=launches, gif_err=gif_err)
+
+
+def pose_jacobians(model, cameras, tangent, plain: bool) -> tuple[np.ndarray, np.ndarray, torch.Tensor]:
+    """One chunk's (the first POSE_CHUNK pixels of eval camera 0) Jacobians
+    and rgb through ``pose_jacobian_render``'s per-ray backward, on the
+    kernel path or inside ``backend.plain_versions()``; and each ray's
+    cells (``lookup_cells``)."""
+    from uncertainty_nerf_gs_torch.cameras.cameras import generate_rays, pixel_grid
+    from uncertainty_nerf_gs_torch.ops import backend
+    from uncertainty_nerf_gs_torch.scripts.pose_gradient import _ray_cameras
+
+    device = cameras.camera_to_worlds.device
+    px, py = (v[:POSE_CHUNK] for v in pixel_grid(cameras.height, cameras.width, device))
+    per_ray = _ray_cameras(cameras, 0, POSE_CHUNK)
+    tan = torch.as_tensor(tangent, device=device).expand(POSE_CHUNK, 6).clone().requires_grad_(True)
+    with backend.plain_versions() if plain else contextlib.nullcontext():
+        rb = generate_rays(per_ray, torch.arange(POSE_CHUNK, device=device), px, py, pose_adjustment=tan,
+                           pose_adjustment_mode="SE3")
+        rb = rb._replace(camera_indices=torch.zeros(POSE_CHUNK, dtype=torch.int64, device=device))
+        out = model(rb, train=False, with_grad=True, return_intermediates=True)
+    jac = torch.stack([torch.autograd.grad(out["rgb"][:, c].sum(), tan, retain_graph=c < 2)[0] for c in range(3)], 1)
+    cells = model.lookup_cells(rb, [e.detach() for e in out["sdist_list"]])
+    return jac.cpu().numpy(), out["rgb"].detach().cpu().numpy(), cells
+
+
+@torch.no_grad()
+def rgb_at_distances(model, rb, edges) -> np.ndarray:
+    """The eval render's channel-mean rgb of rays ``rb`` with the main
+    field's samples at the spacing edges ``edges`` (another render's
+    ``sdist_list[-1]``), in float64: the render that the pose Jacobian
+    differentiates, its sample distances held."""
+    from uncertainty_nerf_gs_torch.models.nerfacto import _edges_to_samples
+    from uncertainty_nerf_gs_torch.ops.sampling import spacing_piecewise, spacing_piecewise_inv
+
+    rb = model._with_planes(rb)
+    rs = _edges_to_samples(rb, edges, spacing_piecewise, spacing_piecewise_inv)
+    field_out = model.field(rs.positions, rb.directions, rb.camera_indices)
+    rgb = model._render(field_out, rs, {}, None, None, False)["rgb"]
+    return rgb.mean(-1).cpu().numpy().astype(np.float64)
+
+
+def check_pose_gradient_cli(label, run_dir) -> dict:
+    """``scripts.pose_gradient.main`` on a run (``--magnitude-trans 0.01``,
+    direction 0): the maps' shapes, every entry finite, the PNGs decode; its
+    backward went through the lookups' positions-only mode (K5's or K8's
+    table gradient never launched); on one chunk the kernel path's Jacobian
+    against the plain path's (POSE_JAC_TOL, rays that flipped a cell
+    excluded); on a corner run, at the POSE_FD_PIXELS pixels of largest
+    |J|, a central finite difference of the render (POSE_FD_STEP) against
+    the Jacobian's column."""
+    from uncertainty_nerf_gs_torch.cameras.cameras import generate_rays, pixel_grid
+    from uncertainty_nerf_gs_torch.data.png import read_png
+    from uncertainty_nerf_gs_torch.ops import backend
+    from uncertainty_nerf_gs_torch.scripts import pose_gradient as pg
+    from uncertainty_nerf_gs_torch.scripts.eval_uncertainty import _eval_cameras_and_images, _load_run
+
+    out = CLI_DIR / f"pose_{label}"
+    backend.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(None):
+        pg.main(["--load-config", str(run_dir), "--output-dir", str(out), "--magnitude-trans", "0.01",
+                 "--direction", "0", "--chunk", str(POSE_CHUNK)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in backend.launch_counts.items() if v}
+    jac = np.load(out / "jacobian_0.npy")
+    sens = np.load(out / "sensitivity_0.npy")
+    for png in ("render_0.png", "sensitivity_0.png"):
+        read_png(out / png)
+    trainer, _, run_cfg, _ = _load_run(run_dir)
+    eval_outputs, _ = _eval_cameras_and_images(run_cfg)
+    cams = eval_outputs.cameras.to(trainer.device)
+    h, w = cams.height, cams.width
+    corner = trainer.config.grid_layout == "corner"
+    full, only = ("hash_lookup_bwd", "hash_lookup_bwd_positions") if corner else ("cell_lookup_bwd",
+                                                                                 "cell_lookup_bwd_positions")
+    if jac.shape != (h, w, 3, 6) or sens.shape != (h, w) or not (np.isfinite(jac).all() and np.abs(jac).sum() > 0):
+        raise AssertionError(f"pose gradient {label}: jacobian {jac.shape}, sensitivity {sens.shape}, or not finite")
+    if launches.get(full) or not launches.get(only):
+        raise AssertionError(f"pose gradient {label}: launches {launches}; the table gradient must not be formed")
+    tangent = pg.get_perturbed_6dof_pose(0.01, 0.0, 0)
+    with pg.frozen(trainer.model):
+        k_jac, k_rgb, k_cells = pose_jacobians(trainer.model, cams, tangent, plain=False)
+        p_jac, p_rgb, p_cells = pose_jacobians(trainer.model, cams, tangent, plain=True)
+        keep = ~(k_cells != p_cells).any(dim=1).cpu().numpy()
+        scale = np.abs(p_jac[keep]).max()
+        miss = np.abs(k_jac - p_jac) > POSE_JAC_TOL["atol"] * scale + POSE_JAC_TOL["rtol"] * np.abs(p_jac)
+        bad = int(miss[keep].sum())
+        jac_err = float(np.abs(k_jac - p_jac)[keep].max())
+        same_cli = np.array_equal(k_jac, jac.reshape(-1, 3, 6)[:POSE_CHUNK])
+        fd_note, ok = "", np.ones(1, bool)
+        if corner:  # the finite difference, on the pixels of largest |J| along direction 0
+            col = jac[..., 0].mean(-1).reshape(-1)
+            pix = np.argsort(-np.abs(col))[:POSE_FD_PIXELS]
+            px, py = pixel_grid(h, w, cams.camera_to_worlds.device)
+            idx = torch.as_tensor(pix, device=px.device)
+            per_ray = pg._ray_cameras(cams, 0, len(pix))
+
+            def rays_at(t):
+                tan = torch.as_tensor(t, device=px.device).expand(len(pix), 6).contiguous()
+                rb = generate_rays(per_ray, torch.arange(len(pix), device=px.device), px[idx], py[idx],
+                                   pose_adjustment=tan, pose_adjustment_mode="SE3")
+                return rb._replace(camera_indices=torch.zeros(len(pix), dtype=torch.int64, device=px.device))
+
+            edges = trainer.model(rays_at(tangent), return_intermediates=True)["sdist_list"][-1]
+            e0 = np.zeros(6, np.float32)
+            e0[0] = POSE_FD_STEP
+            fd = (rgb_at_distances(trainer.model, rays_at(tangent + e0), edges)
+                  - rgb_at_distances(trainer.model, rays_at(tangent - e0), edges)) / (2 * POSE_FD_STEP)
+            j = col[pix]
+            ok = np.abs(fd - j) <= 0.5 * np.abs(j) + 0.05 * np.abs(col).max()
+            fd_note = (f"; finite difference at the {len(pix)} pixels of largest |J|: {int(ok.sum())} within the "
+                       f"bar (FD / J: {', '.join(f'{a / b:.3f}' for a, b in zip(fd[:8], j[:8]))}, ...)")
+    print(f"pose gradient {label} ({trainer.config.grid_layout} layout): {wall:.1f} s, launches {launches}; "
+          f"jacobian {jac.shape}, |J| up to {np.abs(jac).max():.4g}; one chunk's kernel path against the plain "
+          f"path: {int((~keep).sum())} of {POSE_CHUNK} rays flipped a cell and are excluded, max_abs_err "
+          f"{jac_err:.3e} of {scale:.3e}, {bad} entries outside POSE_JAC_TOL; the CLI's chunk equals the kernel "
+          f"path's bit for bit: {same_cli}{fd_note}")
+    del trainer
+    torch.cuda.empty_cache()
+    if bad or not same_cli or ok.mean() < POSE_FD_SHARE:
+        raise AssertionError(f"pose gradient {label}: the Jacobian disagrees with the plain path, the CLI or a "
+                             "finite difference")
+    return dict(wall_s=wall, launches=launches, jac_err=jac_err, jac_scale=float(scale),
+                fd_within=int(ok.sum()) if corner else None, flipped=int((~keep).sum()))
+
+
+def check_viewer(label, run_dirs) -> dict:
+    """``scripts.viewer``: ``ViewerState`` on the runs served on port 0 in a
+    thread; ``GET /info`` and ``GET /``; ``POST /render`` for every mode
+    at an orbit pose: each PNG decodes to ``render_pose``'s image of that
+    pose after ``to_u8`` (rgb) or ``colorize`` in the mode's frozen window."""
+    import threading
+    import urllib.request
+
+    from uncertainty_nerf_gs_torch.data.png import read_png
+    from uncertainty_nerf_gs_torch.ops import backend
+    from uncertainty_nerf_gs_torch.scripts import viewer
+    from uncertainty_nerf_gs_torch.utils.images import colorize, to_u8
+
+    state = viewer.ViewerState([Path(d) for d in run_dirs], downscale=2)
+    server = viewer.serve(state, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    differ, launches = {}, {}
+    try:
+        info = json.loads(urllib.request.urlopen(base + "/info", timeout=120).read())
+        page = urllib.request.urlopen(base + "/", timeout=120).read()
+        c2w = orbit_pose(info["center"], info["radius"])
+        for mode in info["modes"]:
+            backend.reset_launch_counts()
+            req = urllib.request.Request(base + "/render", headers={"content-type": "application/json"},
+                                         data=json.dumps({"c2w": c2w.tolist(), "mode": mode}).encode())
+            png = urllib.request.urlopen(req, timeout=300).read()
+            launches[mode] = {k: v for k, v in backend.launch_counts.items() if v}
+            got = read_png(png)
+            arr = state.render_pose(c2w)[mode]
+            want = to_u8(arr) if mode == "rgb" else colorize(arr, *state._windows[mode])
+            differ[mode] = int((got != want).sum()) if got.shape == want.shape else -1
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    print(f"viewer {label}: {info['method']}, {info['num_members']} member(s), {info['width']}x{info['height']}, "
+          f"modes {info['modes']}; the page {len(page)} bytes; PNG bytes off render_pose's image by mode {differ}; "
+          f"launches by mode {launches}")
+    if any(differ.values()) or b"ut-viewer" not in page:
+        raise AssertionError(f"viewer {label}: a served PNG differs from render_pose's image: {differ}")
+    return dict(modes=info["modes"], launches=launches)
+
+
+def orbit_pose(center, radius, az=0.5, el=0.3) -> np.ndarray:
+    """The page's orbit camera (tests/test_viewer.py's ``_orbit_pose``)."""
+    o = np.array(center) + radius * np.array([np.cos(az) * np.cos(el), np.sin(az) * np.cos(el), np.sin(el)])
+    f = np.array(center) - o
+    f /= np.linalg.norm(f)
+    r = np.array([f[1], -f[0], 0.0])
+    r /= max(np.linalg.norm(r), 1e-8)
+    u = np.cross(r, f)
+    return np.stack([r, u, -f, o], axis=1).astype(np.float32)
+
+
+def check_live_viewer(scene) -> dict:
+    """``scripts.train.main --viewer-port`` (a free port; 0 is off, as in the
+    JAX package) for CORNER_SHORT steps at CLI_K a launch, a checkpoint every
+    CLI_K, with a client requesting rgb frames all through the run: frames
+    render between launches (``LiveViewerState.rendered_at`` holds steps
+    between 0 and the last), and the run's checkpoint equals a run without
+    the viewer bit for bit."""
+    import threading
+    import urllib.request
+
+    from uncertainty_nerf_gs_torch.engine import checkpointing as ck
+    from uncertainty_nerf_gs_torch.scripts import viewer
+
+    def args(out, *extra):
+        return ["active-nerfacto", "--data", str(scene), "--dataparser", "blender-data", "--output-dir",
+                str(CLI_DIR / out), "--max-num-iterations", str(CORNER_SHORT), "--steps-per-save", str(CLI_K),
+                "--steps-per-launch", str(CLI_K), "--log-every", "0", "--seed", "1", *extra]
+
+    runs: dict[str, dict] = {}
+    plain = cli_train("live_reference", args("live_reference"), runs)
+    states, done, frames = [], threading.Event(), []
+    serve = viewer.serve
+
+    def recording_serve(state, *a, **kw):
+        states.append(state)
+        return serve(state, *a, **kw)
+
+    port = free_port()
+
+    def client():
+        base = f"http://127.0.0.1:{port}"
+        while not done.is_set():
+            try:
+                info = json.loads(urllib.request.urlopen(base + "/info", timeout=60).read())
+                req = urllib.request.Request(base + "/render", headers={"content-type": "application/json"},
+                                             data=json.dumps({"c2w": orbit_pose(info["center"], info["radius"])
+                                                              .tolist(), "mode": "rgb"}).encode())
+                frames.append((info["step"], urllib.request.urlopen(req, timeout=120).read()))
+            except OSError:
+                time.sleep(0.05)  # the server is not up yet, or has gone
+
+    thread = threading.Thread(target=client, daemon=True)
+    viewer.serve = recording_serve
+    thread.start()
+    try:
+        live = cli_train("live_viewer", args("live_viewer", "--viewer-port", str(port)), runs)
+    finally:
+        viewer.serve = serve
+        done.set()
+        thread.join(timeout=120)
+    rendered = states[0].rendered_at if states else []
+    between = [s for s in rendered if 0 < s < CORNER_SHORT]
+    a, b = ck.load_checkpoint(ck.checkpoint_path(plain, CORNER_SHORT)), ck.load_checkpoint(
+        ck.checkpoint_path(live, CORNER_SHORT))
+    differ: dict = {}
+    items = _tree_differ("", a, b, differ)
+    print(f"live viewer: {len(frames)} frames served during the run ({len(rendered)} renders at steps "
+          f"{sorted(set(rendered))}); {len(between)} between launches; the run's step-{CORNER_SHORT:09d}.ckpt against "
+          f"the run without the viewer: {len(differ)} of {items} items differ")
+    if not between or differ or not all(png[:4] == b"\x89PNG" for _, png in frames):
+        raise AssertionError(f"live viewer: {len(between)} frames between launches, {list(differ)[:8]} differ")
+    return dict(frames=len(frames), rendered_at=sorted(set(rendered)), runs=runs)
+
+
+def run_tools(cli, corner) -> dict:
+    """The tools phase, on runs the CLI and corner phases trained:
+    ``scripts.render`` (orbit and interpolate, rgb, depth and rgb_std) on a
+    nerfacto run and a splat run; ``scripts.pose_gradient`` on a cell run and
+    a corner run; ``scripts.viewer`` on a single run and a two-member fused
+    ensemble, and live under ``scripts.train --viewer-port``."""
+    dirs = cli["dirs"]
+    out = dict(render={}, pose={}, viewer={})
+    for traj in ("orbit", "interpolate"):
+        out["render"][f"nerfacto_{traj}"] = check_render_cli("nerfacto", dirs["straight"], traj)
+        out["render"][f"splat_{traj}"] = check_render_cli("splat", dirs["splat"], traj)
+    out["pose"]["cell"] = check_pose_gradient_cli("cell", dirs["straight"])
+    out["pose"]["corner"] = check_pose_gradient_cli("corner", corner["dirs"][0])
+    out["viewer"]["single"] = check_viewer("single", [dirs["straight"]])
+    out["viewer"]["ensemble"] = check_viewer("fused ensemble", [dirs["straight"], dirs["seed1"]])
+    out["live"] = check_live_viewer(dirs["scene"])
+    return out
+
+
+def corner_kernel_entries(corner) -> list[dict]:
+    """K7, K8, K8's positions-only mode and K5's positions-only mode, each
+    an entry of the kernels line, launches 0 until the paths' counts are
+    added: times of a step's three calls at a training forward's positions
+    (K7, K8 and K8's positions-only mode), and K5's positions-only mode's
+    three at uniform positions."""
+    src = "uncertainty_nerf_gs_torch/csrc/hash_grid.cu"
+    grid = corner["grid"]
+
+    def entry(name, replaces, calls, err, tpu=False, **extra):
+        return dict(name=name, route="cuda", source=src, replaces=replaces, tpu_kernel=tpu, launches=0,
+                    launches_by_path={}, max_abs_err=err, ms=sum(c["ms"] for c in calls),
+                    plain_ms=sum(c["plain_ms"] for c in calls), bound_ms=sum(c["bound_ms"] for c in calls),
+                    bound_by=calls[-1]["bound_by"], per_launch=calls, **extra)
+
+    lookup = "uncertainty_nerf_gs_tpu/ops/encodings.py:123"
+    training = [p["training"] for p in grid["per_launch"]]
+    fwd = [t["fwd"] for t in training]
+    return [
+        entry("hash_lookup_fwd", lookup, fwd, grid["fwd_err"],
+              library_ms=sum(c["library_ms"] for c in fwd),  # F.embedding_bag(mode="sum", per_sample_weights=)
+              every_read_bound_ms=sum(c["every_read_bound_ms"] for c in fwd)),
+        entry("hash_lookup_bwd", lookup, [t["bwd"] for t in training], grid["bwd_err"], library_ms=None,
+              deterministic=True, every_read_bound_ms=sum(t["bwd"]["every_read_bound_ms"] for t in training)),
+        entry("hash_lookup_bwd_positions", lookup, [t["positions_only"] for t in training], grid["bwd_err"],
+              library_ms=None,
+              every_read_bound_ms=sum(t["positions_only"]["every_read_bound_ms"] for t in training)),
+        entry("cell_lookup_bwd_positions", "experiments/jobs/403_pallas_gather_probe.py:96",
+              corner["k5_positions_only"]["per_launch"], grid["bwd_err"], tpu=True, library_ms=None),
+    ]
+
+
 def kernel_line(run_nerf, train_nerf, resample, nerf_plain, run_splat_, refine, splat_ens, comp, grid,
                 ens, gather, methods) -> list[dict]:
     """``methods``: path -> the launch counts of the other nerfacto-family
@@ -4105,6 +4876,15 @@ def main() -> int:
     cli = run_cli(name)
     print(f"cli done at {time.perf_counter() - t_start:.1f} s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    corner = run_corner(name, cli)
+    print(f"corner done at {time.perf_counter() - t_start:.1f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    tools = run_tools(cli, corner)
+    import shutil
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    print(f"tools done at {time.perf_counter() - t_start:.1f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     sparse = run_sparse(name)
     print(f"sparse done at {time.perf_counter() - t_start:.1f} s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
@@ -4118,6 +4898,15 @@ def main() -> int:
     # and its eval, and every run's K1 (its hybrid K4/K5 and its K6 have
     # entries of their own)
     paths = dict(cli["runs"], **{k: v for k, v in sparse["runs"].items() if k in ("sparse_cell", "sparse_eval_cell")})
+    kernels += corner_kernel_entries(corner)
+    # the corner phase's runs and the tools phase's, paths of their own
+    tool_runs = {f"render_{k}": v for k, v in tools["render"].items()}
+    tool_runs.update({f"pose_gradient_{k}": v for k, v in tools["pose"].items()})
+    tool_runs.update({f"viewer_{k}_{m}": dict(launches=n) for k, v in tools["viewer"].items()
+                      for m, n in v["launches"].items()})
+    tool_runs.update(tools["live"]["runs"])
+    paths.update(corner["runs"])
+    paths.update(tool_runs)
     for entry in kernels:
         for label, r in paths.items():
             n = r["launches"].get(entry["name"], 0)
@@ -4129,6 +4918,9 @@ def main() -> int:
             kernels[0]["launches_by_path"][f"cli_{label}"] = r["launches"]["pdf_resample"]
             kernels[0]["launches"] += r["launches"]["pdf_resample"]
     kernels += sparse_kernel_entries(sparse)
+    unlaunched = [e["name"] for e in kernels if not e["launches"]]
+    if unlaunched:
+        raise AssertionError(f"kernels of the path never launched: {unlaunched}")
     print(json.dumps({"cli": {k: {f: v for f, v in r.items() if f != "launches"} for k, r in cli["runs"].items()},
                       "graph": cli["graph"], "grad_checkpoint_peak_gb": cli["memory"]}))
     print(json.dumps({"sparse": {
@@ -4136,6 +4928,15 @@ def main() -> int:
         "graph": sparse["graph"], "expansion": sparse["expansion"], "step_busy_ms": sparse["busy_ms"],
         "psnr": sparse["psnr"], "metrics_by_table_dtype": sparse["metrics"],
         "step_plain_max_grad_l2_err": sparse["step_plain"]["max_grad_l2_err"]}}))
+    print(json.dumps({"corner": {
+        "runs": {k: {f: v for f, v in r.items() if f != "launches"} for k, r in corner["runs"].items()},
+        "graph": corner["graph"], "step_busy_ms": corner["busy_ms"], "psnr": corner["psnr"],
+        "step_plain_max_grad_l2_err": corner["step_plain"]["max_grad_l2_err"]},
+        "tools": {"render": {k: {f: v for f, v in r.items() if f != "launches"} for k, r in tools["render"].items()},
+                  "pose_gradient": {k: {f: v for f, v in r.items() if f != "launches"}
+                                    for k, r in tools["pose"].items()},
+                  "viewer_modes": {k: v["modes"] for k, v in tools["viewer"].items()},
+                  "live_frames": tools["live"]["frames"], "live_rendered_at": tools["live"]["rendered_at"]}}))
     print(json.dumps({"kernels": kernels}))
     print(name)
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,7 @@ from uncertainty_nerf_gs_torch.ops.encodings import (
     CellLookup,
     cell_lookup,
     cell_lookup_bwd,
+    hash_encoding_lookup,
     packed_cell_lookup,
     packed_cell_lookup_strided,
 )
@@ -247,6 +248,53 @@ def test_cell_lookup_wrapper_refuses(case, error):
         cell_lookup(cells, pos, res, table, feats)
 
 
+@pytest.mark.parametrize(
+    "case,error",
+    [
+        ("table_float64", TypeError),
+        ("positions_float64", TypeError),
+        ("positions_not_contiguous", ValueError),
+        ("table_not_contiguous", ValueError),
+        ("positions_2d_wide", ValueError),
+        ("features", ValueError),
+        ("resolutions_count", ValueError),
+        ("too_many_levels", ValueError),
+        ("mixed_devices", ValueError),
+        ("key_bits", ValueError),
+        ("table_misaligned", ValueError),
+    ],
+)
+def test_hash_lookup_wrapper_refuses(case, error):
+    """The corner lookup refuses what K7/K8 do not take, on every device,
+    rather than copy or convert."""
+    table, pos, res, feats = torch.rand(3, 64, 2), torch.rand(7, 3), (4, 8, 16), 2
+    if case == "table_float64":
+        table = table.double()
+    elif case == "positions_float64":
+        pos = pos.double()
+    elif case == "positions_not_contiguous":
+        pos = torch.rand(3, 7).t()
+    elif case == "table_not_contiguous":
+        table = torch.rand(3, 2, 64).transpose(1, 2)
+    elif case == "positions_2d_wide":
+        pos = torch.rand(7, 4)
+    elif case == "features":
+        table, feats = torch.rand(3, 64, 3), 3
+    elif case == "resolutions_count":
+        res = res[:2]
+    elif case == "too_many_levels":
+        table, res = torch.rand(MAX_LEVELS + 1, 64, 2), (4,) * (MAX_LEVELS + 1)
+    elif case == "mixed_devices":
+        pos = pos.to("meta")
+    elif case == "key_bits":  # 32 levels of 2^27 entries: K8's keys would need 32 bits
+        table, res = torch.empty(MAX_LEVELS, 2**27, 2, device="meta"), (4,) * MAX_LEVELS
+        pos = torch.empty(7, 3, device="meta")
+    elif case == "table_misaligned":  # contiguous, but K7's vector reads need 16 bytes
+        table = torch.rand(table.numel() + 1)[1:].view(table.shape)
+    with pytest.raises(error):
+        hash_encoding_lookup(table, pos, res, feats)
+
+
 @pytest.mark.parametrize("case", ["float64", "shape", "not_contiguous", "device"])
 def test_cell_lookup_backward_wrapper_refuses_g_out(case):
     cells, pos, res, table = _lookup_inputs()
@@ -402,6 +450,11 @@ CLI_MODULES = [
     "uncertainty_nerf_gs_torch.engine.checkpointing",
     "uncertainty_nerf_gs_torch.scripts.eval_uncertainty",
     "uncertainty_nerf_gs_torch.scripts.train",
+    "uncertainty_nerf_gs_torch.scripts.render",
+    "uncertainty_nerf_gs_torch.scripts.pose_gradient",
+    "uncertainty_nerf_gs_torch.scripts.viewer",
+    "uncertainty_nerf_gs_torch.data.gif",
+    "uncertainty_nerf_gs_torch.utils.colormaps",
     "uncertainty_nerf_gs_torch.utils.images",
     "uncertainty_nerf_gs_torch.utils.writer",
 ]
@@ -421,17 +474,20 @@ def test_cli_modules_import_without_pil_yaml_or_matplotlib():
     assert proc.returncode == 0, proc.stderr
 
 
-@pytest.mark.parametrize("cli", ["train", "eval_uncertainty"])
+@pytest.mark.parametrize("cli", ["train", "eval_uncertainty", "render", "pose_gradient", "viewer"])
 def test_cli_without_device_raises_without_cuda(monkeypatch, tmp_path, cli):
-    """Both CLIs run on the card unless ``--device cpu`` asks for the CPU."""
-    from uncertainty_nerf_gs_torch.scripts import eval_uncertainty, train
+    """Every CLI runs on the card unless ``--device cpu`` asks for the CPU."""
+    from uncertainty_nerf_gs_torch.scripts import eval_uncertainty, pose_gradient, render, train, viewer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         if cli == "train":
             train.main(["active-nerfacto", "--data", str(tmp_path), "--output-dir", str(tmp_path / "run")])
-        else:
+        elif cli == "eval_uncertainty":
             eval_uncertainty.main(["--load-config", str(tmp_path), "--output-path", str(tmp_path / "m.json")])
+        else:
+            dict(render=render, pose_gradient=pose_gradient, viewer=viewer)[cli].main(
+                ["--load-config", str(tmp_path)])
 
 
 HASH_GRID_CU = REPO / "uncertainty_nerf_gs_torch" / "csrc" / "hash_grid.cu"

@@ -256,7 +256,7 @@ def _jax_face_vertices(jtr, rng_key) -> list[torch.Tensor]:
 
 
 def train_loss_and_grads(rng, camera_opt, background="white", num_rays=96, step=300, seed=3,
-                         jit=True, density_shift=0.0, outputs=None, config=None):
+                         jit=True, density_shift=0.0, outputs=None, config=None, eager_grads=None):
     """One batch's loss terms and gradients in both packages (JAX's under
     ``jax.jit`` unless ``jit`` is False), ``config`` overriding the small
     config's fields (with the face-consistency loss on, JAX's vertices are
@@ -265,7 +265,9 @@ def train_loss_and_grads(rng, camera_opt, background="white", num_rays=96, step=
     batch keeps its size, so that JAX's draws for each row stay the same).
     Returns (want_terms, got_terms, want_grads and got_grads by torch name,
     rays replaced); a dict passed as ``outputs`` receives the port's
-    forward outputs on the final batch."""
+    forward outputs on the final batch, and a dict passed as
+    ``eager_grads`` JAX's gradients by torch name evaluated without
+    ``jax.jit`` as well."""
     jtr, ttr, tree, images = _trainer_pair(rng, camera_opt, background=background,
                                            density_shift=density_shift, **(config or {}))
 
@@ -293,6 +295,9 @@ def train_loss_and_grads(rng, camera_opt, background="white", num_rays=96, step=
         jax.tree_util.tree_map(jnp.asarray, tree), jb, rng_key, jnp.int32(step))
     want_terms = {k: float(v) for k, v in terms.items()} | {"total_loss": float(total)}
     want_grads = interop.params_from_jax(jax.tree_util.tree_map(np.asarray, grads))
+    if eager_grads is not None:
+        _, e_grads = loss_and_grad(jax.tree_util.tree_map(jnp.asarray, tree), jb, rng_key, jnp.int32(step))
+        eager_grads.update(interop.params_from_jax(jax.tree_util.tree_map(np.asarray, e_grads)))
     t_total, t_terms = ttr._loss_fn(tb, step, draws=draws)
     t_total.backward()
     got_terms = {k: float(v.detach()) for k, v in t_terms.items()} | {"total_loss": float(t_total.detach())}

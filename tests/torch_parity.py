@@ -438,6 +438,7 @@ CLI_METRIC_TOLS = {
     "active-splatfacto": {"default": _CLI_EXACT, "ssim": _CLI_SSIM, **{k: _CLI_AUSE for k in _AUSE_KEYS}},
     "ensemble": {"default": _CLI_EXACT, "ssim": _CLI_SSIM, **{k: _CLI_AUSE for k in _AUSE_KEYS}},
     "ensemble-hybrid-bf16": {"default": _CLI_EXACT, "ssim": _CLI_SSIM, **{k: _CLI_AUSE for k in _AUSE_KEYS}},
+    "ensemble-corner": {"default": _CLI_EXACT, "ssim": _CLI_SSIM, **{k: _CLI_AUSE for k in _AUSE_KEYS}},
     "nerfacto-mcdropout": {"default": dict(atol=1e-5, rtol=1e-3), "ssim": _CLI_SSIM,
                            "rgb_avg_var": dict(atol=0.0, rtol=0.1), "rgb_auce_length": dict(atol=0.0, rtol=0.05),
                            **{k: _CLI_SAMPLED_AUSE for k in _AUSE_KEYS}},

@@ -1,9 +1,9 @@
 """How far the port is from the JAX package on the parity tests' inputs.
 
     JAX_PLATFORMS=cpu python tests/torch_parity_report.py [nerfacto] [splat] [composite] [train] [ensemble]
-        [splat_refine] [mcdropout] [laplace]
+        [splat_refine] [mcdropout] [laplace] [tables] [corner] [corner_steps]
 
-Each named section, or all eight. Nerfacto (tests/test_torch_model.py::test_model_eval_forward_matches_jax):
+Each named section, or all of them. Nerfacto (tests/test_torch_model.py::test_model_eval_forward_matches_jax):
 the rays whose lookups flipped a hash-grid cell between the port and JAX's
 eager forward, then per output the largest absolute and relative deviation
 on the other rays, beside the JAX package's own jit-vs-eager deviation.
@@ -46,6 +46,20 @@ JAX package's own eager evaluation's.
 Laplace (tests/test_torch_laplace.py): the diagonal GGN's largest deviation
 per leaf over the leaf's largest entry (the basis of LAPLACE_GGN_TOL) for
 both density activations, and ``laplace_render``'s per-output deviations.
+
+Corner (tests/test_torch_corner.py): the corner lookup's largest deviation
+from the JAX package's per case; one corner training batch's gradients, the
+port's against JAX's eager and jitted evaluations, and the NaN the jitted
+one holds in camera_opt; the GIF writer's uniform palette's largest
+deviation.
+
+Corner steps (no test: a trend over hundreds of steps, not a bar): the JAX
+trainer and the port's, from one initial state on one written scene, take
+CORNER_STEPS steps of CORNER_RAYS rays each with JAX's batches and draws
+replayed in the port, for the corner layout and for the cell layout; per 25
+steps both mean losses, and per 100 both test-view PSNRs. A fault that
+shows only over many steps (a schedule, an optimizer group) parts the
+curves at once; the packages' float differences part them after a while.
 
 The tolerances in tests/torch_parity.py are set from this report.
 """
@@ -343,8 +357,112 @@ def tables() -> None:
         print(f"  {k:40s} relative L2 {err:.2e}")
 
 
+def corner() -> None:
+    import jax.numpy as jnp
+    import torch
+
+    import test_torch_corner as tc
+    from test_torch_train import train_loss_and_grads
+    from torch_parity import grad_l2_error
+
+    from uncertainty_nerf_gs_torch.data import gif
+    from uncertainty_nerf_gs_tpu.models.nerfacto import NerfactoModel as JModel
+    from uncertainty_nerf_gs_tpu.ops import encodings as jenc
+    from uncertainty_nerf_gs_torch.ops import encodings as tenc
+
+    rng = np.random.default_rng(0)
+    for case, (levels, lo, hi, log2, feats) in tc.LOOKUP_CASES.items():
+        res = jenc.hash_grid_resolutions(levels, lo, hi)
+        table = rng.uniform(-2, 2, (levels, feats, 2**log2)).astype(np.float32)
+        pos = tc._positions(rng, 300, res)
+        want = np.asarray(jenc.hash_encoding_lookup(jnp.asarray(table), jnp.asarray(pos), jnp.asarray(res), feats))
+        got = tenc.hash_encoding_lookup(torch.from_numpy(table.transpose(0, 2, 1).copy()), torch.from_numpy(pos),
+                                        res, feats).numpy()
+        print(f"corner lookup {case}: max abs deviation {np.abs(got - want).max():.3e} of {np.abs(want).max():.3e}")
+    eager_init = JModel.init
+    JModel.init = lambda self, rngs, *a, **kw: jax.jit(lambda r, *b: eager_init(self, r, *b, **kw))(rngs, *a)
+    config = dict(tc.CORNER, face_consistency_mult=1.0)
+    want, got, want_g, got_g, _ = train_loss_and_grads(np.random.default_rng(0), "random", "white", config=config)
+    eager, _, eager_g, _, _ = train_loss_and_grads(np.random.default_rng(0), "random", "white", jit=False,
+                                                   config=config)
+    JModel.init = eager_init
+    cam = want_g["camera_opt"]
+    print(f"corner training batch: the jitted JAX camera_opt gradient holds {int(torch.isnan(cam).sum())} NaN of "
+          f"{cam.numel()} (columns {torch.isnan(cam).any(0).nonzero().flatten().tolist()}), JAX eager's "
+          f"{int(torch.isnan(eager_g['camera_opt']).sum())}")
+    for k in sorted(want_g, key=lambda k: -grad_l2_error(k, got_g[k], eager_g[k]))[:6]:
+        jit = grad_l2_error(k, got_g[k], want_g[k]) if not torch.isnan(want_g[k]).any() else float("nan")
+        print(f"  {k:40s} relative L2: port against JAX eager {grad_l2_error(k, got_g[k], eager_g[k]):.2e}, "
+              f"against JAX jitted {jit:.2e}")
+    frames = [rng.integers(0, 256, (64, 64, 3)).astype(np.uint8) for _ in range(4)]
+    quantized = np.stack([gif.UNIFORM_PALETTE[gif._uniform_indices(f)] for f in frames])
+    print(f"gif: the uniform palette's largest deviation on uniform random rgb frames "
+          f"{np.abs(quantized.astype(int) - np.stack(frames)).max()} (UNIFORM_BOUND {gif.UNIFORM_BOUND})")
+
+
+CORNER_STEPS, CORNER_RAYS = 300, 256
+
+
+def corner_steps() -> None:
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from test_torch_train import _jax_draws
+
+    from uncertainty_nerf_gs_torch import interop
+    from uncertainty_nerf_gs_torch.data.dataparsers import DATAPARSERS as TP
+    from uncertainty_nerf_gs_torch.data.synthetic import write_blender_dataset
+    from uncertainty_nerf_gs_torch.engine.optimizers import apply_updates
+    from uncertainty_nerf_gs_torch.scripts.train import build_trainer as t_build
+    from uncertainty_nerf_gs_tpu.data.dataparsers import DATAPARSERS as JP
+    from uncertainty_nerf_gs_tpu.data.datasets import load_images
+    from uncertainty_nerf_gs_tpu.scripts.train import build_trainer as j_build
+
+    def psnr(trainer, cameras, images):
+        train_cams, trainer.cameras = trainer.cameras, cameras
+        rgb = [np.asarray(trainer.render_image(i)["rgb"]) for i in range(len(images))]
+        trainer.cameras = train_cams
+        return float(np.mean([-10 * np.log10(np.mean((a - b) ** 2)) for a, b in zip(rgb, images)]))
+
+    root = Path(tempfile.mkdtemp()) / "scene"
+    write_blender_dataset(root, num_train=8, num_test=4, height=32, width=32, device="cpu")
+    j_test, t_test = JP["blender-data"](root, "test"), TP["blender-data"](root, "test")
+    images = np.asarray(load_images(j_test))
+    for layout in ("corner", "cell"):
+        overrides = dict(grid_layout=layout, num_levels=8, max_res=512, log2_hashmap_size=14,
+                         num_proposal_samples=(64, 32), num_nerf_samples=16)
+        jtr, _, _ = j_build("active-nerfacto", root, "blender-data", 0, None, overrides)
+        ttr, _, _ = t_build("active-nerfacto", root, "blender-data", 0, None, overrides, device="cpu")
+        ttr.restore(interop.trainer_state_from_jax(jax.tree_util.tree_map(np.asarray, jtr.state_dict())))
+        key, j_loss, t_loss = jax.random.PRNGKey(1), [], []
+        for i in range(CORNER_STEPS):
+            key, k_batch, k_step = jax.random.split(key, 3)  # as the JAX trainer's loop
+            batch = jtr.sample_batch(k_batch, CORNER_RAYS)
+            draws = _jax_draws(jtr, k_step, CORNER_RAYS)
+            jtr.state, losses = jtr._train_step(jtr.state, batch, k_step)
+            tb = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+            tb["camera_indices"] = tb["camera_indices"].long()
+            ttr.optimizer.zero_grad(set_to_none=True)
+            total, _ = ttr._loss_fn(tb, ttr._step_t, draws=draws)
+            total.backward()
+            apply_updates(ttr.optimizer)
+            ttr._step_t += 1
+            ttr.step += 1
+            j_loss.append(float(losses["total_loss"]))
+            t_loss.append(float(total.detach()))
+            if (i + 1) % 25 == 0:
+                print(f"{layout} steps {i - 23}-{i + 1}: mean total loss JAX {np.mean(j_loss[-25:]):.4f}, "
+                      f"port {np.mean(t_loss[-25:]):.4f}")
+            if (i + 1) % 100 == 0:
+                print(f"{layout} step {i + 1}: test-view PSNR JAX {psnr(jtr, j_test.cameras, images):.3f} dB, "
+                      f"port {psnr(ttr, t_test.cameras, images):.3f} dB")
+
+
 if __name__ == "__main__":
     sections = dict(nerfacto=nerfacto, splat=splat, composite=composite, train=train, ensemble=ensemble,
-                    splat_refine=splat_refine, mcdropout=mcdropout, laplace=laplace, tables=tables)
+                    splat_refine=splat_refine, mcdropout=mcdropout, laplace=laplace, tables=tables, corner=corner,
+                    corner_steps=corner_steps)
     for name in sys.argv[1:] or sections:
         sections[name]()

@@ -961,12 +961,14 @@ __global__ void __launch_bounds__(kK6Threads) packed_lookup_strided_kernel(K6Arg
 // One thread per (sample, level slot); kSlots >= L is a power of two <= 32,
 // so a sample's slots are adjacent lanes of one warp. Block 0 also zeroes the
 // sort's digit totals. Every thread reaches the shuffles: none returns early.
+// keys and totals null: the positions-only mode (no table needs a gradient),
+// the same arithmetic for g_pos.
 template <int F, int kSlots>
 __global__ void __launch_bounds__(kThreads) cell_lookup_bwd_keys_kernel(
     const float* __restrict__ positions, const float* __restrict__ g_out,
     float* __restrict__ g_pos, unsigned* __restrict__ keys, unsigned* __restrict__ totals, int n,
     int num_levels, Levels lv) {
-    if (blockIdx.x == 0)
+    if (totals != nullptr && blockIdx.x == 0)
         for (int k = threadIdx.x; k < kMaxPasses * kRadix; k += kThreads) totals[k] = 0u;
     const long long g = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
     const long long i = g / kSlots;
@@ -977,7 +979,7 @@ __global__ void __launch_bounds__(kThreads) cell_lookup_bwd_keys_kernel(
         const float p[3] = {positions[3 * i], positions[3 * i + 1], positions[3 * i + 2]};
         const Cell cell = locate(p, lv, l);
         const long long t = i * num_levels + l;
-        keys[t] = lv.key0[l] + cell.idx;
+        if (keys != nullptr) keys[t] = lv.key0[l] + cell.idx;
         if (g_pos != nullptr) {
             float g[F];
 #pragma unroll
@@ -1173,25 +1175,38 @@ __global__ void __launch_bounds__(kSortThreads) cell_lookup_bwd_scatter_kernel(
     }
 }
 
-// -- K5, stage 3: the segmented reduction over the sorted entries --------------
+// -- K5 and K8, stages 3 and 4: the segmented sum over the sorted keys -------
 
-// One warp a chunk of kChunk sorted entries. A cell's run that starts and
-// ends in the chunk is stored into its level's gradient; the chunk's first run, where it
-// began in an earlier chunk, goes to head[chunk]; its last run, where it
+// A sum policy P gives: V, the values a sorted element adds; values(id, v),
+// the values of the element whose pair id is id, returning the level its
+// key lies in; level(key), the level of a key; and dst(key, level), where
+// the key's V sums are stored.
+template <int N>
+__device__ __forceinline__ void store_values(float* dst, const float (&v)[N]) {
+    if constexpr (N % 4 == 0) {
+        store_floats(dst, v);
+    } else {
+#pragma unroll
+        for (int k = 0; k < N; ++k) dst[k] = v[k];
+    }
+}
+
+// Stage 3: one warp a chunk of kChunk sorted keys. A key's run that starts
+// and ends in the chunk is stored at its dst; the chunk's first run, where
+// it began in an earlier chunk, goes to head[chunk]; its last run, where it
 // begins in this chunk and goes on past it, to tail[chunk], and its key to
 // tail_key[chunk] (kNoKey otherwise).
-template <int F>
-__global__ void __launch_bounds__(kThreads) cell_lookup_bwd_reduce_kernel(
-    const unsigned* __restrict__ skeys, const unsigned* __restrict__ sids,
-    const float* __restrict__ positions, const float* __restrict__ g_out,
-    float* __restrict__ head, float* __restrict__ tail, unsigned* __restrict__ tail_key,
-    int num_lookups, int num_levels, Levels lv) {
-    constexpr int V = 8 * F;
+template <class P>
+__device__ __forceinline__ void segmented_sum(const unsigned* __restrict__ skeys,
+                                              const unsigned* __restrict__ sids, float* __restrict__ head,
+                                              float* __restrict__ tail, unsigned* __restrict__ tail_key,
+                                              long long num_keys, const P& pol) {
+    constexpr int V = P::V;
     const int lane = threadIdx.x & 31;
     const long long chunk = static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
     const long long lo = chunk * kChunk;
-    if (lo >= num_lookups) return;  // the whole warp
-    const long long hi = lo + kChunk < num_lookups ? lo + kChunk : num_lookups;
+    if (lo >= num_keys) return;  // the whole warp
+    const long long hi = lo + kChunk < num_keys ? lo + kChunk : num_keys;
     const unsigned first_key = skeys[lo];
     const bool open_left = lo > 0 && skeys[lo - 1] == first_key;
 
@@ -1203,27 +1218,11 @@ __global__ void __launch_bounds__(kThreads) cell_lookup_bwd_reduce_kernel(
         const long long j = base + lane;
         const bool valid = j < hi;
         const unsigned key = valid ? skeys[j] : kNoKey;
-        const unsigned next = valid && j + 1 < num_lookups ? skeys[j + 1] : kNoKey;
+        const unsigned next = valid && j + 1 < num_keys ? skeys[j + 1] : kNoKey;
         float v[V];
 #pragma unroll
         for (int k = 0; k < V; ++k) v[k] = 0.0f;
-        int l = 0;  // the lookup's level: its id is i * L + l
-        if (valid) {
-            const unsigned id = sids[j];
-            const long long i = id / static_cast<unsigned>(num_levels);
-            l = static_cast<int>(id - i * num_levels);
-            const float p[3] = {positions[3 * i], positions[3 * i + 1], positions[3 * i + 2]};
-            const Cell cell = locate(p, lv, l);
-            float g[F];
-#pragma unroll
-            for (int f = 0; f < F; ++f) g[f] = g_out[static_cast<long long>(id) * F + f];
-#pragma unroll
-            for (int c = 0; c < 8; ++c) {
-                const float w = corner_weight(cell, c);
-#pragma unroll
-                for (int f = 0; f < F; ++f) v[c * F + f] = __fmul_rn(w, g[f]);
-            }
-        }
+        const int l = valid ? pol.values(sids[j], v) : 0;
         // the run the previous round left open goes on in lane 0
         if (lane == 0 && key == carry_key) {
 #pragma unroll
@@ -1254,31 +1253,30 @@ __global__ void __launch_bounds__(kThreads) cell_lookup_bwd_reduce_kernel(
             } else if (j + 1 == hi && next == key) {
                 dst = tail + chunk * V;
             } else {
-                dst = lv.grad[l] + static_cast<long long>(key - lv.key0[l]) * V;
+                dst = pol.dst(key, l);
             }
-            store_floats(dst, v);
+            store_values(dst, v);
         }
     }
     if (lane == 0) {
         const unsigned last = skeys[hi - 1];
-        const bool open_right = hi < num_lookups && skeys[hi] == last;
+        const bool open_right = hi < num_keys && skeys[hi] == last;
         const bool starts_here = !(open_left && last == first_key);
         tail_key[chunk] = open_right && starts_here ? last : kNoKey;
     }
 }
 
-// -- K5, stage 4: runs that cross chunk boundaries ----------------------------
-
-// One warp a chunk whose tail opens a run: the run's partials are tail[chunk]
-// and head[chunk + 1 .. last], last the final chunk that begins with the
-// run's key. Lane j adds partials j, j + 32, ... in turn; a butterfly adds
-// the lanes; lane 0 stores the cell.
-template <int F>
-__global__ void __launch_bounds__(kThreads) cell_lookup_bwd_fixup_kernel(
-    const unsigned* __restrict__ skeys, const float* __restrict__ head,
-    const float* __restrict__ tail, const unsigned* __restrict__ tail_key, long long num_chunks,
-    int num_levels, Levels lv) {
-    constexpr int V = 8 * F;
+// Stage 4, runs that cross chunk boundaries: one warp a chunk whose tail
+// opens a run. The run's partials are tail[chunk] and head[chunk + 1 ..
+// last], last the final chunk that begins with the run's key. Lane j adds
+// partials j, j + 32, ... in turn; a butterfly adds the lanes; lane 0 stores
+// the key's sums.
+template <class P>
+__device__ __forceinline__ void segmented_sum_fixup(const unsigned* __restrict__ skeys,
+                                                    const float* __restrict__ head, const float* __restrict__ tail,
+                                                    const unsigned* __restrict__ tail_key, long long num_chunks,
+                                                    const P& pol) {
+    constexpr int V = P::V;
     constexpr int W = V < 16 ? V : 16;  // values a pass
     const int lane = threadIdx.x & 31;
     const long long chunk = static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -1295,9 +1293,7 @@ __global__ void __launch_bounds__(kThreads) cell_lookup_bwd_fixup_kernel(
         break;
     }
     const long long parts = last - chunk + 1;
-    int l = 0;  // the key's level: the last whose first key is not above it
-    while (l + 1 < num_levels && lv.key0[l + 1] <= key) ++l;
-    float* dst = lv.grad[l] + static_cast<long long>(key - lv.key0[l]) * V;
+    float* dst = pol.dst(key, pol.level(key));
     for (int v0 = 0; v0 < V; v0 += W) {
         float acc[W];
 #pragma unroll
@@ -1312,8 +1308,64 @@ __global__ void __launch_bounds__(kThreads) cell_lookup_bwd_fixup_kernel(
 #pragma unroll
             for (int q = 0; q < W; ++q) acc[q] = __fadd_rn(acc[q], __shfl_xor_sync(kFull, acc[q], off));
         }
-        if (lane == 0) store_floats(dst + v0, acc);
+        if (lane == 0) store_values(dst + v0, acc);
     }
+}
+
+// K5's sums: a lookup (pair id i L + l) adds w_c g for its cell's 8 corners,
+// 8 F values, to the cell's row of level l's gradient (key key0[l] + cell).
+template <int F>
+struct CellSum {
+    static constexpr int V = 8 * F;
+    const float* positions;
+    const float* g_out;
+    int num_levels;
+    const Levels& lv;
+
+    __device__ __forceinline__ int values(unsigned id, float (&v)[V]) const {
+        const long long i = id / static_cast<unsigned>(num_levels);
+        const int l = static_cast<int>(id - i * num_levels);
+        const float p[3] = {positions[3 * i], positions[3 * i + 1], positions[3 * i + 2]};
+        const Cell cell = locate(p, lv, l);
+        float g[F];
+#pragma unroll
+        for (int f = 0; f < F; ++f) g[f] = g_out[static_cast<long long>(id) * F + f];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+            const float w = corner_weight(cell, c);
+#pragma unroll
+            for (int f = 0; f < F; ++f) v[c * F + f] = __fmul_rn(w, g[f]);
+        }
+        return l;
+    }
+    // the key's level: the last whose first key is not above it
+    __device__ __forceinline__ int level(unsigned key) const {
+        int l = 0;
+        while (l + 1 < num_levels && lv.key0[l + 1] <= key) ++l;
+        return l;
+    }
+    __device__ __forceinline__ float* dst(unsigned key, int l) const {
+        return lv.grad[l] + static_cast<long long>(key - lv.key0[l]) * V;
+    }
+};
+
+// K5, stage 3.
+template <int F>
+__global__ void __launch_bounds__(kThreads) cell_lookup_bwd_reduce_kernel(
+    const unsigned* __restrict__ skeys, const unsigned* __restrict__ sids,
+    const float* __restrict__ positions, const float* __restrict__ g_out,
+    float* __restrict__ head, float* __restrict__ tail, unsigned* __restrict__ tail_key,
+    int num_lookups, int num_levels, Levels lv) {
+    segmented_sum(skeys, sids, head, tail, tail_key, num_lookups, CellSum<F>{positions, g_out, num_levels, lv});
+}
+
+// K5, stage 4.
+template <int F>
+__global__ void __launch_bounds__(kThreads) cell_lookup_bwd_fixup_kernel(
+    const unsigned* __restrict__ skeys, const float* __restrict__ head,
+    const float* __restrict__ tail, const unsigned* __restrict__ tail_key, long long num_chunks,
+    int num_levels, Levels lv) {
+    segmented_sum_fixup(skeys, head, tail, tail_key, num_chunks, CellSum<F>{nullptr, nullptr, num_levels, lv});
 }
 
 // Per-level constants from the host's resolutions, table sizes and table
@@ -1402,15 +1454,17 @@ long long carve(char* base, long long lookups, int features, Scratch* s) {
     return off;
 }
 
+// K5's stage 1; s null: no keys, the positions-only mode.
 template <int F>
-cudaError_t launch_keys(const float* positions, const float* g_out, float* g_pos, const Scratch& s, int n,
+cudaError_t launch_keys(const float* positions, const float* g_out, float* g_pos, const Scratch* s, int n,
                         int num_levels, const Levels& lv, cudaStream_t st) {
     const int slots = 1 << ceil_log2(num_levels);
     const long long threads = static_cast<long long>(n) * slots;
 #define KEYS_CASE(k)                                                                         \
     case k:                                                                                  \
         cell_lookup_bwd_keys_kernel<F, k><<<blocks_for(threads), kThreads, 0, st>>>(         \
-            positions, g_out, g_pos, s.keys[0], s.totals, n, num_levels, lv);                \
+            positions, g_out, g_pos, s ? s->keys[0] : nullptr, s ? s->totals : nullptr, n,   \
+            num_levels, lv);                                                                 \
         break;
     switch (slots) {
         KEYS_CASE(1) KEYS_CASE(2) KEYS_CASE(4) KEYS_CASE(8) KEYS_CASE(16) KEYS_CASE(32)
@@ -1451,7 +1505,7 @@ template <int F>
 cudaError_t launch_bwd(const float* positions, const float* g_out, float* g_pos, const Scratch& s, int n,
                        int num_levels, const KeyLayout& kl, const Levels& lv, cudaStream_t st) {
     const int lookups = n * num_levels;
-    cudaError_t err = launch_keys<F>(positions, g_out, g_pos, s, n, num_levels, lv, st);
+    cudaError_t err = launch_keys<F>(positions, g_out, g_pos, &s, n, num_levels, lv, st);
     if (err != cudaSuccess) return err;
     err = radix_sort(s, lookups, kl.passes, st);
     if (err != cudaSuccess) return err;
@@ -1534,6 +1588,331 @@ int run_k6(const K6Args& a, const Levels& lv, int features, int dtype, bool stri
         case 4: return static_cast<int>(launch_k6_type<4>(a, lv, dtype, strided, st));
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
+}
+
+// -- K7 / K8: the corner layout's lookup, forward and backward ----------------
+//
+// The corner layout (uncertainty_nerf_gs_tpu/ops/encodings.py::
+// hash_encoding_lookup, tcnn's semantics) stores each level's table as T
+// entries of F features, (L, T, F) here, and reads each of a lookup's 8
+// corners on its own: adjacent cells share their corner entries. The JAX
+// package computes it with XLA gathers, not with a Pallas kernel; its
+// counterpart here is a pair of kernels because the gather's transpose, a
+// scatter-add, adds in arbitrary order on the card, and the nerfacto step
+// repeats bit for bit. Per sample i, level l and corner k = 4 kx + 2 ky + kz:
+//   scaled = pos * res, b = floor(scaled), frac = scaled - b (no clamp)
+//   slot_k = x + res (y + res z)                  where (res + 1)^3 <= T (float32),
+//            x ^ y * 2654435761 ^ z * 805459861   otherwise,
+//            (x, y, z) = b + (kx, ky, kz) in wrapping uint32, then % T
+//   w_k    = (wx[kx] * wy[ky]) * wz[kz],  wx = (1 - fx, fx)
+//   K7: out[i, l F + f] = sum_k w_k table[l, slot_k, f], summed in k4_tree's
+//       order ((c0 + c1) + (c2 + c3)) + ((c4 + c5) + (c6 + c7)) with
+//       __fmul_rn / __fadd_rn, so that it equals hash_encoding_lookup_reference
+//       (ops/encodings.py) bit for bit.
+//   K8: g_table[l, s, f] = sum over the (lookup, corner) pairs with slot s of
+//       w_k g_out[i, l F + f]; g_pos[i, d] = sum_l res_l sum_k dw_k/dfrac_d
+//       <table[l, slot_k, :], g_out[i, l, :]>.
+// What bounds them on an H100: bytes and the load path. K7 reads 8 entries
+// of 4 F bytes a lookup, scattered over a level's table (the field's hashed
+// levels are 4 MB at F = 2, so the 16 levels' 67 MB do not fit the 50 MB L2
+// together, one level does), and writes 4 F bytes; its float work (about 70
+// operations a lookup) is far below the float32 rate. K7's design is the
+// simple one: a thread a (sample, level) lookup, threads of one sample on
+// adjacent lanes so that the output is written in whole lines, each corner
+// read as one F-wide vector load.
+// K8 is K5's design on (lookup, corner) pairs: 1. keys: a thread a (sample,
+// level slot), the slots of a sample adjacent lanes, writes the 8 keys
+// l T + slot_k (below 2^31) and, where g_pos is asked for, reads the 8
+// entries and sums the sample's levels by a butterfly in a fixed order;
+// 2. K5's stable radix sort of (key, pair id), pair id = 8 (i L + l) + k;
+// 3. a segmented reduction of 256 sorted pairs a warp, each pair's weight
+// recomputed from its position, a run ending in the chunk stored with plain
+// stores at g_table + key F; 4. runs that cross chunks summed by one warp
+// each. No float atomic: every sum has an order fixed by the keys and the
+// ids, so two launches give the same bits. Where no table needs a gradient
+// (the pose gradient), only stage 1 runs, without keys: the same kernel and
+// the same arithmetic, so its g_pos equals the full backward's bit for bit.
+// The wrapper zero-fills g_table and sizes the scratch as
+// hash_lookup_bwd_scratch_bytes says; nothing is allocated here.
+
+constexpr int kCornerThreads = 256;
+
+struct CornerLevels {
+    float res[kMaxLevels];      // float(res), the factor of scaled
+    unsigned ires[kMaxLevels];
+    unsigned dense;             // bit l: level l indexes densely
+    unsigned size;              // T, the entries of every level's table
+    unsigned mask;              // T - 1 where T is a power of two, else 0
+};
+
+struct Corner {
+    unsigned base[3];  // floor(scaled) as a wrapping uint32
+    float w[3][2];     // per axis (1 - frac, frac)
+};
+
+__device__ __forceinline__ Corner corner_locate(const float p[3], const CornerLevels& lv, int l) {
+    Corner c;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+        const float scaled = __fmul_rn(p[d], lv.res[l]);
+        const float fl = floorf(scaled);
+        const float frac = __fsub_rn(scaled, fl);
+        c.base[d] = static_cast<unsigned>(static_cast<long long>(fl));
+        c.w[d][0] = __fsub_rn(1.0f, frac);
+        c.w[d][1] = frac;
+    }
+    return c;
+}
+
+// The table slot of corner k, in the JAX package's wrapping uint32 arithmetic.
+__device__ __forceinline__ unsigned corner_slot(const Corner& c, const CornerLevels& lv, int l, int k) {
+    const unsigned x = c.base[0] + static_cast<unsigned>(k >> 2);
+    const unsigned y = c.base[1] + static_cast<unsigned>((k >> 1) & 1);
+    const unsigned z = c.base[2] + static_cast<unsigned>(k & 1);
+    unsigned h;
+    if ((lv.dense >> l) & 1u) {
+        const unsigned r = lv.ires[l];
+        h = x + r * (y + r * z);
+    } else {
+        h = x ^ y * 2654435761u ^ z * 805459861u;
+    }
+    return lv.mask ? h & lv.mask : h % lv.size;
+}
+
+__device__ __forceinline__ float corner_w(const Corner& c, int k) {
+    return __fmul_rn(__fmul_rn(c.w[0][k >> 2], c.w[1][(k >> 1) & 1]), c.w[2][k & 1]);
+}
+
+// The F floats of one entry, as one vector load where F allows it.
+template <int F>
+__device__ __forceinline__ void load_entry(const float* src, float (&v)[F]) {
+    if constexpr (F == 1) {
+        v[0] = __ldg(src);
+    } else if constexpr (F == 2) {
+        const float2 q = __ldg(reinterpret_cast<const float2*>(src));
+        v[0] = q.x;
+        v[1] = q.y;
+    } else {
+        static_assert(F % 4 == 0, "F is 1, 2 or a multiple of 4");
+#pragma unroll
+        for (int q = 0; q < F / 4; ++q) {
+            const float4 x = __ldg(reinterpret_cast<const float4*>(src) + q);
+            v[4 * q] = x.x;
+            v[4 * q + 1] = x.y;
+            v[4 * q + 2] = x.z;
+            v[4 * q + 3] = x.w;
+        }
+    }
+}
+
+// K7: one thread a (sample, level) lookup, t = i L + l.
+template <int F>
+__global__ void __launch_bounds__(kCornerThreads) hash_lookup_fwd_kernel(
+    const float* __restrict__ positions, const float* __restrict__ table, float* __restrict__ out, int n,
+    int num_levels, CornerLevels lv) {
+    const long long t = static_cast<long long>(blockIdx.x) * kCornerThreads + threadIdx.x;
+    if (t >= static_cast<long long>(n) * num_levels) return;
+    const long long i = t / num_levels;
+    const int l = static_cast<int>(t - i * num_levels);
+    const float p[3] = {__ldg(positions + 3 * i), __ldg(positions + 3 * i + 1), __ldg(positions + 3 * i + 2)};
+    const Corner c = corner_locate(p, lv, l);
+    const float* level = table + static_cast<long long>(l) * lv.size * F;
+    float prod[8][F];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+        float v[F];
+        load_entry<F>(level + static_cast<long long>(corner_slot(c, lv, l, k)) * F, v);
+        const float w = corner_w(c, k);
+#pragma unroll
+        for (int f = 0; f < F; ++f) prod[k][f] = __fmul_rn(w, v[f]);
+    }
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+        const float lo = __fadd_rn(__fadd_rn(prod[0][f], prod[1][f]), __fadd_rn(prod[2][f], prod[3][f]));
+        const float hi = __fadd_rn(__fadd_rn(prod[4][f], prod[5][f]), __fadd_rn(prod[6][f], prod[7][f]));
+        out[t * F + f] = __fadd_rn(lo, hi);
+    }
+}
+
+// K8, stage 1: one thread a (sample, level slot); kSlots >= L a power of two
+// <= 32, so a sample's slots are adjacent lanes of one warp. keys null: no
+// keys (the positions-only mode); g_pos null: no position gradient. Block 0
+// zeroes the sort's digit totals where they are given. Every thread reaches
+// the shuffles: none returns early.
+template <int F, int kSlots>
+__global__ void __launch_bounds__(kThreads) hash_lookup_bwd_keys_kernel(
+    const float* __restrict__ positions, const float* __restrict__ table, const float* __restrict__ g_out,
+    float* __restrict__ g_pos, unsigned* __restrict__ keys, unsigned* __restrict__ totals, int n, int num_levels,
+    CornerLevels lv) {
+    if (totals != nullptr && blockIdx.x == 0)
+        for (int k = threadIdx.x; k < kMaxPasses * kRadix; k += kThreads) totals[k] = 0u;
+    const long long g = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+    const long long i = g / kSlots;
+    const int l = static_cast<int>(g % kSlots);
+    const bool sample = i < n;
+    float grad[3] = {0.0f, 0.0f, 0.0f};
+    if (sample && l < num_levels) {
+        const float p[3] = {positions[3 * i], positions[3 * i + 1], positions[3 * i + 2]};
+        const Corner c = corner_locate(p, lv, l);
+        const long long t = i * num_levels + l;
+        const float* level = table + static_cast<long long>(l) * lv.size * F;
+        float go[F];
+        if (g_pos != nullptr) {
+#pragma unroll
+            for (int f = 0; f < F; ++f) go[f] = g_out[t * F + f];
+        }
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+            const unsigned slot = corner_slot(c, lv, l, k);
+            if (keys != nullptr) keys[t * 8 + k] = static_cast<unsigned>(l) * lv.size + slot;
+            if (g_pos == nullptr) continue;
+            float v[F];
+            load_entry<F>(level + static_cast<long long>(slot) * F, v);
+            float dot = 0.0f;
+#pragma unroll
+            for (int f = 0; f < F; ++f) dot = __fadd_rn(dot, __fmul_rn(v[f], go[f]));
+            const int kx = k >> 2, ky = (k >> 1) & 1, kz = k & 1;
+            // d w_k / d frac_x = (kx ? 1 : -1) wy wz, and likewise for y, z
+            const float dx = __fmul_rn(__fmul_rn(c.w[1][ky], c.w[2][kz]), dot);
+            const float dy = __fmul_rn(__fmul_rn(c.w[0][kx], c.w[2][kz]), dot);
+            const float dz = __fmul_rn(__fmul_rn(c.w[0][kx], c.w[1][ky]), dot);
+            grad[0] = kx ? __fadd_rn(grad[0], dx) : __fsub_rn(grad[0], dx);
+            grad[1] = ky ? __fadd_rn(grad[1], dy) : __fsub_rn(grad[1], dy);
+            grad[2] = kz ? __fadd_rn(grad[2], dz) : __fsub_rn(grad[2], dz);
+        }
+        // d frac / d pos = res
+#pragma unroll
+        for (int d = 0; d < 3; ++d) grad[d] = __fmul_rn(lv.res[l], grad[d]);
+    }
+    if (g_pos == nullptr) return;  // the same for every thread of the launch
+#pragma unroll
+    for (int off = kSlots / 2; off > 0; off >>= 1) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d) grad[d] = __fadd_rn(grad[d], __shfl_xor_sync(kFull, grad[d], off));
+    }
+    if (sample && l == 0) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d) g_pos[3 * i + d] = grad[d];
+    }
+}
+
+// K8's sums: a (lookup, corner) pair (pair id 8 t + k, t = i L + l) adds
+// w_k g, F values, to its entry's gradient (key l T + slot).
+template <int F>
+struct CornerSum {
+    static constexpr int V = F;
+    const float* positions;
+    const float* g_out;
+    float* g_table;
+    int num_levels;
+    const CornerLevels& lv;
+
+    __device__ __forceinline__ int values(unsigned id, float (&v)[V]) const {
+        const long long t = id >> 3;
+        const int k = static_cast<int>(id & 7u);
+        const long long i = t / num_levels;
+        const int l = static_cast<int>(t - i * num_levels);
+        const float p[3] = {positions[3 * i], positions[3 * i + 1], positions[3 * i + 2]};
+        const float w = corner_w(corner_locate(p, lv, l), k);
+#pragma unroll
+        for (int f = 0; f < F; ++f) v[f] = __fmul_rn(w, g_out[t * F + f]);
+        return l;
+    }
+    __device__ __forceinline__ int level(unsigned) const { return 0; }
+    __device__ __forceinline__ float* dst(unsigned key, int) const {
+        return g_table + static_cast<long long>(key) * F;
+    }
+};
+
+// K8, stage 3: the segmented sum of K5's stage 3 on (lookup, corner) pairs.
+template <int F>
+__global__ void __launch_bounds__(kThreads) hash_lookup_bwd_reduce_kernel(
+    const unsigned* __restrict__ skeys, const unsigned* __restrict__ sids, const float* __restrict__ positions,
+    const float* __restrict__ g_out, float* __restrict__ g_table, float* __restrict__ head,
+    float* __restrict__ tail, unsigned* __restrict__ tail_key, int num_keys, int num_levels, CornerLevels lv) {
+    segmented_sum(skeys, sids, head, tail, tail_key, num_keys, CornerSum<F>{positions, g_out, g_table, num_levels, lv});
+}
+
+// K8, stage 4: as K5's.
+template <int F>
+__global__ void __launch_bounds__(kThreads) hash_lookup_bwd_fixup_kernel(
+    const unsigned* __restrict__ skeys, const float* __restrict__ head, const float* __restrict__ tail,
+    const unsigned* __restrict__ tail_key, long long num_chunks, float* __restrict__ g_table, CornerLevels lv) {
+    segmented_sum_fixup(skeys, head, tail, tail_key, num_chunks, CornerSum<F>{nullptr, nullptr, g_table, 0, lv});
+}
+
+// K7/K8's per-level constants. False on what the kernels do not take: the
+// keys l T + slot must stay below 2^31.
+bool corner_levels(const int* resolutions, int num_levels, int table_size, unsigned dense_mask,
+                   CornerLevels* lv) {
+    if (num_levels < 1 || num_levels > kMaxLevels || table_size < 1 ||
+        static_cast<long long>(num_levels) * table_size > (1LL << 31))
+        return false;
+    for (int l = 0; l < num_levels; ++l) {
+        if (resolutions[l] < 1) return false;
+        lv->res[l] = static_cast<float>(resolutions[l]);
+        lv->ires[l] = static_cast<unsigned>(resolutions[l]);
+    }
+    lv->dense = dense_mask;
+    lv->size = static_cast<unsigned>(table_size);
+    lv->mask = (table_size & (table_size - 1)) == 0 ? static_cast<unsigned>(table_size - 1) : 0u;
+    return true;
+}
+
+template <int F>
+cudaError_t launch_corner_fwd(const float* positions, const float* table, float* out, int n, int num_levels,
+                              const CornerLevels& lv, cudaStream_t st) {
+    const long long threads = static_cast<long long>(n) * num_levels;
+    const int blocks = static_cast<int>((threads + kCornerThreads - 1) / kCornerThreads);
+    hash_lookup_fwd_kernel<F><<<blocks, kCornerThreads, 0, st>>>(positions, table, out, n, num_levels, lv);
+    return cudaGetLastError();
+}
+
+template <int F>
+cudaError_t launch_corner_keys(const float* positions, const float* table, const float* g_out, float* g_pos,
+                               unsigned* keys, unsigned* totals, int n, int num_levels, const CornerLevels& lv,
+                               cudaStream_t st) {
+    const int slots = 1 << ceil_log2(num_levels);
+    const long long threads = static_cast<long long>(n) * slots;
+#define CORNER_KEYS_CASE(k)                                                                          \
+    case k:                                                                                          \
+        hash_lookup_bwd_keys_kernel<F, k><<<blocks_for(threads), kThreads, 0, st>>>(                 \
+            positions, table, g_out, g_pos, keys, totals, n, num_levels, lv);                        \
+        break;
+    switch (slots) {
+        CORNER_KEYS_CASE(1) CORNER_KEYS_CASE(2) CORNER_KEYS_CASE(4) CORNER_KEYS_CASE(8)
+        CORNER_KEYS_CASE(16) CORNER_KEYS_CASE(32)
+        default:
+            return cudaErrorInvalidValue;
+    }
+#undef CORNER_KEYS_CASE
+    return cudaGetLastError();
+}
+
+// Every stage of K8, or stage 1 alone without keys where g_table is null.
+template <int F>
+cudaError_t launch_corner_bwd(const float* positions, const float* table, const float* g_out, float* g_table,
+                              float* g_pos, const Scratch& s, int n, int num_levels, const CornerLevels& lv,
+                              cudaStream_t st) {
+    if (g_table == nullptr)
+        return launch_corner_keys<F>(positions, table, g_out, g_pos, nullptr, nullptr, n, num_levels, lv, st);
+    const int num_keys = 8 * n * num_levels;
+    cudaError_t err = launch_corner_keys<F>(positions, table, g_out, g_pos, s.keys[0], s.totals, n, num_levels,
+                                            lv, st);
+    if (err != cudaSuccess) return err;
+    const int bits = ceil_log2(static_cast<long long>(num_levels) * lv.size);
+    const int passes = bits > 0 ? (bits + kDigitBits - 1) / kDigitBits : 1;
+    err = radix_sort(s, num_keys, passes, st);
+    if (err != cudaSuccess) return err;
+    const unsigned* skeys = s.keys[passes & 1];
+    const unsigned* sids = s.ids[passes & 1];
+    const long long chunks = (static_cast<long long>(num_keys) + kChunk - 1) / kChunk;
+    const int blocks = static_cast<int>((chunks + kWarpsPerBlock - 1) / kWarpsPerBlock);
+    hash_lookup_bwd_reduce_kernel<F><<<blocks, kThreads, 0, st>>>(skeys, sids, positions, g_out, g_table, s.head,
+                                                                  s.tail, s.tail_key, num_keys, num_levels, lv);
+    hash_lookup_bwd_fixup_kernel<F><<<blocks, kThreads, 0, st>>>(skeys, s.head, s.tail, s.tail_key, chunks,
+                                                                 g_table, lv);
+    return cudaGetLastError();
 }
 }  // namespace
 
@@ -1630,7 +2009,10 @@ extern "C" long long cell_lookup_bwd_scratch_bytes(int n, int num_levels, const 
 // zero-filled by the caller, 16-byte aligned, g_pos (n, 3) or null (then the
 // tables are not read), and scratch of cell_lookup_bwd_scratch_bytes bytes,
 // 256-byte aligned. Every cell that a lookup touches is stored once; g_pos is
-// written in full.
+// written in full. g_tables null: the positions-only mode, where no table
+// needs a gradient: only stage 1 runs, without keys (no zero-fill, sort or
+// reduction; scratch may be null), and g_pos equals the full backward's bit
+// for bit.
 extern "C" int cell_lookup_bwd_f32(const float* positions, const void* const* tables, const float* g_out,
                                    float* const* g_tables, float* g_pos, int n, int num_levels,
                                    const int* sizes, int features, const int* resolutions, void* scratch,
@@ -1638,12 +2020,26 @@ extern "C" int cell_lookup_bwd_f32(const float* positions, const void* const* ta
     Levels lv;
     KeyLayout kl;
     if (!make_levels(resolutions, num_levels, sizes, tables, g_tables, &lv) || n < 0 ||
-        !key_layout(num_levels, sizes, &kl))
+        !key_layout(num_levels, sizes, &kl) || (g_tables == nullptr && g_pos == nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
-    for (int l = 0; l < num_levels; ++l)
+    for (int l = 0; l < num_levels && g_tables != nullptr; ++l)
         if (lv.grad[l] == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     const long long lookups = static_cast<long long>(n) * num_levels;
     if (lookups == 0) return 0;
+    if (lookups >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+    if (g_tables == nullptr) {
+        const cudaStream_t st = static_cast<cudaStream_t>(stream);
+        cudaError_t err;
+#define K5_POS_CASE(f) \
+    case f: err = launch_keys<f>(positions, g_out, g_pos, nullptr, n, num_levels, lv, st); break;
+        switch (features) {
+            K5_POS_CASE(1) K5_POS_CASE(2) K5_POS_CASE(4) K5_POS_CASE(8) K5_POS_CASE(16)
+            default:
+                return static_cast<int>(cudaErrorInvalidValue);
+        }
+#undef K5_POS_CASE
+        return static_cast<int>(err);
+    }
     Scratch s;
     if (lookups >= (1LL << 31) ||
         carve(static_cast<char*>(scratch), lookups, features, &s) > scratch_bytes)
@@ -1681,7 +2077,7 @@ extern "C" int cell_lookup_sort_u32(const float* positions, int n, int num_level
     if (lookups >= (1LL << 31) || carve(static_cast<char*>(scratch), lookups, 1, &s) > scratch_bytes)
         return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    cudaError_t err = launch_keys<1>(positions, nullptr, nullptr, s, n, num_levels, lv, st);
+    cudaError_t err = launch_keys<1>(positions, nullptr, nullptr, &s, n, num_levels, lv, st);
     if (err != cudaSuccess) return static_cast<int>(err);
     const size_t bytes = 4 * static_cast<size_t>(lookups);
     err = cudaMemcpyAsync(keys_out, s.keys[0], bytes, cudaMemcpyDeviceToDevice, st);
@@ -1728,5 +2124,75 @@ extern "C" int radix_sort_u32(const unsigned* keys, int num_keys, int bits, unsi
     err = cudaMemcpyAsync(sorted_out, s.keys[passes & 1], bytes, cudaMemcpyDeviceToDevice, st);
     if (err != cudaSuccess) return static_cast<int>(err);
     err = cudaMemcpyAsync(perm_out, s.ids[passes & 1], bytes, cudaMemcpyDeviceToDevice, st);
+    return static_cast<int>(err);
+}
+
+// K7. table: (L, T, F) float32 contiguous, 16-byte aligned; positions (n, 3)
+// contiguous; out (n, L * F) contiguous. resolutions a host array of L ints;
+// dense_mask bit l: level l indexes densely ((res_l + 1)^3 <= T in float32,
+// as the JAX package decides). features is F in {1, 2, 4, 8}; n * L < 2^31,
+// L T <= 2^31. Launches on `stream` and returns cudaGetLastError(), or
+// cudaErrorInvalidValue for arguments the kernel does not take.
+extern "C" int hash_lookup_fwd_f32(const float* positions, const float* table, float* out, int n, int num_levels,
+                                   int table_size, int features, const int* resolutions, unsigned dense_mask,
+                                   void* stream) {
+    CornerLevels lv;
+    if (!corner_levels(resolutions, num_levels, table_size, dense_mask, &lv) || n < 0 ||
+        static_cast<long long>(n) * num_levels >= (1LL << 31) || reinterpret_cast<unsigned long long>(table) % 16)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (n == 0) return 0;
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch (features) {
+        case 1: return static_cast<int>(launch_corner_fwd<1>(positions, table, out, n, num_levels, lv, st));
+        case 2: return static_cast<int>(launch_corner_fwd<2>(positions, table, out, n, num_levels, lv, st));
+        case 4: return static_cast<int>(launch_corner_fwd<4>(positions, table, out, n, num_levels, lv, st));
+        case 8: return static_cast<int>(launch_corner_fwd<8>(positions, table, out, n, num_levels, lv, st));
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
+// Bytes of scratch K8 needs for n samples (8 n L keys and pair ids, twice,
+// the sort's counts, the chunks' partial sums), or -1 for arguments it does
+// not take (8 n L >= 2^31).
+extern "C" long long hash_lookup_bwd_scratch_bytes(int n, int num_levels, int features) {
+    if (n < 0 || num_levels < 1 || num_levels > kMaxLevels || features < 1) return -1;
+    const long long keys = 8LL * n * num_levels;
+    if (keys >= (1LL << 31)) return -1;
+    Scratch s;
+    return carve(nullptr, keys, features, &s);
+}
+
+// K8, as hash_lookup_fwd_f32, with g_out (n, L * F) contiguous; g_table (L,
+// T, F) zero-filled by the caller, 16-byte aligned, or null (then only the
+// position gradient is computed, no key is sorted and scratch may be null);
+// g_pos (n, 3) or null; and scratch of hash_lookup_bwd_scratch_bytes bytes,
+// 256-byte aligned. Every entry that a lookup touches is stored once; g_pos
+// is written in full.
+extern "C" int hash_lookup_bwd_f32(const float* positions, const float* table, const float* g_out,
+                                   float* g_table, float* g_pos, int n, int num_levels, int table_size,
+                                   int features, const int* resolutions, unsigned dense_mask, void* scratch,
+                                   long long scratch_bytes, void* stream) {
+    CornerLevels lv;
+    if (!corner_levels(resolutions, num_levels, table_size, dense_mask, &lv) || n < 0 ||
+        (g_table == nullptr && g_pos == nullptr) || 8LL * n * num_levels >= (1LL << 31) ||
+        reinterpret_cast<unsigned long long>(table) % 16)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (n == 0) return 0;
+    Scratch s = {};
+    if (g_table != nullptr &&
+        carve(static_cast<char*>(scratch), 8LL * n * num_levels, features, &s) > scratch_bytes)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    cudaError_t err;
+#define K8_CASE(f)                                                                                    \
+    case f:                                                                                           \
+        err = launch_corner_bwd<f>(positions, table, g_out, g_table, g_pos, s, n, num_levels, lv, st); \
+        break;
+    switch (features) {
+        K8_CASE(1) K8_CASE(2) K8_CASE(4) K8_CASE(8)
+        default:
+            return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef K8_CASE
     return static_cast<int>(err);
 }

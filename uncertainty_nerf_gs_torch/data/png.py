@@ -90,9 +90,11 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def read_png(path: Path | str) -> np.ndarray:
-    """Decode a PNG file; see the module docstring for what it takes."""
-    data = Path(path).read_bytes()
+def read_png(path: Path | str | bytes) -> np.ndarray:
+    """Decode a PNG file, or a PNG file's bytes; see the module docstring
+    for what it takes."""
+    data = path if isinstance(path, bytes) else Path(path).read_bytes()
+    name = "PNG data" if isinstance(path, bytes) else path
     header, idat = None, []
     for kind, body in _chunks(data):
         if kind == b"IHDR":
@@ -100,15 +102,15 @@ def read_png(path: Path | str) -> np.ndarray:
         elif kind == b"IDAT":
             idat.append(body)
     if header is None:
-        raise ValueError(f"{path}: no IHDR chunk")
+        raise ValueError(f"{name}: no IHDR chunk")
     width, height, depth, color, interlace = header
     if color not in _CHANNELS:
-        raise ValueError(f"{path}: PNG colour type {color} (palette) is not supported; "
+        raise ValueError(f"{name}: PNG colour type {color} (palette) is not supported; "
                          "gray, gray + alpha, RGB and RGBA are")
     if interlace:
-        raise ValueError(f"{path}: interlaced PNG is not supported")
+        raise ValueError(f"{name}: interlaced PNG is not supported")
     if depth != 8 and not (depth == 16 and color == 0):
-        raise ValueError(f"{path}: {depth}-bit samples at colour type {color} are not supported; "
+        raise ValueError(f"{name}: {depth}-bit samples at colour type {color} are not supported; "
                          "8-bit, and 16-bit gray, are")
     channels = _CHANNELS[color]
     bpp = channels * depth // 8
@@ -123,8 +125,13 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 
 
 def write_png(path: Path | str, image: np.ndarray) -> None:
+    """Encode ``image`` into a file; see ``png_bytes``."""
+    Path(path).write_bytes(png_bytes(image))
+
+
+def png_bytes(image: np.ndarray) -> bytes:
     """Encode ``image``: uint8 (H, W), (H, W, 1), (H, W, 2), (H, W, 3) or
-    (H, W, 4), or uint16 (H, W) as 16-bit gray."""
+    (H, W, 4), or uint16 (H, W) as 16-bit gray. Returns the file's bytes."""
     image = np.asarray(image)
     if image.ndim == 3 and image.shape[2] == 1:
         image = image[..., 0]
@@ -141,5 +148,5 @@ def write_png(path: Path | str, image: np.ndarray) -> None:
     raw = np.ascontiguousarray(rows).view(np.uint8).reshape(height, -1)
     filtered = np.concatenate([np.zeros((height, 1), np.uint8), raw], axis=1)
     header = struct.pack(">IIBBBBB", width, height, depth, _COLOR_TYPE[channels], 0, 0, 0)
-    Path(path).write_bytes(SIGNATURE + _chunk(b"IHDR", header)
-                           + _chunk(b"IDAT", zlib.compress(filtered.tobytes(), 6)) + _chunk(b"IEND", b""))
+    return (SIGNATURE + _chunk(b"IHDR", header) + _chunk(b"IDAT", zlib.compress(filtered.tobytes(), 6))
+            + _chunk(b"IEND", b""))

@@ -23,6 +23,7 @@ counts (``tune_rasterize_capacity``), growing them only.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Mapping
 
@@ -132,6 +133,7 @@ class SplatfactoTrainer:
         self._set_params(params)
         self._cam_rng = np.random.default_rng(seed + 17)
         self.step = 0
+        self.launch_lock = contextlib.nullcontext()
         self._last_opacity_reset = -(10**9)  # no reset yet: NLL ramp weight 1
         self.scene_extent = float(torch.max(torch.abs(self.cameras.camera_to_worlds[:, :3, 3])))
 
@@ -329,11 +331,13 @@ class SplatfactoTrainer:
         return True
 
     def train(self, num_steps: int, log_every: int = 0, writer=None) -> dict[str, float]:
-        """``num_steps`` steps; ``writer.write(step, losses)`` after every
-        one, as in the JAX trainer."""
+        """``num_steps`` steps, each under ``launch_lock`` (a live viewer
+        renders under the same lock); ``writer.write(step, losses)`` after
+        every one, as in the JAX trainer."""
         losses: dict[str, float] = {}
         for i in range(num_steps):
-            losses = self.train_step()
+            with self.launch_lock:
+                losses = self.train_step()
             if writer is not None:
                 writer.write(self.step, losses)
             if log_every and (i + 1) % log_every == 0:

@@ -38,7 +38,8 @@ for bit. Unlike the JAX trainer, whose ``train`` restarts its key at ``seed
 + 1`` on every call, the generator carries on from call to call.
 
 ``face_consistency_mult > 0`` adds the JAX trainer's face-consistency loss
-(``encoding_face_loss``): the mean of ``ops/encodings.py::
+(``encoding_face_loss``) on the cell and hybrid layouts (the corner layout
+shares its corners by construction): the mean of ``ops/encodings.py::
 face_consistency_loss`` over the main field's cell-stored levels (every
 level of the cell layout, the hashed levels of the hybrid one), its
 vertices drawn from the trainer's generator after the forward's draws (or
@@ -47,6 +48,7 @@ given as ``draws["face_vertices"]``), so that a captured step replays them.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Mapping, NamedTuple
 
 import numpy as np
@@ -168,6 +170,9 @@ class NerfactoTrainer:
         self._step_t = torch.zeros((), dtype=torch.int64, device=self.device)
         self._loss_names: list[str] | None = None
         self._graphs: dict[int, _CapturedStep] = {}  # rays a batch -> captured step
+        # held around each launch by ``train``: a live viewer renders under
+        # the same lock, so that no render joins or breaks a graph's capture
+        self.launch_lock = contextlib.nullcontext()
 
     def params(self) -> dict[str, torch.Tensor]:
         """Every trained leaf by name: the model's state-dict names, and
@@ -278,7 +283,8 @@ class NerfactoTrainer:
         if draws is None:
             draws = self.model.draw(rb.origins.shape[0], self._generator)
         cfg = self.config
-        face = cfg.face_consistency_mult > 0.0
+        # as the JAX trainer: the corner layout shares its corners by construction
+        face = cfg.face_consistency_mult > 0.0 and cfg.grid_layout in ("cell", "hybrid")
         if face:
             vertices = draws.get("face_vertices")
             if vertices is None:
@@ -378,17 +384,19 @@ class NerfactoTrainer:
         steps_per_launch: int = 1,
     ) -> dict[str, float]:
         """``num_steps`` steps, ``steps_per_launch`` of them a launch (one
-        host read each); ``writer.write(step, losses)`` every 10th and the
-        last, ``callback(i, losses)`` after each, as in the JAX trainer."""
+        host read each, under ``launch_lock``); ``writer.write(step,
+        losses)`` every 10th and the last, ``callback(i, losses)`` after
+        each, as in the JAX trainer."""
         if steps_per_launch < 1:
             raise ValueError(f"steps_per_launch must be at least 1, got {steps_per_launch}")
         losses: dict[str, float] = {}
         i = 0
         while i < num_steps:
-            if steps_per_launch == 1:
-                rows = [list(self.train_step(num_rays_per_batch).values())]
-            else:
-                rows = self._launch(min(steps_per_launch, num_steps - i), num_rays_per_batch).tolist()
+            with self.launch_lock:
+                if steps_per_launch == 1:
+                    rows = [list(self.train_step(num_rays_per_batch).values())]
+                else:
+                    rows = self._launch(min(steps_per_launch, num_steps - i), num_rays_per_batch).tolist()
             base = self.step - len(rows)
             for j, row in enumerate(rows):
                 losses = dict(zip(self._loss_names, row))

@@ -17,9 +17,11 @@ reference's ``ns-eval-unc`` harness). Per eval image:
 then the scalars are averaged, the AUSE and AUCE curves accumulated over
 the images, and ``write_benchmark_json`` writes the
 ``{experiment_name, method_name, checkpoint, approximations, results}``
-JSON. The metrics run on the device of the render's tensors. The PNG and
-plot writers import PIL and matplotlib inside themselves, so nothing else
-here needs them.
+JSON. The metrics run on the device of the render's tensors. The PNGs go
+through the port's own codec (``data/png.py``) and colour tables
+(``utils/colormaps.py``): the card's machine has neither PIL nor
+matplotlib. The plot writers import matplotlib inside themselves, and
+``--plot-ause`` asks for it before the first render.
 """
 
 from __future__ import annotations
@@ -33,11 +35,13 @@ from typing import Any, Callable, Iterable
 import numpy as np
 import torch
 
+from uncertainty_nerf_gs_torch.data.png import write_png
 from uncertainty_nerf_gs_torch.metrics.auce import auce
 from uncertainty_nerf_gs_torch.metrics.ause import ause
 from uncertainty_nerf_gs_torch.metrics.image_metrics import lpips, psnr, ssim
 from uncertainty_nerf_gs_torch.metrics.nll import gaussian_nll
 from uncertainty_nerf_gs_torch.ops.resize import resize_bilinear
+from uncertainty_nerf_gs_torch.utils import colormaps
 
 AUSE_BINS = 100
 AUCE_BINS = 99
@@ -157,31 +161,43 @@ def visualize_ranks(unc: np.ndarray, eps: float = 1e-6) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# artifacts: PIL and matplotlib are imported here only
+# artifacts: PNGs through the port's codec and colour tables; matplotlib is
+# imported by the plot writers only
 # ---------------------------------------------------------------------------
 
 
 def _save_png(path: Path, arr: np.ndarray) -> None:
-    from PIL import Image
-
-    arr = np.clip(arr, 0.0, 1.0)
+    """A float image in [0, 1] (clipped, then ``* 255`` truncated, as the
+    JAX package's ``PIL.Image.fromarray((arr * 255).astype(uint8))``), or
+    u8 colours as they are; a 2-D map as gray RGB."""
+    if arr.dtype != np.uint8:
+        arr = (np.clip(arr, 0.0, 1.0) * 255).astype(np.uint8)
     if arr.ndim == 2:
         arr = np.repeat(arr[..., None], 3, -1)
-    Image.fromarray((arr * 255).astype(np.uint8)).save(path)
+    write_png(path, arr)
 
 
 def _jet(x: np.ndarray) -> np.ndarray:
-    import matplotlib.cm as cm
-
-    return cm.jet(np.clip(x, 0.0, 1.0))[..., :3]
+    """u8 colours of matplotlib's jet (``utils/colormaps.py``), equal to
+    ``(cm.jet(clip(x, 0, 1))[..., :3] * 255).astype(uint8)``."""
+    return colormaps.lookup(np.clip(x, 0.0, 1.0), "jet")
 
 
 def _viridis(x: np.ndarray) -> np.ndarray:
     """Matplotlib's default imshow colormap, which the reference's depth
-    figures use."""
-    import matplotlib.cm as cm
+    figures use, as ``_jet``."""
+    return colormaps.lookup(np.clip(x, 0.0, 1.0), "viridis")
 
-    return cm.viridis(np.clip(x, 0.0, 1.0))[..., :3]
+
+def _require_matplotlib() -> None:
+    """Raises, naming the package, where matplotlib cannot be imported: the
+    plot writers need it, and ``get_average_uncertainty_metrics`` asks
+    before it renders anything."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as e:
+        raise ImportError("--plot-ause draws its curves with matplotlib, which cannot be imported here "
+                          f"({e}); evaluate without --plot-ause, or where matplotlib is installed") from e
 
 
 def save_imgs_rgb(
@@ -326,6 +342,8 @@ def get_average_uncertainty_metrics(
     ``depth``/``depth_std`` for the depth block, optionally
     ``background``); ``gt_images`` (H, W, 3 or 4) floats in [0, 1]. Returns
     ``{"results": averaged scalars, "artifacts": averaged curves}``."""
+    if options.plot_ause and options.render_output_path:
+        _require_matplotlib()  # before the renders, not after them
     gt_images = list(gt_images)
     num_images = len(gt_images)
     scalars: list[dict[str, float]] = []

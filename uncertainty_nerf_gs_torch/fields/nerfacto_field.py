@@ -1,7 +1,8 @@
 """Nerfacto-style radiance field (hash grid + MLPs) with uncertainty hooks.
 
 Counterpart of ``uncertainty_nerf_gs_tpu/fields/nerfacto_field.py``, with
-the cell and hybrid grid layouts (``grid_layout``; ``ops/encodings.py``).
+the cell, hybrid and corner grid layouts (``grid_layout``;
+``ops/encodings.py``).
 The base MLP ends in a shared trunk from which ``density_head``,
 ``geo_head`` and the optional aleatoric ``unc_head`` branch; the color MLP
 (``color_trunk``) ends in a separate ``rgb_head`` before the sigmoid. Module
@@ -27,6 +28,7 @@ from torch import nn
 from uncertainty_nerf_gs_torch.ops.activations import shifted_softplus, trunc_exp
 from uncertainty_nerf_gs_torch.ops.encodings import (
     CellHashEncoding,
+    HashEncoding,
     HybridHashEncoding,
     nerf_encoding,
     sh_encoding,
@@ -44,18 +46,13 @@ class FieldOutputs(NamedTuple):
     color_penultimate: torch.Tensor  # (..., S, W) rgb_head inputs
 
 
-# The JAX package's layouts; "corner" (tcnn's eight corner gathers a lookup)
-# has no kernel in the port yet (ROADMAP, queue 1, item 7).
-_GRID_LAYOUTS = {"cell": CellHashEncoding, "hybrid": HybridHashEncoding, "corner": None}
+# The JAX package's layouts: "corner" is tcnn's (eight corner reads a lookup)
+_GRID_LAYOUTS = {"cell": CellHashEncoding, "corner": HashEncoding, "hybrid": HybridHashEncoding}
 
 
 def _encoding(grid_layout: str, **kw) -> nn.Module:
     if grid_layout not in _GRID_LAYOUTS:
         raise ValueError(f"unknown grid_layout {grid_layout!r}; one of {sorted(_GRID_LAYOUTS)}")
-    if _GRID_LAYOUTS[grid_layout] is None:
-        raise NotImplementedError(
-            f"grid_layout={grid_layout!r} is not ported yet (ROADMAP, queue 1, item 7: the corner layout)"
-        )
     return _GRID_LAYOUTS[grid_layout](**kw)
 
 

@@ -10,7 +10,9 @@ the flax module names, so a tree path maps to a dotted key leaf by leaf:
 * ``Embed.embedding`` <-> ``Embedding.weight``;
 * ``cells`` is copied as is, in the JAX package's (L, n_rows, 128) layout,
   and so is a hybrid grid's ``corners_{lvl}`` ((res + 1, res + 1, (res + 1)
-  F)), which is not a kernel.
+  F)), which is not a kernel;
+* the corner layout's ``table`` is the JAX package's (L, F, T) with its last
+  two axes swapped, (L, T, F), so that a corner's F features are one read.
 
 Both directions only copy and transpose, so the round trip is bit-exact.
 
@@ -64,8 +66,16 @@ def _flatten(tree: Mapping[str, Any], prefix: tuple[str, ...] = (), skip=None):
 
 
 def _is_table(name: str) -> bool:
-    """A hash grid's table leaf, copied as is: ``cells`` or ``corners_{lvl}``."""
-    return name == "cells" or (name.startswith("corners_") and name[len("corners_"):].isdigit())
+    """A hash grid's table leaf: ``cells`` or ``corners_{lvl}`` (copied as
+    is), or the corner layout's ``table`` (transposed)."""
+    return name in ("cells", "table") or (name.startswith("corners_") and name[len("corners_"):].isdigit())
+
+
+def _table_leaf(name: str, leaf: np.ndarray) -> np.ndarray:
+    """The corner layout's ``table``: the JAX package's (..., L, F, T) <-> the
+    port's (..., L, T, F), the last two axes swapped (an optional leading
+    member axis kept); other leaves as they are."""
+    return np.swapaxes(leaf, -1, -2) if name == "table" else leaf
 
 
 def _torch_leaf(path: tuple[str, ...], leaf: np.ndarray) -> tuple[str, torch.Tensor]:
@@ -77,7 +87,7 @@ def _torch_leaf(path: tuple[str, ...], leaf: np.ndarray) -> tuple[str, torch.Ten
         name = "weight"
     elif name != "bias" and not _is_table(name) and path != ("camera_opt",):
         raise KeyError(f"no torch counterpart for leaf {'/'.join(path)}")
-    return ".".join(mods + [name]), torch.from_numpy(np.array(leaf, order="C"))
+    return ".".join(mods + [name]), torch.from_numpy(np.array(_table_leaf(name, leaf), order="C"))
 
 
 def params_from_jax(tree: Mapping[str, Any]) -> OrderedDict[str, torch.Tensor]:
@@ -94,8 +104,8 @@ def draw_params(
     bias_scale: float = 0.5,
 ) -> dict[str, Any]:
     """A flax param tree of ``tree``'s structure with fresh float32 numpy
-    draws: cells and hybrid corner grids uniform in [-cell_scale,
-    cell_scale), kernels normal with
+    draws: cells, hybrid corner grids and corner tables uniform in
+    [-cell_scale, cell_scale), kernels normal with
     std kernel_scale / sqrt(fan_in), everything else normal with std
     bias_scale. These scales give peaked compositing weights; init-scale
     tables (+-1e-4) give near-constant densities, which leave the PDF
@@ -127,7 +137,7 @@ def _jax_leaf(key: str, value: torch.Tensor) -> tuple[list[str], np.ndarray]:
             name, leaf = "kernel", leaf.T
     elif name not in ("bias", "camera_opt") and not _is_table(name):
         raise KeyError(f"no flax counterpart for {key}")
-    return mods + [name], np.ascontiguousarray(leaf)
+    return mods + [name], np.ascontiguousarray(_table_leaf(name, leaf))
 
 
 def params_to_jax(state: Mapping[str, torch.Tensor]) -> dict[str, Any]:

@@ -78,8 +78,9 @@ class NerfactoConfig:
     # gather-free frequency-encoded MLP); per net through
     # proposal_net_args[i]["field_type"]
     proposal_field_type: str = "hash"
-    # hash-grid layout: "cell" or "hybrid" (canonical corner grids at the
-    # dense levels, hashed cells above); "corner" is not ported yet
+    # hash-grid layout: "cell" (one cell row a lookup), "corner" (tcnn's
+    # semantics: eight corner reads a lookup, corners shared) or "hybrid"
+    # (canonical corner grids at the dense levels, hashed cells above)
     grid_layout: str = "cell"
     proposal_net_args: tuple = (
         dict(num_levels=5, max_res=128, log2_hashmap_size=17, hidden_dim=16),
@@ -261,9 +262,11 @@ class NerfactoModel(nn.Module):
         dropout_generator: torch.Generator | None = None,
         dropout_masks: dict[str, torch.Tensor] | None = None,
         dropout: Dropout | None = None,
+        with_grad: bool = False,
     ) -> dict[str, torch.Tensor]:
         """One ray batch. ``train=False``: the eval forward, without
-        gradients. ``train=True``: the training forward, with autograd; the
+        gradients, or with them where ``with_grad`` asks (the JAX package's
+        ``apply(train=False)`` under ``jax.jacrev``: the pose gradient). ``train=True``: the training forward, with autograd; the
         proposal weights resample as ``w ** proposal_anneal``; the draws are
         ``draws`` (``draw()``'s layout; the parity tests inject the JAX
         package's) or fresh ones from ``generator``, and with neither the
@@ -281,6 +284,8 @@ class NerfactoModel(nn.Module):
                   return_intermediates=return_intermediates,
                   dropout=None if deterministic_dropout else dropout)
         if not train:
+            if with_grad:
+                return self._forward(ray_bundle, False, 1.0, None, **kw)
             return self._eval_forward(ray_bundle, **kw)
         if draws is None and generator is not None:
             draws = self.draw(ray_bundle.origins.shape[0], generator)

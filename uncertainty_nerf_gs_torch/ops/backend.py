@@ -49,7 +49,8 @@ NVCC_FLAGS = (
 # it launches its kernel and nowhere else
 LAUNCH_COUNTERS = (
     "pdf_resample", "composite_fwd", "composite_bwd", "cell_lookup_fwd", "cell_lookup_bwd",
-    "packed_cell_lookup_fwd", "packed_cell_lookup_strided", "packed_rows_bwd",
+    "cell_lookup_bwd_positions", "packed_cell_lookup_fwd", "packed_cell_lookup_strided", "packed_rows_bwd",
+    "hash_lookup_fwd", "hash_lookup_bwd", "hash_lookup_bwd_positions",
 )
 launch_counts: dict[str, int] = {name: 0 for name in LAUNCH_COUNTERS}
 _libraries: dict[str, ctypes.CDLL] = {}

@@ -1,10 +1,9 @@
 """Directional and positional encodings: spherical harmonics, the NeRF
-frequency encoding and the multi-resolution hash grid in its cell and hybrid
-layouts.
+frequency encoding and the multi-resolution hash grid in its cell, hybrid
+and corner layouts.
 
-Counterpart of ``uncertainty_nerf_gs_tpu/ops/encodings.py`` for the cell
-and hybrid ``grid_layout``\\ s. ``CellHashEncoding.cells`` has the JAX
-package's shape (L, n_rows, 128): cpr = 128 // (8F) cells per row, cell c at
+Counterpart of ``uncertainty_nerf_gs_tpu/ops/encodings.py``.
+``CellHashEncoding.cells`` has the JAX package's shape (L, n_rows, 128): cpr = 128 // (8F) cells per row, cell c at
 lanes [(c % cpr) * 8F, ...), corner order c = 4x + 2y + z with F innermost.
 Read row-major, that memory is (L, n_rows * cpr, 8, F), so the lookup
 gathers one (8, F) block per sample and level and needs no one-hot selects.
@@ -13,6 +12,10 @@ gathers one (8, F) block per sample and level and needs no one-hot selects.
 cell rows by ``dense_corner_to_cell_rows`` (8 static slices), and the fine
 levels hashed in ``cells``: every level has a table of its own, and the
 lookups take per-level tables and sizes (``_per_level_tables``).
+``HashEncoding`` is the corner layout, tcnn's semantics: a ``table`` (L, T,
+F) whose entries are the grid's corners, each lookup reading its 8 corners
+on their own (``hash_encoding_lookup``: K7 forward, K8 backward on the card,
+``hash_encoding_lookup_reference`` on the CPU).
 
 ``cell_lookup`` is the kernel pair's wrapper: on a CUDA tensor it launches
 ``csrc/hash_grid.cu`` (K4 forward: index, gather and trilerp of every level
@@ -396,8 +399,13 @@ def _fwd(sources, level_map, positions, resolutions, sizes, features_per_level):
     return out
 
 
-def _bwd(sources, level_map, positions, resolutions, sizes, features_per_level, g_out, need_positions):
-    """K5: (dense zero-filled gradient of each source, g_positions or None)."""
+def _bwd(sources, level_map, positions, resolutions, sizes, features_per_level, g_out, need_positions,
+         need_tables=True):
+    """K5: (dense zero-filled gradient of each source, g_positions or None).
+    Without ``need_tables`` (no table needs a gradient: the pose gradient)
+    K5 runs its positions-only mode, the keys kernel's position gradient
+    alone, with no zero-fill, sort or reduction: (None for each source,
+    g_positions), the full backward's g_positions bit for bit."""
     n = positions.shape[0]
     tables = _views(sources, level_map)
     want = (n, len(tables) * features_per_level)
@@ -406,6 +414,20 @@ def _bwd(sources, level_map, positions, resolutions, sizes, features_per_level, 
                          f"{tuple(g_out.shape)} strides {g_out.stride()}")
     if g_out.device != positions.device:
         raise ValueError(f"g_out is on {g_out.device}, positions on {positions.device}")
+    if not need_tables:
+        if not need_positions:
+            return [None] * len(sources), None
+        g_pos = torch.empty_like(positions)
+        with torch.cuda.device(positions.device):
+            err = _entry("cell_lookup_bwd_f32")(
+                positions.data_ptr(), _pointers(tables), g_out.data_ptr(), None, g_pos.data_ptr(), n,
+                len(tables), _ints(sizes), features_per_level, _ints(resolutions), None, 0,
+                backend.current_stream_handle(positions.device),
+            )
+        if err != 0:
+            raise RuntimeError(f"cell_lookup_bwd (positions only) launch failed: CUDA error {err}")
+        backend.count_launch("cell_lookup_bwd_positions")
+        return [None] * len(sources), g_pos
     g_sources = [torch.zeros_like(s) for s in sources]  # cells no lookup touches keep their zero
     g_pos = torch.empty_like(positions) if need_positions else None  # written in full
     scratch = _scratch(n, sizes, features_per_level, positions.device)
@@ -436,12 +458,15 @@ def cell_lookup_fwd(cells, positions, resolutions, table_size, features_per_leve
 
 
 def cell_lookup_bwd(cells, positions, resolutions, table_size, features_per_level,
-                    g_out, need_positions=True):
-    """K5: dense g_cells (zero-filled, in the cells' form) and, when asked,
-    g_positions (n, 3), from g_out (n, L * F) contiguous float32."""
+                    g_out, need_positions=True, need_cells=True):
+    """K5: dense g_cells (zero-filled, in the cells' form; None without
+    ``need_cells``, the positions-only mode) and, when asked, g_positions
+    (n, 3), from g_out (n, L * F) contiguous float32."""
     resolutions, sizes, sources, level_map = _level_spec(cells, resolutions, table_size)
     g_sources, g_pos = _bwd(sources, level_map, positions, resolutions, sizes, features_per_level,
-                            g_out, need_positions)
+                            g_out, need_positions, need_cells)
+    if not need_cells:
+        return None, g_pos
     return g_sources[0] if isinstance(cells, torch.Tensor) else g_sources, g_pos
 
 
@@ -467,7 +492,8 @@ def cell_lookup_sort(positions, resolutions, table_size):
 
 class CellLookup(torch.autograd.Function):
     """K4 forward and K5 backward on the card, the plain version and autograd
-    through it elsewhere; the backward follows the forward's choice. The
+    through it elsewhere; the backward follows the forward's choice, and
+    where no table needs a gradient K5 runs its positions-only mode. The
     tables come as ``sources`` (each a stacked (k, n_rows, 128) tensor or one
     level's (n_rows, 128)) and ``level_map``, so that a stacked parameter's
     gradient is written in one piece, not through a view a level."""
@@ -489,7 +515,7 @@ class CellLookup(torch.autograd.Function):
         need_positions = ctx.needs_input_grad[0]
         if ctx.kernel:
             g_sources, g_pos = _bwd(sources, level_map, positions, resolutions, sizes, feats,
-                                    g_out.contiguous(), need_positions)
+                                    g_out.contiguous(), need_positions, any(ctx.needs_input_grad[2:]))
         else:
             with torch.enable_grad():
                 leaves = [s.detach().requires_grad_(True) for s in sources]
@@ -524,6 +550,204 @@ def cell_lookup(
     other dtypes and layouts rather than copy."""
     resolutions, sizes, sources, level_map = _level_spec(cells, resolutions, table_size)
     return _lookup(sources, level_map, positions, resolutions, sizes, features_per_level)
+
+
+# ---------------------------------------------------------------------------
+# The corner layout: tcnn's eight corner reads a lookup (K7 / K8).
+# ---------------------------------------------------------------------------
+
+
+def _mul_u32(a: torch.Tensor, b: int) -> torch.Tensor:
+    """(a * b) mod 2^32 of uint32 values held in int64, without an int64
+    overflow: the high and low 16 bits of ``a`` multiplied apart."""
+    hi = (((a >> 16) * (b & 0xFFFF)) & 0xFFFF) << 16
+    return (hi + (a & 0xFFFF) * b) & _U32
+
+
+def corner_is_dense(res: int, table_size: int) -> bool:
+    """The corner layout's dense criterion, in the JAX package's float32:
+    (float32(res) + 1)^3 <= table_size."""
+    f = np.float32(res) + np.float32(1.0)
+    return bool(f * f * f <= np.float32(table_size))
+
+
+def corner_dense_mask(resolutions, table_size: int) -> int:
+    """Bit l set where level l indexes densely (K7/K8's ``dense_mask``)."""
+    return sum(1 << lvl for lvl, r in enumerate(np.asarray(resolutions)) if corner_is_dense(int(r), table_size))
+
+
+def hash_corner_slots(positions: torch.Tensor, res: int, table_size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Table slots and trilinear weights of one level's 8 corners for (n, 3)
+    positions, as the JAX package's ``_hash_corner_indices``: no clamp;
+    corner k = 4 kx + 2 ky + kz at floor(pos * res) + (kx, ky, kz), in
+    wrapping uint32 (each product and sum masked to 32 bits in int64), then
+    % table_size; dense x + res (y + res z) where ``corner_is_dense``, the
+    spatial hash otherwise. Returns (slots (n, 8) int64, weights (n, 8)),
+    w_k = (wx[kx] wy[ky]) wz[kz] with wx = (1 - fx, fx)."""
+    scaled = positions * res
+    base = torch.floor(scaled)
+    frac = scaled - base
+    b = base.to(torch.int64) & _U32
+    k = torch.arange(8, device=positions.device)
+    off = torch.stack([(k >> 2) & 1, (k >> 1) & 1, k & 1], dim=-1)  # (8, 3)
+    c = (b[:, None, :] + off) & _U32  # (n, 8, 3)
+    x, y, z = c[..., 0], c[..., 1], c[..., 2]
+    if corner_is_dense(res, table_size):
+        h = (x + _mul_u32((y + _mul_u32(z, res)) & _U32, res)) & _U32
+    else:
+        h = x ^ _mul_u32(y, _PRIMES[1]) ^ _mul_u32(z, _PRIMES[2])
+    wx = torch.stack([1.0 - frac[:, 0], frac[:, 0]], -1)
+    wy = torch.stack([1.0 - frac[:, 1], frac[:, 1]], -1)
+    wz = torch.stack([1.0 - frac[:, 2], frac[:, 2]], -1)
+    w = (wx[:, :, None, None] * wy[:, None, :, None] * wz[:, None, None, :]).reshape(-1, 8)
+    return h % table_size, w
+
+
+def hash_encoding_lookup_reference(table: torch.Tensor, positions: torch.Tensor, resolutions,
+                                   features_per_level: int = 2) -> torch.Tensor:
+    """Plain version of K7: table (L, T, F), positions (n, 3) -> (n, L * F)
+    features, level-major; each corner's entry read on its own
+    (``hash_corner_slots``), weighted, and summed in ``corner_sum``'s tree.
+    Differentiable by autograd (the plain version of K8)."""
+    levels, size, feats = table.shape
+    if feats != features_per_level:
+        raise ValueError(f"the table holds F = {feats}, F = {features_per_level} asked")
+    outs = []
+    for lvl, res in enumerate(np.asarray(resolutions)):
+        slots, w = hash_corner_slots(positions, int(res), size)
+        vals = table[lvl].index_select(0, slots.reshape(-1)).reshape(-1, 8, feats)
+        outs.append(corner_sum(vals * w[..., None]))
+    return torch.cat(outs, dim=-1)
+
+
+def hash_encoding_vjp_reference(table, positions, resolutions, features_per_level, g_out, need_table=True,
+                                need_positions=True):
+    """Plain backward: autograd through ``hash_encoding_lookup_reference``,
+    only the gradients asked for. Returns (g_table or None, g_positions or
+    None)."""
+    with torch.enable_grad():
+        t = table.detach().requires_grad_(need_table)
+        p = positions.detach().requires_grad_(need_positions)
+        out = hash_encoding_lookup_reference(t, p, resolutions, features_per_level)
+        grads = iter(torch.autograd.grad(out, [x for x in (t, p) if x.requires_grad], g_out))
+    return next(grads) if need_table else None, next(grads) if need_positions else None
+
+
+def _check_corner(table, positions, resolutions, features_per_level) -> None:
+    """Raises on what K7/K8 do not take, on every device."""
+    if positions.dtype != torch.float32 or table.dtype != torch.float32:
+        raise TypeError(f"positions and table must be float32, got {positions.dtype} and {table.dtype}")
+    if not positions.is_contiguous() or not table.is_contiguous():
+        raise ValueError("positions and table must be contiguous")
+    if positions.dim() != 2 or positions.shape[1] != 3:
+        raise ValueError(f"positions must be (n, 3), got {tuple(positions.shape)}")
+    if table.device != positions.device:
+        raise ValueError(f"positions are on {positions.device}, the table on {table.device}")
+    if table.dim() != 3 or table.shape[2] != features_per_level or features_per_level not in (1, 2, 4, 8):
+        raise ValueError(f"the table must be (L, T, F) with F = {features_per_level} in (1, 2, 4, 8), "
+                         f"got {tuple(table.shape)}")
+    levels, size, _ = table.shape
+    if len(resolutions) != levels or not 1 <= levels <= MAX_LEVELS:
+        raise ValueError(f"{len(resolutions)} resolutions for {levels} levels (at most {MAX_LEVELS})")
+    if levels * size > 2**31:
+        raise ValueError(f"{levels} levels of {size} entries need more than 31 key bits")
+    if 8 * positions.shape[0] * levels >= 2**31:
+        raise ValueError(f"{positions.shape[0]} positions x {levels} levels x 8 corners is too many for K8")
+    if table.data_ptr() % 16:
+        raise ValueError(f"the table must be 16-byte aligned, got address {table.data_ptr():#x}")
+
+
+_ARGTYPES["hash_lookup_fwd_f32"] = [_P, _P, _P, _I, _I, _I, _I, _P, ctypes.c_uint, _P]
+_ARGTYPES["hash_lookup_bwd_f32"] = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, ctypes.c_uint, _P, _L, _P]
+_ARGTYPES["hash_lookup_bwd_scratch_bytes"] = [_I, _I, _I]
+
+
+def hash_lookup_fwd(table, positions, resolutions, features_per_level):
+    """K7: one launch for every level."""
+    levels, size, feats = table.shape
+    out = torch.empty((positions.shape[0], levels * feats), dtype=torch.float32, device=positions.device)
+    with torch.cuda.device(positions.device):
+        err = _entry("hash_lookup_fwd_f32")(
+            positions.data_ptr(), table.data_ptr(), out.data_ptr(), positions.shape[0], levels, size, feats,
+            _ints(resolutions), corner_dense_mask(resolutions, size),
+            backend.current_stream_handle(positions.device),
+        )
+    if err != 0:
+        raise RuntimeError(f"hash_lookup_fwd launch failed: CUDA error {err}")
+    backend.count_launch("hash_lookup_fwd")
+    return out
+
+
+def hash_lookup_bwd(table, positions, resolutions, features_per_level, g_out, need_table=True,
+                    need_positions=True):
+    """K8: (g_table (L, T, F) zero-filled where no lookup touched it, or None;
+    g_positions (n, 3) or None) from g_out (n, L * F) contiguous float32.
+    Without ``need_table`` only the position gradient runs: no zero-fill, no
+    sort, the same bits."""
+    levels, size, feats = table.shape
+    n = positions.shape[0]
+    want = (n, levels * feats)
+    if g_out.dtype != torch.float32 or tuple(g_out.shape) != want or not g_out.is_contiguous():
+        raise ValueError(f"g_out must be contiguous float32 {want}, got {g_out.dtype} "
+                         f"{tuple(g_out.shape)} strides {g_out.stride()}")
+    if not (need_table or need_positions):
+        return None, None
+    g_table = torch.zeros_like(table) if need_table else None
+    g_pos = torch.empty_like(positions) if need_positions else None
+    scratch = None
+    if need_table:
+        nbytes = _entry("hash_lookup_bwd_scratch_bytes")(n, levels, feats)
+        if nbytes < 0:
+            raise ValueError(f"K8 takes no {n} x {levels} lookups")
+        scratch = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=positions.device)
+    with torch.cuda.device(positions.device):
+        err = _entry("hash_lookup_bwd_f32")(
+            positions.data_ptr(), table.data_ptr(), g_out.data_ptr(),
+            None if g_table is None else g_table.data_ptr(), None if g_pos is None else g_pos.data_ptr(),
+            n, levels, size, feats, _ints(resolutions), corner_dense_mask(resolutions, size),
+            None if scratch is None else scratch.data_ptr(), 0 if scratch is None else scratch.numel(),
+            backend.current_stream_handle(positions.device),
+        )
+    if err != 0:
+        raise RuntimeError(f"hash_lookup_bwd launch failed: CUDA error {err}")
+    backend.count_launch("hash_lookup_bwd" if need_table else "hash_lookup_bwd_positions")
+    return g_table, g_pos
+
+
+class HashLookup(torch.autograd.Function):
+    """K7 forward and K8 backward on the card, the plain version and autograd
+    through it elsewhere; the backward follows the forward's choice, and
+    computes only the gradients autograd asks for."""
+
+    @staticmethod
+    def forward(ctx, positions, table, resolutions, feats):
+        ctx.kernel = backend.use_kernel(positions)
+        ctx.spec = (resolutions, feats)
+        ctx.save_for_backward(positions, table)
+        if ctx.kernel:
+            return hash_lookup_fwd(table, positions, resolutions, feats)
+        return hash_encoding_lookup_reference(table, positions, resolutions, feats)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        positions, table = ctx.saved_tensors
+        resolutions, feats = ctx.spec
+        need_pos, need_table = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
+        backward = hash_lookup_bwd if ctx.kernel else hash_encoding_vjp_reference
+        g_table, g_pos = backward(table, positions, resolutions, feats, g_out.contiguous(), need_table, need_pos)
+        return g_pos, g_table, None, None
+
+
+def hash_encoding_lookup(table: torch.Tensor, positions: torch.Tensor, resolutions,
+                         features_per_level: int = 2) -> torch.Tensor:
+    """Corner-layout lookup, tcnn's semantics: table (L, T, F) float32
+    contiguous (the JAX package's (L, F, T) transposed, so that a corner's F
+    features are one read), positions (n, 3) float32 contiguous -> (n, L *
+    F) features, level-major. K7 / K8 on the card, the plain version on the
+    CPU. Raises on other dtypes and layouts rather than copy."""
+    resolutions = tuple(int(r) for r in np.asarray(resolutions))
+    _check_corner(table, positions, resolutions, features_per_level)
+    return HashLookup.apply(positions, table, resolutions, features_per_level)
 
 
 # ---------------------------------------------------------------------------
@@ -1040,6 +1264,50 @@ class CellHashEncoding(nn.Module):
             self.cells, flat, self.resolutions, self.table_size,
             self.features_per_level,
         )
+        return out.reshape(*positions.shape[:-1], self.output_dim)
+
+
+class HashEncoding(nn.Module):
+    """Corner-major multi-resolution hash grid, tcnn's semantics (the JAX
+    package's ``HashEncoding``): each lookup reads its 8 corners on their
+    own, and adjacent cells share their corner entries.
+
+    Owns ``table`` of shape (num_levels, table_size, features_per_level),
+    the JAX package's (L, F, T) transposed (``interop.py`` converts both
+    ways), initialised uniform in [-init_scale, init_scale).
+    """
+
+    def __init__(
+        self,
+        num_levels: int = 16,
+        min_res: int = 16,
+        max_res: int = 2048,
+        log2_hashmap_size: int = 19,
+        features_per_level: int = 2,
+        init_scale: float = 1e-4,
+        *,
+        device: torch.device | None = None,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        self.features_per_level = features_per_level
+        self.table_size = 2**log2_hashmap_size
+        self.resolutions = hash_grid_resolutions(num_levels, min_res, max_res)
+        table = torch.empty((num_levels, self.table_size, features_per_level), device=device)
+        self.table = nn.Parameter(table.uniform_(-init_scale, init_scale, generator=generator))
+
+    @property
+    def output_dim(self) -> int:
+        return len(self.resolutions) * self.features_per_level
+
+    @property
+    def level_sizes(self) -> list[int]:
+        """Entries of each level's table."""
+        return [self.table_size] * len(self.resolutions)
+
+    def forward(self, positions: torch.Tensor) -> torch.Tensor:
+        flat = positions.reshape(-1, 3)
+        out = hash_encoding_lookup(self.table, flat, self.resolutions, self.features_per_level)
         return out.reshape(*positions.shape[:-1], self.output_dim)
 
 

@@ -109,25 +109,28 @@ def build_ensemble_chunk_fn(
     table_split: bool = False,
 ) -> Callable:
     """The nerfacto-family ensemble's chunk renderer ``rb -> combined
-    outputs``: ``ensemble_mode="fused"`` packs the members' tables once and
-    renders through ``build_fused_ensemble_render``; ``"per_member"``
-    renders each member's own forward (``ensemble_render``). ``table_dtype``
-    ("bf16", the JAX package's default, "f32" or "int8"), ``table_fold`` and
-    ``table_split`` shape the fused path's packed tables."""
+    outputs``: ``ensemble_mode="fused"`` on the cell and hybrid layouts
+    packs the members' tables once and renders through
+    ``build_fused_ensemble_render``; ``"per_member"``, and the corner
+    layout in either mode (it has no cell rows to pack, and the JAX package
+    routes it so too), renders each member's own forward
+    (``ensemble_render``). ``table_dtype`` ("bf16", the JAX package's
+    default, "f32" or "int8"), ``table_fold`` and ``table_split`` shape the
+    fused path's packed tables."""
+    if ensemble_mode not in ("fused", "per_member"):
+        raise ValueError(f"unknown ensemble_mode {ensemble_mode!r}")
     stacked = {k: v for k, v in stacked_params.items() if k != "camera_opt"}
-    if ensemble_mode == "fused":
+    if ensemble_mode == "fused" and model.config.grid_layout in ("cell", "hybrid"):
         packed = pack_ensemble_tables(model, stacked, table_dtype=table_dtype, table_fold=table_fold,
                                       table_split=table_split)
         fused = build_fused_ensemble_render(model, main_stride_scale=main_stride_scale)
 
         def chunk_fn(rb):
             return fused(stacked, packed, rb)
-    elif ensemble_mode == "per_member":
+    else:
 
         def chunk_fn(rb):
             return ensemble_render(model, stacked, rb)
-    else:
-        raise ValueError(f"unknown ensemble_mode {ensemble_mode!r}")
     return chunk_fn
 
 

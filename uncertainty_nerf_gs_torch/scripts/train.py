@@ -18,8 +18,10 @@ takes ``cpu`` for a try without one.
 
 The sparse-view parsers switch the nerfacto family to
 ``grid_layout="hybrid"`` with ``face_consistency_mult=1.0`` unless
-``--overrides`` names a ``grid_layout``, as the JAX package does. Refused,
-with the ROADMAP item that ports it: ``--viewer-port`` (queue 1, item 9).
+``--overrides`` names a ``grid_layout``, as the JAX package does.
+``--viewer-port`` serves the live viewer (``scripts/viewer.py::
+LiveViewerState``) while the run trains; its renders take turns with the
+training launches, so the run trains as it would without it.
 
 Usage:
     python -m uncertainty_nerf_gs_torch.scripts.train active-nerfacto \\
@@ -126,7 +128,7 @@ def main(argv: list[str] | None = None) -> Path:
                          "on the card with one host read of the losses; 1 = a step at a time. "
                          "Bit-identical either way. Splat training ignores it.")
     ap.add_argument("--viewer-port", type=int, default=0,
-                    help="the live training viewer's port; 0 = off (not ported yet)")
+                    help="serve the live training viewer on this port; 0 = off")
     ap.add_argument("--viewer-downscale", type=int, default=4)
     ap.add_argument("--parser-kwargs", type=json.loads, default={},
                     help="JSON dict forwarded to the dataparser")
@@ -135,8 +137,6 @@ def main(argv: list[str] | None = None) -> Path:
     ap.add_argument("--device", default=None,
                     help="torch device to train on; the card by default, 'cpu' for a try without one")
     args, extra = ap.parse_known_args(argv)
-    if args.viewer_port:
-        raise NotImplementedError("the live viewer is not ported yet (ROADMAP, queue 1, item 9)")
 
     # tyro-style dotted flags (`--model.beta-min 0.02`, or the reference's
     # `--pipeline.model.X`), merged over --overrides JSON
@@ -169,6 +169,17 @@ def main(argv: list[str] | None = None) -> Path:
     (out_dir / "config.yml").write_text(text + "\n")
 
     writer = ScalarWriter(out_dir / "events.jsonl")
+    server = None
+    if args.viewer_port:
+        import threading
+
+        from uncertainty_nerf_gs_torch.scripts.viewer import LiveViewerState, serve
+
+        viewer_state = LiveViewerState(trainer, spec, downscale=args.viewer_downscale)
+        server = serve(viewer_state, port=args.viewer_port)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        print(f"live viewer: http://127.0.0.1:{server.server_address[1]} "
+              f"({viewer_state.width}x{viewer_state.height}, modes {viewer_state.modes})", flush=True)
     total = args.max_num_iterations or spec.max_num_iterations
     save_every = args.steps_per_save or spec.steps_per_save
     t0 = time.perf_counter()
@@ -200,6 +211,9 @@ def main(argv: list[str] | None = None) -> Path:
         rate = (done - start) / (time.perf_counter() - t0)
         print(f"[{done}/{total}] {rate:.1f} steps/s " + " ".join(f"{k}={v:.4f}" for k, v in losses.items()))
     writer.close()
+    if server is not None:
+        server.shutdown()
+        server.server_close()
     print(f"training done: {out_dir}")
     return out_dir
 
