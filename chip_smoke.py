@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--k4-against OTHER_CHECKOUT | --splat-repeatable-only [CHECKOUT] | --sparse-only]
+    python3 chip_smoke.py [--k4-against OTHER_CHECKOUT | --splat-repeatable-only [CHECKOUT] | --sparse-only |
+                           --corner-only] [--corner-against OTHER_CHECKOUT]
 
 Builds the port's hand-written CUDA kernels from ``uncertainty_nerf_gs_torch/
 csrc`` with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, all started
@@ -114,10 +115,12 @@ corner (tcnn) layout's lookup, K7 (``hash_lookup_fwd``) bit for bit
 against its plain version at the three fields' full-width corner shapes, a
 ragged count, F = 1 and 4, at uniform and at training forwards' positions
 and on tables whose entries hold their own slot; K8 (its deterministic
-backward) twice bit for bit and within GRID_GRAD_TOL of autograd, its
+backward) twice bit for bit and within GRID_GRAD_TOL of autograd, also
+at positions three quarters of which lie in one tiny cube, its
 positions-only mode's g_pos equal to its own; K5's positions-only mode
 against its full backward; K7, K8 and both positions-only modes timed
-beside their bounds and K7 beside ``F.embedding_bag``; full-width
+beside their bounds (K8 by CUDA events), K7 beside ``F.embedding_bag`` and
+K8 beside ``index_put_(accumulate=True)`` of its pairs; full-width
 active-nerfacto with ``--overrides '{"grid_layout": "corner"}'`` trained
 by ``scripts.train.main`` (300 steps at 50 a launch: K1 2, K7 3, K8 3 a
 step; a seed-1 run of 100), a step against its plain path, two steps from
@@ -156,7 +159,14 @@ checkout without K6's strided entry makes the strided lookup as its own
 code did, a K6 launch a level and the lerp as PyTorch ops.
 
 ``--sparse-only`` runs only the sparse phase (``run_sparse``) and prints
-its kernel entries.
+its kernel entries; ``--corner-only`` the corner phase (``run_corner``) on
+a tree of its own.
+
+``--corner-against OTHER_CHECKOUT`` also builds that checkout's
+``hash_grid.cu`` (the parent commit unpacked with ``git archive``, whose
+K7/K8 entry points take the same arguments), holds its K7 bit for bit and
+its K8 within GRID_GRAD_TOL against the plain versions, and times both in
+turns with this checkout's at the corner step's training positions.
 
 ``--splat-repeatable-only [CHECKOUT]`` runs only the splat repeatability
 check in its three places, with CHECKOUT's package in place of this one
@@ -3874,14 +3884,87 @@ def sparse_kernel_entries(sparse) -> list[dict]:
 
 CORNER_STEPS, CORNER_SHORT = 300, 100  # the cell-layout CLI runs' steps, for the PSNR beside them
 K7_OPS = lambda f: 12 + 8 * (10 + 2 * f)  # noqa: E731  (locate; a corner's slot, weight, product and sum)
-K8_KERNELS = 12  # device kernels a K8 call: keys, 3 sort passes of 3, the reduction and the fixup
+# device kernels a K8 call at 17-24 key bits: the tile stage, the sort's first pass (scan, scatter) and two
+# more (histogram, scan, scatter each), the segmented sum and its fixup; and a memset of the sort's totals
+K8_KERNELS = 11
 K8_OPS = lambda f: 12 + 8 * (10 + 2 * f) + 8 * (4 * f + 10)  # noqa: E731  (and the position gradient)
 K8_POS_OPS = lambda f: K8_OPS(f) - 8 * 2 * f  # noqa: E731  (no table gradient's products and sums)
 CORNER_FIELDS = ("proposal_0", "proposal_1", "field")
 # a corner step's and a corner chunk's launches
 CORNER_STEP_LAUNCHES = dict(pdf_resample=2, hash_lookup_fwd=3, hash_lookup_bwd=3)
-CORNER_SYMBOLS = {"pdf_resample": "pdf_resample_kernel", "hash_lookup_fwd": "hash_lookup_fwd_kernel",
-                  "hash_lookup_bwd": "hash_lookup_bwd_"}
+# K8's kernels: its own (hash_lookup_bwd_*) and K5's sort kernels (cell_lookup_bwd_*), which a corner step
+# runs for K8 alone
+CORNER_SYMBOLS = {"pdf_resample": "pdf_resample_kernel", "hash_lookup_fwd": "hash_lookup_fwd_",
+                  "hash_lookup_bwd": "lookup_bwd_"}
+K8_TILE = 256  # samples a tile of K8's tile stage (csrc/hash_grid.cu kK8Lookups)
+
+
+def other_corner(checkout):
+    """``corner_library`` of another checkout's ``hash_grid.cu`` (the parent
+    commit unpacked with ``git archive``)."""
+    return corner_library(Path(checkout).resolve() / "uncertainty_nerf_gs_torch" / "csrc" / "hash_grid.cu")
+
+
+def corner_library(src, tag="other_corner"):
+    """Starts ``nvcc`` on a ``hash_grid.cu`` (another checkout's, or a
+    variant of this one's) with the port's flags, into
+    ``build/torch_kernels/``. Returns a function that waits for it and
+    returns that library's K7 and K8 through their C entry points, which
+    keep their arguments: ``.k7(table, positions, res, f)`` and ``.k8(table,
+    positions, res, f, g_out, need_table=True)`` (no launch counted), and
+    ``.report``, ``ptxas -v``'s output."""
+    import hashlib
+    from types import SimpleNamespace
+
+    from uncertainty_nerf_gs_torch.ops import backend
+    from uncertainty_nerf_gs_torch.ops import encodings as enc
+
+    src = Path(src)
+    backend.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = backend.BUILD_DIR / f"{tag}-{hashlib.sha256(src.read_bytes()).hexdigest()[:16]}.so"
+    proc = subprocess.Popen([backend._nvcc(), *backend.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def finish():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src}:\n{log}")
+        lib = ctypes.CDLL(str(out))
+        for name in ("hash_lookup_fwd_f32", "hash_lookup_bwd_f32", "hash_lookup_bwd_scratch_bytes"):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = enc._ARGTYPES[name], (ctypes.c_longlong if "scratch" in name else ctypes.c_int)
+
+        def k7(table, pos, res, f):
+            levels, size, _ = table.shape
+            got = torch.empty((pos.shape[0], levels * f), dtype=torch.float32, device=pos.device)
+            err = lib.hash_lookup_fwd_f32(pos.data_ptr(), table.data_ptr(), got.data_ptr(), pos.shape[0], levels,
+                                          size, f, (ctypes.c_int * levels)(*res), enc.corner_dense_mask(res, size),
+                                          backend.current_stream_handle(pos.device))
+            if err != 0:
+                raise RuntimeError(f"the other K7's launch failed: CUDA error {err}")
+            return got
+
+        def k8(table, pos, res, f, g_out, need_table=True):
+            levels, size, _ = table.shape
+            n = pos.shape[0]
+            g_table = torch.zeros_like(table) if need_table else None
+            g_pos = torch.empty_like(pos)
+            scratch = None
+            if need_table:
+                scratch = torch.empty(lib.hash_lookup_bwd_scratch_bytes(n, levels, f), dtype=torch.uint8,
+                                      device=pos.device)
+            err = lib.hash_lookup_bwd_f32(
+                pos.data_ptr(), table.data_ptr(), g_out.data_ptr(), None if g_table is None else g_table.data_ptr(),
+                g_pos.data_ptr(), n, levels, size, f, (ctypes.c_int * levels)(*res), enc.corner_dense_mask(res, size),
+                None if scratch is None else scratch.data_ptr(), 0 if scratch is None else scratch.numel(),
+                backend.current_stream_handle(pos.device))
+            if err != 0:
+                raise RuntimeError(f"the other K8's launch failed: CUDA error {err}")
+            return g_table, g_pos
+
+        return SimpleNamespace(k7=k7, k8=k8, report=log, lib=lib)
+
+    return finish
 
 
 def corner_table(levels, log2, features, gen, device) -> torch.Tensor:
@@ -3964,13 +4047,36 @@ def k8_against_plain(table, pos, res, f, g_out) -> dict:
     )
 
 
-def corner_times(name, table, res, f, sets, label) -> dict:
+def corner_partials(pos, res, size) -> tuple[int, int]:
+    """(pairs, partials): K8's (lookup, corner) pairs at these positions and
+    the partials its tile stage leaves, one for each distinct slot of a level
+    among K8_TILE consecutive samples, counted with the plain
+    ``hash_corner_slots``."""
+    from uncertainty_nerf_gs_torch.ops.encodings import hash_corner_slots
+
+    tile = torch.arange(pos.shape[0], device=pos.device) // K8_TILE
+    parts = 0
+    for r in res:
+        slots, _ = hash_corner_slots(pos, int(r), size)
+        parts += int(torch.unique(tile[:, None] * size + slots).numel())
+    return 8 * pos.shape[0] * len(res), parts
+
+
+def corner_times(name, table, res, f, sets, label, other=None) -> dict:
     """K7 and K8 per call over ``sets`` of (positions, g_out), each beside
     its plain version, its bounds (each distinct entry once; every corner
     read) and, for K7, ``F.embedding_bag(mode="sum", per_sample_weights=)``
     over the same 8 slots and weights a lookup (the yardstick: one PyTorch
     call that computes the same sum; the port never calls it); K8's
-    positions-only mode beside K8."""
+    positions-only mode beside K8. K8's times (and its plain version's) are
+    CUDA events back to back: the profiler has traced only part of its
+    pipeline's kernels. Beside K8, ``index_put_(accumulate=True)`` of the
+    same 8 n L (slot, w_k g) pairs into the table, a partial yardstick (it
+    is handed the products; the port never calls it), and the partials its
+    tile stage leaves. With ``other`` (``other_corner``), that checkout's K7
+    (bit for bit against the plain version) and K8 (within GRID_GRAD_TOL)
+    are timed in turns with this one's, other, this, this, other
+    (``turns_ms``)."""
     import torch.nn.functional as F
 
     from uncertainty_nerf_gs_torch.ops import encodings as enc
@@ -3979,40 +4085,76 @@ def corner_times(name, table, res, f, sets, label) -> dict:
     size = table.shape[1]
     fwd = kernel_times(f"{name} K7 {label}", lambda p, g: enc.hash_lookup_fwd(table, p, res, f),
                        lambda p, g: enc.hash_encoding_lookup_reference(table, p, res, f), sets,
-                       "hash_lookup_fwd_kernel")
+                       "hash_lookup_fwd_")
     bwd = kernel_times(f"{name} K8 {label}", lambda p, g: enc.hash_lookup_bwd(table, p, res, f, g),
                        lambda p, g: enc.hash_encoding_vjp_reference(table, p, res, f, g), sets, "lookup_bwd_",
                        K8_KERNELS)
+    bwd.update(ms=bwd["event_ms"], plain_ms=bwd["plain_event_ms"], ms_from="events")
     pos_only = kernel_times(f"{name} K8 positions only {label}",
                             lambda p, g: enc.hash_lookup_bwd(table, p, res, f, g, need_table=False),
                             lambda p, g: enc.hash_encoding_vjp_reference(table, p, res, f, g, need_table=False), sets,
-                            "hash_lookup_bwd_keys")
+                            "hash_lookup_bwd_tile")
     flat = table.reshape(-1, f)
-    bags = []
-    for p, _ in sets:
+    bags, puts = [], []
+    for p, g in sets:
         slots, weights, _ = corner_entries(p, res, size)
         bags.append((slots, weights))
+        puts.append((slots.reshape(-1), (weights[:, :, None] * g.reshape(-1, 1, f)).reshape(-1, f)))
     library_ms = time_ms(lambda s, w: F.embedding_bag(s, flat, mode="sum", per_sample_weights=w), bags)
+    target = torch.zeros_like(flat)
+    index_put_ms = time_ms(lambda i, c: target.index_put_((i,), c, accumulate=True), puts)
+    del bags, puts, target
     uniq = corner_entries(sets[0][0], res, size)[2]
+    pairs, parts = corner_partials(sets[0][0], res, size)
     for tm, mode in ((fwd, "fwd"), (bwd, "bwd"), (pos_only, "positions")):
         bound, by, nbytes, ops = corner_bound_ms(n, levels, f, uniq, mode)
         every, _, every_bytes, _ = corner_bound_ms(n, levels, f, 8 * n * levels, mode)
         tm.update(field=name, positions=label, shape=[n, levels, f, size], bound_ms=bound, bound_by=by,
                   bytes=nbytes, operations=ops, unique_entries=uniq, every_read_bound_ms=every,
                   every_read_bytes=every_bytes, library_ms=library_ms if tm is fwd else None)
+    bwd.update(index_put_ms=index_put_ms, pairs=pairs, partials=parts)
     for kname, tm in (("K7", fwd), ("K8", bwd), ("K8 positions only", pos_only)):
-        print(f"{kname} {name} ({n} samples x {levels} levels, {label} positions): kernel {tm['ms']:.4f} ms on "
-              f"the device ({tm['event_ms']:.4f} ms a call back to back), plain {tm['plain_ms']:.4f} ms, bound "
+        print(f"{kname} {name} ({n} samples x {levels} levels, {label} positions): kernel {tm['ms']:.4f} ms "
+              f"({tm['ms_from']}; {tm['event_ms']:.4f} ms a call back to back), plain {tm['plain_ms']:.4f} ms, bound "
               f"{tm['bound_ms']:.4f} ms ({tm['bound_by']}: {tm['bytes'] / 1e6:.1f} MB, {uniq} distinct entries of "
               f"{8 * n * levels} corner reads; {tm['every_read_bound_ms']:.4f} ms, "
               f"{tm['every_read_bytes'] / 1e6:.1f} MB counting every corner read)"
-              + (f"; F.embedding_bag of the same slots and weights {library_ms:.4f} ms" if tm is fwd else ""))
-    print(f"  K8 {name} {label}: " + ", ".join(f"{kernel_name(k)} {v:.4f} ms" for k, v in bwd["parts"].items())
-          + f"; the zero-fill and the wrapper's other device work {sum(bwd['others'].values()):.4f} ms")
+              + (f"; F.embedding_bag of the same slots and weights {library_ms:.4f} ms" if tm is fwd else "")
+              + (f"; index_put_(accumulate=True) of the {pairs} (slot, w_k g) pairs {index_put_ms:.4f} ms (a "
+                 f"partial yardstick); the tile stage leaves {parts} partials of {pairs} pairs "
+                 f"({parts / pairs:.3f})" if tm is bwd else ""))
+    print(f"  K8 {name} {label} (profiler, scaled): " + ", ".join(
+        f"{kernel_name(k)} {v:.4f} ms" for k, v in bwd["parts"].items())
+          + f"; the zero-fill, the memset and the wrapper's other device work {sum(bwd['others'].values()):.4f} ms")
+    if other is not None:
+        for p, g in sets:
+            if not torch.equal(other.k7(table, p, res, f), enc.hash_encoding_lookup_reference(table, p, res, f)):
+                raise AssertionError(f"{name} {label}: the other K7 differs from the plain version")
+            got_t, got_p = other.k8(table, p, res, f, g)
+            ref_t, ref_p = enc.hash_encoding_vjp_reference(table, p, res, f, g)
+            if level_mismatch(got_t, ref_t) or grad_mismatch(got_p, ref_p, GRID_GRAD_TOL).any():
+                raise AssertionError(f"{name} {label}: the other K8 disagrees with the plain backward")
+        versions = dict(
+            fwd=(dict(other=lambda p, g: other.k7(table, p, res, f),
+                      this=lambda p, g: enc.hash_lookup_fwd(table, p, res, f)),
+                 lambda fn: device_ms(fn, sets, "hash_lookup_fwd_")),
+            bwd=(dict(other=lambda p, g: other.k8(table, p, res, f, g),
+                      this=lambda p, g: enc.hash_lookup_bwd(table, p, res, f, g)),
+                 lambda fn: time_ms(fn, sets)),
+            positions_only=(dict(other=lambda p, g: other.k8(table, p, res, f, g, need_table=False),
+                                 this=lambda p, g: enc.hash_lookup_bwd(table, p, res, f, g, need_table=False)),
+                            lambda fn: time_ms(fn, sets)))
+        for key, tm in (("fwd", fwd), ("bwd", bwd), ("positions_only", pos_only)):
+            runs, timer = versions[key]
+            tm["turns_ms"] = turns = dict(other=[], this=[])
+            for version in ("other", "this", "this", "other"):
+                turns[version].append(timer(runs[version]))
+            print(f"{key} {name} {label} positions in turns: " + ", ".join(
+                f"{v} {' / '.join(f'{t:.4f}' for t in ts)} ms" for v, ts in turns.items()))
     return dict(fwd=fwd, bwd=bwd, positions_only=pos_only)
 
 
-def check_corner_grid(cfg, device, clustered) -> dict:
+def check_corner_grid(cfg, device, clustered, other=None) -> dict:
     """K7 and K8 against their plain versions at the corner layout's three
     full-width shapes (4,096 rays; the proposals' 5 levels at 2^17, the
     field's 16 at 2^19), a ragged count, F = 1 and F = 4: K7 bit for bit at
@@ -4021,8 +4163,13 @@ def check_corner_grid(cfg, device, clustered) -> dict:
     store their own slot; K8 twice bit for bit, within GRID_GRAD_TOL of
     autograd through the plain lookup (the table level by level, the
     positions against their largest entry), and its positions-only mode
-    equal to its position gradient bit for bit. Timed at the three shapes
-    at the training forwards' positions (``corner_times``)."""
+    equal to its position gradient bit for bit, at uniform positions, at
+    the training forwards' and, at the three full-width shapes, at
+    positions of which three quarters lie in a cube of side 1e-4 (in one
+    cell or a few at every level: a slot's run spans a tile's threads, and
+    its partials, one a tile, cross the segmented sum's chunks). Timed at the three shapes at the
+    training forwards' positions (``corner_times``; with ``other``, that
+    checkout's K7 and K8 in turns)."""
     from uncertainty_nerf_gs_torch.ops import encodings as enc
 
     rays = cfg.eval_num_rays_per_chunk
@@ -4061,6 +4208,16 @@ def check_corner_grid(cfg, device, clustered) -> dict:
         bwd_err = max(bwd_err, k8["e_t"], k8["e_p"])
         if field is None:
             continue
+        lumped = pos.clone()
+        lumped[n // 4:] = 0.3 + 1e-4 * torch.rand(n - n // 4, 3, generator=gen, device=device)
+        l_k8 = k8_against_plain(table, lumped, res, f, g_out)
+        print(f"corner {name}, three quarters of the positions in a cube of side 1e-4: K8 table {l_k8['e_t']:.3e} "
+              f"({l_k8['bad_t']} outside), positions {l_k8['e_p']:.3e} ({l_k8['bad_p']} outside); bit-identical "
+              f"{l_k8['same']}, positions-only {l_k8['positions_only_same']}; the tile stage leaves "
+              f"{corner_partials(lumped, res, table.shape[1])[1]} partials")
+        if l_k8["bad_t"] or l_k8["bad_p"] or not (l_k8["finite"] and l_k8["same"] and l_k8["positions_only_same"]):
+            failed.append(f"{name} clustered positions: K8 disagrees with the plain backward or itself")
+        bwd_err = max(bwd_err, l_k8["e_t"], l_k8["e_p"])
         c_sets = [(c[field], torch.randn(c[field].shape[0], levels * f, generator=gen, device=device))
                   for c in clustered]
         c_k8 = k8_against_plain(table, c_sets[0][0], res, f, c_sets[0][1])
@@ -4070,7 +4227,7 @@ def check_corner_grid(cfg, device, clustered) -> dict:
         if c_k8["bad_t"] or c_k8["bad_p"] or not (c_k8["finite"] and c_k8["same"] and c_k8["positions_only_same"]):
             failed.append(f"{name} training positions: K8 disagrees with the plain backward or itself")
         bwd_err = max(bwd_err, c_k8["e_t"], c_k8["e_p"])
-        per_launch.append(dict(training=corner_times(name, table, res, f, c_sets, "training")))
+        per_launch.append(dict(training=corner_times(name, table, res, f, c_sets, "training", other)))
     if failed:
         raise AssertionError("corner grid: " + "; ".join(failed))
     for label in ("training",):
@@ -4146,7 +4303,7 @@ def check_png_dir(label, directory) -> int:
     return len(files)
 
 
-def run_corner(name, cli) -> dict:
+def run_corner(name, cli, other=None) -> dict:
     """The corner phase, on the CLI phase's Blender tree: K7/K8 at the
     corner layout's full-width shapes (``check_corner_grid``) and K5's
     positions-only mode (``k5_positions_only_times``); full-width
@@ -4159,7 +4316,8 @@ def run_corner(name, cli) -> dict:
     ensemble with ``--save-rendered-images`` (per member: K1 2 and K7 3 a
     chunk a member; every PNG decodes) and on the run alone, its PSNR
     printed beside the cell-layout CLI run's (``cli``: the CLI phase's
-    result) for the record."""
+    result) for the record. ``other``: another checkout's K7/K8, timed in
+    turns with this one's (``other_corner``)."""
     from uncertainty_nerf_gs_torch.engine import checkpointing as ck
     from uncertainty_nerf_gs_torch.ops import backend
     from uncertainty_nerf_gs_torch.ops.encodings import corner_is_dense
@@ -4189,7 +4347,7 @@ def run_corner(name, cli) -> dict:
     dense = [int(r) for r in enc.resolutions if corner_is_dense(int(r), enc.table_size)]
     print(f"corner trainer: {n_params} parameters; the main field's table {tuple(enc.table.shape)}, "
           f"{enc.table.numel()} parameters, {enc.table.numel() * 4 / 1e6:.1f} MB; dense levels at res {dense}")
-    grid = check_corner_grid(trainer.config, device, capture_lookup_positions(trainer))
+    grid = check_corner_grid(trainer.config, device, capture_lookup_positions(trainer), other)
     k5_pos = k5_positions_only_times(trainer.config, device)
     step_plain = check_nerfacto_train_plain(trainer)
     repeat = check_nerfacto_repeatable(trainer)
@@ -4213,9 +4371,10 @@ def run_corner(name, cli) -> dict:
         raise AssertionError(f"corner ensemble eval: launches {lc} off the per-member plan K1 2, K7 3 a member")
     pngs = check_png_dir("corner ensemble eval --save-rendered-images", images)
     single = cli_eval("corner_eval", ["--load-config", run, "--output-path", CLI_DIR / "corner.json"], runs)
-    cell_psnr = cli["runs"]["eval_active_nerfacto"]["metrics"]["psnr"]
+    cell_psnr = cli["runs"]["eval_active_nerfacto"]["metrics"]["psnr"] if "eval_active_nerfacto" in cli["runs"] else None
     print(f"corner: PSNR after {CORNER_STEPS} steps (no bar) {single['psnr']:.4f} dB against the cell layout's "
-          f"{cell_psnr:.4f} dB at the same steps on {name}; the corner ensemble's {runs['corner_eval_ensemble']['metrics']['psnr']:.4f} dB")
+          + (f"{cell_psnr:.4f} dB at the same steps" if cell_psnr is not None else "(not run)")
+          + f" on {name}; the corner ensemble's {runs['corner_eval_ensemble']['metrics']['psnr']:.4f} dB")
     return dict(runs=runs, grid=grid, k5_positions_only=k5_pos, step_plain=step_plain, repeat=repeat, graph=graph,
                 busy_ms=busy_ms, pngs=pngs, psnr=dict(corner=single["psnr"], cell=cell_psnr), dirs=[run, seed1])
 
@@ -4756,11 +4915,54 @@ def splat_repeatable_only(name) -> int:
     return 0
 
 
+def corner_only(name, against) -> int:
+    """``--corner-only [--corner-against CHECKOUT]``: the corner phase alone
+    (``run_corner``) on a Blender tree of the CLI phase's size, with
+    ``against``'s K7 and K8 timed in turns where given; the corner kernels'
+    entries of the kernels line last. No PSNR of the cell layout beside."""
+    import shutil
+
+    from uncertainty_nerf_gs_torch.data.synthetic import write_blender_dataset
+    from uncertainty_nerf_gs_torch.ops import backend
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"card: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    build = other_corner(against) if against else None
+    for kernel, report in backend.build_kernels().items():
+        for line in ptxas_summary(report, "hash_lookup_"):
+            print(f"K7/K8 ptxas: {line}")
+    other = build() if build else None
+    print(f"build: {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    scene = write_blender_dataset(CLI_DIR / "scene", CLI_TRAIN_VIEWS, CLI_TEST_VIEWS, CLI_SIZE, CLI_SIZE)
+    corner = run_corner(name, dict(dirs=dict(scene=scene), runs={}), other)
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    kernels = corner_kernel_entries(corner)
+    for entry in kernels:
+        for label, r in corner["runs"].items():
+            n = r["launches"].get(entry["name"], 0)
+            if n:
+                entry["launches_by_path"][f"cli_{label}"] = n
+                entry["launches"] += n
+    print(f"corner done at {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": [e for e in kernels if e["launches"]]}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     args = sys.argv[1:]
+    corner_against = None
+    if "--corner-against" in args[:-1]:
+        at = args.index("--corner-against")
+        corner_against = args[at + 1]
+        del args[at:at + 2]
+    if args == ["--corner-only"]:
+        return corner_only(card(), corner_against)
     if args[:1] == ["--splat-repeatable-only"] and len(args) <= 2:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -4788,6 +4990,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     other_build = other_k4(args[1]) if args else None
+    corner_build = other_corner(corner_against) if corner_against else None
     for kernel, report in backend.build_kernels().items():
         print(f"built {kernel}:\n{report.strip()}")
         for line in ptxas_summary(report, "cell_lookup_fwd_kernel"):
@@ -4795,6 +4998,7 @@ def main() -> int:
         for line in ptxas_summary(report, "packed_lookup_"):
             print(f"K6 ptxas: {line}")
     other = other_build() if other_build else None
+    other_k7 = corner_build() if corner_build else None
     print(f"build: {time.perf_counter() - t0:.1f} s")
     device = torch.device("cuda")
 
@@ -4876,7 +5080,7 @@ def main() -> int:
     cli = run_cli(name)
     print(f"cli done at {time.perf_counter() - t_start:.1f} s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    corner = run_corner(name, cli)
+    corner = run_corner(name, cli, other_k7)
     print(f"corner done at {time.perf_counter() - t_start:.1f} s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     tools = run_tools(cli, corner)

@@ -1,21 +1,29 @@
 // Host stand-ins for the CUDA builtins that csrc/hash_grid.cu uses, so that
-// its source compiles with g++ and its K4 kernel runs on the CPU: each warp
-// is 32 host threads (run_warp), and every shuffle, ballot and __syncwarp is
-// a meeting of the 32 at a barrier. Float arithmetic is IEEE single
+// its source compiles with g++ and its kernels run on the CPU: each warp is
+// 32 host threads (run_warp), and every shuffle, ballot, __match_any_sync and
+// __syncwarp is a meeting of the 32 at a barrier. A whole block runs as its
+// threads at once (host_launch, which also stands in for the <<<...>>>
+// launch where a test rewrites it so): __syncthreads is a barrier of the
+// block's threads, __shared__ variables are statics (one block runs at a
+// time), the launch's dynamic shared memory is a buffer filled with 0xff
+// bytes, and atomicAdd is a host atomic. Float arithmetic is IEEE single
 // precision; compile with -ffp-contract=off so that nothing is fused, as
-// __fmul_rn / __fadd_rn guarantee on the card. K4 and K6 are run this way:
-// K5's kernels compile but use shared memory across warps and integer
-// atomics that the stand-ins here do not model. K6's device-only helpers
+// __fmul_rn / __fadd_rn guarantee on the card. K6's device-only helpers
 // (its dynamic shared memory, mbarrier and cp.async.bulk row copies) are
 // stood in for below: a copy lands at once, so the host run cannot show a
 // missing wait.
 #pragma once
+#include <ucontext.h>
+
 #include <algorithm>
-#include <barrier>
+#include <atomic>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
+#include <functional>
+#include <memory>
 #include <thread>
 #include <vector>
 
@@ -63,13 +71,60 @@ template <class T>
 T __ldg(const T* p) { return *p; }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline int __ffs(unsigned v) { return __builtin_ffs(v); }
+inline int __clz(unsigned v) { return v ? __builtin_clz(v) : 32; }
 
-// the warp the calling thread belongs to: one at a time
+// A block run by host_launch: its threads are fibers on the one host thread
+// that runs the launch, switched round robin (ucontext), so that a barrier
+// costs a turn of each fiber rather than a wake-up of hundreds of host
+// threads.
+struct FiberBlock {
+    std::vector<ucontext_t> ctx;
+    std::vector<std::unique_ptr<char[]>> stacks;
+    std::vector<char> done;
+    ucontext_t scheduler;
+    int current = 0;
+    std::function<void()> body;
+};
+inline thread_local FiberBlock* fiber_block = nullptr;
+
+// Back to the scheduler, which resumes the block's next fiber.
+inline void fiber_yield() { swapcontext(&fiber_block->ctx[fiber_block->current], &fiber_block->scheduler); }
+
+// A barrier of n threads: of a block's fibers, each waiting fiber yielding
+// until the last arrives; of host threads (run_warp's lanes), each waiting
+// thread yielding for a while, then sleeping until the last arrives.
+struct HostBarrier {
+    explicit HostBarrier(int n) : n(n) {}
+    void arrive_and_wait() {
+        const unsigned gen = generation.load(std::memory_order_acquire);
+        if (count.fetch_add(1, std::memory_order_acq_rel) + 1 == n) {
+            count.store(0, std::memory_order_relaxed);
+            generation.fetch_add(1, std::memory_order_release);
+            if (fiber_block == nullptr) generation.notify_all();
+            return;
+        }
+        if (fiber_block != nullptr) {
+            while (generation.load(std::memory_order_acquire) == gen) fiber_yield();
+            return;
+        }
+        for (int spin = 0; spin < 64; ++spin) {
+            if (generation.load(std::memory_order_acquire) != gen) return;
+            std::this_thread::yield();
+        }
+        while (generation.load(std::memory_order_acquire) == gen) generation.wait(gen, std::memory_order_acquire);
+    }
+    const int n;
+    std::atomic<int> count{0};
+    std::atomic<unsigned> generation{0};
+};
+
+// the warp the calling thread belongs to, and its block's barrier
 struct Warp {
-    std::barrier<> meet{32};
+    HostBarrier meet{32};
     uint32_t slots[32];
 };
-inline Warp* current_warp;
+inline thread_local Warp* current_warp = nullptr;
+inline thread_local HostBarrier* block_barrier = nullptr;
 
 inline uint32_t exchange(uint32_t v, int src) {
     const int lane = threadIdx.x & 31;
@@ -113,14 +168,24 @@ inline unsigned __ballot_sync(unsigned, int pred) {
 }
 inline void __syncwarp() { current_warp->meet.arrive_and_wait(); }
 
-// K5's stand-ins: they compile, and are not run here
-inline unsigned __match_any_sync(unsigned, unsigned) { return 0; }
-inline void __syncthreads() {}
-inline unsigned atomicAdd(unsigned* p, unsigned v) {
-    const unsigned old = *p;
-    *p += v;
-    return old;
+inline unsigned __match_any_sync(unsigned, unsigned v) {
+    const int lane = threadIdx.x & 31;
+    current_warp->slots[lane] = v;
+    current_warp->meet.arrive_and_wait();
+    unsigned m = 0;
+    for (int i = 0; i < 32; ++i) m |= (current_warp->slots[i] == v ? 1u : 0u) << i;
+    current_warp->meet.arrive_and_wait();
+    return m;
 }
+inline void __syncthreads() {
+    if (block_barrier == nullptr) std::abort();  // only a block run by host_launch has one
+    block_barrier->arrive_and_wait();
+}
+inline unsigned atomicAdd(unsigned* p, unsigned v) { return __atomic_fetch_add(p, v, __ATOMIC_RELAXED); }
+
+// the launch's dynamic shared memory (K8's tile stage)
+inline std::vector<float4> host_dynamic_shared;
+inline char* k8_shared() { return reinterpret_cast<char*>(host_dynamic_shared.data()); }
 
 // K6's helpers: the block's dynamic shared memory (the harness sizes it;
 // one block runs at a time), its mbarrier (an arrival without copies, too)
@@ -144,8 +209,14 @@ enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <class T>
 cudaError_t cudaFuncSetAttribute(T, int, int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
-inline cudaError_t cudaMemcpyAsync(void*, const void*, size_t, int, cudaStream_t) { return cudaSuccess; }
-inline cudaError_t cudaMemsetAsync(void*, int, size_t, cudaStream_t) { return cudaSuccess; }
+inline cudaError_t cudaMemcpyAsync(void* dst, const void* src, size_t bytes, int, cudaStream_t) {
+    std::memcpy(dst, src, bytes);
+    return cudaSuccess;
+}
+inline cudaError_t cudaMemsetAsync(void* dst, int value, size_t bytes, cudaStream_t) {
+    std::memset(dst, value, bytes);
+    return cudaSuccess;
+}
 
 // Runs `body(lane)` on 32 threads as warp `warp` of block `block`.
 template <class Body>
@@ -157,7 +228,65 @@ void run_warp(unsigned block, unsigned warp, Body body) {
     for (unsigned lane = 0; lane < 32; ++lane)
         lanes.emplace_back([&, lane] {
             threadIdx.x = warp * 32 + lane;
+            current_warp = &w;
             body();
         });
     for (auto& t : lanes) t.join();
+}
+
+// Runs `body()` as every thread of `grid` blocks of `threads` threads, one
+// block at a time: the block's threads as fibers (FiberBlock), its warps
+// meeting at their own barriers and the block at one of its own.
+inline void fiber_entry() {
+    FiberBlock* fb = fiber_block;
+    fb->body();
+    fb->done[fb->current] = 1;
+    swapcontext(&fb->ctx[fb->current], &fb->scheduler);  // not resumed
+}
+
+template <class Body>
+void host_run_grid(long long grid, int threads, size_t smem, Body body) {
+    constexpr size_t kStack = 1 << 18;
+    host_dynamic_shared.assign((smem + 15) / 16, float4{});
+    std::unique_ptr<Warp[]> warps(new Warp[threads / 32]);
+    HostBarrier sync(threads);
+    FiberBlock fb;
+    fb.body = body;
+    fb.ctx.resize(threads);
+    fb.done.assign(threads, 0);
+    for (int t = 0; t < threads; ++t) fb.stacks.emplace_back(new char[kStack]);
+    fiber_block = &fb;
+    block_barrier = &sync;
+    for (long long b = 0; b < grid; ++b) {
+        blockIdx.x = static_cast<unsigned>(b);
+        std::memset(host_dynamic_shared.data(), 0xff, host_dynamic_shared.size() * sizeof(float4));
+        for (int t = 0; t < threads; ++t) {
+            getcontext(&fb.ctx[t]);
+            fb.ctx[t].uc_stack.ss_sp = fb.stacks[t].get();
+            fb.ctx[t].uc_stack.ss_size = kStack;
+            fb.ctx[t].uc_link = nullptr;
+            makecontext(&fb.ctx[t], fiber_entry, 0);
+            fb.done[t] = 0;
+        }
+        for (int left = threads; left > 0;) {
+            left = 0;
+            for (int t = 0; t < threads; ++t) {
+                if (fb.done[t]) continue;
+                fb.current = t;
+                threadIdx.x = static_cast<unsigned>(t);
+                current_warp = &warps[t / 32];
+                swapcontext(&fb.scheduler, &fb.ctx[t]);
+                left += !fb.done[t];
+            }
+        }
+    }
+    fiber_block = nullptr;
+    block_barrier = nullptr;
+}
+
+// kernel<<<grid, threads[, smem[, stream]]>>>(args...) on the host, as
+// host_launch(kernel, grid, threads[, smem[, stream]])(args...).
+template <class Kernel>
+auto host_launch(Kernel kernel, long long grid, int threads, size_t smem = 0, cudaStream_t = nullptr) {
+    return [=](auto... args) { host_run_grid(grid, threads, smem, [&] { kernel(args...); }); };
 }

@@ -374,22 +374,73 @@ def test_corner_ensemble_routes_per_member(corner_pair):
 # -- K7 and K8's CUDA source on the host ----------------------------------------
 
 
+def host_launches(text: str) -> str:
+    """CUDA source with each launch ``kernel<<<grid, threads, ...>>>(args)``
+    rewritten to ``host_launch(kernel, grid, threads, ...)(args)``
+    (tests/host_cuda/cuda_shim.h), which runs the kernel's blocks on the
+    host, block after block; ``kernel`` is the name before ``<<<`` with its
+    template arguments."""
+    out, done = [], 0
+    for m in re.finditer(r"<<<(.*?)>>>", text, flags=re.S):
+        j = m.start()
+        if text[j - 1] == ">":  # template arguments: back to their '<'
+            depth = 0
+            while True:
+                j -= 1
+                depth += {">": 1, "<": -1}.get(text[j], 0)
+                if depth == 0:
+                    break
+        while text[j - 1].isalnum() or text[j - 1] == "_":
+            j -= 1
+        out += [text[done:j], f"host_launch({text[j:m.start()]}, {m.group(1)})"]
+        done = m.end()
+    return "".join(out + [text[done:]])
+
+
+# K7 as built: as the source chooses (on the host cases' small tables, a
+# thread a lookup), and the level walk forced with its reads as the warp
+# chooses, each lane its own 8 corners at every level (kK7OwnMaxRuns 32: a
+# level has at least one run of equal cells), or lane pairs at every level (0)
+K7_BUILDS = {
+    "chosen": {},
+    "walk": {"kK7WalkBytes": "0LL"},
+    "own": {"kK7WalkBytes": "0LL", "kK7OwnMaxRuns": "32"},
+    "pair": {"kK7WalkBytes": "0LL", "kK7OwnMaxRuns": "0"},
+}
+
+
 @pytest.fixture(scope="module")
-def k7_host(tmp_path_factory) -> Path:
+def k7_builds(tmp_path_factory) -> dict[str, Path]:
     """csrc/hash_grid.cu built with g++ against tests/host_cuda/cuda_shim.h
-    (each warp 32 host threads meeting at a barrier for every shuffle, IEEE
-    single precision with nothing fused) and tests/host_cuda/k7_main.inc."""
+    (a block's threads as fibers of one host thread, each warp's 32 meeting
+    for every shuffle, IEEE single precision with nothing fused) and
+    tests/host_cuda/k7_main.inc, every launch run by ``host_launch``; once
+    for each of K7_BUILDS, built in parallel."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build K7/K8's source for the host")
     text = (REPO / "uncertainty_nerf_gs_torch" / "csrc" / "hash_grid.cu").read_text()
-    text = text.replace("#include <cuda_runtime.h>", '#include "cuda_shim.h"')
+    text = host_launches(text.replace("#include <cuda_runtime.h>", '#include "cuda_shim.h"'))
     out = tmp_path_factory.mktemp("k7_host")
-    (out / "k7.cpp").write_text(re.sub(r"<<<[^>]*>>>", "", text) + '\n#include "k7_main.inc"\n')
-    subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-pthread", "-w",
-                    f"-I{REPO / 'tests' / 'host_cuda'}", str(out / "k7.cpp"), "-o", str(out / "k7")],
-                   check=True, timeout=300)
-    return out / "k7"
+    procs = {}
+    for name, constants in K7_BUILDS.items():
+        src = text
+        for constant, value in constants.items():
+            src, count = re.subn(rf"(constexpr \w+(?: \w+)? {constant} = )[^;]+;", rf"\g<1>{value};", src)
+            assert count == 1, constant
+        (out / f"k7_{name}.cpp").write_text(src + '\n#include "k7_main.inc"\n')
+        procs[name] = subprocess.Popen([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-pthread", "-w",
+                                        f"-I{REPO / 'tests' / 'host_cuda'}", str(out / f"k7_{name}.cpp"), "-o",
+                                        str(out / f"k7_{name}")])
+    for name, proc in procs.items():
+        assert proc.wait(timeout=300) == 0, f"g++ failed on the {name} build"
+    return {name: out / f"k7_{name}" for name in K7_BUILDS}
+
+
+@pytest.fixture(scope="module")
+def k7_host(k7_builds) -> Path:
+    """The host build of K7 and K8 as the source stands."""
+    return k7_builds["chosen"]
 
 
 def _run_host(exe, tmp_path, mode, table, pos, res, g_out=None):
@@ -426,33 +477,66 @@ def _host_inputs(rng, case):
     return table, _positions(rng, n, res), res
 
 
-@pytest.mark.parametrize("case", list(HOST_CASES))
-def test_k7_source_matches_plain_version(k7_host, tmp_path, rng, case):
-    """K7 on the host equals ``hash_encoding_lookup_reference`` bit for bit
-    (as chip_smoke.py requires on the card), on a random table and on one
-    whose entries hold their own slot."""
-    table, pos, res = _host_inputs(rng, case)
-    for t in (table, np.broadcast_to(np.arange(table.shape[1], dtype=np.float32)[None, :, None],
-                                     table.shape).copy()):
-        _run_host(k7_host, tmp_path, "fwd", t, pos, res)
+def _ray_positions(rng, n, samples=48):
+    """Positions along rays of ``samples`` consecutive samples, as a
+    training step's are: at coarse levels neighbouring samples share cells,
+    so a warp's 32 lookups fall in few runs of equal cells."""
+    rays = -(-n // samples)
+    o = rng.uniform(0.2, 0.8, (rays, 1, 3))
+    d = rng.normal(size=(rays, 1, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = np.sort(rng.uniform(0, 0.4, (rays, samples, 1)), axis=1)
+    return (o + t * d).reshape(-1, 3)[:n].astype(np.float32)
+
+
+def _slot_table(table):
+    """The table with every entry holding its own slot (K7's slot choice
+    shows in its features' bits)."""
+    return np.broadcast_to(np.arange(table.shape[1], dtype=np.float32)[None, :, None], table.shape).copy()
+
+
+def _k7_matches(exe, tmp_path, table, pos, res):
+    for t in (table, _slot_table(table)):
+        _run_host(exe, tmp_path, "fwd", t, pos, res)
         got = np.fromfile(tmp_path / "out.bin", np.float32).reshape(pos.shape[0], -1)
         want = tenc.hash_encoding_lookup_reference(_t(t), _t(pos), res, t.shape[2]).numpy()
         assert np.array_equal(got, want), f"{int((got != want).sum())} of {got.size} features differ"
 
 
 @pytest.mark.parametrize("case", list(HOST_CASES))
-def test_k8_source_matches_plain_version(k7_host, tmp_path, rng, case):
-    """K8 on the host (stages 1, 3 and 4 as written, warp by warp; the
-    radix sort as a stable sort of its keys) against autograd through the
-    plain lookup: the table gradient level by level and the positions'
-    within GRID_GRAD_TOL; its positions-only mode's g_pos equal to the full
-    backward's bit for bit."""
+def test_k7_source_matches_plain_version(k7_host, tmp_path, rng, case):
+    """K7 on the host equals ``hash_encoding_lookup_reference`` bit for bit
+    (as chip_smoke.py requires on the card), on a random table and on one
+    whose entries hold their own slot, at uniform positions and along rays."""
     table, pos, res = _host_inputs(rng, case)
-    g_out = rng.normal(size=(pos.shape[0], table.shape[0] * table.shape[2])).astype(np.float32)
-    _run_host(k7_host, tmp_path, "bwd", table, pos, res, g_out)
+    for p in (pos, _ray_positions(rng, pos.shape[0])):
+        _k7_matches(k7_host, tmp_path, table, p, res)
+
+
+@pytest.mark.parametrize("reads", ["walk", "own", "pair"])
+@pytest.mark.parametrize("case", ["proposal_f2", "field_f2", "f1", "f8", "table_not_pow2"])
+def test_k7_source_reads_match_plain_version(k7_builds, tmp_path, rng, case, reads):
+    """K7's level walk (which the source takes where the tables pass half
+    the L2), with its reads as the warp chooses and with every level read
+    one way (each lane its own 8 corners, or lane pairs on a lookup's kx = 0
+    and kx = 1 corners): bit for bit equal to
+    ``hash_encoding_lookup_reference`` on both tables, at uniform positions
+    and along rays, as the build that chooses."""
+    table, pos, res = _host_inputs(rng, case)
+    for p in (pos, _ray_positions(rng, pos.shape[0])):
+        _k7_matches(k7_builds[reads], tmp_path, table, p, res)
+
+
+def _k8_matches(exe, tmp_path, table, pos, res, g_out) -> int:
+    """K8 on the host (every stage as written) against autograd through the
+    plain lookup: the table gradient level by level and the positions'
+    within GRID_GRAD_TOL; the positions-only mode's g_pos equal to the full
+    backward's bit for bit. Returns the partials the tile stage wrote."""
+    _run_host(exe, tmp_path, "bwd", table, pos, res, g_out)
     g_table = np.fromfile(tmp_path / "g_table.bin", np.float32).reshape(table.shape)
     g_pos = np.fromfile(tmp_path / "g_pos.bin", np.float32).reshape(-1, 3)
-    _run_host(k7_host, tmp_path, "pos", table, pos, res, g_out)
+    parts = int(np.fromfile(tmp_path / "parts.bin", np.uint32)[0])
+    _run_host(exe, tmp_path, "pos", table, pos, res, g_out)
     only = np.fromfile(tmp_path / "g_pos.bin", np.float32).reshape(-1, 3)
     t, p = _t(table).requires_grad_(True), _t(pos).requires_grad_(True)
     want_t, want_p = torch.autograd.grad(tenc.hash_encoding_lookup_reference(t, p, res, table.shape[2]), [t, p],
@@ -461,6 +545,43 @@ def test_k8_source_matches_plain_version(k7_host, tmp_path, rng, case):
         assert not grad_mismatch(got_l, want_l, GRID_GRAD_TOL).any()
     assert not grad_mismatch(_t(g_pos), want_p, GRID_GRAD_TOL).any()
     assert np.array_equal(only, g_pos)
+    return parts
+
+
+@pytest.mark.parametrize("case", list(HOST_CASES))
+def test_k8_source_matches_plain_version(k7_host, tmp_path, rng, case):
+    """K8 on the host, its tile stage, K5's radix sort of the partials, the
+    segmented sum and its fixup run block by block as written, against
+    autograd through the plain lookup (``_k8_matches``), at uniform
+    positions and along rays; along rays the tile stage leaves fewer
+    partials than pairs."""
+    table, pos, res = _host_inputs(rng, case)
+    pairs = 8 * pos.shape[0] * table.shape[0]
+    for p in (pos, _ray_positions(rng, pos.shape[0])):
+        g_out = rng.normal(size=(p.shape[0], table.shape[0] * table.shape[2])).astype(np.float32)
+        parts = _k8_matches(k7_host, tmp_path, table, p, res, g_out)
+        assert 0 < parts <= pairs
+    assert parts < pairs
+
+
+def test_k8_source_clustered_runs_cross_tiles_and_chunks(k7_host, tmp_path, rng):
+    """K8 on the host at 66,000 samples, all but 200 of them in one small
+    cluster, inside one cell at each of 2 levels: each of that cell's 8 slots
+    takes a pair of every clustered lookup, so its run in a tile spans the
+    tile's threads (256 pairs), its partials come from every one of the 258
+    tiles, and its run of partials in the global sort is longer than the
+    segmented sum's chunk of 256 and crosses chunks (stage 4). Held as
+    ``_k8_matches`` holds the other cases."""
+    n, cluster, levels, size = 66_000, 65_800, 2, 2**13
+    res = tenc.hash_grid_resolutions(levels, 16, 96)
+    assert any(tenc.corner_is_dense(int(r), size) for r in res)
+    table = rng.uniform(-2, 2, (levels, size, 2)).astype(np.float32)
+    pos = _positions(rng, n, res)
+    pos[n - cluster:] = (0.3 + rng.uniform(0, 1e-4, (cluster, 3))).astype(np.float32)
+    g_out = rng.normal(size=(n, levels * 2)).astype(np.float32)
+    parts = _k8_matches(k7_host, tmp_path, table, pos, res, g_out)
+    tiles = -(-n // 256)
+    assert tiles > 256 and parts < 8 * n * levels // 100
 
 
 @pytest.mark.parametrize("levels,feats", [(5, 2), (16, 2), (4, 1), (3, 4)])

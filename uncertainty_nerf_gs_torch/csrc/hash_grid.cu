@@ -216,6 +216,40 @@ __device__ __forceinline__ void store_floats(float* dst, const float (&v)[N]) {
         d4[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
 }
 
+// A warp's staged outputs into `out`, rows of `row` floats, the warp's first
+// sample `base` (a multiple of 32), `valid` samples staged `stride` floats
+// apart: floats [first, first + width) of each row. A pass over whole rows
+// writes the warp's samples as one contiguous run of floats, 16-byte aligned,
+// as float4s; a pass over part of a row, each sample's run of `width` floats,
+// consecutive lanes on consecutive floats. The warp may reuse its stage after.
+__device__ __forceinline__ void stage_flush(const float* buf, int stride, float* out, long long base, int valid,
+                                            int row, int first, int width, int lane) {
+    if (width == row) {
+        float* dst = out + base * row;
+        const int total = valid * row;
+        for (int k = lane; k < total / 4; k += 32) {
+            int s = 4 * k / width, j = 4 * k - s * width;
+            float t[4];
+#pragma unroll
+            for (int m = 0; m < 4; ++m) {
+                t[m] = buf[s * stride + j];
+                if (++j == width) j = 0, ++s;
+            }
+            reinterpret_cast<float4*>(dst)[k] = make_float4(t[0], t[1], t[2], t[3]);
+        }
+        for (int e = (total & ~3) + lane; e < total; e += 32) {
+            const int s = e / width;
+            dst[e] = buf[s * stride + e - s * width];
+        }
+    } else {
+        for (int e = lane; e < valid * width; e += 32) {
+            const int s = e / width, j = e - s * width;
+            out[(base + s) * row + first + j] = buf[s * stride + j];
+        }
+    }
+    __syncwarp();
+}
+
 // -- K4: the forward ------------------------------------------------------------
 
 constexpr int kK4Warps = 4;  // a block: 4 warps, 128 samples
@@ -418,37 +452,8 @@ __global__ void __launch_bounds__(kK4Threads, F <= 2 ? 8 : 6) cell_lookup_fwd_ke
                 }
             }
         }
-        // the staged outputs of levels [l0, l1): `width` floats a sample
         __syncwarp();
-        const int width = (l1 - l0) * F;
-        if (width == row) {
-            // whole rows: the warp's samples are one contiguous run of floats,
-            // 16-byte aligned (base is a multiple of 32), written as float4s
-            float* dst = out + base * row;
-            const int total = valid * row;
-            for (int k = lane; k < total / 4; k += 32) {
-                int s = 4 * k / width, j = 4 * k - s * width;
-                float t[4];
-#pragma unroll
-                for (int m = 0; m < 4; ++m) {
-                    t[m] = buf[s * kStride + j];
-                    if (++j == width) j = 0, ++s;
-                }
-                reinterpret_cast<float4*>(dst)[k] = make_float4(t[0], t[1], t[2], t[3]);
-            }
-            for (int e = (total & ~3) + lane; e < total; e += 32) {
-                const int s = e / width;
-                dst[e] = buf[s * kStride + e - s * width];
-            }
-        } else {
-            // a pass over part of the levels: each sample's run of `width`
-            // floats, consecutive lanes on consecutive floats
-            for (int e = lane; e < valid * width; e += 32) {
-                const int s = e / width, j = e - s * width;
-                out[(base + s) * row + l0 * F + j] = buf[s * kStride + j];
-            }
-        }
-        __syncwarp();
+        stage_flush(buf, kStride, out, base, valid, row, l0 * F, (l1 - l0) * F, lane);
     }
 }
 
@@ -1052,10 +1057,14 @@ __device__ __forceinline__ unsigned block_exclusive_scan(unsigned v, unsigned* s
 }
 
 // counts[d * num_tiles + b] = keys of tile b with digit d; totals[d] += it.
+// num_keys_dev, where given, holds the count of keys on the device (the grid
+// covers the most there can be; tiles past the count write zero counts).
 __global__ void __launch_bounds__(kSortThreads) cell_lookup_bwd_hist_kernel(
     const unsigned* __restrict__ keys, unsigned* __restrict__ counts,
-    unsigned* __restrict__ totals, int num_keys, int num_tiles, int shift) {
+    unsigned* __restrict__ totals, int num_keys, int num_tiles, int shift,
+    const unsigned* __restrict__ num_keys_dev) {
     __shared__ unsigned hist[kRadix];
+    if (num_keys_dev != nullptr) num_keys = static_cast<int>(*num_keys_dev);
     hist[threadIdx.x] = 0u;
     __syncthreads();
     const long long tile0 = static_cast<long long>(blockIdx.x) * kSortTile;
@@ -1101,32 +1110,43 @@ __global__ void __launch_bounds__(kSortThreads) cell_lookup_bwd_scan_kernel(
 
 // Moves tile b's keys (and ids; the first pass's ids are the positions) to
 // their sorted places: ranked within each warp by __match_any_sync, in the
-// order of their positions, so the sort is stable.
+// order of their positions, so the sort is stable. Tile b holds the keys
+// from b * tile_stride on: its tile_counts[b] keys where tile_counts is
+// given (K8's windows of partials), else those below the count (num_keys_dev
+// on the device where given, else num_keys).
 template <bool kFirst>
 __global__ void __launch_bounds__(kSortThreads) cell_lookup_bwd_scatter_kernel(
     const unsigned* __restrict__ keys_in, const unsigned* __restrict__ ids_in,
     unsigned* __restrict__ keys_out, unsigned* __restrict__ ids_out,
-    const unsigned* __restrict__ offsets, int num_keys, int num_tiles, int shift) {
+    const unsigned* __restrict__ offsets, int num_keys, int num_tiles, int shift,
+    const unsigned* __restrict__ num_keys_dev, const unsigned* __restrict__ tile_counts, int tile_stride) {
     __shared__ unsigned warp_count[kSortWarps][kRadix];
     __shared__ unsigned digit_start[kRadix];
     __shared__ unsigned scan_smem[kSortWarps + 1];
     __shared__ unsigned s_keys[kSortTile];
     __shared__ unsigned s_ids[kSortTile];
+    const long long tile0 = static_cast<long long>(blockIdx.x) * tile_stride;
+    const long long left = tile_counts != nullptr ? static_cast<long long>(tile_counts[blockIdx.x])
+                           : (num_keys_dev != nullptr ? static_cast<long long>(*num_keys_dev) : num_keys) - tile0;
+    const int count = left < kSortTile ? (left > 0 ? static_cast<int>(left) : 0) : kSortTile;
+    if (count == 0) return;  // the whole block: a tile past the count
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     for (int k = threadIdx.x; k < kSortWarps * kRadix; k += kSortThreads)
         (&warp_count[0][0])[k] = 0u;
     __syncthreads();
 
-    const long long tile0 = static_cast<long long>(blockIdx.x) * kSortTile;
-    const long long warp0 = tile0 + warp * (32 * kSortItems);
+    const int warp0 = warp * (32 * kSortItems);
     const unsigned below_mask = (1u << lane) - 1u;
     unsigned key[kSortItems], id[kSortItems], rank[kSortItems];
 #pragma unroll
     for (int r = 0; r < kSortItems; ++r) {
-        const long long j = warp0 + r * 32 + lane;
-        const bool valid = j < num_keys;
+        const int local = warp0 + r * 32 + lane;
+        const long long j = tile0 + local;
+        const bool valid = local < count;
         key[r] = valid ? keys_in[j] : 0u;
         id[r] = valid ? (kFirst ? static_cast<unsigned>(j) : ids_in[j]) : 0u;
+        rank[r] = 0u;
+        if (warp0 + r * 32 >= count) continue;  // the whole warp: a round past the tile's keys
         const unsigned d = valid ? (key[r] >> shift) & (kRadix - 1) : kRadix;
         const unsigned peers = __match_any_sync(kFull, d);
         const unsigned below = __popc(peers & below_mask);
@@ -1154,7 +1174,7 @@ __global__ void __launch_bounds__(kSortThreads) cell_lookup_bwd_scatter_kernel(
 
 #pragma unroll
     for (int r = 0; r < kSortItems; ++r) {
-        if (warp0 + r * 32 + lane < num_keys) {
+        if (warp0 + r * 32 + lane < count) {
             const unsigned d = (key[r] >> shift) & (kRadix - 1);
             const unsigned pos = digit_start[d] + warp_count[warp][d] + rank[r];
             s_keys[pos] = key[r];
@@ -1163,8 +1183,6 @@ __global__ void __launch_bounds__(kSortThreads) cell_lookup_bwd_scatter_kernel(
     }
     __syncthreads();
 
-    const long long left = num_keys - tile0;
-    const int count = left < kSortTile ? static_cast<int>(left) : kSortTile;
     for (int p = threadIdx.x; p < count; p += kSortThreads) {
         const unsigned k = s_keys[p];
         const unsigned d = (k >> shift) & (kRadix - 1);
@@ -1487,14 +1505,14 @@ cudaError_t radix_sort(const Scratch& s, int num_keys, int passes, cudaStream_t 
         unsigned* totals = s.totals + p * kRadix;
         const int shift = p * kDigitBits;
         cell_lookup_bwd_hist_kernel<<<tiles, kSortThreads, 0, st>>>(kin, s.counts, totals, num_keys,
-                                                                     tiles, shift);
+                                                                     tiles, shift, nullptr);
         cell_lookup_bwd_scan_kernel<<<kRadix, kSortThreads, 0, st>>>(s.counts, totals, tiles);
         if (p == 0)
             cell_lookup_bwd_scatter_kernel<true><<<tiles, kSortThreads, 0, st>>>(
-                kin, nullptr, kout, iout, s.counts, num_keys, tiles, shift);
+                kin, nullptr, kout, iout, s.counts, num_keys, tiles, shift, nullptr, nullptr, kSortTile);
         else
             cell_lookup_bwd_scatter_kernel<false><<<tiles, kSortThreads, 0, st>>>(
-                kin, iin, kout, iout, s.counts, num_keys, tiles, shift);
+                kin, iin, kout, iout, s.counts, num_keys, tiles, shift, nullptr, nullptr, kSortTile);
         const cudaError_t err = cudaGetLastError();
         if (err != cudaSuccess) return err;
     }
@@ -1616,26 +1634,82 @@ int run_k6(const K6Args& a, const Levels& lv, int features, int dtype, bool stri
 // of 4 F bytes a lookup, scattered over a level's table (the field's hashed
 // levels are 4 MB at F = 2, so the 16 levels' 67 MB do not fit the 50 MB L2
 // together, one level does), and writes 4 F bytes; its float work (about 70
-// operations a lookup) is far below the float32 rate. K7's design is the
-// simple one: a thread a (sample, level) lookup, threads of one sample on
-// adjacent lanes so that the output is written in whole lines, each corner
-// read as one F-wide vector load.
-// K8 is K5's design on (lookup, corner) pairs: 1. keys: a thread a (sample,
-// level slot), the slots of a sample adjacent lanes, writes the 8 keys
-// l T + slot_k (below 2^31) and, where g_pos is asked for, reads the 8
-// entries and sums the sample's levels by a butterfly in a fixed order;
-// 2. K5's stable radix sort of (key, pair id), pair id = 8 (i L + l) + k;
-// 3. a segmented reduction of 256 sorted pairs a warp, each pair's weight
-// recomputed from its position, a run ending in the chunk stored with plain
-// stores at g_table + key F; 4. runs that cross chunks summed by one warp
-// each. No float atomic: every sum has an order fixed by the keys and the
-// ids, so two launches give the same bits. Where no table needs a gradient
-// (the pose gradient), only stage 1 runs, without keys: the same kernel and
-// the same arithmetic, so its g_pos equals the full backward's bit for bit.
-// The wrapper zero-fills g_table and sizes the scratch as
-// hash_lookup_bwd_scratch_bytes says; nothing is allocated here.
-
-constexpr int kCornerThreads = 256;
+// operations a lookup) is far below the float32 rate. Each 8-byte entry is
+// read as a 32-byte sector, so what limits it is how many sectors and load
+// requests the lookups cost, and whether the level's table is in L2.
+// K7's design: where the levels' tables together pass half the L2 (the
+// field's 67 MB), the level walk on K4's structure:
+//   - A warp takes 32 consecutive samples and walks the levels one at a
+//     time; lane s keeps sample s's position and locates its cell once a
+//     level. The warps of a launch move through the levels roughly
+//     together, so one level's table is hot in L2 at a time.
+//   - Own reads: where the warp's cells repeat in runs (coarse levels,
+//     samples along a ray: at most kK7OwnMaxRuns runs of equal cells among
+//     the 32, counted by one ballot), each lane reads its own 8 corners, all
+//     in flight at once; lanes in one cell load the same entries in one
+//     instruction.
+//   - Pair reads otherwise: two lanes take a lookup, one its 4 corners with
+//     kx = 0, the other the 4 with kx = 1, so that corner (0, ky, kz) and
+//     (1, ky, kz) load in one instruction. Their slots differ only in x's low
+//     bits (dense: x and x + 1; hashed: by x ^ (x + 1), below 4 unless x % 4
+//     is 3), so at F = 2 the two entries share a 32-byte sector most of the
+//     time. A lane takes its lookup's cell and fractions by __shfl_sync.
+//   - Either way the sum is k4_tree's: in a pair each lane sums its four
+//     corners, ((c0 + c1) + (c2 + c3)) or ((c4 + c5) + (c6 + c7)), and the
+//     two add across by __shfl_xor_sync; both reads give the same bits.
+//   - The warp stages its samples' outputs in shared memory and writes them
+//     as whole lines (stage_flush, K4's), not F scalars a thread at a stride.
+// Where the tables fit (the proposals' 5.2 MB), every level stays hot in L2
+// anyway, and the walk's 64 registers a thread keep fewer loads in flight
+// than a thread a (sample, level) lookup, which was faster there on an H100
+// (PERF.md, section 6): those tables take that one
+// (hash_lookup_fwd_lookup_kernel). Both give the plain version's bits.
+//
+// K8's own work is K7's gather run backwards: read each lookup's position and
+// g_out, write each touched entry's F sums once, and for g_pos read each
+// lookup's 8 entries once more. A scatter with float atomics would add in an
+// order that changes from launch to launch, and a step has 83 M (lookup,
+// corner) pairs (proposal 0's 41.9 M on 5 x 131,072 entries, 64 a entry),
+// most of whose duplicates sit next to each other in lookup order (the
+// samples of a ray). K8 therefore reduces where the duplicates are, then
+// sorts what is left:
+//   1. A tile stage: one block a tile of 256 consecutive samples, a thread a
+//      sample, walking the levels. It reads positions and g_out once,
+//      coalesced, and at each level forms each lookup's 8 (slot, w_k g)
+//      pairs. Each warp first sums the runs of equal cells among its 32
+//      consecutive lookups corner by corner (a segmented scan of shuffles),
+//      so that a run gives 8 items; the block's items, in lookup order, are
+//      sorted by slot in shared memory with a stable LSD radix sort (digits
+//      of at most 10 bits over the slot's bits: 2 passes up to 20 bits;
+//      ranked within each warp by __match_any_sync, K5's scatter in shared
+//      memory); each run of equal slots is summed in that order (a thread's
+//      8 sorted items in turn, a run that spans threads continued from
+//      thread to thread); and one partial (key l T + slot, F sums) a
+//      distinct slot is written, the block's levels one after the other in
+//      its range of (L + 1) / 2 windows of 4,096 partials, each window
+//      counted in the histogram of the key's low digit for the global
+//      sort's first pass. g_pos comes from the same pass, with the same
+//      arithmetic and the same tree over the levels as before: each level's
+//      term, then the butterfly of a sample's levels padded to a power of
+//      two, taken level by level in shared memory. Without a table gradient
+//      (the pose gradient) the stage runs without its pairs, and its g_pos
+//      equals the full backward's bit for bit.
+//   2. K5's stable radix sort of (key, partial id), 8-bit digits: its first
+//      pass takes the windows in place (their counts and histograms from the
+//      tile stage), the later passes the dense partials, their count read on
+//      the device (the grid covers the most there can be, so nothing is read
+//      back to the host and the step stays capturable).
+//   3. K5's segmented sum over the sorted partials, each reading its F sums
+//      by id, and 4. its fixup for runs that cross chunks.
+// Every float sum has an order fixed by the inputs: inside a tile, the scan's
+// over a warp's cell runs, then item (lookup) order; across tiles, tile
+// order, which the stable sort keeps. So two launches give the same bits,
+// with no float atomic (integer atomics only: the histograms and the
+// partials' count). What this costs beside the function's own bytes: the
+// partials (written, sorted in 3 passes, read back) and the shared-memory
+// sort of every tile-level's items. The wrapper zero-fills g_table and sizes
+// the scratch as hash_lookup_bwd_scratch_bytes says (for every pair a
+// partial, the most there can be); nothing is allocated here.
 
 struct CornerLevels {
     float res[kMaxLevels];      // float(res), the factor of scaled
@@ -1705,118 +1779,612 @@ __device__ __forceinline__ void load_entry(const float* src, float (&v)[F]) {
     }
 }
 
-// K7: one thread a (sample, level) lookup, t = i L + l.
+// -- K7 -------------------------------------------------------------------------
+
+constexpr int kK7Warps = 4;  // a block: 4 warps, 128 samples
+constexpr int kK7Threads = 32 * kK7Warps;
+constexpr int kK7Stage = 32;  // outputs a sample stages per pass over the levels
+// A level whose 32 lookups lie in at most this many runs of equal cells is
+// read by each lane on its own; one with more, by lane pairs.
+constexpr int kK7OwnMaxRuns = 8;
+// The walk where the levels' tables together pass half the 50 MB L2; below
+// that, a thread a lookup (hash_lookup_fwd_lookup_kernel).
+constexpr long long kK7WalkBytes = 25LL << 20;
+constexpr int kK7LookupThreads = 256;
+
+// Runs of equal cells among the warp's 32 lookups at one level, in lane order.
+__device__ __forceinline__ int k7_runs(const Corner& c, int lane) {
+    const unsigned px = __shfl_up_sync(kFull, c.base[0], 1);
+    const unsigned py = __shfl_up_sync(kFull, c.base[1], 1);
+    const unsigned pz = __shfl_up_sync(kFull, c.base[2], 1);
+    return __popc(__ballot_sync(kFull, lane == 0 || px != c.base[0] || py != c.base[1] || pz != c.base[2]));
+}
+
+// The entries of corners k0 .. k0 + 3 of the lookup at c, all four in flight.
 template <int F>
-__global__ void __launch_bounds__(kCornerThreads) hash_lookup_fwd_kernel(
+__device__ __forceinline__ void k7_load(const Corner& c, const float* level, const CornerLevels& lv, int l, int k0,
+                                        float (&v)[4][F]) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) load_entry<F>(level + static_cast<long long>(corner_slot(c, lv, l, k0 + q)) * F, v[q]);
+}
+
+// ((c0 + c1) + (c2 + c3)) over corners k0 .. k0 + 3, c_q = w_(k0 + q) entry_q
+// rounded: half of k4_tree.
+template <int F>
+__device__ __forceinline__ void k7_half(const Corner& c, const float (&v)[4][F], int k0, float (&s)[F]) {
+    float w[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) w[q] = corner_w(c, k0 + q);
+#pragma unroll
+    for (int f = 0; f < F; ++f)
+        s[f] = __fadd_rn(__fadd_rn(__fmul_rn(w[0], v[0][f]), __fmul_rn(w[1], v[1][f])),
+                         __fadd_rn(__fmul_rn(w[2], v[2][f]), __fmul_rn(w[3], v[3][f])));
+}
+
+// One warp a run of 32 samples, every level; see the note at the top.
+template <int F>
+__global__ void __launch_bounds__(kK7Threads) hash_lookup_fwd_walk_kernel(
     const float* __restrict__ positions, const float* __restrict__ table, float* __restrict__ out, int n,
     int num_levels, CornerLevels lv) {
-    const long long t = static_cast<long long>(blockIdx.x) * kCornerThreads + threadIdx.x;
+    constexpr int kWidth = kK7Stage > F ? kK7Stage : F;  // staged floats a sample a pass
+    constexpr int kStride = kWidth + 1;  // padded against bank conflicts
+    __shared__ float stage[kK7Warps][32 * kStride];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const long long base = (static_cast<long long>(blockIdx.x) * kK7Warps + warp) * 32;
+    if (base >= n) return;  // the whole warp
+    const int valid = n - base < 32 ? static_cast<int>(n - base) : 32;
+    float p[3] = {0.0f, 0.0f, 0.0f};
+    if (lane < valid) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d) p[d] = __ldg(positions + 3 * (base + lane) + d);
+    }
+    float* buf = stage[warp];
+    const int row = num_levels * F;
+    const int levels_a_pass = kWidth / F < num_levels ? kWidth / F : num_levels;
+    for (int l0 = 0; l0 < num_levels; l0 += levels_a_pass) {
+        const int l1 = l0 + levels_a_pass < num_levels ? l0 + levels_a_pass : num_levels;
+        for (int l = l0; l < l1; ++l) {
+            const Corner c = corner_locate(p, lv, l);
+            const float* level = table + static_cast<long long>(l) * lv.size * F;
+            float* level_row = buf + (l - l0) * F;
+            if (k7_runs(c, lane) <= kK7OwnMaxRuns) {
+                float v0[4][F], v1[4][F];
+                k7_load<F>(c, level, lv, l, 0, v0);
+                k7_load<F>(c, level, lv, l, 4, v1);
+                float lo[F], hi[F];
+                k7_half<F>(c, v0, 0, lo);
+                k7_half<F>(c, v1, 4, hi);
+#pragma unroll
+                for (int f = 0; f < F; ++f) level_row[lane * kStride + f] = __fadd_rn(lo[f], hi[f]);
+            } else {
+                // lane pair j of round r takes lookup 16 r + j: the even lane
+                // its corners with kx = 0, the odd lane those with kx = 1
+                const int kx = lane & 1;
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                    const int src = 16 * r + (lane >> 1);
+                    Corner pc;
+#pragma unroll
+                    for (int d = 0; d < 3; ++d) {
+                        pc.base[d] = __shfl_sync(kFull, c.base[d], src);
+                        pc.w[d][1] = __shfl_sync(kFull, c.w[d][1], src);
+                        pc.w[d][0] = __fsub_rn(1.0f, pc.w[d][1]);
+                    }
+                    float v[4][F], s[F];
+                    k7_load<F>(pc, level, lv, l, 4 * kx, v);
+                    k7_half<F>(pc, v, 4 * kx, s);
+#pragma unroll
+                    for (int f = 0; f < F; ++f) {
+                        const float sum = __fadd_rn(s[f], __shfl_xor_sync(kFull, s[f], 1));
+                        if (kx == 0) level_row[src * kStride + f] = sum;
+                    }
+                }
+            }
+        }
+        __syncwarp();
+        stage_flush(buf, kStride, out, base, valid, row, l0 * F, (l1 - l0) * F, lane);
+    }
+}
+
+// K7 where the tables fit the L2 with room to spare: one thread a (sample,
+// level) lookup, t = i L + l, its 8 corners read as F-wide vector loads and
+// summed in k4_tree's order. Every table stays hot, and a thread a lookup
+// keeps more loads in flight than a warp walking the levels.
+template <int F>
+__global__ void __launch_bounds__(kK7LookupThreads) hash_lookup_fwd_lookup_kernel(
+    const float* __restrict__ positions, const float* __restrict__ table, float* __restrict__ out, int n,
+    int num_levels, CornerLevels lv) {
+    const long long t = static_cast<long long>(blockIdx.x) * kK7LookupThreads + threadIdx.x;
     if (t >= static_cast<long long>(n) * num_levels) return;
     const long long i = t / num_levels;
     const int l = static_cast<int>(t - i * num_levels);
     const float p[3] = {__ldg(positions + 3 * i), __ldg(positions + 3 * i + 1), __ldg(positions + 3 * i + 2)};
     const Corner c = corner_locate(p, lv, l);
     const float* level = table + static_cast<long long>(l) * lv.size * F;
-    float prod[8][F];
+    float v0[4][F], v1[4][F], lo[F], hi[F];
+    k7_load<F>(c, level, lv, l, 0, v0);
+    k7_load<F>(c, level, lv, l, 4, v1);
+    k7_half<F>(c, v0, 0, lo);
+    k7_half<F>(c, v1, 4, hi);
+#pragma unroll
+    for (int f = 0; f < F; ++f) out[t * F + f] = __fadd_rn(lo[f], hi[f]);
+}
+
+// -- K8 -------------------------------------------------------------------------
+
+constexpr int kK8Lookups = 256;                      // a tile: one level's lookups of 256 consecutive samples
+constexpr int kK8Threads = kK8Lookups;               // a thread a sample
+constexpr int kK8Warps = kK8Threads / 32;
+constexpr int kK8Pairs = 8 * kK8Lookups;             // a tile-level's (lookup, corner) pairs
+constexpr int kK8Items = kK8Pairs / kK8Threads;      // sorted items a thread sums, and sort rounds a warp
+constexpr int kK8DigitBits = 10;                     // the widest digit of the tile's sort
+constexpr int kK8Radix = 1 << kK8DigitBits;
+constexpr int kK8DigitsAThread = kK8Radix / kK8Threads;
+constexpr int kK8Parts = kRadix * kMaxPasses;        // where the partials' count sits among the digit totals
+static_assert(kK8Threads == kSortThreads && kK8Threads == kRadix, "block_exclusive_scan's block; a thread a digit");
+// A block writes its levels' partials one after the other, from the start of
+// its range of (L + 1) / 2 windows of kSortTile partials (two levels' pairs a
+// window); a window is a tile of the global sort's first pass.
+static_assert(2 * kK8Pairs == kSortTile, "a window holds two levels' pairs");
+
+// The tile stage's dynamic shared memory, byte offsets. With pairs: the
+// items' slots and sums (where the items were written) and their ids (two
+// buffers, the sort's), the sort's counters (16 bits: a warp ranks at most
+// 256 items) and digit starts, pass 0's histogram of each of the block's
+// windows, the threads' run partials; always: the block scan's and the
+// position gradient's butterfly (half a sample's padded levels, 3 floats
+// each).
+struct K8Layout {
+    int keys, ids, vals, counters, digits, hist, head, tail, flags, scan, acc, bytes;
+};
+
+__host__ __device__ inline int k8_take(int& off, int bytes) {
+    const int at = off;
+    off += (bytes + 15) & ~15;
+    return at;
+}
+
+__host__ __device__ inline K8Layout k8_layout(int features, bool pairs, int half, int windows) {
+    K8Layout k = {};
+    int off = 0;
+    if (pairs) {
+        k.keys = k8_take(off, kK8Pairs * 4);
+        k.ids = k8_take(off, 2 * kK8Pairs * 2);
+        k.vals = k8_take(off, kK8Pairs * features * 4);
+        k.counters = k8_take(off, kK8Warps * kK8Radix * 2);
+        k.digits = k8_take(off, kK8Radix * 2);
+        k.hist = k8_take(off, windows * kRadix * 4);
+        k.head = k8_take(off, features * kK8Threads * 4);
+        k.tail = k8_take(off, features * kK8Threads * 4);
+        k.flags = k8_take(off, kK8Threads * 4);
+    }
+    k.scan = k8_take(off, (kSortWarps + 1) * 4);
+    k.acc = k8_take(off, half * 3 * kK8Threads * 4);
+    k.bytes = off;
+    return k;
+}
+
+#ifdef __CUDACC__
+// The tile stage's dynamic shared memory (the host test harness stands in).
+__device__ __forceinline__ char* k8_shared() {
+    extern __shared__ float4 k8_smem[];
+    return reinterpret_cast<char*>(k8_smem);
+}
+#endif
+
+struct K8Args {
+    const float* positions;   // (n, 3)
+    const float* table;       // (L, T, F)
+    const float* g_out;       // (n, L F)
+    float* g_pos;             // (n, 3), or null
+    unsigned* part_keys;      // windows x kSortTile: a block's partials' keys, from its range's start
+    float* part_vals;         // windows x kSortTile x F: their sums
+    unsigned* window_count;   // partials a window
+    unsigned* counts;         // [digit][window]: the sort's first histograms
+    unsigned* totals;         // the sort's digit totals, zeroed, and at kK8Parts the partials in all
+    int n, num_levels;
+    int block_windows;        // windows a block: (L + 1) / 2
+    int windows;              // windows in all
+    int slots;                // a sample's levels padded to a power of two
+    int slot_bits;            // bits of a slot: ceil(log2 T)
+};
+
+// The 8 entries a lookup at level l reads, all in flight at once.
+template <int F>
+__device__ __forceinline__ void corner_entries(const Corner& c, const float* level, const CornerLevels& lv, int l,
+                                               float (&v)[8][F]) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) load_entry<F>(level + static_cast<long long>(corner_slot(c, lv, l, k)) * F, v[k]);
+}
+
+// Level l's term of a lookup's position gradient from its entries v, with g
+// its g_out: res_l sum_k dw_k/dfrac <entry_k, g>, in the same operations and
+// order as ever.
+template <int F>
+__device__ __forceinline__ void corner_pos_grad(const Corner& c, const float (&v)[8][F], float res,
+                                                const float (&g)[F], float (&grad)[3]) {
+    grad[0] = grad[1] = grad[2] = 0.0f;
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
-        float v[F];
-        load_entry<F>(level + static_cast<long long>(corner_slot(c, lv, l, k)) * F, v);
-        const float w = corner_w(c, k);
+        float dot = 0.0f;
 #pragma unroll
-        for (int f = 0; f < F; ++f) prod[k][f] = __fmul_rn(w, v[f]);
+        for (int f = 0; f < F; ++f) dot = __fadd_rn(dot, __fmul_rn(v[k][f], g[f]));
+        const int kx = k >> 2, ky = (k >> 1) & 1, kz = k & 1;
+        // d w_k / d frac_x = (kx ? 1 : -1) wy wz, and likewise for y, z
+        const float dx = __fmul_rn(__fmul_rn(c.w[1][ky], c.w[2][kz]), dot);
+        const float dy = __fmul_rn(__fmul_rn(c.w[0][kx], c.w[2][kz]), dot);
+        const float dz = __fmul_rn(__fmul_rn(c.w[0][kx], c.w[1][ky]), dot);
+        grad[0] = kx ? __fadd_rn(grad[0], dx) : __fsub_rn(grad[0], dx);
+        grad[1] = ky ? __fadd_rn(grad[1], dy) : __fsub_rn(grad[1], dy);
+        grad[2] = kz ? __fadd_rn(grad[2], dz) : __fsub_rn(grad[2], dz);
     }
+    // d frac / d pos = res
 #pragma unroll
-    for (int f = 0; f < F; ++f) {
-        const float lo = __fadd_rn(__fadd_rn(prod[0][f], prod[1][f]), __fadd_rn(prod[2][f], prod[3][f]));
-        const float hi = __fadd_rn(__fadd_rn(prod[4][f], prod[5][f]), __fadd_rn(prod[6][f], prod[7][f]));
-        out[t * F + f] = __fadd_rn(lo, hi);
-    }
+    for (int d = 0; d < 3; ++d) grad[d] = __fmul_rn(res, grad[d]);
 }
 
-// K8, stage 1: one thread a (sample, level slot); kSlots >= L a power of two
-// <= 32, so a sample's slots are adjacent lanes of one warp. keys null: no
-// keys (the positions-only mode); g_pos null: no position gradient. Block 0
-// zeroes the sort's digit totals where they are given. Every thread reaches
-// the shuffles: none returns early.
-template <int F, int kSlots>
-__global__ void __launch_bounds__(kThreads) hash_lookup_bwd_keys_kernel(
-    const float* __restrict__ positions, const float* __restrict__ table, const float* __restrict__ g_out,
-    float* __restrict__ g_pos, unsigned* __restrict__ keys, unsigned* __restrict__ totals, int n, int num_levels,
-    CornerLevels lv) {
-    if (totals != nullptr && blockIdx.x == 0)
-        for (int k = threadIdx.x; k < kMaxPasses * kRadix; k += kThreads) totals[k] = 0u;
-    const long long g = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-    const long long i = g / kSlots;
-    const int l = static_cast<int>(g % kSlots);
-    const bool sample = i < n;
-    float grad[3] = {0.0f, 0.0f, 0.0f};
-    if (sample && l < num_levels) {
-        const float p[3] = {positions[3 * i], positions[3 * i + 1], positions[3 * i + 2]};
-        const Corner c = corner_locate(p, lv, l);
-        const long long t = i * num_levels + l;
-        const float* level = table + static_cast<long long>(l) * lv.size * F;
-        float go[F];
-        if (g_pos != nullptr) {
+// One stable pass of the tile's sort in shared memory: the `count` item ids
+// from iin to iout by the digit (keys[id] >> shift) & (radix - 1), radix a
+// power of two from 256 to kK8Radix. Warp w ranks items [256 w, 256 w +
+// 256), 32 a round, among its equal digits by __match_any_sync (K5's
+// scatter); rounds past the count are skipped. Every thread calls it.
+__device__ __forceinline__ void k8_sort_pass(const unsigned* keys, const unsigned short* iin, unsigned short* iout,
+                                             int count, int shift, int radix, unsigned short* counters,
+                                             unsigned short* digit_start, unsigned* scan_smem) {
+    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    const unsigned mask = static_cast<unsigned>(radix - 1);
+    for (int e = t; e < kK8Warps * radix / 2; e += kK8Threads) reinterpret_cast<unsigned*>(counters)[e] = 0u;
+    __syncthreads();
+    unsigned short* mine = counters + warp * radix;
+    const int warp0 = warp * (32 * kK8Items);
+    const unsigned below_mask = (1u << lane) - 1u;
+    // every round's peers first (their latency overlaps), then the warp's
+    // running counts round by round
+    unsigned digit[kK8Items], rank[kK8Items];
+    unsigned short id[kK8Items];
 #pragma unroll
-            for (int f = 0; f < F; ++f) go[f] = g_out[t * F + f];
+    for (int r = 0; r < kK8Items; ++r) {
+        const int j = warp0 + r * 32 + lane;
+        const bool valid = j < count;
+        id[r] = valid ? iin[j] : 0;
+        digit[r] = valid ? (keys[id[r]] >> shift) & mask : kK8Radix;
+        rank[r] = warp0 + r * 32 < count ? __match_any_sync(kFull, digit[r]) : 0u;
+    }
+#pragma unroll
+    for (int r = 0; r < kK8Items; ++r) {
+        if (warp0 + r * 32 >= count) break;  // the whole warp: rounds past the count
+        const bool valid = warp0 + r * 32 + lane < count;
+        const unsigned peers = rank[r];
+        const unsigned base = valid ? mine[digit[r]] : 0u;
+        __syncwarp();
+        if (valid && __popc(peers & below_mask) == 0)
+            mine[digit[r]] = static_cast<unsigned short>(base + __popc(peers));
+        __syncwarp();
+        rank[r] = base + __popc(peers & below_mask);
+    }
+    __syncthreads();
+    // digits `per` t ..: each warp's offset among the digit's items, then the
+    // digits' first places in the sorted order
+    const int per = radix / kK8Threads;
+    unsigned total[kK8DigitsAThread], run = 0u;
+#pragma unroll
+    for (int q = 0; q < kK8DigitsAThread; ++q) {
+        total[q] = 0u;
+        if (q >= per) continue;
+        const int d = per * t + q;
+#pragma unroll
+        for (int w = 0; w < kK8Warps; ++w) {
+            const unsigned c = counters[w * radix + d];
+            counters[w * radix + d] = static_cast<unsigned short>(total[q]);
+            total[q] += c;
         }
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-            const unsigned slot = corner_slot(c, lv, l, k);
-            if (keys != nullptr) keys[t * 8 + k] = static_cast<unsigned>(l) * lv.size + slot;
-            if (g_pos == nullptr) continue;
-            float v[F];
-            load_entry<F>(level + static_cast<long long>(slot) * F, v);
-            float dot = 0.0f;
-#pragma unroll
-            for (int f = 0; f < F; ++f) dot = __fadd_rn(dot, __fmul_rn(v[f], go[f]));
-            const int kx = k >> 2, ky = (k >> 1) & 1, kz = k & 1;
-            // d w_k / d frac_x = (kx ? 1 : -1) wy wz, and likewise for y, z
-            const float dx = __fmul_rn(__fmul_rn(c.w[1][ky], c.w[2][kz]), dot);
-            const float dy = __fmul_rn(__fmul_rn(c.w[0][kx], c.w[2][kz]), dot);
-            const float dz = __fmul_rn(__fmul_rn(c.w[0][kx], c.w[1][ky]), dot);
-            grad[0] = kx ? __fadd_rn(grad[0], dx) : __fsub_rn(grad[0], dx);
-            grad[1] = ky ? __fadd_rn(grad[1], dy) : __fsub_rn(grad[1], dy);
-            grad[2] = kz ? __fadd_rn(grad[2], dz) : __fsub_rn(grad[2], dz);
-        }
-        // d frac / d pos = res
-#pragma unroll
-        for (int d = 0; d < 3; ++d) grad[d] = __fmul_rn(lv.res[l], grad[d]);
+        run += total[q];
     }
-    if (g_pos == nullptr) return;  // the same for every thread of the launch
+    unsigned all;
+    unsigned start = block_exclusive_scan(run, scan_smem, &all);
 #pragma unroll
-    for (int off = kSlots / 2; off > 0; off >>= 1) {
-#pragma unroll
-        for (int d = 0; d < 3; ++d) grad[d] = __fadd_rn(grad[d], __shfl_xor_sync(kFull, grad[d], off));
+    for (int q = 0; q < kK8DigitsAThread; ++q) {
+        if (q < per) digit_start[per * t + q] = static_cast<unsigned short>(start);
+        start += total[q];
     }
-    if (sample && l == 0) {
+    __syncthreads();
 #pragma unroll
-        for (int d = 0; d < 3; ++d) g_pos[3 * i + d] = grad[d];
+    for (int r = 0; r < kK8Items; ++r) {
+        if (warp0 + r * 32 + lane < count)
+            iout[digit_start[digit[r]] + mine[digit[r]] + rank[r]] = id[r];
     }
+    __syncthreads();
 }
 
-// K8's sums: a (lookup, corner) pair (pair id 8 t + k, t = i L + l) adds
-// w_k g, F values, to its entry's gradient (key l T + slot).
+// One level of a tile (see the note at the top). Every thread of the block
+// calls it with its own lookup's corner and g_out, and `done`, the block's
+// partials so far. The warp first sums each
+// run of equal cells among its consecutive lookups corner by corner (a
+// segmented scan of shuffles), so that a run gives 8 items, not 8 pairs a
+// lookup; the block's items, in lookup order, are then sorted by slot and
+// each slot's sum written as the block's next partial, counted in its
+// window's pass-0 histogram. Returns the level's partials.
 template <int F>
-struct CornerSum {
+__device__ __forceinline__ unsigned k8_tile_level(const K8Args& a, const CornerLevels& lv, const K8Layout& k,
+                                                  char* smem, const Corner& c, const float (&go)[F], int l,
+                                                  unsigned done) {
+    unsigned* keys = reinterpret_cast<unsigned*>(smem + k.keys);
+    unsigned short* ids = reinterpret_cast<unsigned short*>(smem + k.ids);
+    float* vals = reinterpret_cast<float*>(smem + k.vals);
+    unsigned* hist = reinterpret_cast<unsigned*>(smem + k.hist);
+    float* head = reinterpret_cast<float*>(smem + k.head);
+    float* tail = reinterpret_cast<float*>(smem + k.tail);
+    unsigned* flags = reinterpret_cast<unsigned*>(smem + k.flags);
+    unsigned* scan_smem = reinterpret_cast<unsigned*>(smem + k.scan);
+    const int t = threadIdx.x, lane = t & 31;
+    const long long first = static_cast<long long>(blockIdx.x) * kK8Lookups;
+    const int lookups = a.n - first < kK8Lookups ? static_cast<int>(a.n - first) : kK8Lookups;
+    const bool live = t < lookups;
+
+    // the warp's runs of equal cells, in lane order (a lookup past n starts
+    // one of its own and gives no item)
+    const unsigned px = __shfl_up_sync(kFull, c.base[0], 1);
+    const unsigned py = __shfl_up_sync(kFull, c.base[1], 1);
+    const unsigned pz = __shfl_up_sync(kFull, c.base[2], 1);
+    const bool prev_live = __shfl_up_sync(kFull, live ? 1 : 0, 1) != 0;
+    const unsigned starts = __ballot_sync(
+        kFull, lane == 0 || px != c.base[0] || py != c.base[1] || pz != c.base[2] || live != prev_live);
+    const unsigned ends = ((starts >> 1) | (1u << 31)) & __ballot_sync(kFull, live);
+    float v[8][F];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+        const float w = corner_w(c, q);
+#pragma unroll
+        for (int f = 0; f < F; ++f) v[q][f] = __fmul_rn(w, go[f]);
+    }
+    if (starts != kFull) {
+        // segmented inclusive scan: lane j adds lane j - off where both lie
+        // in the run that begins at lane `run_head`
+        const int run_head = 31 - __clz(starts & ((2u << lane) - 1u));
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+#pragma unroll
+            for (int q = 0; q < 8; ++q) {
+#pragma unroll
+                for (int f = 0; f < F; ++f) {
+                    const float o = __shfl_up_sync(kFull, v[q][f], off);
+                    if (lane - off >= run_head) v[q][f] = __fadd_rn(o, v[q][f]);
+                }
+            }
+        }
+    }
+    // each run's last lane writes its 8 items: after the block's earlier
+    // warps' items, then the warp's earlier runs'
+    const int mine = 8 * __popc(ends);
+    unsigned items;
+    const unsigned warp_base = block_exclusive_scan(lane == 0 ? mine : 0u, scan_smem, &items);
+    const unsigned base = __shfl_sync(kFull, warp_base, 0);
+    if ((ends >> lane) & 1u) {
+        const int at = static_cast<int>(base) + 8 * __popc(ends & ((1u << lane) - 1u));
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+            keys[at + q] = corner_slot(c, lv, l, q);
+            ids[at + q] = static_cast<unsigned short>(at + q);
+#pragma unroll
+            for (int f = 0; f < F; ++f) vals[(at + q) * F + f] = v[q][f];
+        }
+    }
+    __syncthreads();
+    const int count = static_cast<int>(items);
+    int in = 0;
+    if (a.slot_bits > 0) {
+        const int passes = (a.slot_bits + kK8DigitBits - 1) / kK8DigitBits;
+        const int width = (a.slot_bits + passes - 1) / passes;
+        const int radix = 1 << (width > kDigitBits ? width : kDigitBits);  // 256 at the least: a thread a digit
+        for (int shift = 0; shift < a.slot_bits; shift += width, in ^= 1)
+            k8_sort_pass(keys, ids + in * kK8Pairs, ids + (in ^ 1) * kK8Pairs, count, shift, radix,
+                         reinterpret_cast<unsigned short*>(smem + k.counters),
+                         reinterpret_cast<unsigned short*>(smem + k.digits), scan_smem);
+    }
+    const unsigned short* si = ids + in * kK8Pairs;
+
+    // thread t sums sorted items [8 t, 8 t + 8) in turn; the runs of equal
+    // slots are numbered in order across the block
+    const int i0 = kK8Items * t;
+    const int here = count - i0 < 0 ? 0 : count - i0 < kK8Items ? count - i0 : kK8Items;
+    unsigned key[kK8Items];
+    unsigned short id[kK8Items];
+    unsigned slot_starts = 0u;
+    unsigned prev = i0 > 0 && here > 0 ? keys[si[i0 - 1]] : kNoKey;
+#pragma unroll
+    for (int m = 0; m < kK8Items; ++m) {
+        id[m] = m < here ? si[i0 + m] : 0;
+        key[m] = m < here ? keys[id[m]] : kNoKey;
+        if (m < here && key[m] != prev) slot_starts |= 1u << m;
+        prev = key[m];
+    }
+    unsigned runs;
+    const unsigned run0 = block_exclusive_scan(__popc(slot_starts), scan_smem, &runs);
+    const long long range = static_cast<long long>(blockIdx.x) * a.block_windows * kSortTile;
+    const unsigned key0 = static_cast<unsigned>(l) * lv.size;
+    auto emit = [&](unsigned run, unsigned slot, const float (&s)[F]) {
+        const unsigned p = done + run;  // the block's partial p: window p / kSortTile
+        a.part_keys[range + p] = key0 + slot;
+#pragma unroll
+        for (int f = 0; f < F; ++f) a.part_vals[(range + p) * F + f] = s[f];
+        atomicAdd(&hist[(p / kSortTile) * kRadix + ((key0 + slot) & (kRadix - 1))], 1u);
+    };
+    // `open`: the chunk began inside an earlier thread's run, still summing it
+    bool open = here > 0 && !(slot_starts & 1u);
+    unsigned run = run0 - 1u;  // the run being summed
+    float acc[F];
+#pragma unroll
+    for (int f = 0; f < F; ++f) acc[f] = 0.0f;
+#pragma unroll
+    for (int m = 0; m < kK8Items; ++m) {
+        if (m >= here) break;
+        if ((slot_starts >> m) & 1u) {
+            if (m > 0) {  // the run that ended at m - 1
+                if (open) {
+#pragma unroll
+                    for (int f = 0; f < F; ++f) head[t * F + f] = acc[f];
+                    open = false;
+                } else {
+                    emit(run, key[m - 1], acc);
+                }
+            }
+            ++run;
+#pragma unroll
+            for (int f = 0; f < F; ++f) acc[f] = 0.0f;
+        }
+#pragma unroll
+        for (int f = 0; f < F; ++f) acc[f] = __fadd_rn(acc[f], vals[id[m] * F + f]);
+    }
+    // flags bit 0: the run that came into the chunk ends in it; bit 1: the
+    // chunk's last run goes on into the next chunk (its sum so far in tail)
+    unsigned flag = slot_starts ? 1u : 0u;
+    if (here > 0) {
+        const bool continues = i0 + here < count && keys[si[i0 + here]] == key[here - 1];
+        if (open) {
+#pragma unroll
+            for (int f = 0; f < F; ++f) head[t * F + f] = acc[f];
+            if (!continues) flag = 1u;
+        } else if (continues) {
+#pragma unroll
+            for (int f = 0; f < F; ++f) tail[t * F + f] = acc[f];
+            flag |= 2u;
+        } else {
+            emit(run, key[here - 1], acc);
+        }
+    }
+    flags[t] = flag;
+    __syncthreads();
+    if (flag & 2u) {  // the run that starts here and goes on: its chunks in order
+#pragma unroll
+        for (int f = 0; f < F; ++f) acc[f] = tail[t * F + f];
+        for (int u = t + 1; u < kK8Threads; ++u) {
+#pragma unroll
+            for (int f = 0; f < F; ++f) acc[f] = __fadd_rn(acc[f], head[u * F + f]);
+            if (flags[u] & 1u) break;
+        }
+        emit(run, key[here - 1], acc);
+    }
+    __syncthreads();  // the shared memory is the next level's
+    return runs;
+}
+
+// K8's tile stage (kPairs) or, without a table gradient, its position
+// gradient alone: a block a tile of 256 samples, a thread a sample, walking
+// the levels and the padded ones (whose term is 0).
+template <int F, bool kPairs>
+__global__ void __launch_bounds__(kK8Threads) hash_lookup_bwd_tile_kernel(K8Args a, CornerLevels lv) {
+    char* smem = k8_shared();
+    const int half = a.slots / 2;
+    const K8Layout k = k8_layout(F, kPairs, half, a.block_windows);
+    float* acc = reinterpret_cast<float*>(smem + k.acc);  // [half][3][thread]
+    const int t = threadIdx.x;
+    if constexpr (kPairs) {
+        unsigned* hist = reinterpret_cast<unsigned*>(smem + k.hist);
+        for (int e = t; e < a.block_windows * kRadix; e += kK8Threads) hist[e] = 0u;
+    }
+    const long long i = static_cast<long long>(blockIdx.x) * kK8Lookups + t;
+    const bool sample = i < a.n;
+    float p[3] = {0.0f, 0.0f, 0.0f};
+    if (sample) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d) p[d] = a.positions[3 * i + d];
+    }
+    float gpos[3] = {0.0f, 0.0f, 0.0f};
+    unsigned parts = 0u;
+    // the next level's cell and entries load while this level is summed
+    const bool reads = a.g_pos != nullptr && sample;
+    Corner c = corner_locate(p, lv, 0);
+    float v[8][F];
+    if (reads) corner_entries<F>(c, a.table, lv, 0, v);
+    for (int l = 0; l < a.slots; ++l) {
+        float grad[3] = {0.0f, 0.0f, 0.0f};
+        if (l < a.num_levels) {
+            float go[F];
+#pragma unroll
+            for (int f = 0; f < F; ++f) go[f] = sample ? a.g_out[(i * a.num_levels + l) * F + f] : 0.0f;
+            Corner next = c;
+            float v_next[8][F];
+            if (l + 1 < a.num_levels) {
+                next = corner_locate(p, lv, l + 1);
+                if (reads) corner_entries<F>(next, a.table + static_cast<long long>(l + 1) * lv.size * F, lv, l + 1,
+                                             v_next);
+            }
+            if (reads) corner_pos_grad<F>(c, v, lv.res[l], go, grad);
+            if constexpr (kPairs) parts += k8_tile_level<F>(a, lv, k, smem, c, go, l, parts);
+            c = next;
+            if (reads && l + 1 < a.num_levels) {
+#pragma unroll
+                for (int q = 0; q < 8; ++q) {
+#pragma unroll
+                    for (int f = 0; f < F; ++f) v[q][f] = v_next[q][f];
+                }
+            }
+        }
+        // the butterfly over the padded levels, its first step level by
+        // level: lane q < half took lane q + half's term
+        if (a.g_pos != nullptr) {
+#pragma unroll
+            for (int d = 0; d < 3; ++d) {
+                if (half == 0) {
+                    gpos[d] = grad[d];
+                } else {
+                    float* slot = acc + ((l % half) * 3 + d) * kK8Threads + t;
+                    *slot = l < half ? grad[d] : __fadd_rn(*slot, grad[d]);
+                }
+            }
+        }
+    }
+    if (a.g_pos != nullptr) {
+        for (int off = half / 2; off > 0; off >>= 1) {
+            for (int q = 0; q < off; ++q) {
+#pragma unroll
+                for (int d = 0; d < 3; ++d)
+                    acc[(q * 3 + d) * kK8Threads + t] =
+                        __fadd_rn(acc[(q * 3 + d) * kK8Threads + t], acc[((q + off) * 3 + d) * kK8Threads + t]);
+            }
+        }
+        if (half > 0) {
+#pragma unroll
+            for (int d = 0; d < 3; ++d) gpos[d] = acc[d * kK8Threads + t];
+        }
+        if (sample) {
+#pragma unroll
+            for (int d = 0; d < 3; ++d) a.g_pos[3 * i + d] = gpos[d];
+        }
+    }
+    if constexpr (kPairs) {
+        // each window's histogram and count (a thread a digit), the digit
+        // totals, and the block's partials into the count of all
+        const unsigned* hist = reinterpret_cast<const unsigned*>(smem + k.hist);
+        unsigned total = 0u;
+        for (int w = 0; w < a.block_windows; ++w) {
+            const long long window = static_cast<long long>(blockIdx.x) * a.block_windows + w;
+            const unsigned c = hist[w * kRadix + t];
+            a.counts[t * static_cast<long long>(a.windows) + window] = c;
+            total += c;
+            if (t == 0) {
+                const long long left = static_cast<long long>(parts) - static_cast<long long>(w) * kSortTile;
+                a.window_count[window] = static_cast<unsigned>(left < 0 ? 0 : left < kSortTile ? left : kSortTile);
+            }
+        }
+        unsigned* totals = a.totals;
+        if (total) atomicAdd(&totals[t], total);
+        if (t == 0) atomicAdd(&totals[kK8Parts], parts);
+    }
+}
+
+// K8's partial sums: the sorted partial `id` adds its F sums to its entry's
+// gradient (key l T + slot).
+template <int F>
+struct PartialSum {
     static constexpr int V = F;
-    const float* positions;
-    const float* g_out;
+    const float* vals;
     float* g_table;
-    int num_levels;
-    const CornerLevels& lv;
 
     __device__ __forceinline__ int values(unsigned id, float (&v)[V]) const {
-        const long long t = id >> 3;
-        const int k = static_cast<int>(id & 7u);
-        const long long i = t / num_levels;
-        const int l = static_cast<int>(t - i * num_levels);
-        const float p[3] = {positions[3 * i], positions[3 * i + 1], positions[3 * i + 2]};
-        const float w = corner_w(corner_locate(p, lv, l), k);
 #pragma unroll
-        for (int f = 0; f < F; ++f) v[f] = __fmul_rn(w, g_out[t * F + f]);
-        return l;
+        for (int f = 0; f < F; ++f) v[f] = vals[static_cast<long long>(id) * F + f];
+        return 0;
     }
     __device__ __forceinline__ int level(unsigned) const { return 0; }
     __device__ __forceinline__ float* dst(unsigned key, int) const {
@@ -1824,21 +2392,24 @@ struct CornerSum {
     }
 };
 
-// K8, stage 3: the segmented sum of K5's stage 3 on (lookup, corner) pairs.
+// K8, stage 3: K5's segmented sum over the sorted partials, their count on
+// the device.
 template <int F>
 __global__ void __launch_bounds__(kThreads) hash_lookup_bwd_reduce_kernel(
-    const unsigned* __restrict__ skeys, const unsigned* __restrict__ sids, const float* __restrict__ positions,
-    const float* __restrict__ g_out, float* __restrict__ g_table, float* __restrict__ head,
-    float* __restrict__ tail, unsigned* __restrict__ tail_key, int num_keys, int num_levels, CornerLevels lv) {
-    segmented_sum(skeys, sids, head, tail, tail_key, num_keys, CornerSum<F>{positions, g_out, g_table, num_levels, lv});
+    const unsigned* __restrict__ skeys, const unsigned* __restrict__ sids, const float* __restrict__ vals,
+    float* __restrict__ g_table, float* __restrict__ head, float* __restrict__ tail, unsigned* __restrict__ tail_key,
+    const unsigned* __restrict__ num_parts) {
+    segmented_sum(skeys, sids, head, tail, tail_key, static_cast<long long>(*num_parts),
+                  PartialSum<F>{vals, g_table});
 }
 
 // K8, stage 4: as K5's.
 template <int F>
 __global__ void __launch_bounds__(kThreads) hash_lookup_bwd_fixup_kernel(
     const unsigned* __restrict__ skeys, const float* __restrict__ head, const float* __restrict__ tail,
-    const unsigned* __restrict__ tail_key, long long num_chunks, float* __restrict__ g_table, CornerLevels lv) {
-    segmented_sum_fixup(skeys, head, tail, tail_key, num_chunks, CornerSum<F>{nullptr, nullptr, g_table, 0, lv});
+    const unsigned* __restrict__ tail_key, const unsigned* __restrict__ num_parts, float* __restrict__ g_table) {
+    const long long chunks = (static_cast<long long>(*num_parts) + kChunk - 1) / kChunk;
+    segmented_sum_fixup(skeys, head, tail, tail_key, chunks, PartialSum<F>{nullptr, g_table});
 }
 
 // K7/K8's per-level constants. False on what the kernels do not take: the
@@ -1862,56 +2433,130 @@ bool corner_levels(const int* resolutions, int num_levels, int table_size, unsig
 template <int F>
 cudaError_t launch_corner_fwd(const float* positions, const float* table, float* out, int n, int num_levels,
                               const CornerLevels& lv, cudaStream_t st) {
-    const long long threads = static_cast<long long>(n) * num_levels;
-    const int blocks = static_cast<int>((threads + kCornerThreads - 1) / kCornerThreads);
-    hash_lookup_fwd_kernel<F><<<blocks, kCornerThreads, 0, st>>>(positions, table, out, n, num_levels, lv);
-    return cudaGetLastError();
-}
-
-template <int F>
-cudaError_t launch_corner_keys(const float* positions, const float* table, const float* g_out, float* g_pos,
-                               unsigned* keys, unsigned* totals, int n, int num_levels, const CornerLevels& lv,
-                               cudaStream_t st) {
-    const int slots = 1 << ceil_log2(num_levels);
-    const long long threads = static_cast<long long>(n) * slots;
-#define CORNER_KEYS_CASE(k)                                                                          \
-    case k:                                                                                          \
-        hash_lookup_bwd_keys_kernel<F, k><<<blocks_for(threads), kThreads, 0, st>>>(                 \
-            positions, table, g_out, g_pos, keys, totals, n, num_levels, lv);                        \
-        break;
-    switch (slots) {
-        CORNER_KEYS_CASE(1) CORNER_KEYS_CASE(2) CORNER_KEYS_CASE(4) CORNER_KEYS_CASE(8)
-        CORNER_KEYS_CASE(16) CORNER_KEYS_CASE(32)
-        default:
-            return cudaErrorInvalidValue;
+    if (static_cast<long long>(num_levels) * lv.size * F * 4 > kK7WalkBytes) {
+        const int blocks = static_cast<int>((static_cast<long long>(n) + kK7Threads - 1) / kK7Threads);
+        hash_lookup_fwd_walk_kernel<F><<<blocks, kK7Threads, 0, st>>>(positions, table, out, n, num_levels, lv);
+    } else {
+        const long long threads = static_cast<long long>(n) * num_levels;
+        const int blocks = static_cast<int>((threads + kK7LookupThreads - 1) / kK7LookupThreads);
+        hash_lookup_fwd_lookup_kernel<F><<<blocks, kK7LookupThreads, 0, st>>>(positions, table, out, n, num_levels,
+                                                                              lv);
     }
-#undef CORNER_KEYS_CASE
     return cudaGetLastError();
 }
 
-// Every stage of K8, or stage 1 alone without keys where g_table is null.
+// K8's scratch regions, each 256-byte aligned, carved from one buffer: the
+// blocks' partials (keys in keys[0], the sort's first input), the sort's
+// other buffers, the histograms, the digit totals with the partials' count
+// after them, the windows' counts and the segmented sum's chunk partials.
+struct K8Scratch {
+    unsigned* keys[2];
+    unsigned* ids[2];
+    float* vals;
+    unsigned* counts;
+    unsigned* totals;
+    unsigned* num_parts;
+    unsigned* window_count;
+    float* head;
+    float* tail;
+    unsigned* tail_key;
+};
+
+constexpr int kK8Zeroed = kK8Parts + 1;  // the digit totals and the partials' count
+
+// Windows of kSortTile partials: (L + 1) / 2 a tile of kK8Lookups samples.
+long long k8_windows(long long n, int num_levels) {
+    return (n + kK8Lookups - 1) / kK8Lookups * ((num_levels + 1) / 2);
+}
+
+long long carve_k8(char* base, long long windows, int features, K8Scratch* s) {
+    long long off = 0;
+    auto take = [&](long long bytes) {
+        char* p = base == nullptr ? nullptr : base + off;
+        off += (bytes + 255) & ~255LL;
+        return p;
+    };
+    const long long cap = windows * kSortTile;  // room for every pair a partial: the most there can be
+    const long long chunks = (cap + kChunk - 1) / kChunk;
+    for (int k = 0; k < 2; ++k) s->keys[k] = reinterpret_cast<unsigned*>(take(4 * cap));
+    for (int k = 0; k < 2; ++k) s->ids[k] = reinterpret_cast<unsigned*>(take(4 * cap));
+    s->vals = reinterpret_cast<float*>(take(4 * features * cap));
+    s->counts = reinterpret_cast<unsigned*>(take(4LL * kRadix * windows));
+    s->totals = reinterpret_cast<unsigned*>(take(4LL * kK8Zeroed));
+    s->num_parts = s->totals == nullptr ? nullptr : s->totals + kK8Parts;
+    s->window_count = reinterpret_cast<unsigned*>(take(4 * windows));
+    s->head = reinterpret_cast<float*>(take(4LL * features * chunks));
+    s->tail = reinterpret_cast<float*>(take(4LL * features * chunks));
+    s->tail_key = reinterpret_cast<unsigned*>(take(4 * chunks));
+    return off;
+}
+
+// Every stage of K8, or the tile stage alone without pairs where g_table is
+// null (scratch may then be null).
 template <int F>
 cudaError_t launch_corner_bwd(const float* positions, const float* table, const float* g_out, float* g_table,
-                              float* g_pos, const Scratch& s, int n, int num_levels, const CornerLevels& lv,
+                              float* g_pos, char* scratch, int n, int num_levels, const CornerLevels& lv,
                               cudaStream_t st) {
-    if (g_table == nullptr)
-        return launch_corner_keys<F>(positions, table, g_out, g_pos, nullptr, nullptr, n, num_levels, lv, st);
-    const int num_keys = 8 * n * num_levels;
-    cudaError_t err = launch_corner_keys<F>(positions, table, g_out, g_pos, s.keys[0], s.totals, n, num_levels,
-                                            lv, st);
+    const int tiles = (n + kK8Lookups - 1) / kK8Lookups;
+    K8Args a = {};
+    a.positions = positions;
+    a.table = table;
+    a.g_out = g_out;
+    a.g_pos = g_pos;
+    a.n = n;
+    a.num_levels = num_levels;
+    a.block_windows = (num_levels + 1) / 2;
+    a.windows = tiles * a.block_windows;
+    a.slots = 1 << ceil_log2(num_levels);
+    a.slot_bits = ceil_log2(lv.size);
+    const bool pairs = g_table != nullptr;
+    const int bytes = k8_layout(F, pairs, a.slots / 2, a.block_windows).bytes;
+    auto tile_kernel = pairs ? hash_lookup_bwd_tile_kernel<F, true> : hash_lookup_bwd_tile_kernel<F, false>;
+    cudaError_t err = cudaFuncSetAttribute(tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
+    if (!pairs) {
+        tile_kernel<<<tiles, kK8Threads, bytes, st>>>(a, lv);
+        return cudaGetLastError();
+    }
+    K8Scratch s;
+    carve_k8(scratch, a.windows, F, &s);
+    a.part_keys = s.keys[0];
+    a.part_vals = s.vals;
+    a.window_count = s.window_count;
+    a.counts = s.counts;
+    a.totals = s.totals;
+    err = cudaMemsetAsync(s.totals, 0, 4 * kK8Zeroed, st);
+    if (err != cudaSuccess) return err;
+    tile_kernel<<<tiles, kK8Threads, bytes, st>>>(a, lv);
+    // the stable sort of the partials: pass 0 over the windows, with the
+    // tile stage's histograms; the later passes over the dense partials
     const int bits = ceil_log2(static_cast<long long>(num_levels) * lv.size);
-    const int passes = bits > 0 ? (bits + kDigitBits - 1) / kDigitBits : 1;
-    err = radix_sort(s, num_keys, passes, st);
-    if (err != cudaSuccess) return err;
+    const int passes = bits > kDigitBits ? (bits + kDigitBits - 1) / kDigitBits : 1;
+    cell_lookup_bwd_scan_kernel<<<kRadix, kSortThreads, 0, st>>>(s.counts, s.totals, a.windows);
+    cell_lookup_bwd_scatter_kernel<true><<<a.windows, kSortThreads, 0, st>>>(
+        s.keys[0], nullptr, s.keys[1], s.ids[1], s.counts, 0, a.windows, 0, nullptr, s.window_count, kSortTile);
+    const long long cap = static_cast<long long>(a.windows) * kSortTile;
+    const int sort_tiles = a.windows;
+    for (int p = 1; p < passes; ++p) {
+        const unsigned* kin = s.keys[p & 1];
+        const unsigned* iin = s.ids[p & 1];
+        unsigned* totals = s.totals + p * kRadix;
+        const int shift = p * kDigitBits;
+        cell_lookup_bwd_hist_kernel<<<sort_tiles, kSortThreads, 0, st>>>(kin, s.counts, totals, 0, sort_tiles,
+                                                                          shift, s.num_parts);
+        cell_lookup_bwd_scan_kernel<<<kRadix, kSortThreads, 0, st>>>(s.counts, totals, sort_tiles);
+        cell_lookup_bwd_scatter_kernel<false><<<sort_tiles, kSortThreads, 0, st>>>(
+            kin, iin, s.keys[(p + 1) & 1], s.ids[(p + 1) & 1], s.counts, 0, sort_tiles, shift, s.num_parts, nullptr,
+            kSortTile);
+    }
     const unsigned* skeys = s.keys[passes & 1];
     const unsigned* sids = s.ids[passes & 1];
-    const long long chunks = (static_cast<long long>(num_keys) + kChunk - 1) / kChunk;
+    const long long chunks = (cap + kChunk - 1) / kChunk;
     const int blocks = static_cast<int>((chunks + kWarpsPerBlock - 1) / kWarpsPerBlock);
-    hash_lookup_bwd_reduce_kernel<F><<<blocks, kThreads, 0, st>>>(skeys, sids, positions, g_out, g_table, s.head,
-                                                                  s.tail, s.tail_key, num_keys, num_levels, lv);
-    hash_lookup_bwd_fixup_kernel<F><<<blocks, kThreads, 0, st>>>(skeys, s.head, s.tail, s.tail_key, chunks,
-                                                                 g_table, lv);
+    hash_lookup_bwd_reduce_kernel<F><<<blocks, kThreads, 0, st>>>(skeys, sids, s.vals, g_table, s.head, s.tail,
+                                                                  s.tail_key, s.num_parts);
+    hash_lookup_bwd_fixup_kernel<F><<<blocks, kThreads, 0, st>>>(skeys, s.head, s.tail, s.tail_key, s.num_parts,
+                                                                 g_table);
     return cudaGetLastError();
 }
 }  // namespace
@@ -2128,17 +2773,19 @@ extern "C" int radix_sort_u32(const unsigned* keys, int num_keys, int bits, unsi
 }
 
 // K7. table: (L, T, F) float32 contiguous, 16-byte aligned; positions (n, 3)
-// contiguous; out (n, L * F) contiguous. resolutions a host array of L ints;
-// dense_mask bit l: level l indexes densely ((res_l + 1)^3 <= T in float32,
-// as the JAX package decides). features is F in {1, 2, 4, 8}; n * L < 2^31,
-// L T <= 2^31. Launches on `stream` and returns cudaGetLastError(), or
-// cudaErrorInvalidValue for arguments the kernel does not take.
+// contiguous; out (n, L * F) contiguous, 16-byte aligned. resolutions a host
+// array of L ints; dense_mask bit l: level l indexes densely ((res_l + 1)^3 <=
+// T in float32, as the JAX package decides). features is F in {1, 2, 4, 8};
+// n * L < 2^31, L T <= 2^31. Launches on `stream` and returns
+// cudaGetLastError(), or cudaErrorInvalidValue for arguments the kernel does
+// not take.
 extern "C" int hash_lookup_fwd_f32(const float* positions, const float* table, float* out, int n, int num_levels,
                                    int table_size, int features, const int* resolutions, unsigned dense_mask,
                                    void* stream) {
     CornerLevels lv;
     if (!corner_levels(resolutions, num_levels, table_size, dense_mask, &lv) || n < 0 ||
-        static_cast<long long>(n) * num_levels >= (1LL << 31) || reinterpret_cast<unsigned long long>(table) % 16)
+        static_cast<long long>(n) * num_levels >= (1LL << 31) || reinterpret_cast<unsigned long long>(table) % 16 ||
+        reinterpret_cast<unsigned long long>(out) % 16)
         return static_cast<int>(cudaErrorInvalidValue);
     if (n == 0) return 0;
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -2151,20 +2798,21 @@ extern "C" int hash_lookup_fwd_f32(const float* positions, const float* table, f
     }
 }
 
-// Bytes of scratch K8 needs for n samples (8 n L keys and pair ids, twice,
-// the sort's counts, the chunks' partial sums), or -1 for arguments it does
-// not take (8 n L >= 2^31).
+// Bytes of scratch K8 needs for n samples (room for a partial per (lookup,
+// corner) pair, 256 samples a tile: its keys, the sort's keys and ids, the
+// partials' sums, the histograms and the chunks' partial sums), or -1 for
+// arguments it does not take (the pairs of the tiles reach 2^31).
 extern "C" long long hash_lookup_bwd_scratch_bytes(int n, int num_levels, int features) {
     if (n < 0 || num_levels < 1 || num_levels > kMaxLevels || features < 1) return -1;
-    const long long keys = 8LL * n * num_levels;
-    if (keys >= (1LL << 31)) return -1;
-    Scratch s;
-    return carve(nullptr, keys, features, &s);
+    const long long windows = k8_windows(n, num_levels);
+    if (windows * kSortTile >= (1LL << 31)) return -1;
+    K8Scratch s;
+    return carve_k8(nullptr, windows, features, &s);
 }
 
 // K8, as hash_lookup_fwd_f32, with g_out (n, L * F) contiguous; g_table (L,
 // T, F) zero-filled by the caller, 16-byte aligned, or null (then only the
-// position gradient is computed, no key is sorted and scratch may be null);
+// position gradient is computed, no pair is formed and scratch may be null);
 // g_pos (n, 3) or null; and scratch of hash_lookup_bwd_scratch_bytes bytes,
 // 256-byte aligned. Every entry that a lookup touches is stored once; g_pos
 // is written in full.
@@ -2175,18 +2823,22 @@ extern "C" int hash_lookup_bwd_f32(const float* positions, const float* table, c
     CornerLevels lv;
     if (!corner_levels(resolutions, num_levels, table_size, dense_mask, &lv) || n < 0 ||
         (g_table == nullptr && g_pos == nullptr) || 8LL * n * num_levels >= (1LL << 31) ||
-        reinterpret_cast<unsigned long long>(table) % 16)
+        reinterpret_cast<unsigned long long>(table) % 16 || reinterpret_cast<unsigned long long>(g_table) % 16)
         return static_cast<int>(cudaErrorInvalidValue);
     if (n == 0) return 0;
-    Scratch s = {};
-    if (g_table != nullptr &&
-        carve(static_cast<char*>(scratch), 8LL * n * num_levels, features, &s) > scratch_bytes)
-        return static_cast<int>(cudaErrorInvalidValue);
+    if (g_table != nullptr) {
+        const long long windows = k8_windows(n, num_levels);
+        K8Scratch s;
+        if (windows * kSortTile >= (1LL << 31) || carve_k8(nullptr, windows, features, &s) > scratch_bytes ||
+            scratch == nullptr)
+            return static_cast<int>(cudaErrorInvalidValue);
+    }
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    char* sc = static_cast<char*>(scratch);
     cudaError_t err;
-#define K8_CASE(f)                                                                                    \
-    case f:                                                                                           \
-        err = launch_corner_bwd<f>(positions, table, g_out, g_table, g_pos, s, n, num_levels, lv, st); \
+#define K8_CASE(f)                                                                                     \
+    case f:                                                                                            \
+        err = launch_corner_bwd<f>(positions, table, g_out, g_table, g_pos, sc, n, num_levels, lv, st); \
         break;
     switch (features) {
         K8_CASE(1) K8_CASE(2) K8_CASE(4) K8_CASE(8)
