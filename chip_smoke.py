@@ -60,10 +60,11 @@ through ``build_ensemble_splat_render_cam`` at probed eval budgets: K2
 five times an image, against the plain path, five identical members
 against the single model, ``get_average_uncertainty_metrics`` over two
 images). The splat phases also run the packed-row gather's backward
-(``csrc/packed_rows.cu`` with K5's radix sort): launched on every splat
-training step, twice and bit for bit against its plain version at 384, at
-the tuned capacity and at the splat ensemble's eval capacity, timed beside
-``F.embedding``'s backward and its byte bound; two splat steps from one
+(``csrc/packed_rows.cu``): launched on every splat training step, twice and
+bit for bit against its plain version at 384, at the tuned capacity and at
+the splat ensemble's eval capacity, captured in a CUDA graph and replayed
+on another step's inputs copied in place (another live count) bit for bit,
+timed beside ``F.embedding``'s backward and its byte bound; two splat steps from one
 restored snapshot are required bit-identical at 384 and after the first
 and the last refine, and what ``use_deterministic_algorithms`` flags in a
 splat step is listed. After active-nerfacto come its sister methods at full
@@ -118,7 +119,8 @@ and on tables whose entries hold their own slot; K8 (its deterministic
 backward) twice bit for bit and within GRID_GRAD_TOL of autograd, also
 at positions three quarters of which lie in one tiny cube, its
 positions-only mode's g_pos equal to its own; K5's positions-only mode
-against its full backward; K7, K8 and both positions-only modes timed
+(a kernel of its own) bit for bit against its full backward and
+``cell_lookup_positions_vjp_reference``; K7, K8 and both positions-only modes timed
 beside their bounds (K8 by CUDA events), K7 beside ``F.embedding_bag`` and
 K8 beside ``index_put_(accumulate=True)`` of its pairs; full-width
 active-nerfacto with ``--overrides '{"grid_layout": "corner"}'`` trained
@@ -163,10 +165,14 @@ its kernel entries; ``--corner-only`` the corner phase (``run_corner``) on
 a tree of its own.
 
 ``--corner-against OTHER_CHECKOUT`` also builds that checkout's
-``hash_grid.cu`` (the parent commit unpacked with ``git archive``, whose
-K7/K8 entry points take the same arguments), holds its K7 bit for bit and
-its K8 within GRID_GRAD_TOL against the plain versions, and times both in
-turns with this checkout's at the corner step's training positions.
+``hash_grid.cu`` and ``packed_rows.cu`` (the parent commit unpacked with
+``git archive``, whose K7/K8 and K5 entry points take the same arguments),
+holds its K7 bit for bit and its K8 within GRID_GRAD_TOL against the plain
+versions, and times both in turns with this checkout's at the corner step's
+training positions; its K5 positions-only mode and its packed-row backward
+(either layout of that source's entry points) are held bit for bit and
+timed in turns with this checkout's at the same inputs, by CUDA events and
+the profiler.
 
 ``--splat-repeatable-only [CHECKOUT]`` runs only the splat repeatability
 check in its three places, with CHECKOUT's package in place of this one
@@ -2131,7 +2137,7 @@ def profile_splat(trainer) -> None:
 
 # -- the splat gather's backward, and the splat step's repeatability ----------
 
-PACKED_ROWS_SYMBOL = "packed_rows_sum_kernel"
+PACKED_ROWS_SYMBOL = "packed_rows_"  # its count, scan, place and sum kernels
 
 
 def capture_gather(trainer, cam_idx: int = 2) -> tuple:
@@ -2165,17 +2171,25 @@ def packed_rows_bound_ms(g, counts, n) -> tuple[float, int, int]:
     return 1e3 * nbytes / HBM_BYTES_PER_S, nbytes, live
 
 
-def check_packed_rows(label, captured, gen) -> dict:
-    """The gather's backward (``csrc/packed_rows.cu`` with K5's sort) on a
-    real step's inputs: launched twice and required bit-identical, and
-    required equal to ``packed_rows_vjp_reference`` bit for bit (both add
-    each row's entries in ascending (tile, slot) order); F.embedding's
-    backward with the pad row skipped (``embedding_dense_backward``, the
-    library call for the same function, another order) and the float64 sum
-    printed beside them. Then timed over input sets that pass
-    MIN_SET_BYTES: the kernel pipeline's device time per call, the plain
-    version's and the library call's, against the byte bound. These
-    launches are not the main path's: the counters are left as found."""
+def check_packed_rows(label, captured, gen, second, other=None) -> dict:
+    """The gather's backward (``csrc/packed_rows.cu``) on a real step's
+    inputs: launched twice and required bit-identical, and required equal
+    to ``packed_rows_vjp_reference`` bit for bit (both add each row's
+    entries in ascending (tile, slot) order); F.embedding's backward with
+    the pad row skipped (``embedding_dense_backward``, the library call for
+    the same function, another order) and the float64 sum printed beside
+    them. Then captured in a ``torch.cuda.CUDAGraph`` on ``captured`` (its
+    index in select_and_pack's layout, rows K + 1 apart) and replayed, and
+    replayed again after ``second`` (another step's inputs of the same
+    shapes, with another number of live slots) was copied over the inputs
+    in place: both replays must equal the plain version bit for bit, which
+    shows that nothing is sized on the host. Then timed over input sets
+    that pass MIN_SET_BYTES: the kernels' device time per call, a call back
+    to back by CUDA events, the plain version's and the library call's,
+    against the byte bound. ``other`` (``other_corner``): that checkout's
+    backward held bit for bit and timed in turns with this one's at the
+    same inputs (this, other, other, this). These launches are not the
+    main path's: the counters are left as found."""
     from uncertainty_nerf_gs_torch.ops import backend, rasterize
 
     saved = dict(backend.launch_counts)
@@ -2193,6 +2207,7 @@ def check_packed_rows(label, captured, gen) -> dict:
     exact = torch.zeros((n + 1, d), dtype=torch.float64, device=g.device)
     exact.index_add_(0, idx[live], g[live].double())
     exact[n] = 0.0
+    runs = torch.bincount(idx[live], minlength=n + 1)[:n]
     torch.cuda.synchronize()
     identical, equal = torch.equal(a, b), torch.equal(a, plain)
     err = float((a - plain).abs().max())
@@ -2203,9 +2218,42 @@ def check_packed_rows(label, captured, gen) -> dict:
     print(f"packed-row backward {label}: g_packed {tuple(g.shape)}, {num_live} live slots of {t * k}, "
           f"{n} rows: two launches bit-identical {identical}; against the plain version max_abs_err "
           f"{err:.3e} (bit for bit: {equal}); against F.embedding's backward {lib_err:.3e}; against "
-          f"float64 {err64:.3e} (F.embedding's {lib64:.3e})")
+          f"float64 {err64:.3e} (F.embedding's {lib64:.3e}); runs: longest {int(runs.max())}, "
+          f"{int((runs > 8).sum())} rows past 8 slots, {int((runs > 32).sum())} past 32")
     if not (identical and equal and torch.isfinite(a).all()):
         raise AssertionError(f"packed-row backward {label}: not bit-identical to itself or its plain version")
+
+    # a CUDA graph: captured once, replayed on inputs overwritten in place
+    g2, idx2, counts2, n2 = second
+    if tuple(g2.shape) != (t, k, d) or n2 != n:
+        raise AssertionError(f"packed-row backward {label}: the second set's shapes differ")
+    if int(counts2.sum()) == num_live:  # another live count: drop one tile's last live slot
+        counts2 = counts2.clone()
+        counts2[int(torch.nonzero(counts2)[0])] -= 1
+    gs, cs_ = g.clone(), counts.clone()
+    ids = torch.full((t, k + 1), n, dtype=idx.dtype, device=idx.device)[:, :k]  # select_and_pack's layout
+    ids.copy_(idx)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = rasterize.packed_rows_bwd(gs, ids, cs_, n)
+    graph.replay()
+    torch.cuda.synchronize()
+    replay_equal = torch.equal(out, plain)
+    gs.copy_(g2)
+    ids.copy_(idx2)
+    cs_.copy_(counts2)
+    graph.replay()
+    plain2 = rasterize.packed_rows_vjp_reference(g2, idx2, counts2, n)
+    torch.cuda.synchronize()
+    replay2_equal = torch.equal(out, plain2)
+    live2 = int(counts2.sum())
+    del graph, out
+    print(f"packed-row backward {label}: captured in a CUDA graph at {num_live} live slots and replayed: bit for "
+          f"bit {replay_equal}; inputs overwritten in place with another step's ({live2} live slots) and "
+          f"replayed: bit for bit against the plain version {replay2_equal}")
+    if not (replay_equal and replay2_equal):
+        raise AssertionError(f"packed-row backward {label}: a graph replay differs from the plain version")
+
     per_set = 4 * g.numel() + 8 * idx.numel()
     sets = [captured]
     for _ in range(-(-MIN_SET_BYTES // per_set) - 1):
@@ -2216,15 +2264,34 @@ def check_packed_rows(label, captured, gen) -> dict:
     plain_ms = device_ms(rasterize.packed_rows_vjp_reference, sets, "")
     library_ms = device_ms(library, sets, "")
     traced, _ = device_kernels(lambda: rasterize.packed_rows_bwd(*captured))
-    print(f"packed-row backward {label}: kernel pipeline {ms:.4f} ms of device time a call "
-          f"({event_ms:.4f} ms a call back to back, its host read of the live count included), plain "
-          f"{plain_ms:.4f} ms, F.embedding's backward {library_ms:.4f} ms, bound {bound:.4f} ms (bytes: "
-          f"{nbytes / 1e6:.2f} MB); device kernels of one call: " + ", ".join(
+    print(f"packed-row backward {label}: kernels {ms:.4f} ms of device time a call ({event_ms:.4f} ms a call "
+          f"back to back), plain {plain_ms:.4f} ms, F.embedding's backward {library_ms:.4f} ms, bound "
+          f"{bound:.4f} ms (bytes: {nbytes / 1e6:.2f} MB); device kernels of one call: " + ", ".join(
               f"{kernel_name(name)} x{c} {1e-3 * us:.4f} ms" for name, (c, us) in sorted(traced.items())))
+    result = dict(ms=ms, event_ms=event_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
+                  bound_by="bytes", bytes=nbytes, shape=[t, k, d], live=num_live, rows=n, max_abs_err=err,
+                  library_err=lib_err, bit_identical=identical, graph_replay_live=live2,
+                  longest_run=int(runs.max()), device_kernels={kernel_name(name): [c, 1e-3 * us]
+                                                                for name, (c, us) in traced.items()})
+    if other is not None:
+        theirs = other.packed_rows_bwd(g, idx, counts, n)
+        torch.cuda.synchronize()
+        other_equal = torch.equal(theirs, plain)
+        turns = []
+        for who in ("this", "other", "other", "this"):
+            fn = rasterize.packed_rows_bwd if who == "this" else other.packed_rows_bwd
+            turns.append((who, device_ms(fn, sets, ""), time_ms(fn, sets)))
+        mine = [(d_, e_) for w, d_, e_ in turns if w == "this"]
+        theirs_t = [(d_, e_) for w, d_, e_ in turns if w == "other"]
+        print(f"packed-row backward {label}, in turns with {other.checkout} at the same inputs (this, other, other, "
+              f"this): device ms a call this {mine[0][0]:.4f} / {mine[1][0]:.4f}, other {theirs_t[0][0]:.4f} / "
+              f"{theirs_t[1][0]:.4f}; a call back to back this {mine[0][1]:.4f} / {mine[1][1]:.4f}, other "
+              f"{theirs_t[0][1]:.4f} / {theirs_t[1][1]:.4f}; the other's bit for bit against the plain version "
+              f"{other_equal}")
+        result.update(turns=[dict(who=w, ms=d_, event_ms=e_) for w, d_, e_ in turns], other_equal=other_equal)
+    backend.launch_counts.clear()
     backend.launch_counts.update(saved)
-    return dict(ms=ms, event_ms=event_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
-                bound_by="bytes", bytes=nbytes, shape=[t, k, d], live=num_live, rows=n, max_abs_err=err,
-                library_err=lib_err, bit_identical=identical)
+    return result
 
 
 def _clone_tree(x):
@@ -2395,7 +2462,7 @@ def cpu_copy(params, state):
             sf.SplatState(*(x.detach().cpu().clone() for x in state)))
 
 
-def run_splat_refine(trainer, name) -> dict:
+def run_splat_refine(trainer, name, other=None) -> dict:
     """REFINE_STEPS training steps through the refine schedule, then two
     images: K2 launched once a step and an image, K3 once a step; each
     refine's counts and time; the replaced slots' Adam moments zero right
@@ -2406,7 +2473,9 @@ def run_splat_refine(trainer, name) -> dict:
     refine is replayed on the CPU from the same state and split draws: its
     masks (the admitted splits and dups, the touched slots, the alive
     mask) and counts equal, its floats within TOL. K2 and K3 at the tuned
-    capacity are held against their plain versions, then timed."""
+    capacity are held against their plain versions, then timed, and the
+    packed-row backward is checked there (``check_packed_rows``, with
+    ``other``'s in turns where given)."""
     from uncertainty_nerf_gs_torch.models import splatfacto as sf
     from uncertainty_nerf_gs_torch.ops import backend
 
@@ -2536,7 +2605,8 @@ def run_splat_refine(trainer, name) -> dict:
     tuned = composite_times("splat refine, tuned capacity", *tiles, gen)
     tuned.update(fwd_err=check["fwd_err"], bwd_err=check["bwd_err"])
     del check, tiles
-    gather = check_packed_rows("at the tuned capacity", capture_gather(trainer), gen)
+    gather = check_packed_rows("at the tuned capacity", capture_gather(trainer), gen,
+                               capture_gather(trainer, cam_idx=3), other)
     symbols = {"composite_fwd": "composite_fwd_kernel", "composite_bwd": "composite_bwd_kernel"}
     t0 = time.perf_counter()
     grew = trainer.retune_capacity()  # ends in the probes' copies to the host
@@ -2558,7 +2628,7 @@ def run_splat_refine(trainer, name) -> dict:
 SPLAT_MEMBERS = 5
 
 
-def run_splat_ensemble(device, name) -> dict:
+def run_splat_ensemble(device, name, other=None) -> dict:
     """Five members (the splat scene from numpy seeds 0-4, each with its own
     alive mask) at eval budgets probed on the cameras (``"auto"``), through
     ``build_ensemble_splat_render_cam``: K2 five times an image; one image
@@ -2566,7 +2636,9 @@ def run_splat_ensemble(device, name) -> dict:
     render (epistemic variance 0); ``get_average_uncertainty_metrics`` over
     two images (finite metrics, the JSON written); K2 and K3 against their
     plain versions on member 0's packed tiles at the eval capacity, and K2
-    timed there; an image timed on the host clock and profiled."""
+    timed there; the packed-row backward checked there (``check_packed_rows``,
+    with ``other``'s in turns where given); an image timed on the host clock
+    and profiled."""
     import tempfile
 
     from uncertainty_nerf_gs_torch.eval.evaluator import (
@@ -2655,7 +2727,8 @@ def run_splat_ensemble(device, name) -> dict:
     k2.update(fwd_err=check["fwd_err"], bwd_err=check["bwd_err"])
     del check, tiles
     # the gather's backward at the eval capacity, on a step of member 0
-    gather = check_packed_rows("at the eval capacity", capture_gather(trainers[0]), gen)
+    gather = check_packed_rows("at the eval capacity", capture_gather(trainers[0]), gen,
+                               capture_gather(trainers[0], cam_idx=3), other)
 
     seconds = []
     for _ in range(5):
@@ -3901,8 +3974,91 @@ K8_TILE = 256  # samples a tile of K8's tile stage (csrc/hash_grid.cu kK8Lookups
 
 def other_corner(checkout):
     """``corner_library`` of another checkout's ``hash_grid.cu`` (the parent
-    commit unpacked with ``git archive``)."""
-    return corner_library(Path(checkout).resolve() / "uncertainty_nerf_gs_torch" / "csrc" / "hash_grid.cu")
+    commit unpacked with ``git archive``), built beside that checkout's
+    ``packed_rows.cu``: the returned function waits for both and adds
+    ``.packed_rows_bwd(g_packed, idx_all, counts, n)``, that checkout's
+    splat gather backward (``other_packed_rows``), and ``.checkout``."""
+    import hashlib
+
+    from uncertainty_nerf_gs_torch.ops import backend
+
+    root = Path(checkout).resolve()
+    grid = corner_library(root / "uncertainty_nerf_gs_torch" / "csrc" / "hash_grid.cu")
+    src = root / "uncertainty_nerf_gs_torch" / "csrc" / "packed_rows.cu"
+    out = backend.BUILD_DIR / f"other_rows-{hashlib.sha256(src.read_bytes()).hexdigest()[:16]}.so"
+    proc = subprocess.Popen([backend._nvcc(), *backend.NVCC_FLAGS, "-o", str(out), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def finish():
+        ns = grid()
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src}:\n{log}")
+        ns.packed_rows_bwd = other_packed_rows(ctypes.CDLL(str(out)), ns.lib)
+        ns.checkout = str(checkout)
+        return ns
+
+    return finish
+
+
+def other_packed_rows(rows, grid):
+    """Another checkout's splat gather backward through its C entry points
+    (``rows``: its packed_rows library, ``grid``: its hash_grid library), as
+    its wrapper calls them; no launch counted. A source with
+    ``packed_rows_bwd_f32`` takes this checkout's arguments; an older one
+    is its keys kernel, its hash_grid's ``radix_sort_u32`` and its sum
+    kernel, sized by the live count read back to the host."""
+    from uncertainty_nerf_gs_torch.ops import backend
+
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+    def entry(lib, name, argtypes, restype=I):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, restype
+        return fn
+
+    def check(name, err):
+        if err != 0:
+            raise RuntimeError(f"the other {name} failed: CUDA error {err}")
+
+    if hasattr(rows, "packed_rows_bwd_f32"):
+        scratch_bytes = entry(rows, "packed_rows_scratch_bytes", [I, I, I], L)
+        run = entry(rows, "packed_rows_bwd_f32", [P, P, P, P, P, L, I, I, L, I, I, P])
+
+        def bwd(g, idx, counts, n):
+            t, k, d = g.shape
+            nbytes = scratch_bytes(t, k, n)
+            scratch = torch.empty(nbytes, dtype=torch.uint8, device=g.device)
+            g_src = torch.empty((n + 1, d), dtype=torch.float32, device=g.device)
+            check("packed_rows_bwd_f32", run(idx.data_ptr(), counts.data_ptr(), g.data_ptr(), g_src.data_ptr(),
+                                             scratch.data_ptr(), nbytes, t, k, idx.stride(0), d, n,
+                                             backend.current_stream_handle(g.device)))
+            return g_src
+
+        return bwd
+    keys = entry(rows, "packed_rows_keys", [P, P, P, P, P, I, I, L, P])
+    sort_bytes = entry(grid, "radix_sort_u32_scratch_bytes", [I], L)
+    sort = entry(grid, "radix_sort_u32", [P, I, I, P, P, P, L, P])
+    total = entry(rows, "packed_rows_sum", [P, P, P, P, P, I, I, I, P])
+
+    def bwd(g, idx, counts, n):
+        t, k, d = g.shape
+        offsets = torch.cumsum(counts, dim=0, dtype=torch.int32) - counts
+        num_live = int(counts.sum())
+        key, slot, skey, perm = (torch.empty(num_live, dtype=torch.int32, device=g.device) for _ in range(4))
+        g_src = torch.empty((n + 1, d), dtype=torch.float32, device=g.device)
+        nbytes = sort_bytes(num_live)
+        scratch = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=g.device)
+        stream = backend.current_stream_handle(g.device)
+        check("packed_rows_keys", keys(idx.data_ptr(), counts.data_ptr(), offsets.data_ptr(), key.data_ptr(),
+                                       slot.data_ptr(), t, k, idx.stride(0), stream))
+        check("radix_sort_u32", sort(key.data_ptr(), num_live, max(1, (n - 1).bit_length()), skey.data_ptr(),
+                                     perm.data_ptr(), scratch.data_ptr(), scratch.numel(), stream))
+        check("packed_rows_sum", total(skey.data_ptr(), perm.data_ptr(), slot.data_ptr(), g.data_ptr(),
+                                       g_src.data_ptr(), num_live, n, d, stream))
+        return g_src
+
+    return bwd
 
 
 def corner_library(src, tag="other_corner"):
@@ -3911,8 +4067,10 @@ def corner_library(src, tag="other_corner"):
     ``build/torch_kernels/``. Returns a function that waits for it and
     returns that library's K7 and K8 through their C entry points, which
     keep their arguments: ``.k7(table, positions, res, f)`` and ``.k8(table,
-    positions, res, f, g_out, need_table=True)`` (no launch counted), and
-    ``.report``, ``ptxas -v``'s output."""
+    positions, res, f, g_out, need_table=True)``, and K5's positions-only
+    mode, ``.k5_positions(cells, positions, res, table_size, f, g_out)`` on
+    stacked cells (no launch counted), and ``.report``, ``ptxas -v``'s
+    output."""
     import hashlib
     from types import SimpleNamespace
 
@@ -3930,7 +4088,8 @@ def corner_library(src, tag="other_corner"):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {src}:\n{log}")
         lib = ctypes.CDLL(str(out))
-        for name in ("hash_lookup_fwd_f32", "hash_lookup_bwd_f32", "hash_lookup_bwd_scratch_bytes"):
+        for name in ("hash_lookup_fwd_f32", "hash_lookup_bwd_f32", "hash_lookup_bwd_scratch_bytes",
+                     "cell_lookup_bwd_f32"):
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = enc._ARGTYPES[name], (ctypes.c_longlong if "scratch" in name else ctypes.c_int)
 
@@ -3962,7 +4121,18 @@ def corner_library(src, tag="other_corner"):
                 raise RuntimeError(f"the other K8's launch failed: CUDA error {err}")
             return g_table, g_pos
 
-        return SimpleNamespace(k7=k7, k8=k8, report=log, lib=lib)
+        def k5_positions(cells, pos, res, table, f, g_out):
+            levels = cells.shape[0]
+            g_pos = torch.empty_like(pos)
+            err = lib.cell_lookup_bwd_f32(
+                pos.data_ptr(), enc._pointers([cells[lvl] for lvl in range(levels)]), g_out.data_ptr(), None,
+                g_pos.data_ptr(), pos.shape[0], levels, enc._ints([table] * levels), f, enc._ints(res), None, 0,
+                backend.current_stream_handle(pos.device))
+            if err != 0:
+                raise RuntimeError(f"the other K5 (positions only) launch failed: CUDA error {err}")
+            return g_pos
+
+        return SimpleNamespace(k7=k7, k8=k8, k5_positions=k5_positions, report=log, lib=lib)
 
     return finish
 
@@ -4239,12 +4409,17 @@ def check_corner_grid(cfg, device, clustered, other=None) -> dict:
     return dict(fwd_err=fwd_err, bwd_err=bwd_err, per_launch=per_launch)
 
 
-def k5_positions_only_times(cfg, device) -> dict:
+def k5_positions_only_times(cfg, device, other=None) -> dict:
     """K5's positions-only mode (the pose gradient's backward through K4:
-    no table needs a gradient) at the cell layout's three full-width shapes,
-    against K5's full backward: its g_pos bit for bit, and times beside the
-    bound of what it reads (positions, g_out, the touched cells) and writes
-    (the positions' gradient)."""
+    no table needs a gradient; ``cell_lookup_bwd_pos_kernel``) at the cell
+    layout's three full-width shapes, against K5's full backward and
+    ``cell_lookup_positions_vjp_reference`` (the plain version in the
+    kernels' arithmetic): its g_pos bit for bit against both, and times
+    beside the bound of what it reads (positions, g_out, the touched cells)
+    and writes (the positions' gradient). ``other`` (``other_corner``):
+    that checkout's positions-only mode held bit for bit and timed in turns
+    with this one's at the same inputs (this, other, other, this), by CUDA
+    events and the profiler."""
     from uncertainty_nerf_gs_torch.ops import encodings as enc
 
     out, failed = [], []
@@ -4256,12 +4431,17 @@ def k5_positions_only_times(cfg, device) -> dict:
                 (torch.rand(n, 3, generator=gen, device=device), torch.randn(n, levels * 2, generator=gen, device=device))]
         full = enc.cell_lookup_bwd(cells, sets[0][0], res, table, 2, sets[0][1], True)
         only = enc.cell_lookup_bwd(cells, sets[0][0], res, table, 2, sets[0][1], True, need_cells=False)
+        plain = enc.cell_lookup_positions_vjp_reference(cells, sets[0][0], res, table, 2, sets[0][1])
         torch.cuda.synchronize()
-        if not (only[0] is None and torch.equal(only[1], full[1])):
+        equal_full, equal_plain = only[0] is None and torch.equal(only[1], full[1]), torch.equal(only[1], plain)
+        if not (equal_full and equal_plain):
             failed.append(name)
-        tm = kernel_times(f"{name} K5 positions only",
-                          lambda p, g: enc.cell_lookup_bwd(cells, p, res, table, 2, g, True, need_cells=False),
-                          lambda p, g: _plain_cell_pos_vjp(cells, p, res, table, g), sets, "cell_lookup_bwd_keys")
+
+        def mine(p, g):
+            return enc.cell_lookup_bwd(cells, p, res, table, 2, g, True, need_cells=False)
+
+        tm = kernel_times(f"{name} K5 positions only", mine,
+                          lambda p, g: _plain_cell_pos_vjp(cells, p, res, table, g), sets, "cell_lookup_bwd_pos")
         uniq = sum(int(torch.unique(row).numel()) for row in grid_lookups(pos, res, table))
         nbytes = 12 * n + uniq * 64 + 8 * n * levels + 12 * n
         ops = n * levels * K5_OPS(2, True)
@@ -4269,13 +4449,29 @@ def k5_positions_only_times(cfg, device) -> dict:
         tm.update(field=name, shape=[n, levels, 2, table], bound_ms=1e3 * max(by_bytes, by_ops),
                   bound_by="bytes" if by_bytes >= by_ops else "operations", bytes=nbytes, library_ms=None,
                   full_ms=device_ms(lambda p, g: enc.cell_lookup_bwd(cells, p, res, table, 2, g), sets,
-                                    "cell_lookup_bwd_"))
+                                    "cell_lookup_bwd_"), equal_full=equal_full, equal_plain=equal_plain)
         print(f"K5 positions only {name}: {tm['ms']:.4f} ms on the device against the full backward's "
               f"{tm['full_ms']:.4f} ms; plain {tm['plain_ms']:.4f} ms; bound {tm['bound_ms']:.4f} ms "
-              f"({nbytes / 1e6:.1f} MB); g_pos bit-identical to the full backward's: {name not in failed}")
+              f"({nbytes / 1e6:.1f} MB); g_pos bit-identical to the full backward's: {equal_full}, to "
+              f"cell_lookup_positions_vjp_reference's: {equal_plain}")
+        if other is not None:
+            def theirs(p, g):
+                return other.k5_positions(cells, p, res, table, 2, g)
+
+            other_equal = torch.equal(theirs(*sets[0]), only[1])
+            turns = []
+            for who in ("this", "other", "other", "this"):
+                fn = mine if who == "this" else theirs
+                turns.append(dict(who=who, ms=device_ms(fn, sets, ""), event_ms=time_ms(fn, sets)))
+            print(f"K5 positions only {name}, in turns with {other.checkout} at the same inputs (this, other, other, "
+                  f"this): device ms " + " / ".join(f"{x['who']} {x['ms']:.4f}" for x in turns)
+                  + "; a call back to back " + " / ".join(f"{x['who']} {x['event_ms']:.4f}" for x in turns)
+                  + f"; the other's g_pos bit for bit equal to this one's: {other_equal}")
+            tm.update(turns=turns, other_equal=other_equal)
         out.append(tm)
     if failed:
-        raise AssertionError(f"K5's positions-only g_pos differs from the full backward's: {failed}")
+        raise AssertionError(f"K5's positions-only g_pos differs from the full backward's or the plain version's: "
+                             f"{failed}")
     return dict(per_launch=out)
 
 
@@ -4303,7 +4499,7 @@ def check_png_dir(label, directory) -> int:
     return len(files)
 
 
-def run_corner(name, cli, other=None) -> dict:
+def run_corner(name, cli, other=None, k5_pos=None) -> dict:
     """The corner phase, on the CLI phase's Blender tree: K7/K8 at the
     corner layout's full-width shapes (``check_corner_grid``) and K5's
     positions-only mode (``k5_positions_only_times``); full-width
@@ -4317,7 +4513,9 @@ def run_corner(name, cli, other=None) -> dict:
     chunk a member; every PNG decodes) and on the run alone, its PSNR
     printed beside the cell-layout CLI run's (``cli``: the CLI phase's
     result) for the record. ``other``: another checkout's K7/K8, timed in
-    turns with this one's (``other_corner``)."""
+    turns with this one's (``other_corner``). ``k5_pos``: the positions-only
+    mode's result where the caller measured it already (early in a run,
+    where the profiler still traces every kernel)."""
     from uncertainty_nerf_gs_torch.engine import checkpointing as ck
     from uncertainty_nerf_gs_torch.ops import backend
     from uncertainty_nerf_gs_torch.ops.encodings import corner_is_dense
@@ -4348,7 +4546,8 @@ def run_corner(name, cli, other=None) -> dict:
     print(f"corner trainer: {n_params} parameters; the main field's table {tuple(enc.table.shape)}, "
           f"{enc.table.numel()} parameters, {enc.table.numel() * 4 / 1e6:.1f} MB; dense levels at res {dense}")
     grid = check_corner_grid(trainer.config, device, capture_lookup_positions(trainer), other)
-    k5_pos = k5_positions_only_times(trainer.config, device)
+    if k5_pos is None:
+        k5_pos = k5_positions_only_times(trainer.config, device, other)
     step_plain = check_nerfacto_train_plain(trainer)
     repeat = check_nerfacto_repeatable(trainer)
     if {k: repeat["launches"][k] for k in CORNER_STEP_LAUNCHES} != CORNER_STEP_LAUNCHES:
@@ -4882,8 +5081,9 @@ def kernel_line(run_nerf, train_nerf, resample, nerf_plain, run_splat_, refine, 
         ms=tuned["ms"], plain_ms=tuned["plain_ms"], bound_ms=tuned["bound_ms"], bound_by="bytes",
         library_ms=tuned["library_ms"],  # F.embedding's backward (embedding_dense_backward)
         event_ms=tuned["event_ms"], shape=tuned["shape"], live=tuned["live"],
-        by_shape={k: {f: v[f] for f in ("ms", "event_ms", "plain_ms", "library_ms", "bound_ms", "shape",
-                                         "live", "max_abs_err")} for k, v in shapes.items()},
+        by_shape={k: {f: v[f] for f in ("ms", "event_ms", "plain_ms", "library_ms", "bound_ms", "shape", "live",
+                                         "max_abs_err", "graph_replay_live", "longest_run", "turns") if f in v}
+                  for k, v in shapes.items()},
     ))
     return kernels
 
@@ -5016,6 +5216,9 @@ def main() -> int:
     print(f"active-nerfacto: {n_params} parameters; set-up {time.perf_counter() - t0:.1f} s")
     grid = check_hash_grid(nerf.config, device, capture_lookup_positions(nerf),
                            capture_render_positions(nerf), other)
+    # K5's positions-only mode (the pose gradient's), timed here: late in a
+    # long run the profiler has been seen to trace none of its kernels
+    k5_pos = k5_positions_only_times(nerf.config, device, other_k7)
     print(f"hash-grid checks done at {time.perf_counter() - t_start:.1f} s")
     run_nerf = render_nerfacto(nerf)
     for i, s in enumerate(run_nerf["seconds"]):
@@ -5047,7 +5250,8 @@ def main() -> int:
     run = run_splat(splat, name)
     check_splat_plain(splat)
     captured = capture_gather(splat)
-    gather = check_packed_rows("at capacity 384", captured, torch.Generator(device=device).manual_seed(SEED + 13))
+    gather = check_packed_rows("at capacity 384", captured, torch.Generator(device=device).manual_seed(SEED + 13),
+                               capture_gather(splat, cam_idx=3), other_k7)
     repeat_splat = check_splat_repeatable(splat, "at capacity 384")
     audit_splat_determinism(splat, captured)
     del captured
@@ -5058,11 +5262,11 @@ def main() -> int:
     refining = build_splat_refine()
     print(f"splat refine: {int(refining.splat_state.alive.sum())} live Gaussians in {refining.config.capacity} "
           f"slots; set-up {time.perf_counter() - t0:.1f} s")
-    refine = run_splat_refine(refining, name)
+    refine = run_splat_refine(refining, name, other_k7)
     del refining
     torch.cuda.empty_cache()
     print(f"splat refine done at {time.perf_counter() - t_start:.1f} s")
-    splat_ens = run_splat_ensemble(device, name)
+    splat_ens = run_splat_ensemble(device, name, other_k7)
     torch.cuda.empty_cache()
     print(f"splat ensemble done at {time.perf_counter() - t_start:.1f} s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
@@ -5080,7 +5284,7 @@ def main() -> int:
     cli = run_cli(name)
     print(f"cli done at {time.perf_counter() - t_start:.1f} s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    corner = run_corner(name, cli, other_k7)
+    corner = run_corner(name, cli, other_k7, k5_pos)
     print(f"corner done at {time.perf_counter() - t_start:.1f} s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     tools = run_tools(cli, corner)

@@ -1,12 +1,13 @@
-// Host stand-ins for the CUDA builtins that csrc/hash_grid.cu uses, so that
-// its source compiles with g++ and its kernels run on the CPU: each warp is
+// Host stand-ins for the CUDA builtins that csrc/hash_grid.cu and
+// csrc/packed_rows.cu use, so that their sources compile with g++ and their
+// kernels run on the CPU: each warp is
 // 32 host threads (run_warp), and every shuffle, ballot, __match_any_sync and
 // __syncwarp is a meeting of the 32 at a barrier. A whole block runs as its
 // threads at once (host_launch, which also stands in for the <<<...>>>
 // launch where a test rewrites it so): __syncthreads is a barrier of the
 // block's threads, __shared__ variables are statics (one block runs at a
 // time), the launch's dynamic shared memory is a buffer filled with 0xff
-// bytes, and atomicAdd is a host atomic. Float arithmetic is IEEE single
+// bytes, and the integer atomics are host atomics. Float arithmetic is IEEE single
 // precision; compile with -ffp-contract=off so that nothing is fused, as
 // __fmul_rn / __fadd_rn guarantee on the card. K6's device-only helpers
 // (its dynamic shared memory, mbarrier and cp.async.bulk row copies) are
@@ -24,6 +25,7 @@
 #include <cstring>
 #include <functional>
 #include <memory>
+#include <random>
 #include <thread>
 #include <vector>
 
@@ -182,10 +184,28 @@ inline void __syncthreads() {
     block_barrier->arrive_and_wait();
 }
 inline unsigned atomicAdd(unsigned* p, unsigned v) { return __atomic_fetch_add(p, v, __ATOMIC_RELAXED); }
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+    return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
+}
+inline unsigned atomicSub(unsigned* p, unsigned v) { return __atomic_fetch_sub(p, v, __ATOMIC_RELAXED); }
+inline unsigned atomicOr(unsigned* p, unsigned v) { return __atomic_fetch_or(p, v, __ATOMIC_RELAXED); }
+inline unsigned long long atomicExch(unsigned long long* p, unsigned long long v) {
+    return __atomic_exchange_n(p, v, __ATOMIC_RELAXED);
+}
+template <class T>
+T __ldcg(const T* p) { return *p; }
+inline unsigned __brev(unsigned v) {
+    unsigned r = 0;
+    for (int i = 0; i < 32; ++i) r |= ((v >> i) & 1u) << (31 - i);
+    return r;
+}
 
-// the launch's dynamic shared memory (K8's tile stage)
+// the launch's dynamic shared memory (K8's tile stage, K5's positions-only
+// mode, the packed-row sum)
 inline std::vector<float4> host_dynamic_shared;
 inline char* k8_shared() { return reinterpret_cast<char*>(host_dynamic_shared.data()); }
+inline unsigned* packed_rows_shared() { return reinterpret_cast<unsigned*>(host_dynamic_shared.data()); }
+inline float* k5_pos_shared() { return reinterpret_cast<float*>(host_dynamic_shared.data()); }
 
 // K6's helpers: the block's dynamic shared memory (the harness sizes it;
 // one block runs at a time), its mbarrier (an arrival without copies, too)
@@ -244,6 +264,10 @@ inline void fiber_entry() {
     swapcontext(&fb->ctx[fb->current], &fb->scheduler);  // not resumed
 }
 
+// Nonzero: host_run_grid runs a launch's blocks in an order shuffled by this
+// seed, as the card may run them in any order.
+inline unsigned host_block_shuffle = 0;
+
 template <class Body>
 void host_run_grid(long long grid, int threads, size_t smem, Body body) {
     constexpr size_t kStack = 1 << 18;
@@ -257,7 +281,10 @@ void host_run_grid(long long grid, int threads, size_t smem, Body body) {
     for (int t = 0; t < threads; ++t) fb.stacks.emplace_back(new char[kStack]);
     fiber_block = &fb;
     block_barrier = &sync;
-    for (long long b = 0; b < grid; ++b) {
+    std::vector<long long> order(grid);
+    for (long long b = 0; b < grid; ++b) order[b] = b;
+    if (host_block_shuffle != 0) std::shuffle(order.begin(), order.end(), std::mt19937(host_block_shuffle));
+    for (const long long b : order) {
         blockIdx.x = static_cast<unsigned>(b);
         std::memset(host_dynamic_shared.data(), 0xff, host_dynamic_shared.size() * sizeof(float4));
         for (int t = 0; t < threads; ++t) {

@@ -33,6 +33,7 @@ from torch_parity import (
     draw_params,
     grad_l2_error,
     grad_mismatch,
+    host_launches,
     lookup_cells_jax,
     ray_mismatch,
     rays,
@@ -374,29 +375,6 @@ def test_corner_ensemble_routes_per_member(corner_pair):
 # -- K7 and K8's CUDA source on the host ----------------------------------------
 
 
-def host_launches(text: str) -> str:
-    """CUDA source with each launch ``kernel<<<grid, threads, ...>>>(args)``
-    rewritten to ``host_launch(kernel, grid, threads, ...)(args)``
-    (tests/host_cuda/cuda_shim.h), which runs the kernel's blocks on the
-    host, block after block; ``kernel`` is the name before ``<<<`` with its
-    template arguments."""
-    out, done = [], 0
-    for m in re.finditer(r"<<<(.*?)>>>", text, flags=re.S):
-        j = m.start()
-        if text[j - 1] == ">":  # template arguments: back to their '<'
-            depth = 0
-            while True:
-                j -= 1
-                depth += {">": 1, "<": -1}.get(text[j], 0)
-                if depth == 0:
-                    break
-        while text[j - 1].isalnum() or text[j - 1] == "_":
-            j -= 1
-        out += [text[done:j], f"host_launch({text[j:m.start()]}, {m.group(1)})"]
-        done = m.end()
-    return "".join(out + [text[done:]])
-
-
 # K7 as built: as the source chooses (on the host cases' small tables, a
 # thread a lookup), and the level walk forced with its reads as the warp
 # chooses, each lane its own 8 corners at every level (kK7OwnMaxRuns 32: a
@@ -587,8 +565,10 @@ def test_k8_source_clustered_runs_cross_tiles_and_chunks(k7_host, tmp_path, rng)
 @pytest.mark.parametrize("levels,feats", [(5, 2), (16, 2), (4, 1), (3, 4)])
 def test_k5_positions_only_source_matches_full(k7_host, tmp_path, rng, levels, feats):
     """K5's keys kernel on the host with keys (the full backward's first
-    stage) and without (the positions-only mode): the same g_pos bit for
-    bit, within GRID_GRAD_TOL of autograd through ``cell_lookup_reference``."""
+    stage) and its positions-only mode (``cell_lookup_bwd_pos_kernel``,
+    through the entry point): the same g_pos bit for bit, within
+    GRID_GRAD_TOL of autograd through ``cell_lookup_reference``
+    (tests/test_torch_k5_pos_host.py holds the mode in each read)."""
     res = tenc.hash_grid_resolutions(levels, 16, 512)
     size = 2**13  # the first level dense (16^3 cells), the last hashed
     cells = rng.uniform(-2, 2, (levels, size * 8 * feats // 128, 128)).astype(np.float32)

@@ -532,29 +532,37 @@ def test_k5_path_calls_no_library_sort():
 
 def test_packed_rows_source_has_no_atomic():
     """The splat gather's backward (csrc/packed_rows.cu) adds no float
-    atomically, nor anything else: each element of g_src is one thread's
+    atomically: its atomics count, place and rank slots and hand out the
+    scan's tickets, all on unsigned integers (whose sums do not depend on
+    the order), and each element of g_src is one lane's or one thread's
     left-to-right sum, stored once; no inline-PTX atom or red either."""
     import re
 
     src = "\n".join(line.split("//")[0] for line in PACKED_ROWS_CU.read_text().splitlines())
     assert "__fadd_rn" in src
-    assert not re.search(r"\batomic\w*\s*\(", src) and not re.search(r"\b(atom|red)\.", src)
+    assert not re.search(r"\b(atom|red)\.", src)
+    targets = set(re.findall(r"\batomic\w*\s*\(\s*([^,]+),", src))
+    assert targets == {"&row_counts[r[u]]", "ticket", "&queued", "&bits[t >> 5]", "p"}, targets
+    for decl in ("unsigned* __restrict__ row_counts", "unsigned* ticket", "__shared__ unsigned queued",
+                 "unsigned* bits", "unsigned long long* p"):
+        assert decl in src, decl
 
 
 def test_packed_rows_path_calls_no_library_sort():
-    """The gather's backward on the card sorts with K5's hand-written radix
-    sort (``radix_sort_u32`` in csrc/hash_grid.cu): no torch.sort, argsort or
-    unique on the Python path from PackedRowGather.backward to the launches,
-    and no CUB or Thrust in its source."""
+    """The gather's backward on the card orders each row's slots in its own
+    kernels (csrc/packed_rows.cu: a counting sort by row, then a sorting
+    network, shuffles or a bitmap of tiles inside each row): no torch.sort,
+    argsort or unique on the Python path from PackedRowGather.backward to
+    the launch, no host read of a device value, and no CUB or Thrust in its
+    source."""
     from uncertainty_nerf_gs_torch.ops import rasterize
 
     src = PACKED_ROWS_CU.read_text()
     assert not any(lib in src for lib in ("cub/", "thrust", "cub::"))
     path = "".join(inspect.getsource(f) for f in (
         rasterize.PackedRowGather.backward, rasterize.packed_rows_bwd))
-    assert "radix_sort_u32" in path and "packed_rows_sum" in path
-    assert not any(call in path for call in ("sort(", "argsort", "unique"))
-    assert "radix_sort_u32_scratch_bytes" in HASH_GRID_CU.read_text()
+    assert "packed_rows_bwd_f32" in path and "packed_rows_scratch_bytes" in path
+    assert not any(call in path for call in ("sort(", "argsort", "unique", ".item(", "int(counts", ".tolist("))
 
 
 def _composite_inputs(t=3, k=5, c=4, dtype=torch.float32):

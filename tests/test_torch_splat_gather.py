@@ -4,7 +4,7 @@
 rows into (T, K, 6 + C) tiles (``PackedRowGather``). Its backward reads each
 tile's first ``counts[t]`` slots only and sums each Gaussian's rows in
 ascending (tile, slot) order: ``packed_rows_vjp_reference`` here, the
-hand-written ``csrc/packed_rows.cu`` with K5's radix sort on the card. These
+hand-written ``csrc/packed_rows.cu`` on the card. These
 tests hold the selection's layout (a tile's live slots come first, the pad
 row fills the rest, also where a tile overflows and where one is empty), the
 plain backward against ``jax.vjp`` of the JAX package's gather and against
@@ -14,7 +14,6 @@ rasterizer against ``F.embedding``'s backward, and the CUDA source's own
 arithmetic, built with g++ against ``tests/host_cuda/cuda_shim.h``, bit for
 bit against the plain version."""
 
-import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -26,7 +25,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from torch_parity import PACKED_ROWS_TOL, TOL
+from torch_parity import PACKED_ROWS_TOL, TOL, host_launches
 
 from uncertainty_nerf_gs_tpu.ops import gaussians as jg
 from uncertainty_nerf_gs_tpu.ops import rasterize as jr
@@ -191,15 +190,17 @@ def test_packed_rows_wrapper_refuses():
 @pytest.fixture(scope="module")
 def packed_rows_host(tmp_path_factory):
     """csrc/packed_rows.cu built for the host with g++: the shim for the
-    CUDA runtime header, launches written as plain calls, the harness
-    (tests/host_cuda/packed_rows_main.inc) appended."""
+    CUDA runtime header, every launch run block by block by ``host_launch``
+    (a block's threads as fibers that meet at ``__syncthreads`` and at each
+    warp's shuffles), the harness (tests/host_cuda/packed_rows_main.inc)
+    appended."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build the packed-row backward's source for the host")
     text = SOURCE.read_text()
     assert "#include <cuda_runtime.h>" in text
-    text = text.replace("#include <cuda_runtime.h>", '#include "cuda_shim.h"')
-    text = re.sub(r"<<<[^>]*>>>", "", text) + '\n#include "packed_rows_main.inc"\n'
+    text = host_launches(text.replace("#include <cuda_runtime.h>", '#include "cuda_shim.h"'))
+    text += '\n#include "packed_rows_main.inc"\n'
     out = tmp_path_factory.mktemp("packed_rows_host")
     (out / "packed_rows.cpp").write_text(text)
     subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-pthread", "-w", f"-I{SHIM}",
@@ -208,13 +209,59 @@ def packed_rows_host(tmp_path_factory):
     return out / "packed_rows_host"
 
 
-@pytest.mark.parametrize("capacity", [12, 64])
-def test_packed_rows_source_matches_plain_version(rng, tmp_path, packed_rows_host, capacity):
-    """The CUDA source's keys and sum kernels, run thread by thread on the
-    host (the sort stood in by std::stable_sort), equal the plain version
-    bit for bit, the pad row and untouched rows zero included."""
-    _, _, _, _, _, sel, counts = _selection(rng, capacity)
-    idx, n = sel["idx_all"], sel["n"]
+def test_packed_rows_sort_network_sorts(packed_rows_host):
+    """The runs' bitonic network sorts every sequence of 8 and of 16 zeros
+    and ones, so every sequence of 8 or 16 keys, and 200,000 random
+    sequences of 32 keys as std::sort does: on the host the count kernel
+    hands out a run's places in one order, on the card in any."""
+    assert subprocess.run([str(packed_rows_host), "sort"], timeout=120).returncode == 0
+
+
+def _built_selection(rng, case):
+    """Hand-built tiles in ``select_and_pack``'s layout (rows K + 1 apart,
+    each tile's ids ascending in its first counts[t] slots, the pad row n
+    after them) that the scene cannot give: one Gaussian in every tile (a
+    run of length T, past what a warp ranks by shuffles) beside runs of 9-32
+    and short ones; no live slot at all; every tile at capacity; ids drawn
+    from the even rows only, so that half the rows no slot names; and 10,000
+    rows, so that the scan of the rows' counts spans three blocks (its
+    look-back). Returns (idx, counts, n)."""
+    tiles, capacity, n = {"every_tile": (70, 24, 60), "no_live_slot": (12, 16, 40),
+                          "full_tiles": (40, 12, 30), "unnamed_rows": (50, 10, 80),
+                          "scan_blocks": (20, 64, 10_000)}[case]
+    buf = torch.full((tiles, capacity + 1), n, dtype=torch.int64)
+    counts = torch.zeros(tiles, dtype=torch.int32)
+    for t in range(tiles):
+        if case == "no_live_slot":
+            continue
+        if case == "full_tiles":
+            ids = np.sort(rng.choice(n, capacity, replace=False))
+        else:
+            pool = np.arange(0, n, 2) if case == "unnamed_rows" else np.arange(n)
+            ids = pool[rng.random(pool.size) < (0.004 if case == "scan_blocks" else 0.15)]
+            if case == "every_tile":
+                ids = np.union1d(ids, [7, 40])  # row 7 and row 40 in every tile
+                if t % 3 == 0:
+                    ids = np.union1d(ids, [11])  # a run of 24, ranked by shuffles
+            ids = ids[:capacity]
+        buf[t, :ids.size] = torch.from_numpy(ids)
+        counts[t] = ids.size
+    return buf[:, :capacity], counts, n
+
+
+@pytest.mark.parametrize("case", [12, 64, "every_tile", "no_live_slot", "full_tiles", "unnamed_rows", "scan_blocks"])
+def test_packed_rows_source_matches_plain_version(rng, tmp_path, packed_rows_host, case):
+    """The CUDA source's entry point (the memset, the count, the scan, the
+    place and the order-and-sum kernels) run block by block on the host,
+    on a scratch buffer and an output of garbage, equals the plain version
+    bit for bit, the pad row and untouched rows zero included: on the
+    scene's selection at capacity 12 and 64, and on hand-built tiles
+    (``_built_selection``)."""
+    if isinstance(case, int):
+        _, _, _, _, _, sel, counts = _selection(rng, case)
+        idx, n = sel["idx_all"], sel["n"]
+    else:
+        idx, counts, n = _built_selection(rng, case)
     width = 12
     g = _g_packed(rng, tuple(idx.shape) + (width,))
     # select_and_pack's idx_all is a slice of a buffer one slot wider: the
@@ -229,4 +276,17 @@ def test_packed_rows_source_matches_plain_version(rng, tmp_path, packed_rows_hos
     got = np.fromfile(tmp_path / "g_src.bin", np.float32).reshape(n + 1, width)
     want = tr.packed_rows_vjp_reference(g, idx, counts, n).numpy()
     np.testing.assert_array_equal(got, want)
-    assert (got[:n] == 0).all(axis=1).any() and (got[:n] != 0).any()
+    named = np.zeros(n + 1, bool)
+    live = (torch.arange(idx.shape[1])[None, :] < counts[:, None]).numpy()
+    named[idx.numpy()[live]] = True
+    assert not got[~named].any()  # the pad row and every row no slot names
+    if case == "no_live_slot":
+        assert not named.any()
+    else:
+        assert (got[:n] != 0).any()
+    if case in (12, 64, "unnamed_rows", "scan_blocks"):
+        assert (~named[:n]).any()
+    if case == "every_tile":
+        assert (idx.numpy() == 7).sum() == idx.shape[0] == int((idx.numpy() == 40).sum())
+    if case == "full_tiles":
+        assert bool((counts == idx.shape[1]).all())

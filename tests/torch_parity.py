@@ -43,6 +43,8 @@ peaked compositing weights. Tolerances:
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 
 from uncertainty_nerf_gs_torch.interop import draw_params  # noqa: F401
@@ -461,3 +463,29 @@ CLI_METRIC_TOLS = {
 # one, as XLA fuses the bf16 products into the sum without their rounding,
 # so the jitted render is not the reference there.
 BF16_LOOKUP_TOL = dict(atol=2.0**-8)
+
+
+# -- host builds of the CUDA sources (tests/host_cuda/cuda_shim.h) -------------
+
+
+def host_launches(text: str) -> str:
+    """CUDA source with each launch ``kernel<<<grid, threads, ...>>>(args)``
+    rewritten to ``host_launch(kernel, grid, threads, ...)(args)``
+    (tests/host_cuda/cuda_shim.h), which runs the kernel's blocks on the
+    host, block after block; ``kernel`` is the name before ``<<<`` with its
+    template arguments."""
+    out, done = [], 0
+    for m in re.finditer(r"<<<(.*?)>>>", text, flags=re.S):
+        j = m.start()
+        if text[j - 1] == ">":  # template arguments: back to their '<'
+            depth = 0
+            while True:
+                j -= 1
+                depth += {">": 1, "<": -1}.get(text[j], 0)
+                if depth == 0:
+                    break
+        while text[j - 1].isalnum() or text[j - 1] == "_":
+            j -= 1
+        out += [text[done:j], f"host_launch({text[j:m.start()]}, {m.group(1)})"]
+        done = m.end()
+    return "".join(out + [text[done:]])

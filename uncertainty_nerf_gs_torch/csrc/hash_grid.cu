@@ -122,6 +122,9 @@
 // cell order rather than in sample order. The wrapper zero-fills g_cells (the
 // dense gradient the optimizer reads) and allocates the scratch buffer whose
 // size cell_lookup_bwd_scratch_bytes gives; nothing is allocated here.
+// Where no table needs a gradient, K5 is one launch of a kernel of its own
+// (cell_lookup_bwd_pos_kernel, K4's warp walk over the levels) that gives
+// the keys kernel's g_pos bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -966,8 +969,8 @@ __global__ void __launch_bounds__(kK6Threads) packed_lookup_strided_kernel(K6Arg
 // One thread per (sample, level slot); kSlots >= L is a power of two <= 32,
 // so a sample's slots are adjacent lanes of one warp. Block 0 also zeroes the
 // sort's digit totals. Every thread reaches the shuffles: none returns early.
-// keys and totals null: the positions-only mode (no table needs a gradient),
-// the same arithmetic for g_pos.
+// keys and totals null: g_pos alone (the positions-only mode has a kernel of
+// its own, cell_lookup_bwd_pos_kernel, that gives the same bits).
 template <int F, int kSlots>
 __global__ void __launch_bounds__(kThreads) cell_lookup_bwd_keys_kernel(
     const float* __restrict__ positions, const float* __restrict__ g_out,
@@ -1018,6 +1021,228 @@ __global__ void __launch_bounds__(kThreads) cell_lookup_bwd_keys_kernel(
     if (sample && l == 0) {
 #pragma unroll
         for (int d = 0; d < 3; ++d) g_pos[3 * i + d] = grad[d];
+    }
+}
+
+// -- K5's positions-only mode: the position gradient alone ---------------------
+
+// Where no table needs a gradient (the pose gradient's backward through K4),
+// K5 runs this kernel alone: no keys, zero-fill, sort or reduction. What
+// bounds it: bytes, as K4 (the positions, g_out and each touched cell read,
+// g_pos written). The keys kernel's thread a (sample, level slot) left 3 of
+// every 8 lanes idle at the proposals' 5 levels, re-read each sample's
+// position in every lane, and loaded a 64-byte cell a lane even where the
+// samples of a ray share it. Here, as in K4:
+//   - A warp takes 32 consecutive samples and walks the levels; lane s keeps
+//     sample s's position in registers and locates its cell once a level.
+//     Where a level's table passes kK5PosPrefetchBytes (the field's hashed
+//     levels, read from DRAM), the next level's cells and g_out are loaded
+//     while this level's term is formed (F <= 4), the registers held to
+//     kK5PosPrefetchBlocks blocks an SM; on tables that stay in L2 (the
+//     proposals') the extra registers cost more than the overlap gains.
+//   - Cells are read shared or own by what the warp sees: at more than
+//     kK5PosOwnMaxRuns runs of equal cells among the 32 lookups, 2 F lanes
+//     share each lookup's read (one float4 each) and form the dots of the
+//     corners in their float4, which the lookup's lane takes from shared
+//     memory; at fewer, each lane reads its own cell, and lanes that read one
+//     cell share the wavefront. F >= 8 reads its own cells (a corner spans
+//     two float4s).
+//   - Each level's term is the keys kernel's: the corners' dots
+//     <cell[c, :], g_out[i, l, :]> and the three chains over the corners by
+//     fmaf, in its order, times res_l.
+//   - Each lane keeps its levels' terms in shared memory (a column of its
+//     own, no barrier) and sums them at the end in the tree of the keys
+//     kernel's xor butterfly over kSlots, the next power of two >= L: slot l
+//     meets slot l + kSlots / 2 first, then the pairs meet at kSlots / 4,
+//     and so on; the slots past L add zeros. So g_pos equals the full
+//     backward's bit for bit.
+constexpr int kK5PosWarps = 4;  // a block: 4 warps, 128 samples
+constexpr int kK5PosThreads = 32 * kK5PosWarps;
+// A level whose 32 lookups form more runs of equal cells than this is read
+// with shared reads; one with fewer, by each lane on its own.
+constexpr int kK5PosOwnMaxRuns = 16;
+// Where the largest level's table passes this, the next level's reads are
+// issued before this level's term is formed (F <= 4), at this many blocks an
+// SM (80 registers a thread).
+constexpr long long kK5PosPrefetchBytes = 16LL << 20;
+constexpr int kK5PosPrefetchBlocks = 6;
+
+// The keys kernel's dot of one corner: fmaf over its F features in order.
+template <int F>
+__device__ __forceinline__ float k5_dot(const float* v, const float (&g)[F]) {
+    float dot = 0.0f;
+#pragma unroll
+    for (int f = 0; f < F; ++f) dot = fmaf(v[f], g[f], dot);
+    return dot;
+}
+
+// The keys kernel's term of one level from its 8 corners' dots, res_l
+// included. Its factor (sx * wy) * wz for d w[c] / d frac_x is +-(wy * wz):
+// a product by -1 is exact, so the 12 products below are its 24 bit for bit.
+__device__ __forceinline__ void k5_term(const Cell& cell, const float (&dots)[8], float res, float (&grad)[3]) {
+    float yz[2][2], xz[2][2], xy[2][2];
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+            yz[a][b] = __fmul_rn(cell.w[1][a], cell.w[2][b]);
+            xz[a][b] = __fmul_rn(cell.w[0][a], cell.w[2][b]);
+            xy[a][b] = __fmul_rn(cell.w[0][a], cell.w[1][b]);
+        }
+    }
+    grad[0] = grad[1] = grad[2] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+        const float dot = dots[c];
+        const int cx = c >> 2, cy = (c >> 1) & 1, cz = c & 1;
+        // d w[c] / d frac_x = (cx ? 1 : -1) * wy * wz, and likewise for y, z
+        grad[0] = fmaf(cx ? yz[cy][cz] : -yz[cy][cz], dot, grad[0]);
+        grad[1] = fmaf(cy ? xz[cx][cz] : -xz[cx][cz], dot, grad[1]);
+        grad[2] = fmaf(cz ? xy[cx][cy] : -xy[cx][cy], dot, grad[2]);
+    }
+#pragma unroll
+    for (int d = 0; d < 3; ++d) grad[d] = __fmul_rn(res, grad[d]);  // d frac / d pos = res
+}
+
+// One level's reads for a lane of the positions-only mode (F <= 4): its
+// cell, its g_out and the 2 F float4s it loads, of a shared read (part q of
+// round k's lookup) or of an own read (its own cell), through the same load
+// instructions. The warp issues the next level's while it sums this one's.
+template <int F>
+struct K5PosLevel {
+    Cell cell;
+    float g[F];
+    float4 v[2 * F];
+    bool shared;
+};
+
+template <int F>
+__device__ __forceinline__ void k5_pos_fetch(K5PosLevel<F>& x, const float p[3], const float* __restrict__ g_out,
+                                             long long i, bool valid, int num_levels, int l, const Levels& lv,
+                                             int lane) {
+    constexpr int kParts = 2 * F, kPerLoad = 32 / kParts;
+    x.cell = locate(p, lv, l);
+#pragma unroll
+    for (int f = 0; f < F; ++f) x.g[f] = valid ? g_out[(i * num_levels + l) * F + f] : 0.0f;
+    x.shared = k4_runs(x.cell.idx, lane) > kK5PosOwnMaxRuns;
+    const float4* level_cells = static_cast<const float4*>(lv.table[l]);
+    const int q = lane % kParts, j0 = lane / kParts;
+#pragma unroll
+    for (int k = 0; k < kParts; ++k) {
+        unsigned idx = x.cell.idx;
+        int part = k;
+        if (x.shared) {
+            idx = __shfl_sync(kFull, x.cell.idx, k * kPerLoad + j0);
+            part = q;
+        }
+        x.v[k] = __ldg(level_cells + static_cast<long long>(idx) * kParts + part);
+    }
+}
+
+// The lane's level term from its fetched reads. A shared read's lanes form
+// the dots of the corners in their float4 (corners 4q / F .. (4q + 3) / F
+// of round k's lookup) and leave them in `dots` for the lookup's lane.
+template <int F>
+__device__ __forceinline__ void k5_pos_term(const K5PosLevel<F>& x, float (*dots)[9], float res, int lane,
+                                            float (&term)[3]) {
+    constexpr int kParts = 2 * F, kPerLoad = 32 / kParts;
+    float dv[8];
+    if (x.shared) {
+        const int q = lane % kParts, j0 = lane / kParts;
+#pragma unroll
+        for (int k = 0; k < kParts; ++k) {
+            const int j = k * kPerLoad + j0;
+            float gj[F];
+#pragma unroll
+            for (int f = 0; f < F; ++f) gj[f] = __shfl_sync(kFull, x.g[f], j);
+            const float v[4] = {x.v[k].x, x.v[k].y, x.v[k].z, x.v[k].w};
+#pragma unroll
+            for (int m = 0; m < 4 / F; ++m) dots[j][4 * q / F + m] = k5_dot<F>(v + m * F, gj);
+        }
+        __syncwarp();
+#pragma unroll
+        for (int c = 0; c < 8; ++c) dv[c] = dots[lane][c];
+        __syncwarp();  // the next level may write again
+    } else {
+        float v[8 * F];
+#pragma unroll
+        for (int k = 0; k < kParts; ++k) {
+            v[4 * k] = x.v[k].x, v[4 * k + 1] = x.v[k].y, v[4 * k + 2] = x.v[k].z, v[4 * k + 3] = x.v[k].w;
+        }
+#pragma unroll
+        for (int c = 0; c < 8; ++c) dv[c] = k5_dot<F>(v + c * F, x.g);
+    }
+    k5_term(x.cell, dv, res, term);
+}
+
+#ifdef __CUDACC__
+// The positions-only kernel's dynamic shared memory (the host test harness
+// stands in): each warp's terms, [slot][d][lane].
+__device__ __forceinline__ float* k5_pos_shared() {
+    extern __shared__ float k5_pos_smem[];
+    return k5_pos_smem;
+}
+#endif
+
+// One warp a run of 32 samples, every level; slots = kSlots.
+template <int F, bool kPrefetch>
+__global__ void __launch_bounds__(kK5PosThreads, kPrefetch ? kK5PosPrefetchBlocks : 1) cell_lookup_bwd_pos_kernel(
+    const float* __restrict__ positions, const float* __restrict__ g_out, float* __restrict__ g_pos, int n,
+    int num_levels, int slots, Levels lv) {
+    __shared__ float dots[kK5PosWarps][32][9];  // a lookup's corners' dots, padded against bank conflicts
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const long long base = (static_cast<long long>(blockIdx.x) * kK5PosWarps + warp) * 32;
+    if (base >= n) return;  // the whole warp
+    const long long i = base + lane;
+    const bool valid = i < n;
+    float p[3] = {0.0f, 0.0f, 0.0f};
+    if (valid) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d) p[d] = positions[3 * i + d];
+    }
+    float* terms = k5_pos_shared() + warp * slots * 3 * 32 + lane;  // terms[(l * 3 + d) * 32]
+    K5PosLevel<F <= 4 ? F : 1> next;
+    if constexpr (F <= 4 && kPrefetch) k5_pos_fetch<F>(next, p, g_out, i, valid, num_levels, 0, lv, lane);
+    for (int l = 0; l < num_levels; ++l) {
+        float term[3];
+        if constexpr (F <= 4 && kPrefetch) {
+            const K5PosLevel<F> cur = next;
+            if (l + 1 < num_levels) k5_pos_fetch<F>(next, p, g_out, i, valid, num_levels, l + 1, lv, lane);
+            k5_pos_term<F>(cur, dots[warp], lv.res[l], lane, term);
+        } else if constexpr (F <= 4) {
+            k5_pos_fetch<F>(next, p, g_out, i, valid, num_levels, l, lv, lane);
+            k5_pos_term<F>(next, dots[warp], lv.res[l], lane, term);
+        } else {
+            // a corner spans two float4s: each lane reads its own cell
+            const Cell cell = locate(p, lv, l);
+            float g[F];
+#pragma unroll
+            for (int f = 0; f < F; ++f) g[f] = valid ? g_out[(i * num_levels + l) * F + f] : 0.0f;
+            float v[8 * F];
+            load_cell<F>(static_cast<const float*>(lv.table[l]) + static_cast<long long>(cell.idx) * (8 * F), v);
+            float dv[8];
+#pragma unroll
+            for (int c = 0; c < 8; ++c) dv[c] = k5_dot<F>(v + c * F, g);
+            k5_term(cell, dv, lv.res[l], term);
+        }
+#pragma unroll
+        for (int d = 0; d < 3; ++d) terms[(l * 3 + d) * 32] = term[d];
+    }
+    // the butterfly's tree: slot s meets slot s + half; the first round's
+    // slots past L are zeros (every later slot is a sum)
+    for (int half = slots >> 1; half > 0; half >>= 1) {
+        for (int s = 0; s < half; ++s) {
+#pragma unroll
+            for (int d = 0; d < 3; ++d) {
+                const float other = s + half < num_levels ? terms[((s + half) * 3 + d) * 32] : 0.0f;
+                terms[(s * 3 + d) * 32] = __fadd_rn(terms[(s * 3 + d) * 32], other);
+            }
+        }
+        num_levels = half;  // every slot below half now holds a sum
+    }
+    if (valid) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d) g_pos[3 * i + d] = terms[d * 32];
     }
 }
 
@@ -1490,6 +1715,29 @@ cudaError_t launch_keys(const float* positions, const float* g_out, float* g_pos
             return cudaErrorInvalidValue;
     }
 #undef KEYS_CASE
+    return cudaGetLastError();
+}
+
+// Bytes of the positions-only kernel's dynamic shared memory: each warp's
+// terms, kSlots x 3 x 32 floats.
+int k5_pos_shared_bytes(int num_levels) { return kK5PosWarps * (1 << ceil_log2(num_levels)) * 3 * 32 * 4; }
+
+// K5's positions-only mode.
+template <int F>
+cudaError_t launch_pos(const float* positions, const float* g_out, float* g_pos, int n, int num_levels,
+                       const Levels& lv, cudaStream_t st) {
+    const long long warps = (static_cast<long long>(n) + 31) / 32;
+    const int blocks = static_cast<int>((warps + kK5PosWarps - 1) / kK5PosWarps);
+    const int bytes = k5_pos_shared_bytes(num_levels);
+    long long table_bytes = 0;
+    for (int l = 0; l < num_levels; ++l)
+        if (static_cast<long long>(lv.size[l]) * 32 * F > table_bytes) table_bytes = static_cast<long long>(lv.size[l]) * 32 * F;
+    auto kernel = table_bytes > kK5PosPrefetchBytes ? cell_lookup_bwd_pos_kernel<F, true>
+                                                    : cell_lookup_bwd_pos_kernel<F, false>;
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<blocks, kK5PosThreads, bytes, st>>>(positions, g_out, g_pos, n, num_levels, 1 << ceil_log2(num_levels),
+                                                 lv);
     return cudaGetLastError();
 }
 
@@ -2655,9 +2903,9 @@ extern "C" long long cell_lookup_bwd_scratch_bytes(int n, int num_levels, const 
 // tables are not read), and scratch of cell_lookup_bwd_scratch_bytes bytes,
 // 256-byte aligned. Every cell that a lookup touches is stored once; g_pos is
 // written in full. g_tables null: the positions-only mode, where no table
-// needs a gradient: only stage 1 runs, without keys (no zero-fill, sort or
-// reduction; scratch may be null), and g_pos equals the full backward's bit
-// for bit.
+// needs a gradient: one launch of cell_lookup_bwd_pos_kernel (no keys,
+// zero-fill, sort or reduction; scratch may be null), and g_pos equals the
+// full backward's bit for bit.
 extern "C" int cell_lookup_bwd_f32(const float* positions, const void* const* tables, const float* g_out,
                                    float* const* g_tables, float* g_pos, int n, int num_levels,
                                    const int* sizes, int features, const int* resolutions, void* scratch,
@@ -2676,7 +2924,7 @@ extern "C" int cell_lookup_bwd_f32(const float* positions, const void* const* ta
         const cudaStream_t st = static_cast<cudaStream_t>(stream);
         cudaError_t err;
 #define K5_POS_CASE(f) \
-    case f: err = launch_keys<f>(positions, g_out, g_pos, nullptr, n, num_levels, lv, st); break;
+    case f: err = launch_pos<f>(positions, g_out, g_pos, n, num_levels, lv, st); break;
         switch (features) {
             K5_POS_CASE(1) K5_POS_CASE(2) K5_POS_CASE(4) K5_POS_CASE(8) K5_POS_CASE(16)
             default:
@@ -2738,8 +2986,9 @@ extern "C" int cell_lookup_sort_u32(const float* positions, int n, int num_level
 // K5's stable radix sort alone, on plain u32 keys below 2^bits (bits in 1 ..
 // 32): sorted_out (num_keys) gets the keys in ascending order and perm_out
 // the stable permutation (the input position of each sorted key; equal keys
-// keep their input order). Used by the splat path's packed-row backward
-// (csrc/packed_rows.cu). Scratch of radix_sort_u32_scratch_bytes bytes,
+// keep their input order), on keys of the caller's choosing; no wrapper of
+// the package calls it (the splat path's packed-row backward sorts by row
+// in csrc/packed_rows.cu). Scratch of radix_sort_u32_scratch_bytes bytes,
 // 256-byte aligned.
 extern "C" long long radix_sort_u32_scratch_bytes(int num_keys) {
     if (num_keys < 0) return -1;

@@ -266,6 +266,64 @@ def cell_lookup_vjp_reference(
     return g_cells[0] if stacked else g_cells, (grads[-1] if need_positions else None)
 
 
+def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fmaf(a, b, c) of float32 tensors, rounded once as the card's fused
+    multiply-add rounds it: the product is exact in float64, the sum's
+    error exact by TwoSum, and the float64 sum rounded to odd before its
+    rounding to float32, which then rounds as a single rounding would (53
+    bits >= 24 + 2)."""
+    a, b, c = a.double(), b.double(), c.double()
+    p = a * b
+    s = p + c
+    v = s - p
+    err = (p - (s - v)) + (c - v)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, math.inf), torch.full_like(s, -math.inf))
+    return torch.where((err != 0) & even, torch.nextafter(s, toward), s).float()
+
+
+def cell_lookup_positions_vjp_reference(cells, positions: torch.Tensor, resolutions, table_size,
+                                        features_per_level: int, g_out: torch.Tensor) -> torch.Tensor:
+    """The plain version of K5's positions-only mode: g_positions (n, 3) in
+    the kernels' own arithmetic. Each level's term as K5's keys kernel forms
+    it (each corner's dot over its features and the three sums over the 8
+    corners as chains of fused multiply-adds, ``_fma_f32``, in its order,
+    then times res_l), and the levels summed in the tree of its xor
+    butterfly over the next power of two of slots (slot l with slot l +
+    half first; the slots past L add zeros). The same bits as both kernels;
+    ``cell_lookup_vjp_reference`` (autograd) is the same function rounded
+    elsewhere."""
+    resolutions = np.asarray(resolutions)
+    levels, feats = len(resolutions), features_per_level
+    tables, sizes = _per_level_tables(cells, table_size, levels)
+    terms = []
+    for lvl, res in enumerate(resolutions):
+        res = int(res)
+        scaled = positions * res
+        base = torch.floor(torch.clamp(scaled, 0, res * (1 - 1e-7))).to(torch.int64)
+        base = torch.clamp(base, max=res - 1)
+        frac = scaled - base.to(scaled.dtype)
+        w = torch.stack([1.0 - frac, frac], dim=-1)  # (n, 3, 2): per axis (1 - frac, frac)
+        corners = tables[lvl].reshape(-1, 8, feats).index_select(0, _cell_index(base, res, sizes[lvl]))
+        g = g_out[:, lvl * feats:(lvl + 1) * feats]
+        dots = torch.zeros(corners.shape[:2], dtype=torch.float32, device=positions.device)
+        for f in range(feats):
+            dots = _fma_f32(corners[:, :, f], g[:, f:f + 1].expand_as(dots), dots)
+        grad = [torch.zeros_like(frac[:, 0]) for _ in range(3)]
+        for c in range(8):
+            cx, cy, cz = c >> 2, (c >> 1) & 1, c & 1
+            sx, sy, sz = (1.0 if b else -1.0 for b in (cx, cy, cz))
+            factors = ((sx * w[:, 1, cy]) * w[:, 2, cz], (sy * w[:, 0, cx]) * w[:, 2, cz],
+                       (sz * w[:, 0, cx]) * w[:, 1, cy])
+            grad = [_fma_f32(a, dots[:, c], acc) for a, acc in zip(factors, grad)]
+        terms.append(torch.stack(grad, dim=-1) * float(res))
+    terms += [torch.zeros_like(terms[0])] * ((1 << max(levels - 1, 0).bit_length()) - levels)
+    while len(terms) > 1:
+        half = len(terms) // 2
+        terms = [terms[s] + terms[s + half] for s in range(half)]
+    return terms[0]
+
+
 def key_offsets(sizes) -> list[int]:
     """K5's first key of each level: the cells of the levels before it."""
     return [int(x) for x in np.concatenate([[0], np.cumsum(np.asarray(sizes, np.int64))[:-1]])]
@@ -403,9 +461,10 @@ def _bwd(sources, level_map, positions, resolutions, sizes, features_per_level, 
          need_tables=True):
     """K5: (dense zero-filled gradient of each source, g_positions or None).
     Without ``need_tables`` (no table needs a gradient: the pose gradient)
-    K5 runs its positions-only mode, the keys kernel's position gradient
-    alone, with no zero-fill, sort or reduction: (None for each source,
-    g_positions), the full backward's g_positions bit for bit."""
+    K5 runs its positions-only mode, one launch of a kernel of its own (a
+    warp on 32 samples walking the levels) with no zero-fill, sort or
+    reduction: (None for each source, g_positions), the full backward's
+    g_positions bit for bit, and ``cell_lookup_positions_vjp_reference``'s."""
     n = positions.shape[0]
     tables = _views(sources, level_map)
     want = (n, len(tables) * features_per_level)

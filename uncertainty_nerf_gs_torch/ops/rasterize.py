@@ -250,40 +250,29 @@ def _check_packed_rows(g_packed, idx_all, counts) -> None:
 def packed_rows_bwd(
     g_packed: torch.Tensor, idx_all: torch.Tensor, counts: torch.Tensor, num_rows: int
 ) -> torch.Tensor:
-    """The gather's backward on the card: the live slots' keys
-    (``csrc/packed_rows.cu``), K5's stable radix sort of them
-    (``csrc/hash_grid.cu::radix_sort_u32``) and the fixed-order sum. The
-    same function as ``packed_rows_vjp_reference``, bit for bit. Reads the
-    number of live slots back to the host to size the sort."""
+    """The gather's backward on the card (``csrc/packed_rows.cu``): the live
+    slots counted, placed and ordered by row, each row's slots added in
+    ascending order; five launches, a memset among them. Every buffer is
+    sized from the shapes and nothing is read back to the host, so a CUDA
+    graph can capture it. The same function as
+    ``packed_rows_vjp_reference``, bit for bit."""
     _check_packed_rows(g_packed, idx_all, counts)
-    if num_rows < 0 or num_rows >= 2**31:
-        raise ValueError(f"num_rows {num_rows} out of range")
-    dev = g_packed.device
     t, k, d = g_packed.shape
-    offsets = torch.cumsum(counts, dim=0, dtype=torch.int32) - counts
-    num_live = int(counts.sum()) if t else 0
-    bits = max(1, (num_rows - 1).bit_length())  # every key is below num_rows
-    keys, slots, skeys, perm = (torch.empty(num_live, dtype=torch.int32, device=dev) for _ in range(4))
+    if d > 32 or not 0 <= num_rows < 2**30:
+        raise ValueError(f"csrc/packed_rows.cu takes rows of at most 32 floats and fewer than 2^30 of them, "
+                         f"got {num_rows} of {d}")
+    nbytes = backend.entry("packed_rows", "packed_rows_scratch_bytes", [_I, _I, _I], _L)(t, k, num_rows)
+    if nbytes < 0:
+        raise ValueError(f"csrc/packed_rows.cu takes no {t} x {k} slots of {num_rows} rows")
+    dev = g_packed.device
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     g_src = torch.empty((num_rows + 1, d), dtype=torch.float32, device=dev)
-    scratch_bytes = backend.entry("hash_grid", "radix_sort_u32_scratch_bytes", [_I], _L)(num_live)
-    scratch = torch.empty(max(scratch_bytes, 1), dtype=torch.uint8, device=dev)
-
-    def launch(library, name, argtypes, *args):
-        err = backend.entry(library, name, argtypes)(*args, stream)
-        if err != 0:
-            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-
     with torch.cuda.device(dev):
-        stream = backend.current_stream_handle(dev)
-        launch("packed_rows", "packed_rows_keys", [_P, _P, _P, _P, _P, _I, _I, _L, _P],
-               idx_all.data_ptr(), counts.data_ptr(), offsets.data_ptr(), keys.data_ptr(), slots.data_ptr(),
-               t, k, idx_all.stride(0) if t else k)
-        launch("hash_grid", "radix_sort_u32", [_P, _I, _I, _P, _P, _P, _L, _P],
-               keys.data_ptr(), num_live, bits, skeys.data_ptr(), perm.data_ptr(), scratch.data_ptr(),
-               scratch.numel())
-        launch("packed_rows", "packed_rows_sum", [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-               skeys.data_ptr(), perm.data_ptr(), slots.data_ptr(), g_packed.data_ptr(), g_src.data_ptr(),
-               num_live, num_rows, d)
+        err = backend.entry("packed_rows", "packed_rows_bwd_f32", [_P, _P, _P, _P, _P, _L, _I, _I, _L, _I, _I, _P])(
+            idx_all.data_ptr(), counts.data_ptr(), g_packed.data_ptr(), g_src.data_ptr(), scratch.data_ptr(),
+            nbytes, t, k, idx_all.stride(0) if t else k, d, num_rows, backend.current_stream_handle(dev))
+    if err != 0:
+        raise RuntimeError(f"packed_rows_bwd_f32 launch failed: CUDA error {err}")
     backend.count_launch(PACKED_ROWS_BWD)
     return g_src
 
