@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--k4-against OTHER_CHECKOUT | --splat-repeatable-only [CHECKOUT] | --sparse-only |
-                           --corner-only] [--corner-against OTHER_CHECKOUT]
+                           --corner-only | --ensemble-train-only] [--corner-against OTHER_CHECKOUT]
 
 Builds the port's hand-written CUDA kernels from ``uncertainty_nerf_gs_torch/
 csrc`` with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, all started
@@ -47,7 +47,23 @@ beside its bound and ``index_select`` of the same rows; the fused (K1 2, K6
 kernel path against the plain path bit for bit, with their launch plans;
 five identical members against the single model; and both modes
 through ``get_average_uncertainty_metrics`` over two images (finite
-metrics, the JSON written), profiled and timed in turns. After the splat
+metrics, the JSON written), profiled and timed in turns. Then the joint
+ensemble step (``run_ensemble_train``): five active-nerfacto members at the
+method's width from ``init_ensemble_params``, trained by
+``build_ensemble_train_step`` on a shared 4,096-ray batch (K1 10, K4 15, K5
+15 a step): 2 eager steps, then 50 a launch as one captured CUDA graph,
+beside a lone trainer's 50-step launch; the memory of an eager step and of
+the capture against a lone trainer's plus the other members' weights,
+gradients and moments;
+members 0 and 4 of a step against lone single-member steps bit for bit; two
+steps from one state bit for bit; 5 steps as one launch against 5 eager
+steps bit for bit; the step profiled one at a time and at 50 a launch; one
+256x256 image through ``build_ensemble_render`` chunk by chunk equal to
+``ensemble_render``'s bit for bit; and the mesh forms on a one-rank mesh
+through NCCL (a file rendezvous in a temporary directory): the train step,
+the per-member render, the fused render and the splat bands, each bit for
+bit equal to its unsharded form (a multi-card check needs a machine with
+several cards). After the splat
 phase come two more at the same width: active-splatfacto past warmup
 (65,000 live Gaussians in 131,072 slots, the capacity tuner at start and
 every 20 steps, the camera optimizer, refines at steps 20, 30, 60 and 70
@@ -148,8 +164,9 @@ launches (the CLI, corner and tools phases' by run, a captured step's
 times its replays; the sparse phase's hybrid K4/K5, each table dtype's K6,
 and K5's and K8's positions-only modes as entries of their own), error,
 times and bound, a ``{"corner": ..., "tools": ...}`` line, a ``{"cli":
-...}`` line with each CLI run's wall time, rate and metrics, and a
-``{"sparse": ...}`` line with the sparse phase's.
+...}`` line with each CLI run's wall time, rate and metrics, a
+``{"sparse": ...}`` line with the sparse phase's, and an
+``{"ensemble_train": ...}`` line with the joint step's times and memory.
 
 ``--k4-against OTHER_CHECKOUT`` also builds that checkout's ``uncertainty_
 nerf_gs_torch/csrc/hash_grid.cu`` (for example the parent commit unpacked
@@ -162,7 +179,8 @@ code did, a K6 launch a level and the lerp as PyTorch ops.
 
 ``--sparse-only`` runs only the sparse phase (``run_sparse``) and prints
 its kernel entries; ``--corner-only`` the corner phase (``run_corner``) on
-a tree of its own.
+a tree of its own; ``--ensemble-train-only`` the joint ensemble step, its
+render and the mesh forms (``run_ensemble_train``) and their launches.
 
 ``--corner-against OTHER_CHECKOUT`` also builds that checkout's
 ``hash_grid.cu`` and ``packed_rows.cu`` (the parent commit unpacked with
@@ -2301,6 +2319,8 @@ def _clone_tree(x):
         return x.copy()
     if isinstance(x, dict):
         return {k: _clone_tree(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_clone_tree(v) for v in x]
     return x
 
 
@@ -3282,6 +3302,426 @@ def run_ensemble(device, name, other=None) -> dict:
     del packed
     images = ensemble_images(model, stacked, cams, device, name)
     return dict(k6=k6, plan=chunk["plan"], **images)
+
+
+# -- the joint ensemble step, its per-member render and the mesh forms -------
+
+ENS_TRAIN_K = 50  # steps a launch, the CLI's default
+ENS_EAGER_STEPS = 2
+# a joint step's launches: per member one training step's
+ENS_STEP_PLAN = dict(pdf_resample=2 * NUM_MEMBERS, cell_lookup_fwd=3 * NUM_MEMBERS,
+                     cell_lookup_bwd=3 * NUM_MEMBERS)
+ENS_TRAIN_SYMBOLS = {k: NERF_SYMBOLS[k] for k in ("pdf_resample", "cell_lookup_fwd", "cell_lookup_bwd")}
+# a parameter's bytes beside a member: the weight, its gradient, Adam's two moments
+ENS_MEMBER_BYTES_PER_PARAM = 16
+
+
+def build_ensemble_train(device):
+    """Five active-nerfacto members at the method's width (``configs/
+    methods.py:62-68``: 16 x 2^19 main grid, two 5-level proposals, 256 ->
+    96 -> 48 samples), as ``init_ensemble_params`` draws them (seeds 0-4),
+    without the camera optimizer (the joint step has none), on 4 cameras of
+    256x256 with numpy-seeded images."""
+    from uncertainty_nerf_gs_torch.data.synthetic import hemisphere_cameras
+    from uncertainty_nerf_gs_torch.models.nerfacto import NerfactoConfig, NerfactoModel
+    from uncertainty_nerf_gs_torch.parallel.ensemble_parallel import init_ensemble_params
+
+    cfg = NerfactoConfig(uncertainty_channels=1, num_images=4, background_color="white")
+    cams = hemisphere_cameras(4, 256, 256)
+    images = np.random.default_rng(SEED).uniform(size=(4, 256, 256, 3)).astype(np.float32)
+    return cfg, NerfactoModel(cfg, device=device), cams, images, init_ensemble_params(cfg, NUM_MEMBERS, SEED, device)
+
+
+def ensemble_batches(images, k, gen) -> dict[str, torch.Tensor]:
+    """``k`` batches of NERF_RAYS pixels drawn uniformly, stacked on a
+    leading axis, on the card."""
+    n, h, w = images.shape[:3]
+    cam, py, px = (torch.randint(0, hi, (k, NERF_RAYS), generator=gen, device=gen.device) for hi in (n, h, w))
+    return {"camera_indices": cam, "pixel_x": px.to(torch.float32), "pixel_y": py.to(torch.float32),
+            "image": images[cam, py, px]}
+
+
+def row(batches, i) -> dict[str, torch.Tensor]:
+    return {k: v[i] for k, v in batches.items()}
+
+
+def ensemble_state_differ(a: dict, b: dict) -> list[str]:
+    """The items of two ``EnsembleTrainState.state_dict()`` copies whose bits
+    differ."""
+    differ = [f"params:{k}" for k in a["params"] if not torch.equal(a["params"][k], b["params"][k])]
+    for key in ("exp_avg", "exp_avg_sq"):
+        differ += [f"{key}:{k}" for k in a["opt_state"][key]
+                   if not torch.equal(a["opt_state"][key][k], b["opt_state"][key][k])]
+    if a["opt_state"]["groups"] != b["opt_state"]["groups"] or a["step"] != b["step"]:
+        differ.append("counts")
+    differ += [f"generator {m}" for m, (x, y) in enumerate(zip(a["generators"], b["generators"]))
+               if not torch.equal(x, y)]
+    return differ
+
+
+def lone_trainer(cfg, cams, images, device):
+    from uncertainty_nerf_gs_torch.engine.trainer import NerfactoTrainer
+
+    return NerfactoTrainer(cfg, cams, images, seed=SEED, device=device)
+
+
+def lone_step(cfg, cams, images, device, snap, m, batch) -> tuple[torch.Tensor, dict]:
+    """Member m of a snapshot of the ensemble's state trained alone: a
+    single-member trainer restored to the member's weights, Adam state and
+    step, one step on ``batch`` with draws from a generator in the member's
+    state (``NerfactoTrainer._device_step``'s path with the batch given).
+    Returns its total loss and its state."""
+    from uncertainty_nerf_gs_torch.engine.optimizers import apply_updates
+
+    trainer = lone_trainer(cfg, cams, images, device)
+    opt = snap["opt_state"]
+    trainer.restore({
+        "params": {k: v[m] for k, v in snap["params"].items()}, "step": snap["step"],
+        "opt_state": {"groups": {g: {n: c[m] for n, c in v.items()} for g, v in opt["groups"].items()},
+                      "exp_avg": {k: v[m] for k, v in opt["exp_avg"].items()},
+                      "exp_avg_sq": {k: v[m] for k, v in opt["exp_avg_sq"].items()}}})
+    gen = torch.Generator(device=device)
+    gen.set_state(snap["generators"][m])
+    trainer.optimizer.zero_grad(set_to_none=True)
+    total, _ = trainer._loss_fn(batch, trainer._step_t, draws=trainer.model.draw(NERF_RAYS, gen))
+    total.backward()
+    apply_updates(trainer.optimizer)
+    sd = trainer.state_dict()
+    return total.detach(), sd
+
+
+def run_ensemble_train(device, name) -> dict:
+    """The joint ensemble step at full width (``build_ensemble_train_step``):
+    a lone trainer first (its footprint at a step's peak, its captured
+    step's pool, its 50-step launch's ms and busy time, for the
+    comparison); then 2 eager steps and a 50-step launch (the member steps
+    captured as one CUDA graph and replayed), with K1 10, K4 15 and K5 15
+    launches a step, the footprint of an eager step and of the launch with
+    the capture against the lone trainer's plus the other members' weights,
+    gradients and moments (16 B a parameter);
+    members 0 and 4 of a step against lone single-member steps bit for bit;
+    two steps from one restored state bit for bit; 5 steps as one launch
+    against 5 eager steps bit for bit; the step profiled one at a time and
+    at 50 a launch."""
+    from uncertainty_nerf_gs_torch.ops import backend
+    from uncertainty_nerf_gs_torch.parallel.ensemble_parallel import build_ensemble_train_step
+
+    t0 = time.perf_counter()
+    cfg, model, cams, images, stacked = build_ensemble_train(device)
+    images = torch.as_tensor(images, device=device)
+    n_params = sum(v[0].numel() for v in stacked.values())
+    print(f"ensemble training: {NUM_MEMBERS} members of {n_params} parameters; set-up {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    out: dict = {}
+
+    # the lone trainer: its footprint at a step's peak, its graph's pool, its
+    # 50-step launch
+    before = torch.cuda.memory_allocated()
+    stacked_bytes = sum(v.numel() * v.element_size() for v in stacked.values())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lone = lone_trainer(cfg, cams, images.cpu().numpy(), device)
+    lone.restore({"params": {k: v[0] for k, v in stacked.items()}})
+    lone.train_step(NERF_RAYS)
+    lone_footprint = torch.cuda.max_memory_allocated() - before
+    reserved = torch.cuda.memory_reserved()
+    lone.train(ENS_TRAIN_K, NERF_RAYS, steps_per_launch=ENS_TRAIN_K)  # eager warm-up, capture, replays
+    lone_pool = torch.cuda.memory_reserved() - reserved
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lone.train(ENS_TRAIN_K, NERF_RAYS, steps_per_launch=ENS_TRAIN_K)
+    lone_ms = 1e3 * (time.perf_counter() - t0) / ENS_TRAIN_K
+    kernels = profile_top(f"lone trainer, {ENS_TRAIN_K} steps a launch",
+                          lambda: lone.train(ENS_TRAIN_K, NERF_RAYS, steps_per_launch=ENS_TRAIN_K),
+                          ENS_TRAIN_SYMBOLS, top=3)
+    lone_busy = 1e-3 * sum(us for _, us in kernels.values()) / ENS_TRAIN_K if kernels else None
+    del lone, kernels
+    torch.cuda.empty_cache()
+
+    step = build_ensemble_train_step(model, cfg, cams)
+    state = step.init(stacked, seed=SEED + 1)
+    del stacked
+    torch.cuda.empty_cache()
+    batches = ensemble_batches(images, ENS_TRAIN_K, gen)
+    backend.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eager_ms, losses = [], []
+    for i in range(ENS_EAGER_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step(state, row(batches, i)).cpu())
+        eager_ms.append(1e3 * (time.perf_counter() - t0))
+    # the ensemble's state, gradients and a step's activations, on the lone
+    # trainer's baseline
+    footprint = torch.cuda.max_memory_allocated() - (before - stacked_bytes)
+    launches = dict(backend.launch_counts)
+    want = {k: ENS_EAGER_STEPS * v for k, v in ENS_STEP_PLAN.items()}
+    print(f"ensemble training: {ENS_EAGER_STEPS} eager steps, launches {launches}, expected {want}; "
+          f"ms a step {', '.join(f'{v:.1f}' for v in eager_ms)} on {name}; losses {[l.tolist() for l in losses]}")
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError("the joint ensemble step did not go through its kernels")
+    backend.reset_launch_counts()
+    reserved = torch.cuda.memory_reserved()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rows = step.launch(state, batches)  # warm-up, capture, replays
+    first_launch_s = time.perf_counter() - t0
+    capture_footprint = torch.cuda.max_memory_allocated() - (before - stacked_bytes)
+    pool = torch.cuda.memory_reserved() - reserved
+    launches_k = dict(backend.launch_counts)
+    want = {k: ENS_TRAIN_K * v for k, v in ENS_STEP_PLAN.items()}
+    print(f"ensemble training: {ENS_TRAIN_K} steps as one launch (capture included, {first_launch_s:.2f} s), "
+          f"launches {launches_k}, expected {want}")
+    if any(launches_k[k] != v for k, v in want.items()):
+        raise AssertionError("the joint ensemble step's K-step launch did not go through its kernels")
+    if not np.isfinite(rows).all() or rows.shape != (ENS_TRAIN_K, NUM_MEMBERS):
+        raise AssertionError(f"ensemble losses {rows.shape} not finite")
+    batches = ensemble_batches(images, ENS_TRAIN_K, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = step.launch(state, batches)  # all replays
+    k_ms = 1e3 * (time.perf_counter() - t0) / ENS_TRAIN_K
+    extra = (NUM_MEMBERS - 1) * n_params * ENS_MEMBER_BYTES_PER_PARAM
+    print(f"ensemble training memory on {name} (max_memory_allocated above the baseline without the ensemble): "
+          f"an eager step's peak {footprint / 1e9:.2f} GB, the launch with the capture's "
+          f"{capture_footprint / 1e9:.2f} GB, against a lone trainer's {lone_footprint / 1e9:.2f} GB + "
+          f"{NUM_MEMBERS - 1} x {n_params} x {ENS_MEMBER_BYTES_PER_PARAM} B = {extra / 1e9:.2f} GB of the other "
+          f"members' weights, gradients and moments = {(lone_footprint + extra) / 1e9:.2f} GB; the memory the "
+          f"capture reserved {pool / 1e9:.2f} GB (the lone trainer's {lone_pool / 1e9:.2f} GB)")
+    # five members' activations at once would add four of the lone trainer's
+    if max(footprint, capture_footprint) > 2 * lone_footprint + extra:
+        raise AssertionError("the ensemble step holds more than one member's activations at once")
+    out.update(eager_ms=eager_ms, k_ms=k_ms, lone_k_ms=lone_ms, lone_busy_ms=lone_busy,
+               footprint_gb=footprint / 1e9, capture_footprint_gb=capture_footprint / 1e9,
+               lone_footprint_gb=lone_footprint / 1e9, extra_members_gb=extra / 1e9,
+               reserved_by_capture_gb=pool / 1e9, lone_reserved_by_capture_gb=lone_pool / 1e9,
+               first_launch_s=first_launch_s)
+
+    # members 0 and 4 against lone single-member steps, bit for bit
+    snap = _clone_tree(state.state_dict())
+    batch = row(batches, 0)
+    losses = step(state, batch)
+    after = state.state_dict()
+    for m in (0, NUM_MEMBERS - 1):
+        total, sd = lone_step(cfg, cams, images.cpu().numpy(), device, snap, m, batch)
+        differ = [] if torch.equal(total, losses[m]) else ["loss"]
+        differ += [f"params:{k}" for k, v in sd["params"].items() if not torch.equal(v, after["params"][k][m])]
+        for key in ("exp_avg", "exp_avg_sq"):
+            differ += [f"{key}:{k}" for k, v in sd["opt_state"][key].items()
+                       if not torch.equal(v, after["opt_state"][key][k][m])]
+        print(f"ensemble member {m} against a lone single-member step: {len(differ)} of "
+              f"{1 + 3 * len(sd['params'])} items differ" + (f": {differ[:8]}" if differ else " (bit-identical)"))
+        if differ:
+            raise AssertionError(f"member {m} differs from its lone step: {differ[:8]}")
+        del sd
+        torch.cuda.empty_cache()
+
+    # two steps from one restored state
+    runs = []
+    for _ in range(2):
+        state.load_state_dict(_clone_tree(snap))
+        backend.reset_launch_counts()
+        step(state, batch)
+        runs.append((_clone_tree(state.state_dict()), dict(backend.launch_counts)))
+    differ = ensemble_state_differ(runs[0][0], runs[1][0])
+    items = 3 * len(snap["params"]) + 2 + NUM_MEMBERS
+    print(f"ensemble repeatability: two steps from one state, launches {runs[0][1]} and {runs[1][1]}; "
+          f"{len(differ)} of {items} items differ" + (f": {differ[:8]}" if differ else " (bit-identical)"))
+    if differ or runs[0][1] != runs[1][1]:
+        raise AssertionError(f"two ensemble steps from one state differ: {differ[:8]}")
+    del runs
+
+    # 5 steps as one launch (a new capture) against 5 eager steps
+    five = {k: v[:5] for k, v in batches.items()}
+    results = []
+    for mode in ("eager", "launch"):
+        state.load_state_dict(_clone_tree(snap))
+        if mode == "eager":
+            got = np.stack([step(state, row(five, i)).cpu().numpy() for i in range(5)])
+        else:
+            got = step.launch(state, five)
+        results.append((got, _clone_tree(state.state_dict())))
+    differ = ensemble_state_differ(results[0][1], results[1][1])
+    if not np.array_equal(results[0][0], results[1][0]):
+        differ.append("losses")
+    print(f"ensemble graph check: 5 steps as one launch against 5 eager steps from one state: {len(differ)} "
+          f"items differ" + (f": {differ[:8]}" if differ else " (losses and state bit-identical)"))
+    if differ:
+        raise AssertionError(f"the ensemble's K-step launch differs from eager steps: {differ[:8]}")
+    del results, snap
+    torch.cuda.empty_cache()
+
+    # profiles: one step at a time, and a 50-step launch
+    kernels = profile_top("ensemble training, one step", lambda: step(state, row(batches, 1)).cpu(),
+                          ENS_TRAIN_SYMBOLS, top=5)
+    eager_busy = 1e-3 * sum(us for _, us in kernels.values()) if kernels else None
+    eager_wall = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, row(batches, 2 + i)).cpu()
+        eager_wall.append(1e3 * (time.perf_counter() - t0))
+    kernels = profile_top(f"ensemble training, {ENS_TRAIN_K} steps a launch", lambda: step.launch(state, batches),
+                          ENS_TRAIN_SYMBOLS, top=8)
+    k_busy = 1e-3 * sum(us for _, us in kernels.values()) / ENS_TRAIN_K if kernels else None
+    out.update(eager_busy_ms=eager_busy, eager_wall_ms=eager_wall, k_busy_ms=k_busy, launches=launches_k,
+               step_launches={k: v // ENS_TRAIN_K for k, v in launches_k.items()})
+    print(f"ensemble training on {name}: one step at a time {', '.join(f'{v:.2f}' for v in eager_wall)} ms "
+          f"(busy " + (f"{eager_busy:.2f}" if eager_busy else "not measured") + f" ms); {ENS_TRAIN_K} a launch "
+          f"{k_ms:.2f} ms a step (busy " + (f"{k_busy:.2f}" if k_busy else "not measured") + " ms); the lone "
+          f"trainer's {ENS_TRAIN_K} a launch {lone_ms:.2f} ms a step (busy "
+          + (f"{lone_busy:.2f}" if lone_busy else "not measured") + " ms)")
+    render = run_ensemble_member_render(model, state.params, cams, device, name)
+    mesh = run_mesh(model, cfg, cams, state, batches, device, name)
+    out.update(render=render, mesh=mesh)
+    return out
+
+
+def run_ensemble_member_render(model, stacked, cams, device, name) -> dict:
+    """One 256x256 image through ``build_ensemble_render``, chunk by chunk,
+    each chunk bit for bit equal to ``models/ensemble.py::ensemble_render``'s;
+    K1 10 and K4 15 a chunk."""
+    from uncertainty_nerf_gs_torch.models.ensemble import ensemble_render
+    from uncertainty_nerf_gs_torch.ops import backend
+    from uncertainty_nerf_gs_torch.parallel.ensemble_parallel import build_ensemble_render
+
+    render = build_ensemble_render(model)
+    chunk = model.config.eval_num_rays_per_chunk
+    chunks = -(-cams.height * cams.width // chunk)
+    rays = [chunk_rays(cams, 0, i, chunk, device) for i in range(chunks)]
+    backend.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [render(stacked, rb) for rb in rays]
+    rgb = torch.cat([o["rgb"] for o in outs]).cpu()
+    seconds = time.perf_counter() - t0
+    launches = dict(backend.launch_counts)
+    want = {k: chunks * v for k, v in PER_MEMBER_PLAN.items()}
+    print(f"ensemble render (build_ensemble_render), a 256x256 image: {1e3 * seconds:.1f} ms on {name}; launches "
+          f"{launches}, expected {want}")
+    if any(launches[k] != v for k, v in want.items()) or not torch.isfinite(rgb).all():
+        raise AssertionError("the per-member ensemble render did not go through its kernels")
+    differ = 0
+    for rb, o in zip(rays, outs):
+        ref = ensemble_render(model, stacked, rb)
+        differ += sum(int((ref[k] != o[k]).sum()) for k in ref) + len(set(ref) ^ set(o))
+    print(f"  against ensemble_render chunk by chunk: {differ} entries differ")
+    if differ:
+        raise AssertionError("build_ensemble_render differs from ensemble_render")
+    return dict(launches=launches, ms=1e3 * seconds)
+
+
+def run_mesh(model, cfg, cams, state, batches, device, name) -> dict:
+    """The mesh forms on a one-rank ("data" 1 x "member" 1) mesh through
+    NCCL (a file rendezvous in a temporary directory): the train step, the
+    per-member render, the fused render and the splat bands, each bit for
+    bit equal to its unsharded form, and each one's launches. A multi-card
+    check needs a machine with several cards."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from uncertainty_nerf_gs_torch.models import splatfacto as sf
+    from uncertainty_nerf_gs_torch.ops import backend
+    from uncertainty_nerf_gs_torch.ops.rasterize import rasterize_gaussians
+    from uncertainty_nerf_gs_torch.parallel import mesh as tmesh
+    from uncertainty_nerf_gs_torch.parallel.ensemble_fused import build_fused_ensemble_render, pack_ensemble_tables
+    from uncertainty_nerf_gs_torch.parallel.ensemble_parallel import build_ensemble_render, build_ensemble_train_step
+    from uncertainty_nerf_gs_torch.parallel.splat_parallel import rasterize_gaussians_sharded
+
+    tmp = tempfile.mkdtemp()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", world_size=1, rank=0)
+    out = {"launches": {}}
+    try:
+        mesh = tmesh.make_mesh(1, 1)
+        print(f"mesh: {mesh} through {dist.get_backend()}")
+
+        def counted(label, fn):
+            backend.reset_launch_counts()
+            result = fn()
+            torch.cuda.synchronize()
+            out["launches"][label] = dict(backend.launch_counts)
+            return result
+
+        def check(label, a, b):
+            differ = [k for k in a if not torch.equal(a[k], b[k])] + sorted(set(a) ^ set(b))
+            print(f"mesh {label}: launches {out['launches'].get(label)}; {len(differ)} of {len(a)} outputs differ "
+                  f"from the unsharded form" + (f": {differ[:8]}" if differ else " (bit-identical)"))
+            if differ:
+                raise AssertionError(f"the mesh {label} differs from its unsharded form: {differ[:8]}")
+
+        # the train step, from one state each way
+        snap = _clone_tree(state.state_dict())
+        batch = row(batches, 3)
+        plain_step = build_ensemble_train_step(model, cfg, cams)
+        mesh_step = build_ensemble_train_step(model, cfg, cams, mesh=mesh)
+        want_losses = plain_step(state, batch)
+        want = _clone_tree(state.state_dict())
+        state.load_state_dict(_clone_tree(snap))
+        losses = counted("train", lambda: mesh_step(state, tmesh.shard_batch(batch, mesh)))
+        got = state.state_dict()
+        differ = ensemble_state_differ(want, got) + ([] if torch.equal(losses, want_losses) else ["losses"])
+        print(f"mesh train step: launches {out['launches']['train']}; {len(differ)} items differ from the unsharded "
+              f"step" + (f": {differ[:8]}" if differ else " (losses and state bit-identical)"))
+        if differ or any(out["launches"]["train"][k] != v for k, v in ENS_STEP_PLAN.items()):
+            raise AssertionError(f"the mesh train step differs from the unsharded step: {differ[:8]}")
+        del snap, want, got
+        stacked = state.params
+
+        # the per-member render and the fused render of one chunk
+        rb = chunk_rays(cams, 1, 3, model.config.eval_num_rays_per_chunk, device)
+        check("render", counted("render", lambda: build_ensemble_render(model, mesh=mesh)(
+            tmesh.shard_members(stacked, mesh), tmesh.shard_batch(rb, mesh))), build_ensemble_render(model)(stacked, rb))
+        packed = pack_ensemble_tables(model, stacked)
+        fused = counted("fused", lambda: build_fused_ensemble_render(model, mesh=mesh)(
+            tmesh.replicate(stacked, mesh), tmesh.replicate(packed, mesh), tmesh.shard_batch(rb, mesh, tmesh.MESH_DIMS)))
+        check("fused", fused, build_fused_ensemble_render(model)(stacked, packed, rb))
+        del packed, fused
+        torch.cuda.empty_cache()
+
+        # the splat bands on the splat benchmark's scene
+        splat = build_splat(device)
+        cfg_s = splat.config
+        params = {k: v.detach() for k, v in splat.params.items()}
+        w, h = splat.cameras.width, splat.cameras.height
+        with torch.no_grad():
+            proj = sf._project(params, splat.splat_state.alive, *splat.camera(0), w, h, cfg_s)
+            opac = torch.sigmoid(params["opacities"]) * proj.compensation
+            g = torch.Generator(device=device).manual_seed(SEED + 23)
+            payload = torch.cat([torch.rand(opac.shape[0], 3, generator=g, device=device), proj.depths[:, None],
+                                 proj.depths[:, None] ** 2, torch.rand(opac.shape[0], 1, generator=g, device=device)], 1)
+            img, alpha, overflow = counted("splat", lambda: rasterize_gaussians_sharded(
+                proj, opac, payload, w, h, mesh, capacity=cfg_s.rasterize_capacity))
+            ref = rasterize_gaussians(proj, opac, payload, w, h, capacity=cfg_s.rasterize_capacity)
+        check("splat", {"image": img, "alpha": alpha, "max_overflow": overflow},
+              {"image": ref.image, "alpha": ref.alpha, "max_overflow": ref.max_overflow})
+        want_plans = {"render": PER_MEMBER_PLAN, "fused": FUSED_PLAN, "splat": dict(composite_fwd=1)}
+        for label, plan in want_plans.items():
+            if any(out["launches"][label][k] != v for k, v in plan.items()):
+                raise AssertionError(f"the mesh {label} launched {out['launches'][label]}, expected {plan}")
+        del splat
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"mesh forms done on {name}: one rank through NCCL; a multi-card check needs a machine with several cards")
+    return out
+
+
+def ensemble_train_summary(ens_train) -> dict:
+    """The joint-ensemble phases' numbers for the output's JSON line."""
+    keep = {k: v for k, v in ens_train.items() if k not in ("render", "mesh", "launches")}
+    return dict(keep, render_ms=ens_train["render"]["ms"])
+
+
+def ensemble_train_paths(ens_train) -> dict[str, dict[str, int]]:
+    """The joint-ensemble phases' launches, a path each, for the kernels
+    line."""
+    paths = {"ensemble_train": ens_train["launches"], "ensemble_train_render": ens_train["render"]["launches"]}
+    paths.update({f"mesh_{k}": v for k, v in ens_train["mesh"]["launches"].items()})
+    return paths
 
 
 # -- the CLI phase: a run from the command line, resume, the K-step graph ------
@@ -5167,6 +5607,17 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         return splat_repeatable_only(card())
+    if args == ["--ensemble-train-only"]:
+        from uncertainty_nerf_gs_torch.ops import backend
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        name = card()
+        backend.build_kernels()
+        ens_train = run_ensemble_train(torch.device("cuda"), name)
+        print(json.dumps({"ensemble_train": ensemble_train_summary(ens_train),
+                          "launches_by_path": ensemble_train_paths(ens_train)}))
+        return 0
     if args == ["--sparse-only"]:
         from uncertainty_nerf_gs_torch.ops import backend
 
@@ -5280,6 +5731,10 @@ def main() -> int:
     ens = run_ensemble(device, name, other)
     print(f"ensemble done at {time.perf_counter() - t_start:.1f} s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    torch.cuda.empty_cache()
+    ens_train = run_ensemble_train(device, name)
+    torch.cuda.empty_cache()
+    print(f"ensemble training, its render and the mesh forms done at {time.perf_counter() - t_start:.1f} s")
 
     cli = run_cli(name)
     print(f"cli done at {time.perf_counter() - t_start:.1f} s; peak device memory "
@@ -5326,6 +5781,12 @@ def main() -> int:
             kernels[0]["launches_by_path"][f"cli_{label}"] = r["launches"]["pdf_resample"]
             kernels[0]["launches"] += r["launches"]["pdf_resample"]
     kernels += sparse_kernel_entries(sparse)
+    for label, launches in ensemble_train_paths(ens_train).items():
+        for entry in kernels:
+            n = launches.get(entry["name"], 0)
+            if n:
+                entry["launches_by_path"][label] = n
+                entry["launches"] += n
     unlaunched = [e["name"] for e in kernels if not e["launches"]]
     if unlaunched:
         raise AssertionError(f"kernels of the path never launched: {unlaunched}")
@@ -5345,6 +5806,7 @@ def main() -> int:
                                     for k, r in tools["pose"].items()},
                   "viewer_modes": {k: v["modes"] for k, v in tools["viewer"].items()},
                   "live_frames": tools["live"]["frames"], "live_rendered_at": tools["live"]["rendered_at"]}}))
+    print(json.dumps({"ensemble_train": ensemble_train_summary(ens_train)}))
     print(json.dumps({"kernels": kernels}))
     print(name)
     print(json.dumps({"ok": True, "device": {

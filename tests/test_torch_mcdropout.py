@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_train import H, N_CAMS, W, _batches, _flipped_rays, _jax_draws, _trainer_pair
+from test_torch_train import H, N_CAMS, W, _batches, _flipped_rays, _trainer_pair
 from torch_parity import (
     BF16_MLP_TOL,
     BF16_MODEL_TOL,
@@ -33,6 +33,7 @@ from torch_parity import (
     dropout_layers,
     grad_l2_error,
     impose_dropout,
+    jax_draws,
     lookup_cells_jax,
     ray_mismatch,
     rays,
@@ -296,7 +297,7 @@ def mc_trainer_pair(rng, jit=True):
     grads, the port's trainer, its batch, draws and masks)."""
     jtr, ttr, tree, images = _trainer_pair(rng, "random", density_shift=WELL_CONDITIONED_DENSITY_SHIFT, **MC_KW)
     num_rays, step, key = 96, 300, jax.random.PRNGKey(3)
-    draws = _jax_draws(jtr, key, num_rays)
+    draws = jax_draws(jtr.config, key, num_rays)
     rows = np.stack([rng.integers(0, N_CAMS, num_rays), rng.integers(0, H, num_rays),
                      rng.integers(0, W, num_rays)], axis=1)
     for _ in range(6):

@@ -26,6 +26,7 @@ from torch_parity import (
     WELL_CONDITIONED_TRAIN_GRAD_L2,
     draw_params,
     grad_l2_error,
+    jax_draws,
     lookup_cells_jax,
     small_config_kwargs,
 )
@@ -188,25 +189,6 @@ def _trainer_pair(rng, camera_opt, masks=None, background="white", density_shift
     return jtr, ttr, tree, images
 
 
-def _jax_draws(jtr, rng_key, num_rays) -> dict:
-    """The uniform draws JAX's training forward makes for ``num_rays`` rays
-    under ``_loss_fn(..., rng_key, ...)``, in ``NerfactoModel.draw``'s
-    layout: ``jax.random.uniform(key, shape)`` of the keys the model splits
-    (its stratified jitter is that draw minus 0.5, to the bit)."""
-    cfg = jtr.config
-    k_model, _ = jax.random.split(rng_key)
-    levels = len(cfg.proposal_net_args)
-    keys = jax.random.split(k_model, levels + 2)
-    counts = list(cfg.num_proposal_samples[1:levels]) + [cfg.num_nerf_samples]
-    draws = {
-        "uniform": _t(jax.random.uniform(keys[0], (num_rays, cfg.num_proposal_samples[0] + 1))),
-        "pdf": [_t(jax.random.uniform(keys[1 + i], (num_rays, n + 1))) for i, n in enumerate(counts)],
-    }
-    if cfg.background_color == "random":
-        draws["background"] = _t(jax.random.uniform(keys[-1], (num_rays, 3)))
-    return draws
-
-
 def _batches(images, rows):
     """The same batch for both packages: (cam, y, x) rows -> dicts."""
     cam, py, px = rows[:, 0], rows[:, 1], rows[:, 2]
@@ -276,7 +258,7 @@ def train_loss_and_grads(rng, camera_opt, background="white", num_rays=96, step=
 
     rows = fresh(num_rays)
     rng_key = jax.random.PRNGKey(seed)
-    draws = _jax_draws(jtr, rng_key, num_rays)
+    draws = jax_draws(jtr.config, rng_key, num_rays)
     if jtr.config.face_consistency_mult > 0.0:
         draws["face_vertices"] = _jax_face_vertices(jtr, rng_key)
     replaced = 0

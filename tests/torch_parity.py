@@ -237,6 +237,40 @@ def rays(rng: np.random.Generator, n: int, num_images: int = 3):
     return o, d, ci
 
 
+def jax_draws(config, rng_key, num_rays: int, per_member: int | None = None):
+    """The uniform draws JAX's training forward makes for ``num_rays`` rays,
+    in ``NerfactoModel.draw``'s layout (torch tensors):
+    ``jax.random.uniform(key, shape)`` of the keys the model splits from its
+    ``rngs_key`` (its stratified jitter is that draw minus 0.5, to the bit).
+    The model's key is the JAX trainer's, ``split(rng_key)[0]``
+    (``NerfactoTrainer._loss_fn(..., rng_key, ...)``); with ``per_member``
+    = M, a list of M draws keyed as ``build_ensemble_train_step`` keys its
+    members, ``split(fold_in(rng_key, 0), M)[m]`` handed to the model as it
+    is."""
+    # imported here: chip_smoke.py reads this module on a machine without JAX
+    import jax
+    import torch
+
+    def as_tensor(x):
+        return torch.from_numpy(np.array(x))
+
+    def model_draws(k_model):
+        levels = len(config.proposal_net_args)
+        keys = jax.random.split(k_model, levels + 2)
+        counts = list(config.num_proposal_samples[1:levels]) + [config.num_nerf_samples]
+        draws = {
+            "uniform": as_tensor(jax.random.uniform(keys[0], (num_rays, config.num_proposal_samples[0] + 1))),
+            "pdf": [as_tensor(jax.random.uniform(keys[1 + i], (num_rays, n + 1))) for i, n in enumerate(counts)],
+        }
+        if config.background_color == "random":
+            draws["background"] = as_tensor(jax.random.uniform(keys[-1], (num_rays, 3)))
+        return draws
+
+    if per_member is None:
+        return model_draws(jax.random.split(rng_key)[0])
+    return [model_draws(k) for k in jax.random.split(jax.random.fold_in(rng_key, 0), per_member)]
+
+
 def lookup_cells_jax(config, ray_bundle, sdist_list) -> np.ndarray:
     """The JAX side of ``NerfactoModel.lookup_cells``, with the JAX package's
     own functions: (R, K) cell index of every hash-grid lookup of the eval

@@ -409,7 +409,7 @@ def corner_steps() -> None:
 
     import torch
 
-    from test_torch_train import _jax_draws
+    from torch_parity import jax_draws
 
     from uncertainty_nerf_gs_torch import interop
     from uncertainty_nerf_gs_torch.data.dataparsers import DATAPARSERS as TP
@@ -440,7 +440,7 @@ def corner_steps() -> None:
         for i in range(CORNER_STEPS):
             key, k_batch, k_step = jax.random.split(key, 3)  # as the JAX trainer's loop
             batch = jtr.sample_batch(k_batch, CORNER_RAYS)
-            draws = _jax_draws(jtr, k_step, CORNER_RAYS)
+            draws = jax_draws(jtr.config, k_step, CORNER_RAYS)
             jtr.state, losses = jtr._train_step(jtr.state, batch, k_step)
             tb = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
             tb["camera_indices"] = tb["camera_indices"].long()

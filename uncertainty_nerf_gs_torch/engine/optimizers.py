@@ -117,15 +117,19 @@ class ScheduledAdam(torch.optim.Optimizer):
 
     b1, b2 = 0.9, 0.999
 
-    def __init__(self, param_groups: list[dict]):
+    def __init__(self, param_groups: list[dict], moments: Mapping[torch.Tensor, dict] | None = None):
+        """``moments``: a parameter's ``{"exp_avg", "exp_avg_sq"}``, zero
+        tensors the caller lays out (the ensemble's stacked moments); zeros
+        of the parameter's shape where not given."""
         super().__init__(param_groups, {})
         for group in self.param_groups:
             device = group["params"][0].device
             group["count"] = torch.zeros((), dtype=torch.int64, device=device)
             group["adam_count"] = torch.zeros((), dtype=torch.int64, device=device)
             for p in group["params"]:
-                self.state[p] = {"exp_avg": torch.zeros_like(p.detach()),
-                                 "exp_avg_sq": torch.zeros_like(p.detach())}
+                given = None if moments is None else moments.get(p)
+                self.state[p] = given if given is not None else {
+                    "exp_avg": torch.zeros_like(p.detach()), "exp_avg_sq": torch.zeros_like(p.detach())}
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -156,20 +160,29 @@ class ScheduledAdam(torch.optim.Optimizer):
             torch._foreach_addcdiv_(params, mu, denom, value=-1.0)
 
 
-def make_optimizer(
+def param_groups(
     params: Mapping[str, torch.Tensor],
     groups: Mapping[str, OptimizerGroupConfig] | None = None,
-) -> ScheduledAdam:
-    """One ``ScheduledAdam`` over ``params`` (name -> leaf tensor), a param
-    group per label in use, in order of first appearance. Each group
-    carries its ``name``, its ``config`` and its counts; a label without a
-    config gets ``OptimizerGroupConfig()``."""
+) -> list[dict]:
+    """``ScheduledAdam``'s param groups over ``params`` (name -> leaf
+    tensor): one a label in use, in order of first appearance, each with its
+    ``name`` and its ``config``; a label without a config gets
+    ``OptimizerGroupConfig()``."""
     groups = dict(groups or DEFAULT_GROUPS)
     members: dict[str, list[torch.Tensor]] = {}
     for name, label in label_params(params).items():
         members.setdefault(label, []).append(params[name])
-    return ScheduledAdam([dict(params=tensors, name=label, config=groups.get(label, OptimizerGroupConfig()))
-                          for label, tensors in members.items()])
+    return [dict(params=tensors, name=label, config=groups.get(label, OptimizerGroupConfig()))
+            for label, tensors in members.items()]
+
+
+def make_optimizer(
+    params: Mapping[str, torch.Tensor],
+    groups: Mapping[str, OptimizerGroupConfig] | None = None,
+) -> ScheduledAdam:
+    """One ``ScheduledAdam`` over ``params`` with ``param_groups``' groups,
+    each carrying its counts."""
+    return ScheduledAdam(param_groups(params, groups))
 
 
 def apply_updates(optimizer: ScheduledAdam) -> None:

@@ -23,7 +23,10 @@ count and the schedule's count, per parameter the first and second moments
 under the parameter's name, transposed like the parameter.
 ``trainer_state_to_jax`` goes back into the structure of a JAX state dict
 given as ``like``; optax's state classes are read by their fields, so
-neither direction imports optax. Both are bit-exact.
+neither direction imports optax. Both are bit-exact. Their optimizer halves,
+``opt_state_from_jax`` and ``opt_state_to_jax``, also carry the stacked
+state of ``jax.vmap(tx.init)`` (a count a member, (M, ...) moments) to the
+ensemble step's optimizer state and back.
 
 The splat models' parameters are a flat dict with the same names in both
 packages (``SPLAT_PARAM_NAMES``); ``splat_params_from_jax`` and
@@ -81,8 +84,8 @@ def _table_leaf(name: str, leaf: np.ndarray) -> np.ndarray:
 def _torch_leaf(path: tuple[str, ...], leaf: np.ndarray) -> tuple[str, torch.Tensor]:
     """A flax tree path and leaf -> the state-dict key and tensor."""
     *mods, name = path
-    if name == "kernel":
-        name, leaf = "weight", leaf.T
+    if name == "kernel":  # (..., in, out) -> (..., out, in), a leading member axis kept
+        name, leaf = "weight", np.swapaxes(leaf, -1, -2)
     elif name == "embedding":
         name = "weight"
     elif name != "bias" and not _is_table(name) and path != ("camera_opt",):
@@ -134,7 +137,7 @@ def _jax_leaf(key: str, value: torch.Tensor) -> tuple[list[str], np.ndarray]:
         if mods[-1] == "appearance_embedding":
             name = "embedding"
         else:
-            name, leaf = "kernel", leaf.T
+            name, leaf = "kernel", np.swapaxes(leaf, -1, -2)
     elif name not in ("bias", "camera_opt") and not _is_table(name):
         raise KeyError(f"no flax counterpart for {key}")
     return mods + [name], np.ascontiguousarray(_table_leaf(name, leaf))
@@ -172,20 +175,38 @@ def _moments_from_jax(tree: Mapping[str, Any], out: dict[str, torch.Tensor]) -> 
         out[key] = value
 
 
+def _count(x) -> int | list[int]:
+    """An optax count: an int, or a list of ints where ``jax.vmap(tx.init)``
+    stacked one a member."""
+    x = np.asarray(x)
+    return int(x) if x.ndim == 0 else [int(v) for v in x]
+
+
+def opt_state_from_jax(opt_state) -> dict[str, Any]:
+    """The JAX package's ``make_optimizer`` state (optax's
+    ``multi_transform``) -> ``{"groups": {label: {"adam_count",
+    "schedule_count"}}, "exp_avg": {name: tensor}, "exp_avg_sq": ...}``,
+    the moments under the parameters' names and transposed like them. A
+    stacked state (``jax.vmap(tx.init)`` over an ensemble's members) gives
+    lists of counts and (M, ...) moments: the ensemble step's layout
+    (``parallel/ensemble_parallel.py::EnsembleTrainState``)."""
+    groups: dict[str, dict[str, Any]] = {}
+    exp_avg: dict[str, torch.Tensor] = {}
+    exp_avg_sq: dict[str, torch.Tensor] = {}
+    for label, masked in opt_state.inner_states.items():
+        adam, sched = _chain_states(masked.inner_state)
+        groups[label] = {"adam_count": _count(adam.count), "schedule_count": _count(sched.count)}
+        _moments_from_jax(adam.mu, exp_avg)
+        _moments_from_jax(adam.nu, exp_avg_sq)
+    return {"groups": groups, "exp_avg": exp_avg, "exp_avg_sq": exp_avg_sq}
+
+
 def trainer_state_from_jax(state: Mapping[str, Any]) -> dict[str, Any]:
     """JAX ``NerfactoTrainer.state_dict()`` -> this package's
     ``NerfactoTrainer.restore`` input (CPU tensors)."""
-    groups: dict[str, dict[str, int]] = {}
-    exp_avg: dict[str, torch.Tensor] = {}
-    exp_avg_sq: dict[str, torch.Tensor] = {}
-    for label, masked in state["opt_state"].inner_states.items():
-        adam, sched = _chain_states(masked.inner_state)
-        groups[label] = {"adam_count": int(adam.count), "schedule_count": int(sched.count)}
-        _moments_from_jax(adam.mu, exp_avg)
-        _moments_from_jax(adam.nu, exp_avg_sq)
     return {
         "params": params_from_jax(state["params"]),
-        "opt_state": {"groups": groups, "exp_avg": exp_avg, "exp_avg_sq": exp_avg_sq},
+        "opt_state": opt_state_from_jax(state["opt_state"]),
         "step": int(state["step"]),
     }
 
@@ -200,38 +221,48 @@ def _fill(like: Any, leaf_fn, path: tuple[str, ...] = ()) -> Any:
     return leaf_fn(path, like)
 
 
-def trainer_state_to_jax(state: Mapping[str, Any], like: Mapping[str, Any]) -> dict[str, Any]:
-    """This package's ``NerfactoTrainer.state_dict()`` -> a JAX
-    ``NerfactoTrainer.state_dict()`` with the structure, optax classes and
-    dtypes of ``like`` (numpy leaves), for the JAX trainer's ``restore``."""
-    def from_torch(named):
-        def leaf(path, old):
-            key = ".".join(path[:-1] + ("weight",)) if path[-1] in ("kernel", "embedding") else ".".join(path)
-            return _jax_leaf(key, named[key])[1].astype(old.dtype, copy=False)
-        return leaf
+def _from_torch(named: Mapping[str, torch.Tensor]):
+    """``_fill``'s leaf function: a flax path's leaf from the state-dict
+    tensor of that name, in the old leaf's dtype."""
+    def leaf(path, old):
+        key = ".".join(path[:-1] + ("weight",)) if path[-1] in ("kernel", "embedding") else ".".join(path)
+        return _jax_leaf(key, named[key])[1].astype(old.dtype, copy=False)
+    return leaf
 
-    def count(value, old):
-        return np.asarray(value, dtype=np.asarray(old).dtype)
 
-    opt = state["opt_state"]
+def _count_like(value, old) -> np.ndarray:
+    return np.asarray(value, dtype=np.asarray(old).dtype)
+
+
+def opt_state_to_jax(opt: Mapping[str, Any], like) -> Any:
+    """``opt_state_from_jax``'s layout -> an optax state with the structure,
+    classes and dtypes of ``like`` (numpy leaves), stacked where ``like``
+    is."""
     inner = {}
-    for label, masked in like["opt_state"].inner_states.items():
+    for label, masked in like.inner_states.items():
         adam, sched = _chain_states(masked.inner_state)
         counts = opt["groups"][label]
         new_adam = adam._replace(
-            count=count(counts["adam_count"], adam.count),
-            mu=_fill(adam.mu, from_torch(opt["exp_avg"])),
-            nu=_fill(adam.nu, from_torch(opt["exp_avg_sq"])),
+            count=_count_like(counts["adam_count"], adam.count),
+            mu=_fill(adam.mu, _from_torch(opt["exp_avg"])),
+            nu=_fill(adam.nu, _from_torch(opt["exp_avg_sq"])),
         )
-        new_sched = sched._replace(count=count(counts["schedule_count"], sched.count))
+        new_sched = sched._replace(count=_count_like(counts["schedule_count"], sched.count))
         chain = tuple(
             new_adam if s is adam else new_sched if s is sched else s for s in masked.inner_state
         )
         inner[label] = masked._replace(inner_state=chain)
+    return like._replace(inner_states=inner)
+
+
+def trainer_state_to_jax(state: Mapping[str, Any], like: Mapping[str, Any]) -> dict[str, Any]:
+    """This package's ``NerfactoTrainer.state_dict()`` -> a JAX
+    ``NerfactoTrainer.state_dict()`` with the structure, optax classes and
+    dtypes of ``like`` (numpy leaves), for the JAX trainer's ``restore``."""
     return {
-        "params": _fill(like["params"], from_torch(state["params"])),
-        "opt_state": like["opt_state"]._replace(inner_states=inner),
-        "step": count(state["step"], like["step"]),
+        "params": _fill(like["params"], _from_torch(state["params"])),
+        "opt_state": opt_state_to_jax(state["opt_state"], like["opt_state"]),
+        "step": _count_like(state["step"], like["step"]),
     }
 
 

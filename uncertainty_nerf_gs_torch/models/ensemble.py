@@ -5,9 +5,10 @@ are one dict of (M, ...) tensors under the model's state-dict names
 (``interop.stack_params``); ``member_apply`` runs one member through any of
 the model's methods with ``torch.func.functional_call``, which puts member
 m's slices (views, not copies) in place of the model's own parameters for
-the call. ``ensemble_render`` is the per-member render (each member's own
-eval forward, with its own proposal chain); ``combine_ensemble_outputs`` is
-the reference's combination rule (``ensemble_pipeline.py:159-190``):
+the call. ``ensemble_render`` is the per-member render
+(``member_outputs``: each member's own eval forward, with its own proposal
+chain); ``combine_ensemble_outputs`` is the reference's combination rule
+(``ensemble_pipeline.py:159-190``):
 
 * every output key -> mean over members;
 * with aleatoric heads (``rgb_std`` and ``depth_std`` present), for rgb and
@@ -81,22 +82,32 @@ def stack_outputs(outputs: list[Mapping[str, torch.Tensor]]) -> dict[str, torch.
     return {k: torch.stack([o[k] for o in outputs]) for k in outputs[0]}
 
 
+def member_outputs(
+    model: NerfactoModel,
+    stacked_params: Mapping[str, torch.Tensor],
+    ray_bundle: RayBundle,
+    use_average_appearance: bool = True,
+) -> dict[str, torch.Tensor]:
+    """Each member's own eval forward of a ray chunk, one after another (its
+    own proposal chain: K1 twice and K4 three times a member on the card),
+    stacked: a dict of (M, ...) outputs."""
+    m = next(iter(stacked_params.values())).shape[0]
+    return stack_outputs([
+        member_apply(model, member_params(stacked_params, j),
+                     lambda mdl, rb: mdl(rb, use_average_appearance=use_average_appearance), ray_bundle)
+        for j in range(m)
+    ])
+
+
 def ensemble_render(
     model: NerfactoModel,
     stacked_params: Mapping[str, torch.Tensor],
     ray_bundle: RayBundle,
     use_average_appearance: bool = True,
 ) -> dict[str, torch.Tensor]:
-    """Ensemble mean and epistemic/aleatoric variance for a ray chunk: each
-    member's own eval forward (its own proposal chain: K1 twice and K4 three
-    times a member on the card), then ``combine_ensemble_outputs``."""
-    m = next(iter(stacked_params.values())).shape[0]
-    stacked = stack_outputs([
-        member_apply(model, member_params(stacked_params, j),
-                     lambda mdl, rb: mdl(rb, use_average_appearance=use_average_appearance), ray_bundle)
-        for j in range(m)
-    ])
-    return combine_ensemble_outputs(stacked)
+    """Ensemble mean and epistemic/aleatoric variance for a ray chunk:
+    ``member_outputs``, then ``combine_ensemble_outputs``."""
+    return combine_ensemble_outputs(member_outputs(model, stacked_params, ray_bundle, use_average_appearance))
 
 
 def combine_ensemble_outputs(

@@ -30,8 +30,11 @@ samples instead of their own.
 The tables' options are the JAX package's: ``table_dtype`` float32, bf16
 (the JAX CLI's default) or int8 (``quantize_cell_tables_int8``, per-level
 scales), and the exact relayouts ``table_fold`` and ``table_split``, views of
-the same rows here (``ops/encodings.py``). Not ported yet: the ``mesh``
-argument (multi-GPU, ROADMAP queue 1, item 10).
+the same rows here (``ops/encodings.py``). With a ``mesh``
+(``parallel/mesh.py``), the rays split over the whole mesh (both dims as one
+axis), the tables and parameters are replicated, and the outputs are
+all-gathered: each rank passes its rows (``shard_batch(rb, mesh, ("data",
+"member"))``) and receives the whole chunk's outputs.
 """
 
 from __future__ import annotations
@@ -62,6 +65,7 @@ from uncertainty_nerf_gs_torch.ops.encodings import (
     split_packed_tables,
 )
 from uncertainty_nerf_gs_torch.ops.sampling import RayBundle, sample_pdf, sample_uniform
+from uncertainty_nerf_gs_torch.parallel.mesh import MESH_DIMS, all_gather_rows
 
 # The proposal fields build their grids at F = 2 whatever the main field's
 # features_per_level (the model does not forward it), so the packs do too.
@@ -169,6 +173,7 @@ def _submodule_params(params: Mapping[str, torch.Tensor], prefix: str) -> dict[s
 
 def build_fused_ensemble_render(
     model: NerfactoModel,
+    mesh=None,
     parity_mode: bool = True,
     proposal_anchor_stride: bool = True,
     main_stride_scale: float = 0.0,
@@ -176,6 +181,8 @@ def build_fused_ensemble_render(
     """Returns ``render(stacked_params, packed_tables, ray_bundle)`` -> the
     combined outputs of a ray chunk, without gradients. ``packed_tables``
     come from ``pack_ensemble_tables`` (once per ensemble, not per chunk).
+    ``mesh``: this rank's rays in (split over the whole mesh), the tables
+    and parameters replicated, the whole chunk's outputs out.
 
     ``proposal_anchor_stride``: evaluate the proposal grids' coarse levels
     at strided anchors along the ray and lerp between them
@@ -259,6 +266,7 @@ def build_fused_ensemble_render(
                 out["rgb_var"] = rgb_var
                 out["rgb_std"] = torch.sqrt(rgb_var)
             tails.append(out)
-        return combine_ensemble_outputs(stack_outputs(tails), parity_mode=parity_mode)
+        out = combine_ensemble_outputs(stack_outputs(tails), parity_mode=parity_mode)
+        return out if mesh is None else all_gather_rows(out, mesh, MESH_DIMS)
 
     return render
