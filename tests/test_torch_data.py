@@ -448,9 +448,8 @@ def test_parse_dotted_flags_matches_jax(argv, method):
 
 def test_writer_and_images_match_jax(tmp_path):
     """``ScalarWriter`` writes the JAX writer's events.jsonl records (the
-    wall clock aside) and history; ``Throughput``, ``to_u8`` and
-    ``colorize`` give the JAX helpers' results; ``profile_trace`` writes a
-    Chrome trace of the block."""
+    wall clock aside) and history; ``to_u8`` and ``colorize`` give the JAX
+    helpers' results."""
     from uncertainty_nerf_gs_torch.utils import images as timages
     from uncertainty_nerf_gs_torch.utils import writer as twriter
     from uncertainty_nerf_gs_tpu.utils import images as jimages
@@ -465,17 +464,8 @@ def test_writer_and_images_match_jax(tmp_path):
         w.close()
         records[name] = [{k: v for k, v in json.loads(line).items() if k != "wall"}
                          for line in (tmp_path / name / "events.jsonl").read_text().splitlines()]
-        t = mod.Throughput()
-        t.start()
-        assert set(t.stop(100, 10, 10)) == {"num_rays_per_sec", "fps"}
     assert records["port"] == records["jax"]
     x = np.random.default_rng(8).normal(size=(6, 7, 3)).astype(np.float32)
     np.testing.assert_array_equal(timages.to_u8(x), jimages.to_u8(x))
     for lo, hi in ((None, None), (0.0, 1.0)):
         np.testing.assert_array_equal(timages.colorize(x, lo, hi), jimages.colorize(x, lo, hi))
-    with twriter.profile_trace(tmp_path / "trace"):
-        torch.ones(8).sum()
-    assert json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
-    with twriter.profile_trace(tmp_path / "off", enabled=False):
-        pass
-    assert not (tmp_path / "off").exists()

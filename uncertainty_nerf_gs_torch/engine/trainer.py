@@ -71,6 +71,7 @@ from uncertainty_nerf_gs_torch.ops import backend
 from uncertainty_nerf_gs_torch.ops.backend import resolve_device
 from uncertainty_nerf_gs_torch.ops.encodings import face_lanes, face_vertices
 from uncertainty_nerf_gs_torch.ops.mlp import Dropout, ReplayDropout
+from uncertainty_nerf_gs_torch.utils.tracing import span
 
 # eager steps before the first capture of a step into a CUDA graph
 WARMUP_STEPS = 2
@@ -335,44 +336,50 @@ class NerfactoTrainer:
         """``_device_step`` captured into a CUDA graph, with the trainer's
         generator registered. The capture records without running; its
         launch counts are taken back and become the replays'."""
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self._generator)
-        before = dict(backend.launch_counts)
-        self.optimizer.zero_grad(set_to_none=True)
-        with torch.cuda.graph(graph):
-            losses = self._device_step(num_rays)
-        launches = {k: backend.launch_counts[k] - n for k, n in before.items()}
-        backend.launch_counts.update(before)
-        return _CapturedStep(graph, losses, launches)
+        with span("ungs.train.capture", captures=1):
+            graph = torch.cuda.CUDAGraph()
+            graph.register_generator_state(self._generator)
+            before = dict(backend.launch_counts)
+            self.optimizer.zero_grad(set_to_none=True)
+            with torch.cuda.graph(graph):
+                losses = self._device_step(num_rays)
+            launches = {k: backend.launch_counts[k] - n for k, n in before.items()}
+            backend.launch_counts.update(before)
+            return _CapturedStep(graph, losses, launches)
 
     def _launch(self, length: int, num_rays: int) -> np.ndarray:
         """``length`` steps with one host read: (length, n_losses)."""
-        if self.device.type != "cuda":
-            rows = torch.stack([self._device_step(num_rays) for _ in range(length)])
-            self.step += length
-            return rows.cpu().numpy()
-        rows, done = [], 0
-        captured = self._graphs.get(num_rays)
-        if captured is None:
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
-                while done < min(WARMUP_STEPS, length):
-                    rows.append(self._device_step(num_rays))
-                    done += 1
-            torch.cuda.current_stream(self.device).wait_stream(side)
+        with span("ungs.train.launch", launches=1, steps=length):
+            if self.device.type != "cuda":
+                rows = torch.stack([self._device_step(num_rays) for _ in range(length)])
+                self.step += length
+                with span("ungs.train.read", host_reads=1):
+                    return rows.cpu().numpy()
+            rows, done = [], 0
+            captured = self._graphs.get(num_rays)
+            if captured is None:
+                with span("ungs.train.warmup"):
+                    side = torch.cuda.Stream(self.device)
+                    side.wait_stream(torch.cuda.current_stream(self.device))
+                    with torch.cuda.stream(side):
+                        while done < min(WARMUP_STEPS, length):
+                            rows.append(self._device_step(num_rays))
+                            done += 1
+                    torch.cuda.current_stream(self.device).wait_stream(side)
+                if done < length:
+                    captured = self._graphs[num_rays] = self._capture(num_rays)
+            buffer = torch.empty((length, len(self._loss_names)), device=self.device)
+            for i, row in enumerate(rows):
+                buffer[i].copy_(row)
+            for i in range(done, length):
+                with span("ungs.train.replay", replays=1):
+                    captured.graph.replay()
+                    buffer[i].copy_(captured.losses)
             if done < length:
-                captured = self._graphs[num_rays] = self._capture(num_rays)
-        buffer = torch.empty((length, len(self._loss_names)), device=self.device)
-        for i, row in enumerate(rows):
-            buffer[i].copy_(row)
-        for i in range(done, length):
-            captured.graph.replay()
-            buffer[i].copy_(captured.losses)
-        if done < length:
-            backend.count_replays(captured.launches, length - done)
-        self.step += length
-        return buffer.cpu().numpy()
+                backend.count_replays(captured.launches, length - done)
+            self.step += length
+            with span("ungs.train.read", host_reads=1):
+                return buffer.cpu().numpy()
 
     def train(
         self,
@@ -398,14 +405,15 @@ class NerfactoTrainer:
                 else:
                     rows = self._launch(min(steps_per_launch, num_steps - i), num_rays_per_batch).tolist()
             base = self.step - len(rows)
-            for j, row in enumerate(rows):
-                losses = dict(zip(self._loss_names, row))
-                if writer is not None and ((i + j) % 10 == 0 or i + j == num_steps - 1):
-                    writer.write(base + j + 1, losses)
-                if log_every and (i + j + 1) % log_every == 0:
-                    print(f"step {i + j + 1}: " + ", ".join(f"{k}={v:.4f}" for k, v in losses.items()))
-                if callback is not None:
-                    callback(i + j, losses)
+            with span("ungs.train.rows"):
+                for j, row in enumerate(rows):
+                    losses = dict(zip(self._loss_names, row))
+                    if writer is not None and ((i + j) % 10 == 0 or i + j == num_steps - 1):
+                        writer.write(base + j + 1, losses)
+                    if log_every and (i + j + 1) % log_every == 0:
+                        print(f"step {i + j + 1}: " + ", ".join(f"{k}={v:.4f}" for k, v in losses.items()))
+                    if callback is not None:
+                        callback(i + j, losses)
             i += len(rows)
         return losses
 

@@ -42,6 +42,7 @@ from uncertainty_nerf_gs_torch.ops.sampling import (
     spacing_piecewise,
     spacing_piecewise_inv,
 )
+from uncertainty_nerf_gs_torch.utils.tracing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -307,17 +308,20 @@ class NerfactoModel(nn.Module):
     ) -> dict[str, torch.Tensor]:
         ray_bundle = self._with_planes(ray_bundle)
         draws = draws or {}
-        rs, weights_list, sdist_list = self._proposals(ray_bundle, proposal_anneal, draws)
-        field_out = self.field(
-            rs.positions,
-            ray_bundle.directions,
-            ray_bundle.camera_indices,
-            use_average_appearance=use_average_appearance,
-            dropout=dropout,
-        )
-        return self._render(field_out, rs, draws, weights_list if train else None,
-                            sdist_list if train or return_intermediates else None,
-                            return_intermediates)
+        with span("ungs.nerfacto.proposals"):
+            rs, weights_list, sdist_list = self._proposals(ray_bundle, proposal_anneal, draws)
+        with span("ungs.nerfacto.field", samples=rs.starts.numel()):
+            field_out = self.field(
+                rs.positions,
+                ray_bundle.directions,
+                ray_bundle.camera_indices,
+                use_average_appearance=use_average_appearance,
+                dropout=dropout,
+            )
+        with span("ungs.nerfacto.composite"):
+            return self._render(field_out, rs, draws, weights_list if train else None,
+                                sdist_list if train or return_intermediates else None,
+                                return_intermediates)
 
     @torch.no_grad()
     def forward_mc(

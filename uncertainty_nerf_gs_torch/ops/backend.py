@@ -37,6 +37,8 @@ from pathlib import Path
 
 import torch
 
+from uncertainty_nerf_gs_torch.utils.tracing import span
+
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 KERNELS = ("pdf_resample", "composite_tiles", "hash_grid", "packed_rows")  # sources in csrc/
@@ -139,13 +141,14 @@ def build_kernels(names: tuple[str, ...] = KERNELS) -> dict[str, str]:
         ), tmp, out)
     reports = {name: "" for name in names}
     failed = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        reports[name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
-            continue
-        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    with span("ungs.backend.build", kernel_builds=len(procs)):  # the wait for the nvcc runs started above
+        for name, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            reports[name] = log
+            if proc.returncode != 0:
+                failed.append(f"{name}:\n{log}")
+                continue
+            os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return reports

@@ -66,6 +66,7 @@ from uncertainty_nerf_gs_torch.ops.encodings import (
 )
 from uncertainty_nerf_gs_torch.ops.sampling import RayBundle, sample_pdf, sample_uniform
 from uncertainty_nerf_gs_torch.parallel.mesh import MESH_DIMS, all_gather_rows
+from uncertainty_nerf_gs_torch.utils.tracing import span
 
 # The proposal fields build their grids at F = 2 whatever the main field's
 # features_per_level (the model does not forward it), so the packs do too.
@@ -212,61 +213,66 @@ def build_fused_ensemble_render(
         rb = model._with_planes(ray_bundle)
 
         # the shared proposal hierarchy
-        rs = sample_uniform(rb, cfg.num_proposal_samples[0])
-        for i, n_next in enumerate(next_counts):
-            prefix, field = f"proposal_{i}.", getattr(model, f"proposal_{i}")
-            if packed[f"proposal_{i}"] is None:  # an mlp proposal: the whole field, member by member
-                d = torch.stack([
-                    member_apply(field, _submodule_params(members[j], prefix), lambda mdl, p: mdl(p), rs.positions)
-                    for j in range(m)
-                ])
-            else:
-                norm, sel = _normalize_positions(rs.positions, cfg.use_scene_contraction, cfg.aabb)
-                res, table = _prop_grid_spec(cfg, i)
-                f = lookup(packed[f"proposal_{i}"], norm, rs.midpoints, res,
-                           _grid_sizes(res, table, cfg.grid_layout), m, _PROP_FEATS,
-                           1.0 if proposal_anchor_stride else 0.0)
-                d = torch.stack([
-                    member_apply(field, _submodule_params(members[j], prefix),
-                                 lambda mdl, x, s: mdl.density_from_feats(x, s), f[j], sel)
-                    for j in range(m)
-                ])
-            w = raymarch.render_weights(torch.mean(d, dim=0), rs.deltas)
-            rs = sample_pdf(rb, rs.spacing_edges, w, n_next)
+        with span("ungs.ensemble.proposals"):
+            rs = sample_uniform(rb, cfg.num_proposal_samples[0])
+            for i, n_next in enumerate(next_counts):
+                prefix, field = f"proposal_{i}.", getattr(model, f"proposal_{i}")
+                if packed[f"proposal_{i}"] is None:  # an mlp proposal: the whole field, member by member
+                    d = torch.stack([
+                        member_apply(field, _submodule_params(members[j], prefix), lambda mdl, p: mdl(p),
+                                     rs.positions)
+                        for j in range(m)
+                    ])
+                else:
+                    norm, sel = _normalize_positions(rs.positions, cfg.use_scene_contraction, cfg.aabb)
+                    res, table = _prop_grid_spec(cfg, i)
+                    f = lookup(packed[f"proposal_{i}"], norm, rs.midpoints, res,
+                               _grid_sizes(res, table, cfg.grid_layout), m, _PROP_FEATS,
+                               1.0 if proposal_anchor_stride else 0.0)
+                    d = torch.stack([
+                        member_apply(field, _submodule_params(members[j], prefix),
+                                     lambda mdl, x, s: mdl.density_from_feats(x, s), f[j], sel)
+                        for j in range(m)
+                    ])
+                w = raymarch.render_weights(torch.mean(d, dim=0), rs.deltas)
+                rs = sample_pdf(rb, rs.spacing_edges, w, n_next)
 
         # the main field: one packed lookup, then the members' MLPs
-        norm, sel = _normalize_positions(rs.positions, cfg.use_scene_contraction, cfg.aabb)
-        f = lookup(packed["field"], norm, rs.midpoints, main_res, main_sizes, m, feats,
-                   main_stride_scale)
+        with span("ungs.ensemble.lookup"):
+            norm, sel = _normalize_positions(rs.positions, cfg.use_scene_contraction, cfg.aabb)
+            f = lookup(packed["field"], norm, rs.midpoints, main_res, main_sizes, m, feats,
+                       main_stride_scale)
         steps, deltas = rs.midpoints, rs.deltas
         tails = []
-        for j in range(m):
-            fo = member_apply(
-                model.field, _submodule_params(members[j], "field."),
-                lambda mdl, x, s: mdl.forward_from_feats(
-                    x, s, rb.directions, rb.camera_indices, use_average_appearance=True),
-                f[j], sel,
-            )
-            density = cfg.average_init_density * fo.density
-            weights = raymarch.render_weights(density, deltas)
-            background = model._background(fo.rgb, None)
-            depth = raymarch.render_median_depth(weights, steps)
-            depth_var = raymarch.depth_variance(weights, steps, depth)
-            out = {
-                "rgb": raymarch.render_rgb(weights, fo.rgb, background),
-                "accumulation": raymarch.render_accumulation(weights),
-                "depth": depth,
-                "expected_depth": raymarch.render_expected_depth(weights, steps),
-                "depth_var": depth_var,
-                "depth_std": torch.sqrt(depth_var),
-            }
-            if fo.uncertainty is not None:
-                betas = torch.nan_to_num(fo.uncertainty, nan=0.0)
-                rgb_var = raymarch.render_uncertainty(betas, weights**2)
-                out["rgb_var"] = rgb_var
-                out["rgb_std"] = torch.sqrt(rgb_var)
-            tails.append(out)
-        out = combine_ensemble_outputs(stack_outputs(tails), parity_mode=parity_mode)
+        with span("ungs.ensemble.members"):
+            for j in range(m):
+                fo = member_apply(
+                    model.field, _submodule_params(members[j], "field."),
+                    lambda mdl, x, s: mdl.forward_from_feats(
+                        x, s, rb.directions, rb.camera_indices, use_average_appearance=True),
+                    f[j], sel,
+                )
+                density = cfg.average_init_density * fo.density
+                weights = raymarch.render_weights(density, deltas)
+                background = model._background(fo.rgb, None)
+                depth = raymarch.render_median_depth(weights, steps)
+                depth_var = raymarch.depth_variance(weights, steps, depth)
+                out = {
+                    "rgb": raymarch.render_rgb(weights, fo.rgb, background),
+                    "accumulation": raymarch.render_accumulation(weights),
+                    "depth": depth,
+                    "expected_depth": raymarch.render_expected_depth(weights, steps),
+                    "depth_var": depth_var,
+                    "depth_std": torch.sqrt(depth_var),
+                }
+                if fo.uncertainty is not None:
+                    betas = torch.nan_to_num(fo.uncertainty, nan=0.0)
+                    rgb_var = raymarch.render_uncertainty(betas, weights**2)
+                    out["rgb_var"] = rgb_var
+                    out["rgb_std"] = torch.sqrt(rgb_var)
+                tails.append(out)
+        with span("ungs.ensemble.combine"):
+            out = combine_ensemble_outputs(stack_outputs(tails), parity_mode=parity_mode)
         return out if mesh is None else all_gather_rows(out, mesh, MESH_DIMS)
 
     return render

@@ -63,6 +63,7 @@ from uncertainty_nerf_gs_torch.parallel.ensemble_fused import (
     build_fused_ensemble_render,
     pack_ensemble_tables,
 )
+from uncertainty_nerf_gs_torch.utils.tracing import span
 
 
 def _nerfacto_full_image_renderer(
@@ -81,20 +82,23 @@ def _nerfacto_full_image_renderer(
     def render(i: int) -> dict[str, torch.Tensor]:
         h, w = cameras.height, cameras.width
         chunk = config.eval_num_rays_per_chunk
-        px, py = pixel_grid(h, w, device)
         total = h * w
         pad = (-total) % chunk
-        zeros = torch.zeros(pad, dtype=torch.float32, device=device)
-        px, py = torch.cat([px, zeros]), torch.cat([py, zeros])
-        idx = torch.full((total + pad,), i, dtype=torch.int64, device=device)
-        outs: dict[str, list[torch.Tensor]] = {}
-        for s in range(0, total + pad, chunk):
-            rb = generate_rays(cameras, idx[s:s + chunk], px[s:s + chunk], py[s:s + chunk])
-            for k, v in render_chunk_fn(rb).items():
-                if k.startswith(("weights", "sdist")) or k == "density_mean":
-                    continue
-                outs.setdefault(k, []).append(v)
-        return {k: torch.cat(v, 0)[:total].reshape((h, w) + v[0].shape[1:]) for k, v in outs.items()}
+        with span("ungs.render.image", images=1, rays=total, padded_rays=pad):
+            px, py = pixel_grid(h, w, device)
+            zeros = torch.zeros(pad, dtype=torch.float32, device=device)
+            px, py = torch.cat([px, zeros]), torch.cat([py, zeros])
+            idx = torch.full((total + pad,), i, dtype=torch.int64, device=device)
+            outs: dict[str, list[torch.Tensor]] = {}
+            for s in range(0, total + pad, chunk):
+                with span("ungs.render.chunk", chunks=1):
+                    rb = generate_rays(cameras, idx[s:s + chunk], px[s:s + chunk], py[s:s + chunk])
+                    for k, v in render_chunk_fn(rb).items():
+                        if k.startswith(("weights", "sdist")) or k == "density_mean":
+                            continue
+                        outs.setdefault(k, []).append(v)
+            with span("ungs.render.assemble"):
+                return {k: torch.cat(v, 0)[:total].reshape((h, w) + v[0].shape[1:]) for k, v in outs.items()}
 
     return render
 
