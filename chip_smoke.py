@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--k4-against OTHER_CHECKOUT | --splat-repeatable-only [CHECKOUT] | --sparse-only |
-                           --corner-only | --ensemble-train-only] [--corner-against OTHER_CHECKOUT]
+                           --corner-only | --ensemble-train-only | --adam-only] [--corner-against OTHER_CHECKOUT]
 
 Builds the port's hand-written CUDA kernels from ``uncertainty_nerf_gs_torch/
 csrc`` with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, all started
@@ -51,7 +51,7 @@ metrics, the JSON written), profiled and timed in turns. Then the joint
 ensemble step (``run_ensemble_train``): five active-nerfacto members at the
 method's width from ``init_ensemble_params``, trained by
 ``build_ensemble_train_step`` on a shared 4,096-ray batch (K1 10, K4 15, K5
-15 a step): 2 eager steps, then 50 a launch as one captured CUDA graph,
+15 and K9 2 a step): 2 eager steps, then 50 a launch as one captured CUDA graph,
 beside a lone trainer's 50-step launch; the memory of an eager step and of
 the capture against a lone trainer's plus the other members' weights,
 gradients and moments;
@@ -86,7 +86,7 @@ and the last refine, and what ``use_deterministic_algorithms`` flags in a
 splat step is listed. After active-nerfacto come its sister methods at full
 width: one chunk in float32 and with bf16 MLPs (``mixed_precision``),
 deviation and times printed; nerfacto-mcdropout (five steps, K1 2, K4 3,
-K5 3 a step; a step repeated bit for bit; a chunk at 10 MC samples bit for
+K5 3 and K9 1 a step; a step repeated bit for bit; a chunk at 10 MC samples bit for
 bit against the plain path with the same masks; an image at 10 samples
 with K1 2 and K4 3 a chunk, timed and profiled beside a deterministic
 one); nerfacto-laplace (``fit_laplace`` over 300 batches of 4,096 rays,
@@ -176,6 +176,15 @@ its K6 bit for bit against the plain versions and times them in turns with
 this checkout's at every shape and position set K4 and K6 are timed at; a
 checkout without K6's strided entry makes the strided lookup as its own
 code did, a K6 launch a level and the lerp as PyTorch ops.
+
+After active-nerfacto comes the fused Adam update (``run_adam``, K9,
+``csrc/adam.cu``) at the method's full width with 100 images: three
+updates against the eight foreach passes bit for bit, then the kernel, the
+passes and ``torch._fused_adam_`` (a yardstick, never used) timed beside
+the byte bound. Its kernels-line entry takes these times and the launches
+of the main paths (every training run counts one K9 launch a step, the
+joint ensemble step two). ``--adam-only`` runs that phase alone and prints
+its numbers.
 
 ``--sparse-only`` runs only the sparse phase (``run_sparse``) and prints
 its kernel entries; ``--corner-only`` the corner phase (``run_corner``) on
@@ -1411,7 +1420,11 @@ def gather_bytes(trainer) -> int:
 
 
 NERF_SYMBOLS = {"pdf_resample": "pdf_resample_kernel", "cell_lookup_fwd": "cell_lookup_fwd_kernel",
-                "cell_lookup_bwd": "cell_lookup_bwd_"}  # K5 is a pipeline of kernels
+                "cell_lookup_bwd": "cell_lookup_bwd_",  # K5 is a pipeline of kernels
+                "adam_update": "adam_multi_tensor_apply_kernel"}
+# per-step launches of a nerfacto-family training step: K1 2, K4 3, K5 3 and
+# one fused Adam update (every group's tensors in one table)
+NERF_STEP_LAUNCHES = dict(pdf_resample=2, cell_lookup_fwd=3, cell_lookup_bwd=3, adam_update=1)
 
 
 def profile_nerfacto(trainer, idx: int = 1) -> dict:
@@ -1447,7 +1460,7 @@ NERF_STEPS, NERF_RAYS = 5, 4096
 def train_nerfacto(trainer, name) -> dict:
     """Five training steps of 4,096 rays with the camera optimizer: every
     loss and weight finite, every group moved, and per step two K1, three
-    K4 and three K5 launches."""
+    K4, three K5 and one K9 (the fused Adam update) launches."""
     from uncertainty_nerf_gs_torch.ops import backend
 
     start = {k: v.detach().clone() for k, v in trainer.params().items()}
@@ -1458,8 +1471,7 @@ def train_nerfacto(trainer, name) -> dict:
         losses.append(trainer.train_step(NERF_RAYS))  # ends in a copy of the losses to the host
         step_s.append(time.perf_counter() - t0)
     launches = dict(backend.launch_counts)
-    want = dict(pdf_resample=2 * NERF_STEPS, cell_lookup_fwd=3 * NERF_STEPS,
-                cell_lookup_bwd=3 * NERF_STEPS)
+    want = {k: NERF_STEPS * v for k, v in NERF_STEP_LAUNCHES.items()}
     print(f"nerfacto train launches {launches}, expected {want}")
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError("the training step did not go through its kernels")
@@ -1809,7 +1821,7 @@ def image_launches(render, chunks: int, label: str, name: str) -> dict:
 
 def run_mcdropout(name) -> dict:
     """nerfacto-mcdropout at full width: five training steps of 4,096 rays
-    (K1 2, K4 3, K5 3 a step; every group moves), two steps from one
+    (K1 2, K4 3, K5 3 and K9 1 a step; every group moves), two steps from one
     restored state bit-identical (the masks come from the trainer's
     generator, restored), one chunk's MC-dropout render at ``MC_SAMPLES``
     on the kernel path against the plain path with the same masks bit for
@@ -1828,7 +1840,7 @@ def run_mcdropout(name) -> dict:
     train = train_nerfacto(trainer, name)
     profile_top("nerfacto-mcdropout train step", lambda: trainer.train_step(NERF_RAYS), NERF_SYMBOLS, top=8)
     repeat = check_nerfacto_repeatable(trainer)
-    if any(repeat["launches"][k] != v for k, v in dict(pdf_resample=2, cell_lookup_fwd=3, cell_lookup_bwd=3).items()):
+    if any(repeat["launches"][k] != v for k, v in NERF_STEP_LAUNCHES.items()):
         raise AssertionError(f"a repeated mcdropout step launched {repeat['launches']}")
 
     rb = eval_chunk(trainer)
@@ -3304,14 +3316,111 @@ def run_ensemble(device, name, other=None) -> dict:
     return dict(k6=k6, plan=chunk["plan"], **images)
 
 
+# -- the fused Adam update (K9) ----------------------------------------------
+
+ADAM_STEPS = 20  # updates a timing
+ADAM_BYTES_PER_PARAM = 28  # p, g, m and v read, p, m and v written, float32
+
+
+def run_adam(device, name) -> dict:
+    """The fused Adam update (``ops/adam.py``, ``csrc/adam.cu``) at
+    active-nerfacto's full width with 100 images' appearance embedding and
+    camera tangents (155,201,430 parameters in 27 tensors and 3 groups, as
+    the benchmark's training cell holds them) and random gradients: three
+    updates from one state on the kernel path against the eight foreach
+    passes (``plain_versions()``), parameters, moments and counts bit for
+    bit; then each path's ``step()`` timed by CUDA events (the schedule's
+    scalar ops included) and its update kernels' device time by the
+    profiler, beside the bound (28 B a parameter at 3.35 TB/s) and
+    ``torch._fused_adam_`` on the same tensors, timed only: a library
+    yardstick that folds the scalars in another order and is never used.
+    Returns the check's launches and largest difference and the times, for
+    ``kernel_line``'s entry."""
+    from uncertainty_nerf_gs_torch.engine.optimizers import make_optimizer
+    from uncertainty_nerf_gs_torch.ops import backend
+
+    trainer = build_nerfacto(device, num_cameras=100, size=8)
+    params = {k: v.detach() for k, v in trainer.params().items()}
+    groups = trainer.optimizer_groups
+    del trainer
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=device).manual_seed(SEED + 31)
+    grads = {k: torch.randn(v.shape, generator=gen, device=device) for k, v in params.items()}
+    n = sum(v.numel() for v in params.values())
+
+    def copy():
+        leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        for k, v in leaves.items():
+            v.grad = grads[k]
+        return leaves, make_optimizer(leaves, groups)
+
+    (kernel, k_opt), (plain, p_opt) = copy(), copy()
+    backend.reset_launch_counts()
+    for _ in range(3):
+        k_opt.step()
+        with backend.plain_versions():
+            p_opt.step()
+    torch.cuda.synchronize()
+    launches = backend.launch_counts["adam_update"]
+    pairs = {k: [(kernel[k].detach(), plain[k].detach())]
+             + [(k_opt.state[kernel[k]][m], p_opt.state[plain[k]][m]) for m in ("exp_avg", "exp_avg_sq")]
+             for k in params}
+    err = max(float((a - b).abs().max()) for ab in pairs.values() for a, b in ab)
+    differ = [k for k, ab in pairs.items() if not all(torch.equal(a, b) for a, b in ab)]
+    del pairs
+    differ += [g["name"] for g, h in zip(k_opt.param_groups, p_opt.param_groups)
+               if not (torch.equal(g["count"], h["count"]) and torch.equal(g["adam_count"], h["adam_count"]))]
+    print(f"adam: {n} parameters in {len(params)} tensors, {len(k_opt.param_groups)} groups; 3 updates on the "
+          f"kernel path ({launches} launches) against the eight foreach passes: {len(differ)} items differ"
+          + (f": {differ[:8]}" if differ else " (parameters, moments and counts bit for bit)"))
+    if differ or launches != 3:
+        raise AssertionError(f"the fused Adam update differs from its plain passes or launched {launches}: {differ}")
+
+    def update_ms(opt, plain_path: bool) -> tuple[float, float, float]:
+        """(events ms a step(), its update kernels' device ms, all its device ms)."""
+        with backend.plain_versions() if plain_path else contextlib.nullcontext():
+            ms = time_ms(opt.step, [()], reps=ADAM_STEPS)
+            traced, _ = device_kernels(lambda: [opt.step() for _ in range(ADAM_STEPS)])
+        update = sum(us for k, (_, us) in traced.items() if "multi_tensor_apply" in k)
+        return ms, 1e-3 * update / ADAM_STEPS, 1e-3 * sum(us for _, us in traced.values()) / ADAM_STEPS
+
+    step_ms, ms, step_device_ms = update_ms(k_opt, False)
+    plain_step_ms, plain_ms, plain_device_ms = update_ms(p_opt, True)
+    del plain, p_opt
+    fa = [v.clone() for v in params.values()]
+    fg = [grads[k] for k in params]
+    fm, fv = [torch.zeros_like(v) for v in fa], [torch.zeros_like(v) for v in fa]
+    fsteps = [torch.ones((), device=device) for _ in fa]
+
+    def fused():
+        torch._fused_adam_(fa, fg, fm, fv, [], fsteps, lr=1e-2, beta1=0.9, beta2=0.999, weight_decay=0.0,
+                           eps=1e-15, amsgrad=False, maximize=False)
+
+    library_ms = time_ms(fused, [()], reps=ADAM_STEPS)
+    traced, _ = device_kernels(lambda: [fused() for _ in range(ADAM_STEPS)])
+    library_device_ms = 1e-3 * sum(us for _, us in traced.values()) / ADAM_STEPS
+    bound_ms = 1e3 * ADAM_BYTES_PER_PARAM * n / HBM_BYTES_PER_S
+    print(f"adam on {name}: the kernel {ms:.4f} ms a step ({bound_ms / ms:.1%} of the bound {bound_ms:.4f} ms, "
+          f"{ADAM_BYTES_PER_PARAM * n / 1e9:.3f} GB); step() {step_ms:.4f} ms by events, {step_device_ms:.4f} ms of "
+          f"device time with the scalar ops; the eight passes {plain_ms:.4f} ms (step() {plain_step_ms:.4f} ms, "
+          f"device {plain_device_ms:.4f}); torch._fused_adam_ {library_device_ms:.4f} ms device, "
+          f"{library_ms:.4f} ms by events")
+    return dict(check_launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                library_ms=library_device_ms, step_ms=step_ms, step_device_ms=step_device_ms,
+                plain_step_ms=plain_step_ms, plain_device_ms=plain_device_ms, library_event_ms=library_ms,
+                params=n, tensors=len(params))
+
+
 # -- the joint ensemble step, its per-member render and the mesh forms -------
 
 ENS_TRAIN_K = 50  # steps a launch, the CLI's default
 ENS_EAGER_STEPS = 2
-# a joint step's launches: per member one training step's
+# a joint step's launches: per member one training step's lookups and
+# resamples; the members' 5 x 27 tensors in 15 groups take two fused Adam
+# launches (a table holds at most 72 tensors)
 ENS_STEP_PLAN = dict(pdf_resample=2 * NUM_MEMBERS, cell_lookup_fwd=3 * NUM_MEMBERS,
-                     cell_lookup_bwd=3 * NUM_MEMBERS)
-ENS_TRAIN_SYMBOLS = {k: NERF_SYMBOLS[k] for k in ("pdf_resample", "cell_lookup_fwd", "cell_lookup_bwd")}
+                     cell_lookup_bwd=3 * NUM_MEMBERS, adam_update=2)
+ENS_TRAIN_SYMBOLS = {k: NERF_SYMBOLS[k] for k in ("pdf_resample", "cell_lookup_fwd", "cell_lookup_bwd", "adam_update")}
 # a parameter's bytes beside a member: the weight, its gradient, Adam's two moments
 ENS_MEMBER_BYTES_PER_PARAM = 16
 
@@ -3395,8 +3504,8 @@ def run_ensemble_train(device, name) -> dict:
     a lone trainer first (its footprint at a step's peak, its captured
     step's pool, its 50-step launch's ms and busy time, for the
     comparison); then 2 eager steps and a 50-step launch (the member steps
-    captured as one CUDA graph and replayed), with K1 10, K4 15 and K5 15
-    launches a step, the footprint of an eager step and of the launch with
+    captured as one CUDA graph and replayed), with K1 10, K4 15, K5 15 and
+    K9 2 launches a step, the footprint of an eager step and of the launch with
     the capture against the lone trainer's plus the other members' weights,
     gradients and moments (16 B a parameter);
     members 0 and 4 of a step against lone single-member steps bit for bit;
@@ -3565,8 +3674,11 @@ def run_ensemble_train(device, name) -> dict:
     kernels = profile_top(f"ensemble training, {ENS_TRAIN_K} steps a launch", lambda: step.launch(state, batches),
                           ENS_TRAIN_SYMBOLS, top=8)
     k_busy = 1e-3 * sum(us for _, us in kernels.values()) / ENS_TRAIN_K if kernels else None
+    # the optimizer's device time a step: its kernels carry multi_tensor_apply
+    adam_ms = 1e-3 * sum(us for k, (_, us) in kernels.items() if "multi_tensor_apply" in k) / ENS_TRAIN_K \
+        if kernels else None
     out.update(eager_busy_ms=eager_busy, eager_wall_ms=eager_wall, k_busy_ms=k_busy, launches=launches_k,
-               step_launches={k: v // ENS_TRAIN_K for k, v in launches_k.items()})
+               step_launches={k: v // ENS_TRAIN_K for k, v in launches_k.items()}, adam_ms=adam_ms)
     print(f"ensemble training on {name}: one step at a time {', '.join(f'{v:.2f}' for v in eager_wall)} ms "
           f"(busy " + (f"{eager_busy:.2f}" if eager_busy else "not measured") + f" ms); {ENS_TRAIN_K} a launch "
           f"{k_ms:.2f} ms a step (busy " + (f"{k_busy:.2f}" if k_busy else "not measured") + " ms); the lone "
@@ -3734,8 +3846,6 @@ CLI_K = 50  # steps a launch, the CLI's default
 # traced run grows with its events, 50 eager steps took it 40-90 s
 GRAPH_PROFILED_STEPS = 5
 CLI_MC_SAMPLES, CLI_LAPLACE_ITERS = 10, 50
-# per-step launches of a nerfacto-family training step
-NERF_STEP_LAUNCHES = dict(pdf_resample=2, cell_lookup_fwd=3, cell_lookup_bwd=3)
 TIMING_KEYS = ("num_rays_per_sec", "fps", "compile_and_first_render_sec")
 
 
@@ -4403,8 +4513,8 @@ K8_KERNELS = 11
 K8_OPS = lambda f: 12 + 8 * (10 + 2 * f) + 8 * (4 * f + 10)  # noqa: E731  (and the position gradient)
 K8_POS_OPS = lambda f: K8_OPS(f) - 8 * 2 * f  # noqa: E731  (no table gradient's products and sums)
 CORNER_FIELDS = ("proposal_0", "proposal_1", "field")
-# a corner step's and a corner chunk's launches
-CORNER_STEP_LAUNCHES = dict(pdf_resample=2, hash_lookup_fwd=3, hash_lookup_bwd=3)
+# a corner step's launches
+CORNER_STEP_LAUNCHES = dict(pdf_resample=2, hash_lookup_fwd=3, hash_lookup_bwd=3, adam_update=1)
 # K8's kernels: its own (hash_lookup_bwd_*) and K5's sort kernels (cell_lookup_bwd_*), which a corner step
 # runs for K8 alone
 CORNER_SYMBOLS = {"pdf_resample": "pdf_resample_kernel", "hash_lookup_fwd": "hash_lookup_fwd_",
@@ -5405,9 +5515,12 @@ def corner_kernel_entries(corner) -> list[dict]:
 
 
 def kernel_line(run_nerf, train_nerf, resample, nerf_plain, run_splat_, refine, splat_ens, comp, grid,
-                ens, gather, methods) -> list[dict]:
+                ens, gather, methods, adam) -> list[dict]:
     """``methods``: path -> the launch counts of the other nerfacto-family
-    methods' runs (MC-dropout, Laplace), added to K1's, K4's and K5's."""
+    methods' runs (MC-dropout, Laplace), added to K1's, K4's, K5's and
+    K9's. ``adam``: ``run_adam``'s check and times; K9's launches are the
+    main paths' (``main`` adds the CLI, corner, sparse and joint ensemble
+    runs' to every entry)."""
     per = resample["per_launch"]
     # one chunk's two launches as the render makes them: 256 -> 97 with u
     # and edges shared, 96 -> 49 with u shared, at 4096 rays
@@ -5525,6 +5638,19 @@ def kernel_line(run_nerf, train_nerf, resample, nerf_plain, run_splat_, refine, 
                                          "max_abs_err", "graph_replay_live", "longest_run", "turns") if f in v}
                   for k, v in shapes.items()},
     ))
+    # the fused Adam update: not a TPU kernel (optax's update, fused by XLA);
+    # timed at active-nerfacto's full width by run_adam
+    by_path = dict(train=train_nerf["launches"]["adam_update"],
+                   **{k: v["adam_update"] for k, v in methods.items() if v["adam_update"]})
+    kernels.append(dict(
+        name="adam_update", route="cuda", source="uncertainty_nerf_gs_torch/csrc/adam.cu",
+        replaces="none: engine/optimizers.py ScheduledAdam's eight foreach passes (optax in the JAX package)",
+        tpu_kernel=False, launches=sum(by_path.values()), launches_by_path=by_path,
+        max_abs_err=adam["max_abs_err"], ms=adam["ms"], plain_ms=adam["plain_ms"], bound_ms=adam["bound_ms"],
+        bound_by="bytes", library_ms=adam["library_ms"], library="torch._fused_adam_",
+        **{k: adam[k] for k in ("step_ms", "step_device_ms", "plain_step_ms", "plain_device_ms", "library_event_ms",
+                                "params", "tensors")},
+    ))
     return kernels
 
 
@@ -5618,6 +5744,16 @@ def main() -> int:
         print(json.dumps({"ensemble_train": ensemble_train_summary(ens_train),
                           "launches_by_path": ensemble_train_paths(ens_train)}))
         return 0
+    if args == ["--adam-only"]:
+        from uncertainty_nerf_gs_torch.ops import backend
+
+        name = card()
+        print(f"card: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+        for kernel, report in backend.build_kernels(("adam",)).items():
+            print(f"built {kernel}:\n{report.strip()}")
+        print(json.dumps({"adam": run_adam(torch.device("cuda"), name)}))
+        print(name)
+        return 0
     if args == ["--sparse-only"]:
         from uncertainty_nerf_gs_torch.ops import backend
 
@@ -5680,9 +5816,8 @@ def main() -> int:
     train_nerf = train_nerfacto(nerf, name)
     check_nerfacto_train_plain(nerf)
     repeat = check_nerfacto_repeatable(nerf)
-    want = dict(pdf_resample=2, cell_lookup_fwd=3, cell_lookup_bwd=3)
-    if any(repeat["launches"][k] != v for k, v in want.items()):
-        raise AssertionError(f"a repeated step launched {repeat['launches']}, expected {want}")
+    if any(repeat["launches"][k] != v for k, v in NERF_STEP_LAUNCHES.items()):
+        raise AssertionError(f"a repeated step launched {repeat['launches']}, expected {NERF_STEP_LAUNCHES}")
     audit_determinism(nerf)
     step = profile_top("nerfacto train step", lambda: nerf.train_step(NERF_RAYS), NERF_SYMBOLS)
     k5 = [(c, us) for k, (c, us) in step.items() if NERF_SYMBOLS["cell_lookup_bwd"] in k]
@@ -5692,6 +5827,8 @@ def main() -> int:
     del nerf
     torch.cuda.empty_cache()
     print(f"nerfacto done at {time.perf_counter() - t_start:.1f} s")
+    adam = run_adam(device, name)
+    torch.cuda.empty_cache()
     mcd = run_mcdropout(name)
     print(f"nerfacto-mcdropout done at {time.perf_counter() - t_start:.1f} s")
     lap = run_laplace(name)
@@ -5756,10 +5893,10 @@ def main() -> int:
                    mcdropout_deterministic_image=mcd["single"]["launches"], laplace_fit=lap["fit_launches"],
                    laplace_image=lap["image"]["launches"])
     kernels = kernel_line(run_nerf, train_nerf, resample, nerf_plain, run, refine, splat_ens, comp, grid, ens,
-                          gather, methods)
+                          gather, methods, adam)
     # the CLI phase's runs, a path each; of the sparse phase's, the cell run
-    # and its eval, and every run's K1 (its hybrid K4/K5 and its K6 have
-    # entries of their own)
+    # and its eval, and every run's K1 and K9 (its hybrid K4/K5 and its K6
+    # have entries of their own)
     paths = dict(cli["runs"], **{k: v for k, v in sparse["runs"].items() if k in ("sparse_cell", "sparse_eval_cell")})
     kernels += corner_kernel_entries(corner)
     # the corner phase's runs and the tools phase's, paths of their own
@@ -5776,10 +5913,12 @@ def main() -> int:
             if n:
                 entry["launches_by_path"][f"cli_{label}"] = n
                 entry["launches"] += n
-    for label, r in sparse["runs"].items():
-        if label not in paths and r["launches"].get("pdf_resample"):
-            kernels[0]["launches_by_path"][f"cli_{label}"] = r["launches"]["pdf_resample"]
-            kernels[0]["launches"] += r["launches"]["pdf_resample"]
+    for entry in (e for e in kernels if e["name"] in ("pdf_resample", "adam_update")):
+        for label, r in sparse["runs"].items():
+            n = r["launches"].get(entry["name"], 0)
+            if label not in paths and n:
+                entry["launches_by_path"][f"cli_{label}"] = n
+                entry["launches"] += n
     kernels += sparse_kernel_entries(sparse)
     for label, launches in ensemble_train_paths(ens_train).items():
         for entry in kernels:

@@ -1,5 +1,5 @@
-// Host stand-ins for the CUDA builtins that csrc/hash_grid.cu and
-// csrc/packed_rows.cu use, so that their sources compile with g++ and their
+// Host stand-ins for the CUDA builtins that csrc/hash_grid.cu,
+// csrc/packed_rows.cu and csrc/adam.cu use, so that their sources compile with g++ and their
 // kernels run on the CPU: each warp is
 // 32 host threads (run_warp), and every shuffle, ballot, __match_any_sync and
 // __syncwarp is a meeting of the 32 at a barrier. A whole block runs as its
@@ -9,7 +9,7 @@
 // time), the launch's dynamic shared memory is a buffer filled with 0xff
 // bytes, and the integer atomics are host atomics. Float arithmetic is IEEE single
 // precision; compile with -ffp-contract=off so that nothing is fused, as
-// __fmul_rn / __fadd_rn guarantee on the card. K6's device-only helpers
+// __fmul_rn / __fadd_rn guarantee on the card, and __fmaf_rn rounds once. K6's device-only helpers
 // (its dynamic shared memory, mbarrier and cp.async.bulk row copies) are
 // stood in for below: a copy lands at once, so the host run cannot show a
 // missing wait.
@@ -58,6 +58,8 @@ inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
+inline float __fsqrt_rn(float x) { return std::sqrt(x); }
 using std::isnan;
 inline unsigned __float_as_uint(float x) {
     unsigned u;

@@ -4,6 +4,7 @@ kernel does not take."""
 
 import ast
 import inspect
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -651,6 +652,20 @@ def test_kernel_build_is_keyed_by_source(name):
     assert path == backend.library_path(name)
     assert (backend.CSRC_DIR / f"{name}.cu").exists()
     assert set(backend.launch_counts) == set(backend.LAUNCH_COUNTERS)
+
+
+def test_adam_kernel_reads_as_the_optimizer_and_builds_without_fast_math():
+    """The fused Adam kernel's name holds ``multi_tensor_apply``, the name
+    the optimizer's device time is read by (the foreach passes' kernels
+    carry it too), and nothing in the build or the source relaxes IEEE
+    rounding: the kernel must equal the eight passes bit for bit."""
+    src = (backend.CSRC_DIR / "adam.cu").read_text()
+    kernels = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", src)
+    assert kernels == ["adam_multi_tensor_apply_kernel"]
+    relaxed = ("fast_math", "fast-math", "ftz=true", "prec-div=false", "prec-sqrt=false")
+    flags = " ".join(backend.NVCC_FLAGS).lower()
+    assert "adam" in backend.KERNELS and not any(r in flags for r in relaxed)
+    assert not any(r in src.lower() for r in relaxed) and "#pragma" not in src.replace("#pragma unroll", "")
 
 
 def test_chip_smoke_refuses_without_a_card():

@@ -9,10 +9,13 @@ group's lr from its schedule at its count of updates made so far (optax's
 count) and Adam's bias corrections there, in float32, with no host read: a
 training step that holds it can be captured into a CUDA graph and replayed.
 The update is optax's, ``lr * m_hat / (sqrt(v_hat) + eps)`` with a
-decoupled weight decay where the group has one, in eight foreach passes
-over the parameters: the scalars fold into the denominator, as
-``torch.optim.Adam(capturable=True)`` folds them. ``exp_decay_schedule`` is the same schedule on the host,
-for the splat trainer's per-attribute ``torch.optim.Adam``
+decoupled weight decay where the group has one: the scalars fold into the
+denominator, as ``torch.optim.Adam(capturable=True)`` folds them. On CUDA
+parameters one hand-written kernel updates every group's tensors in one
+pass (``ops/adam.py``, ``csrc/adam.cu``); on CPU parameters, or inside
+``backend.plain_versions()``, eight foreach passes a group do, the plain
+version, with the same bits. ``exp_decay_schedule`` is the same schedule on
+the host, for the splat trainer's per-attribute ``torch.optim.Adam``
 (``engine/splat_trainer.py::_apply_updates``).
 """
 
@@ -22,6 +25,8 @@ import dataclasses
 from typing import Callable, Mapping
 
 import torch
+
+from uncertainty_nerf_gs_torch.ops import adam, backend
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,6 +139,7 @@ class ScheduledAdam(torch.optim.Optimizer):
     @torch.no_grad()
     def step(self, closure=None):
         b1, b2 = self.b1, self.b2
+        fused = []
         for group in self.param_groups:
             cfg = group["config"]
             params = [p for p in group["params"] if p.grad is not None]
@@ -145,19 +151,28 @@ class ScheduledAdam(torch.optim.Optimizer):
             grads = [p.grad for p in params]
             mu = [self.state[p]["exp_avg"] for p in params]
             nu = [self.state[p]["exp_avg_sq"] for p in params]
-            torch._foreach_lerp_(mu, grads, 1.0 - b1)
-            torch._foreach_mul_(nu, b2)
-            torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
-            if cfg.weight_decay:  # decoupled, as optax's adamw
-                torch._foreach_mul_(params, 1.0 - lr * cfg.weight_decay)
+            # decoupled weight decay, as optax's adamw
+            decay = 1.0 - lr * cfg.weight_decay if cfg.weight_decay else None
             t = group["adam_count"].to(torch.float32)
             # p -= (lr / bc1) * mu / (sqrt(nu) / sqrt(bc2) + eps), with the
             # scalars folded into the denominator: no host read anywhere
+            bc2_sqrt = torch.sqrt(1.0 - b2**t)
+            step_size = lr / (1.0 - b1**t)
+            if backend.use_kernel(params[0]):
+                fused.append(adam.GroupUpdate(params, grads, mu, nu, decay, bc2_sqrt, step_size, cfg.eps))
+                continue
+            torch._foreach_lerp_(mu, grads, 1.0 - b1)
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
+            if decay is not None:
+                torch._foreach_mul_(params, decay)
             denom = torch._foreach_sqrt(nu)
-            torch._foreach_div_(denom, torch.sqrt(1.0 - b2**t))
+            torch._foreach_div_(denom, bc2_sqrt)
             torch._foreach_add_(denom, cfg.eps)
-            torch._foreach_div_(denom, lr / (1.0 - b1**t))
+            torch._foreach_div_(denom, step_size)
             torch._foreach_addcdiv_(params, mu, denom, value=-1.0)
+        if fused:
+            adam.adam_update(fused, b1, b2)
 
 
 def param_groups(

@@ -41,7 +41,7 @@ from uncertainty_nerf_gs_torch.utils.tracing import span
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNELS = ("pdf_resample", "composite_tiles", "hash_grid", "packed_rows")  # sources in csrc/
+KERNELS = ("pdf_resample", "composite_tiles", "hash_grid", "packed_rows", "adam")  # sources in csrc/
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -52,7 +52,7 @@ NVCC_FLAGS = (
 LAUNCH_COUNTERS = (
     "pdf_resample", "composite_fwd", "composite_bwd", "cell_lookup_fwd", "cell_lookup_bwd",
     "cell_lookup_bwd_positions", "packed_cell_lookup_fwd", "packed_cell_lookup_strided", "packed_rows_bwd",
-    "hash_lookup_fwd", "hash_lookup_bwd", "hash_lookup_bwd_positions",
+    "hash_lookup_fwd", "hash_lookup_bwd", "hash_lookup_bwd_positions", "adam_update",
 )
 launch_counts: dict[str, int] = {name: 0 for name in LAUNCH_COUNTERS}
 _libraries: dict[str, ctypes.CDLL] = {}
