@@ -7,8 +7,11 @@ several seeds. Each driver's ``calibrate`` says what it reads.
 
 The second form takes a configuration and a traffic mix by their file
 names, whether or not a cell of ``BENCHMARK.json`` pairs them. Prints one
-JSON line a seed and reading. The benchmark's runs never run this; the
-numbers go to PERF.md beside the limits set from them.
+JSON line a seed and reading, with ``correct`` where the reading has
+numbers that the run's limits (``compare.LIMITS`` and the driver's own,
+``harness.limits``) judge: a control has to read false. The benchmark's
+runs never run this; the numbers go to PERF.md beside the limits set from
+them.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import json
 import torch
 
 from portbench import harness
+from portbench.yardstick import compare
 
 
 def main(argv=None) -> int:
@@ -36,10 +40,13 @@ def main(argv=None) -> int:
     else:
         cell = harness.make_cell(f"{args.config}.{args.traffic}", args.config, args.traffic)
     device = torch.device("cuda", 0)
-    calibrate = harness.driver(cell["traffic"]["driver"]).calibrate
+    drv = harness.driver(cell["traffic"]["driver"])
+    bar = harness.limits(drv)
     for seed in args.seeds:
-        for line in calibrate(cell, seed, device):
-            print(json.dumps({"workload": cell["name"], "seed": seed, **line}), flush=True)
+        for line in drv.calibrate(cell, seed, device):
+            ok, checks = compare.judge(line, bar)
+            judged = {"correct": ok} if checks else {}
+            print(json.dumps({"workload": cell["name"], "seed": seed, **line, **judged}), flush=True)
         harness.free()
     return 0
 

@@ -1,10 +1,16 @@
 """Eval renders of a nerfacto-family model or ensemble: the test poses
 rendered one after another at full resolution in chunks of the model's
 ``eval_num_rays_per_chunk`` rays, each image complete once all of its output
-channels are on the host. One model goes through the eval script's
-``build_render_fn``; an ensemble (``members`` in the configuration) through
-``build_ensemble_chunk_fn`` with the fused path and the packed tables the
-configuration names, under ``_nerfacto_full_image_renderer``.
+channels are on the host, in pinned buffers that every image reuses. One
+model goes through the eval script's ``build_render_fn``; an ensemble
+(``members`` in the configuration) through ``build_ensemble_chunk_fn`` with
+the fused path and the packed tables the configuration names, under
+``_nerfacto_full_image_renderer``.
+
+Quantities: ``eval_image_ms``, the window's wall time over its images;
+``eval_device_ms``, where the cell reports it, the device's busy time over
+the window's images, from a record of the window's device operations alone
+in the untraced runs; ``setup_s``.
 
 After the window, ``check_chunks`` whole chunks drawn from the seed among the
 window's images are compared, every output channel, with the reference on
@@ -59,6 +65,26 @@ def _renderer(cfg, model_cfg, pcams, seed: int, device) -> tuple[Callable, dict]
     return _nerfacto_full_image_renderer(model_cfg, chunk_fn, pcams, device), shapes
 
 
+def host_copier(device) -> Callable[[dict[str, torch.Tensor]], dict[str, np.ndarray]]:
+    """``to_host(outputs)``: every output channel copied to the host and
+    waited for, into buffers made at the first call (the warm-up's) and
+    reused, pinned on the card. Copies into fresh pageable memory made the
+    H100 host's images 5-10 % slower in stretches of about ten, a different
+    share in each run."""
+    buffers: dict[str, torch.Tensor] = {}
+
+    def to_host(out: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+        for k, v in out.items():
+            if k not in buffers:
+                buffers[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=v.is_cuda)
+            buffers[k].copy_(v, non_blocking=True)
+        if device.type == "cuda":
+            torch.cuda.current_stream(device).synchronize()
+        return {k: buffers[k].numpy() for k in out}
+
+    return to_host
+
+
 def drive(cell, seed: int, seconds: float, trace_on: bool, device, t_start: float,
           workdir: Path) -> dict[str, Any]:
     cfg, tr = cell["config"], cell["traffic"]
@@ -78,9 +104,10 @@ def drive(cell, seed: int, seconds: float, trace_on: bool, device, t_start: floa
     first_pose = int(rng.integers(tr["poses"]))
     kept_chunk = rng.integers(chunks, size=1 << 16)
 
+    to_host = host_copier(device)
+
     def host(i: int) -> dict[str, np.ndarray]:
-        out = render((first_pose + i) % tr["poses"])
-        return {k: v.cpu().numpy() for k, v in out.items()}
+        return to_host(render((first_pose + i) % tr["poses"]))
 
     def image(i: int) -> tuple[int, int, dict[str, np.ndarray]]:
         """Image i of the run on the host, and the rows of its chunk that
@@ -91,35 +118,53 @@ def drive(cell, seed: int, seconds: float, trace_on: bool, device, t_start: floa
         return (first_pose + i) % tr["poses"], c, {k: v.reshape((h * w_,) + v.shape[2:])[rows].copy()
                                                    for k, v in out.items()}
 
+    # where the cell reports the device's time an image, an untraced run records the window's device operations
+    busy_window = not trace_on and device.type == "cuda" and any(
+        m["name"].split(".")[0] == "eval_device_ms" for m in cell["end_to_end"])
     warm_at = [time.perf_counter()]
     for i in range(tr["warmup_images"]):
         image(i)
         warm_at.append(time.perf_counter())
+    if busy_window:
+        trace.device_busy(lambda: None)  # the profiler's first start, in set-up
     mark(t_start, "warm-up images rendered")
     counted = harness.launch_counts()
-    t0 = time.perf_counter()
+    kept, done_at, t0 = [], [], []
+
+    def window() -> None:
+        t0.append(time.perf_counter())
+        while True:
+            kept.append(image(tr["warmup_images"] + len(kept)))
+            done_at.append(time.perf_counter())
+            if done_at[-1] - t0[0] >= seconds:
+                break
+
+    busy_s = device_ops = None
+    if busy_window:
+        busy_s, device_ops = trace.device_busy(window)
+    else:
+        window()
+    t0 = t0[0]
     setup_s = t0 - t_start
-    kept, done_at = [], []
-    while True:
-        kept.append(image(tr["warmup_images"] + len(kept)))
-        done_at.append(time.perf_counter())
-        if done_at[-1] - t0 >= seconds:
-            break
     images = len(kept)
-    window_s = time.perf_counter() - t0
+    window_s = done_at[-1] - t0
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
     counted = harness.launches_since(counted)
     mark(t_start, "window closed")
-    result = {"attempted": images, "failed": 0, "peak": peak,
-              "metrics": {"eval_image_ms": (1e3 * window_s / images, "ms/image"), "setup_s": (setup_s, "s")},
+    metrics = {"eval_image_ms": (1e3 * window_s / images, "ms/image"), "setup_s": (setup_s, "s")}
+    if busy_window:
+        metrics["eval_device_ms"] = (1e3 * busy_s / images, "ms/image")
+    result = {"attempted": images, "failed": 0, "peak": peak, "metrics": metrics,
               "diagnostics": {"image_ms": [round(1e3 * (b - a), 3) for a, b in zip([t0] + done_at, done_at)],
                               "warmup_ms": [round(1e3 * (b - a), 3) for a, b in zip(warm_at, warm_at[1:])],
-                              "poses": [p for p, _, _ in kept], "kernel_launches": counted}}
+                              "poses": [p for p, _, _ in kept], "kernel_launches": counted,
+                              "device_ops": device_ops}}
 
     if trace_on:
         units = tr["trace_images"]
         base = tr["warmup_images"] + images
-        t = trace.profile(lambda: [host(base + i) for i in range(units)], workdir, KIND, units)
+        t = trace.profile(lambda: [host(base + i) for i in range(units)], workdir, KIND, units,
+                          counters=harness.program_counts)
         t.flops_per_unit = chunks * chunk * flops.forward_flops_per_ray(cfg["model"], members)
         t.peak_flops = peaks.matmul_peak(torch.backends.cuda.matmul.allow_tf32)
         poses = [(first_pose + base + i) % tr["poses"] for i in range(units)]

@@ -128,7 +128,8 @@ def drive(cell, seed: int, seconds: float, trace_on: bool, device, t_start: floa
            "metrics": {"train_step_ms": (1e3 * window_s / steps, "ms/step"), "setup_s": (setup_s, "s")}}
     if trace_on:
         units = tr["trace_launches"] * per_launch
-        t = trace.profile(lambda: trainer.train(units, rays, steps_per_launch=per_launch), workdir, KIND, units)
+        t = trace.profile(lambda: trainer.train(units, rays, steps_per_launch=per_launch), workdir, KIND, units,
+                          counters=harness.program_counts)
         t.flops_per_unit = 3.0 * rays * flops.forward_flops_per_ray(cfg["model"])
         t.peak_flops = peaks.matmul_peak(torch.backends.cuda.matmul.allow_tf32)
         bgen = torch.Generator(device=device).manual_seed(scene.seed_of(seed, 4))

@@ -16,6 +16,9 @@ device's peak bytes, read when the window closed), ``metrics`` (quantity ->
 (value, unit)), ``readings`` (the numbers ``yardstick/compare.py`` judges),
 ``diagnostics`` and, traced, ``trace``; and ``calibrate(cell, seed,
 device)``, the readings of the cell's control that the limits are set from.
+A driver whose readings have names of their own gives their limits in a
+``LIMITS`` dict beside ``compare.LIMITS`` (``limits`` below); a reading
+that no limit covers is listed under ``unjudged`` in the diagnostics.
 An end-to-end metric ``<quantity>.<variant>`` reports the driver's
 ``<quantity>``: cells of one driver whose spreads differ get bounds of
 their own.
@@ -95,6 +98,16 @@ def driver(name: str) -> ModuleType:
     if not name.isidentifier():
         raise ValueError(f"a driver's name is a Python identifier, not {name!r}")
     return importlib.import_module(f"portbench.drivers.{name}")
+
+
+def limits(drv: ModuleType) -> dict[str, float]:
+    """``compare.LIMITS`` with the driver's own ``LIMITS``, which may not
+    repeat an accepted name: no driver loosens an accepted limit."""
+    own = getattr(drv, "LIMITS", {})
+    clash = sorted(set(own) & set(compare.LIMITS))
+    if clash:
+        raise ValueError(f"{drv.__name__} repeats the accepted limits {clash}")
+    return {**compare.LIMITS, **own}
 
 
 def reader(metric: str) -> Callable[[trace.Trace], float | None]:
@@ -180,7 +193,16 @@ def launch_counts() -> dict[str, int]:
 def launches_since(before: dict[str, int]) -> dict[str, int]:
     """The launches of each hand-written kernel since ``before``: which of
     them the window ran, and how often."""
-    return {k: n - before.get(k, 0) for k, n in launch_counts().items() if n != before.get(k, 0)}
+    return trace.moved(before, launch_counts())
+
+
+def program_counts() -> dict[str, int]:
+    """The program's work counters (``utils/tracing.py``'s ``counts()``),
+    which move only while a profile is active; ``trace.profile`` keeps those
+    that moved across its stretch."""
+    from uncertainty_nerf_gs_torch.utils import tracing
+
+    return tracing.counts()
 
 
 # -- recording what the kernels read ---------------------------------------------
@@ -269,12 +291,25 @@ def k6_bounds(run: Callable[[], None]) -> float:
 # -- one run -------------------------------------------------------------------
 
 
+def per_layer(cell: dict, t: trace.Trace) -> dict[str, dict[str, Any]]:
+    """The cell's per-layer metrics that its readers find in ``t``."""
+    metrics = {}
+    for m in cell["per_layer"]:
+        value = reader(m["name"])(t)
+        if value is not None and np.isfinite(value):
+            metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+    return metrics
+
+
 def run_cell(cell: dict, seed: int, seconds: float, trace_on: bool, device, t_start: float,
              workdir: Path) -> dict[str, Any]:
     """One run of ``cell``: the result line's fields, and ``checks``."""
-    out = driver(cell["traffic"]["driver"]).drive(cell, seed, seconds, trace_on, device, t_start, workdir)
-    correct, checks = compare.judge(out["readings"])
-    diagnostics = {"readings": out["readings"], **out.get("diagnostics", {})}
+    drv = driver(cell["traffic"]["driver"])
+    bar = limits(drv)
+    out = drv.drive(cell, seed, seconds, trace_on, device, t_start, workdir)
+    correct, checks = compare.judge(out["readings"], bar)
+    diagnostics = {"readings": out["readings"], "unjudged": sorted(k for k in out["readings"] if k not in bar),
+                   **out.get("diagnostics", {})}
     if device.type == "cuda":
         dev = {"platform": "gpu", "kind": torch.cuda.get_device_name(device), "count": cell["chips"],
                "memory_peak_bytes": int(out["peak"]), "power_limit": smi("power.limit")}
@@ -283,13 +318,9 @@ def run_cell(cell: dict, seed: int, seconds: float, trace_on: bool, device, t_st
     result: dict[str, Any] = {"correct": correct, "attempted": out["attempted"], "failed": out["failed"]}
     if trace_on:
         t = out["trace"]
-        metrics = {}
-        for m in cell["per_layer"]:
-            value = reader(m["name"])(t)
-            if value is not None and np.isfinite(value):
-                metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+        t.window = {k: v for k, (v, _) in out["metrics"].items()}
         dev.update(busy_s=t.busy_s, window_s=t.window_s)
-        result.update(metrics=metrics, device=dev, breakdown=t.breakdown())
+        result.update(metrics=per_layer(cell, t), device=dev, breakdown=t.breakdown())
     else:
         metrics = {}
         for m in cell["end_to_end"]:

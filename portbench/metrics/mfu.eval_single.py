@@ -1,5 +1,5 @@
-"""``mfu.eval``, read in the one-model eval cell, whose image time has a
-bound of its own (``eval_image_ms.single``)."""
+"""``mfu.eval``, read in the one-model eval cell, whose end-to-end
+time is the device's (``eval_device_ms``)."""
 
 from portbench.harness import reader
 

@@ -3,24 +3,12 @@
     python3 -m portbench.span_readings --workload <cell> --seed <n> [--seconds <s>]
     python3 -m portbench.span_readings --cost --seed <n> [--turns <k>]
 
-The first runs the cell as ``--trace 1`` does and prints one JSON line: the
-accepted per-layer metrics, the device's busy and idle time a unit, and
-``yardstick/spans.py``'s readings of the same profiled stretch (each
-``ungs.`` span's count, and its host, idle and device milliseconds a unit),
-with five quantities made from them:
-
-* ``render_host_ms``: host time of ``ungs.render.image`` an image;
-* ``render_idle_ms``: idle time that began inside ``ungs.render.image``,
-  an image: the card waiting on the renderer's own host code, not on the
-  caller's copy to the host;
-* ``members_ms``: device time launched inside ``ungs.ensemble.members``, an
-  image;
-* ``launch_turnaround_ms``: the stretch's idle time that did not begin in a
-  ``ungs.train.replay``, a launch: the launch's host read, its row loop and
-  the next launch's set-up up to its first replay.
-
-Each is left out where its span count does not match the stretch's units
-(images, or replayed steps).
+The first runs the cell as ``--trace 1`` does and prints one JSON line: its
+per-layer metrics (the readers under ``metrics/``, the span metrics among
+them), the device's busy and idle time a unit, the counters that moved
+across the profiled stretch, and ``yardstick/spans.py``'s readings of it
+(each ``ungs.`` span's count, and its host, idle and device milliseconds a
+unit).
 
 ``--cost`` times an empty span with no profile active and under a
 running profiler; then it builds each cell's renderer or trainer at full
@@ -45,52 +33,26 @@ from pathlib import Path
 import torch
 
 from portbench import harness, scene
-from portbench.yardstick import spans, trace
+from portbench.yardstick import compare, trace
 
 SPAN_MODULES = ("uncertainty_nerf_gs_torch.scripts.eval_uncertainty", "uncertainty_nerf_gs_torch.models.nerfacto",
                 "uncertainty_nerf_gs_torch.parallel.ensemble_fused", "uncertainty_nerf_gs_torch.engine.trainer",
                 "uncertainty_nerf_gs_torch.ops.backend")
 
 
-def derived(t: trace.Trace, s: spans.Spans) -> dict[str, float]:
-    """The five quantities of a stretch, where the span counts match its units."""
-    out: dict[str, float] = {}
-    if t.kind == "eval" and s.count.get("ungs.render.image") == t.units:
-        out["render_host_ms"] = 1e3 * s.host_s["ungs.render.image"] / t.units
-        out["render_idle_ms"] = 1e3 * s.idle_s.get("ungs.render.image", 0.0) / t.units
-        if "ungs.ensemble.members" in s.device_s:
-            out["members_ms"] = 1e3 * s.device_s["ungs.ensemble.members"] / t.units
-    if t.kind == "train" and s.count.get("ungs.train.replay") == t.units and s.count.get("ungs.train.launch"):
-        idle = t.window_s - t.busy_s - s.idle_s.get("ungs.train.replay", 0.0)
-        out["launch_turnaround_ms"] = 1e3 * idle / s.count["ungs.train.launch"]
-    return out
-
-
 def readings(workload: str, seed: int, seconds: float) -> dict:
     cell = harness.load_cell(workload)
-    seen: list[tuple[list[dict], trace.Trace]] = []
-    read = trace.read_trace
-
-    def keep(events, kind, units):
-        seen.append((events, read(events, kind, units)))
-        return seen[-1][1]
-
-    trace.read_trace = keep
-    try:
-        with tempfile.TemporaryDirectory(prefix="span-readings-") as work:
-            result = harness.run_cell(cell, seed, seconds, True, torch.device("cuda", 0), time.perf_counter(),
-                                      Path(work))
-    finally:
-        trace.read_trace = read
-    events, t = seen[0]
-    units, s = t.units, spans.read_spans(events)
+    drv = harness.driver(cell["traffic"]["driver"])
+    with tempfile.TemporaryDirectory(prefix="span-readings-") as work:
+        out = drv.drive(cell, seed, seconds, True, torch.device("cuda", 0), time.perf_counter(), Path(work))
+    t = out["trace"]
+    units, s = t.units, t.spans
     per_unit = {k: {n: 1e3 * v / units for n, v in d.items()}
                 for k, d in (("host_ms", s.host_s), ("idle_ms", s.idle_s), ("device_ms", s.device_s))}
-    return {"workload": workload, "seed": seed, "correct": result["correct"], "units": units,
-            "metrics": {k: v["value"] for k, v in result["metrics"].items()},
+    return {"workload": workload, "seed": seed, "correct": compare.judge(out["readings"], harness.limits(drv))[0],
+            "units": units, "metrics": {k: v["value"] for k, v in harness.per_layer(cell, t).items()},
             "busy_ms": 1e3 * t.busy_s / units, "idle_ms": 1e3 * (t.window_s - t.busy_s) / units,
-            "derived": derived(t, s), "span_count": s.count, **per_unit,
-            "card": harness.smi("name,power.limit")}
+            "counts": t.counts, "span_count": s.count, **per_unit, "card": harness.smi("name,power.limit")}
 
 
 @contextlib.contextmanager

@@ -75,10 +75,11 @@ def test_tf32_control(name, card, tmp_path):
     else:
         cell["config"]["model"]["eval_num_rays_per_chunk"] = 4096
         cell["traffic"].update(height=64, width=64, check_chunks=1)
-    readings = harness.driver(cell["traffic"]["driver"]).calibrate(cell, SEED, card)[0]
+    drv = harness.driver(cell["traffic"]["driver"])
+    readings = drv.calibrate(cell, SEED, card)[0]
     from portbench.yardstick import compare
 
-    assert not compare.judge({k: v for k, v in readings.items() if k in compare.LIMITS})[0]
+    assert not compare.judge(readings, harness.limits(drv))[0]
 
 
 @pytest.mark.card

@@ -13,7 +13,9 @@ channel counts.
 
 Each limit lies between the largest reading of sound runs and the smallest
 reading of the control (the reference a precision lower in the program's
-place) or of a planted fault; PERF.md gives the readings.
+place) or of a planted fault; PERF.md gives the readings. A driver may
+bring ``LIMITS`` of its own for readings of its own names
+(``harness.limits``); it may not repeat one of these.
 """
 
 from __future__ import annotations
@@ -97,8 +99,9 @@ def eval_readings(sums: Mapping[str, list[float]]) -> dict[str, float]:
     return {"image_gap": gap}
 
 
-def judge(readings: Mapping[str, float]) -> tuple[bool, dict[str, dict[str, float]]]:
+def judge(readings: Mapping[str, float], limits: Mapping[str, float] = LIMITS
+          ) -> tuple[bool, dict[str, dict[str, float]]]:
     """(correct, {number: {value, limit}}) over the readings that have a limit."""
-    checks = {k: {"value": v, "limit": LIMITS[k]} for k, v in readings.items() if k in LIMITS}
+    checks = {k: {"value": v, "limit": limits[k]} for k, v in readings.items() if k in limits}
     ok = bool(checks) and all(math.isfinite(c["value"]) and c["value"] <= c["limit"] for c in checks.values())
     return ok, checks

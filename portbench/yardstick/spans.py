@@ -4,8 +4,9 @@ The port marks its layer boundaries with profiler ranges whose names start
 with ``ungs.`` (``uncertainty_nerf_gs_torch/utils/tracing.py``); the
 profiler writes them as ``user_annotation`` events beside the device's
 operations, on the same clock. ``read_spans`` reads them from the same
-chrome-trace events and over the same window as ``trace.read_trace`` (the
-marked span to its last device operation), with the same idle gaps:
+chrome-trace events and over the same window as ``trace.read_trace``
+(``events.stretch``: the marked span to its last device operation), with
+the same idle gaps:
 
 * ``count[name]``, ``host_s[name]``: how many spans of each name, and
   their summed host durations;
@@ -26,7 +27,7 @@ from __future__ import annotations
 import bisect
 from dataclasses import dataclass, field
 
-from portbench.yardstick.trace import _DEVICE_CATS, _SENTINEL, SPAN, _union
+from portbench.yardstick import events as ev
 
 PREFIX = "ungs."
 OUTSIDE = "(outside)"
@@ -44,7 +45,7 @@ class _Cover:
     """The union of one name's spans, for point queries."""
 
     def __init__(self, intervals: list[tuple[float, float]]):
-        self.parts = _union(intervals)
+        self.parts = ev.union(intervals)
         self.starts = [a for a, _ in self.parts]
 
     def holds(self, t: float) -> bool:
@@ -54,13 +55,7 @@ class _Cover:
 
 def read_spans(events: list[dict]) -> Spans:
     """The ``ungs.`` spans of a chrome trace's complete events."""
-    marked = [e for e in events if e.get("name") == SPAN and e.get("cat") == "user_annotation"]
-    if not marked:
-        raise RuntimeError("the profiled span is missing from the trace")
-    start = float(marked[0]["ts"])
-    device = [e for e in events
-              if e.get("cat") in _DEVICE_CATS and _SENTINEL not in e.get("name", "") and float(e["ts"]) >= start]
-    end = max([start + float(marked[0]["dur"])] + [float(e["ts"]) + float(e.get("dur", 0.0)) for e in device])
+    start, end, device = ev.stretch(events)
     out = Spans()
     intervals: dict[str, list[tuple[float, float]]] = {}
     for e in events:
@@ -72,13 +67,10 @@ def read_spans(events: list[dict]) -> Spans:
             out.host_s[name] = out.host_s.get(name, 0.0) + 1e-6 * float(e.get("dur", 0.0))
     covers = {name: _Cover(iv) for name, iv in intervals.items()}
 
-    cursor = start
-    for a, b in _union([(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))) for e in device]) + [(end, end)]:
-        if a > cursor:
-            inside = [name for name, c in covers.items() if c.holds(cursor)] or [OUTSIDE]
-            for name in inside:
-                out.idle_s[name] = out.idle_s.get(name, 0.0) + 1e-6 * (a - cursor)
-        cursor = max(cursor, b)
+    for cursor, a in ev.gaps(ev.busy(device), start, end):
+        inside = [name for name, c in covers.items() if c.holds(cursor)] or [OUTSIDE]
+        for name in inside:
+            out.idle_s[name] = out.idle_s.get(name, 0.0) + 1e-6 * (a - cursor)
 
     launched = {e["args"]["correlation"]: float(e["ts"]) for e in events
                 if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})}

@@ -7,7 +7,13 @@ with its start and length, the host's kernel and graph launches, the span's
 length from its start on the host to its last device operation's end, the
 union of device activity inside it, and each idle stretch of the device
 labelled by the innermost host operation running when it began, and the
-host's time in each CUDA runtime call.
+host's time in each CUDA runtime call. From the same events it reads the
+program's own ``ungs.`` spans (``spans.read_spans``), and, given the
+program's counters, the counts that moved across ``fn``. The harness adds
+the driver's quantities from the same run's window (``window``).
+
+``device_busy(fn)`` records the device's operations alone, for a whole
+window: its busy seconds.
 """
 
 from __future__ import annotations
@@ -19,9 +25,10 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable
 
-SPAN = "portbench.profiled"
-_SENTINEL = "spin_kernel"  # a short kernel first: the profiler may drop its first device kernel
-_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+from portbench.yardstick import events as ev
+from portbench.yardstick.events import SPAN
+from portbench.yardstick.spans import Spans, read_spans
+
 _HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")
 _LAUNCH = re.compile(r"LaunchKernel|GraphLaunch")
 
@@ -39,6 +46,9 @@ class Trace:
     flops_per_unit: float = 0.0
     peak_flops: float = 0.0
     bound_ms_per_unit: dict[str, float] = field(default_factory=dict)
+    spans: Spans = field(default_factory=Spans)  # the program's ``ungs.`` spans in the stretch
+    counts: dict[str, int] = field(default_factory=dict)  # the program's counters that moved across it
+    window: dict[str, float] = field(default_factory=dict)  # the same run's window: the driver's quantities
 
     def device_ms(self, pattern: str) -> float:
         """Device milliseconds of the operations whose name matches ``pattern``."""
@@ -68,27 +78,11 @@ def _short(name: str) -> str:
     return name
 
 
-def _union(intervals: list[tuple[float, float]]) -> list[tuple[float, float]]:
-    out: list[list[float]] = []
-    for a, b in sorted(intervals):
-        if out and a <= out[-1][1]:
-            out[-1][1] = max(out[-1][1], b)
-        else:
-            out.append([a, b])
-    return [(a, b) for a, b in out]
-
-
 def read_trace(events: list[dict], kind: str, units: int) -> Trace:
     """A Trace from a chrome trace's complete events."""
-    spans = [e for e in events if e.get("name") == SPAN and e.get("cat") == "user_annotation"]
-    if not spans:
-        raise RuntimeError("the profiled span is missing from the trace")
-    start = float(spans[0]["ts"])
-    span_end = start + float(spans[0]["dur"])
-    device = [(e["name"], float(e["ts"]), float(e.get("dur", 0.0))) for e in events
-              if e.get("cat") in _DEVICE_CATS and _SENTINEL not in e.get("name", "") and float(e["ts"]) >= start]
-    end = max([span_end] + [t + d for _, t, d in device])
-    busy = _union([(t, t + d) for _, t, d in device])
+    start, end, ops = ev.stretch(events)
+    device = [(e["name"], float(e["ts"]), float(e.get("dur", 0.0))) for e in ops]
+    busy = ev.busy(ops)
     host = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)), e["name"]) for e in events
                   if e.get("cat") in _HOST_CATS and e.get("name") != SPAN and start <= float(e["ts"]) <= end)
     runtime = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver") and start <= float(e["ts"]) <= end]
@@ -98,23 +92,60 @@ def read_trace(events: list[dict], kind: str, units: int) -> Trace:
         runtime_ms[e["name"]] = runtime_ms.get(e["name"], 0.0) + 1e-3 * float(e.get("dur", 0.0))
     starts = [h[0] for h in host]
     idle: dict[str, float] = {}
-    cursor = start
-    for a, b in busy + [(end, end)]:
-        if a > cursor:
-            i = bisect.bisect_right(starts, cursor) - 1
-            label = "(no host operation)"
-            for j in range(i, max(i - 2000, -1), -1):
-                if host[j][1] >= cursor:
-                    label = host[j][2]
-                    break
-            idle[label] = idle.get(label, 0.0) + 1e-6 * (a - cursor)
-        cursor = max(cursor, b)
+    for cursor, a in ev.gaps(busy, start, end):
+        i = bisect.bisect_right(starts, cursor) - 1
+        label = "(no host operation)"
+        for j in range(i, max(i - 2000, -1), -1):
+            if host[j][1] >= cursor:
+                label = host[j][2]
+                break
+        idle[label] = idle.get(label, 0.0) + 1e-6 * (a - cursor)
     return Trace(kind=kind, units=units, kernels=device, busy_s=1e-6 * sum(b - a for a, b in busy),
                  window_s=1e-6 * (end - start), launches=launches, idle_by_host_op=idle, runtime_ms=runtime_ms)
 
 
-def profile(fn: Callable[[], None], workdir: Path, kind: str, units: int) -> Trace:
-    """``fn`` once under the profiler; its trace read and deleted."""
+def moved(before: dict[str, int], after: dict[str, int]) -> dict[str, int]:
+    """The counters that differ between two readings, and by how much."""
+    return {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+
+
+def profile(fn: Callable[[], None], workdir: Path, kind: str, units: int,
+            counters: Callable[[], dict[str, int]] | None = None) -> Trace:
+    """``fn`` once under the profiler; its trace read and deleted. ``counters``
+    returns the program's cumulative counts; those that moved across ``fn``
+    go to the Trace's ``counts``."""
+    before = counters() if counters else {}
+    events = _events(fn, workdir)
+    t = read_trace(events, kind, units)
+    t.spans = read_spans(events)
+    if counters:
+        t.counts = moved(before, counters())
+    return t
+
+
+def device_busy(fn: Callable[[], None]) -> tuple[float, int]:
+    """``fn`` once under the profiler's CUDA activity alone (no host
+    operators, so the host pays far less than under ``profile``): the
+    seconds in which a device operation (kernel, copy or memset) ran, the
+    union of their intervals, and how many ran."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(100)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    ops = [(e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA and ev.SENTINEL not in e.name()]
+    return 1e-9 * sum(b - a for a, b in ev.union(ops)), len(ops)
+
+
+def _events(fn: Callable[[], None], workdir: Path) -> list[dict]:
+    """The complete events of ``fn`` run once under the profiler in the marked span."""
     import torch
     from torch.profiler import ProfilerActivity, record_function
     from torch.profiler import profile as torch_profile
@@ -130,7 +161,6 @@ def profile(fn: Callable[[], None], workdir: Path, kind: str, units: int) -> Tra
     path = workdir / "profile.json"
     prof.export_chrome_trace(str(path))
     try:
-        events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+        return [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
     finally:
         path.unlink(missing_ok=True)
-    return read_trace(events, kind, units)
