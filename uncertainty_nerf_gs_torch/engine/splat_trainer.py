@@ -35,6 +35,7 @@ from uncertainty_nerf_gs_torch.cameras.lie import compose_poses, exp_map_SO3xR3
 from uncertainty_nerf_gs_torch.engine.optimizers import OptimizerGroupConfig, exp_decay_schedule
 from uncertainty_nerf_gs_torch.models import splatfacto as sf
 from uncertainty_nerf_gs_torch.ops.backend import resolve_device
+from uncertainty_nerf_gs_torch.utils.tracing import span
 
 SPLAT_GROUPS: dict[str, OptimizerGroupConfig] = {
     "means": OptimizerGroupConfig(lr=1.6e-4, lr_final=1.6e-6, max_steps=30_000),
@@ -220,75 +221,85 @@ class SplatfactoTrainer:
         then the refinement schedule and the capacity retune. A refine
         this step makes takes its split samples from ``refine_eps`` when
         given ((n_split_samples, capacity, 3) standard normal draws), else
-        from the trainer's generator."""
-        cfg = self.config
-        cam_idx = int(self._cam_rng.integers(0, len(self.cameras)))
-        if cfg.background_color == "random":
-            background = torch.rand(3, generator=self._generator, device=self.device)
-        else:
-            background = sf.fixed_background(cfg, self.device)
-        if cfg.nll_ramp_after_reset > 0:
-            since = self.step - self._last_opacity_reset
-            nll_w = min(1.0, max(0.0, since / cfg.nll_ramp_after_reset))
-        else:
-            nll_w = 1.0
+        from the trainer's generator. Its spans: ``ungs.splat.step`` around
+        it all, and inside it ``.loss``, ``.backward``, ``.update`` (the
+        attribute Adams and the camera Adam) and ``.stats``; the render's
+        own (``.project``, ``.rasterize``), ``.refine`` and ``.retune``."""
+        with span("ungs.splat.step", splat_steps=1):
+            cfg = self.config
+            cam_idx = int(self._cam_rng.integers(0, len(self.cameras)))
+            if cfg.background_color == "random":
+                background = torch.rand(3, generator=self._generator, device=self.device)
+            else:
+                background = sf.fixed_background(cfg, self.device)
+            if cfg.nll_ramp_after_reset > 0:
+                since = self.step - self._last_opacity_reset
+                nll_w = min(1.0, max(0.0, since / cfg.nll_ramp_after_reset))
+            else:
+                nll_w = 1.0
 
-        c2w, fx, fy, cx, cy = self.camera(cam_idx)
-        if self.use_camera_optimizer:
-            delta = exp_map_SO3xR3(self.camera_opt[cam_idx][None])
-            c2w = compose_poses(delta, c2w[None])[0]
-        tap = torch.zeros((cfg.capacity, 2), device=self.device, requires_grad=True)
-        out = sf.render_splat(
-            self.params, self.splat_state.alive, c2w, fx, fy, cx, cy,
-            self.cameras.width, self.cameras.height, cfg,
-            sh_deg=sf.active_sh_degree(self.step, cfg), background=background,
-            means2d_tap=tap,
-        )
-        total, losses = sf.splatfacto_loss(out, self.images[cam_idx], self.params, cfg, nll_w)
-        for opt in self.optimizers.values():
-            opt.zero_grad(set_to_none=False)
-        self.cam_optimizer.zero_grad(set_to_none=False)
-        total.backward()
-        for opt in self.optimizers.values():
-            _apply_updates(opt)
-        if self.use_camera_optimizer:
-            self.cam_optimizer.step()
-        self.splat_state = sf.accumulate_stats(
-            self.splat_state, tap.grad, out["radii"].detach(), out["visible"],
-            self.cameras.width, self.cameras.height,
-        )
-        self.step += 1
-        losses["total_loss"] = total
+            c2w, fx, fy, cx, cy = self.camera(cam_idx)
+            if self.use_camera_optimizer:
+                delta = exp_map_SO3xR3(self.camera_opt[cam_idx][None])
+                c2w = compose_poses(delta, c2w[None])[0]
+            tap = torch.zeros((cfg.capacity, 2), device=self.device, requires_grad=True)
+            out = sf.render_splat(
+                self.params, self.splat_state.alive, c2w, fx, fy, cx, cy,
+                self.cameras.width, self.cameras.height, cfg,
+                sh_deg=sf.active_sh_degree(self.step, cfg), background=background,
+                means2d_tap=tap,
+            )
+            with span("ungs.splat.loss"):
+                total, losses = sf.splatfacto_loss(out, self.images[cam_idx], self.params, cfg, nll_w)
+            for opt in self.optimizers.values():
+                opt.zero_grad(set_to_none=False)
+            self.cam_optimizer.zero_grad(set_to_none=False)
+            with span("ungs.splat.backward"):
+                total.backward()
+            with span("ungs.splat.update"):
+                for opt in self.optimizers.values():
+                    _apply_updates(opt)
+                if self.use_camera_optimizer:
+                    self.cam_optimizer.step()
+            with span("ungs.splat.stats"):
+                self.splat_state = sf.accumulate_stats(
+                    self.splat_state, tap.grad, out["radii"].detach(), out["visible"],
+                    self.cameras.width, self.cameras.height,
+                )
+            self.step += 1
+            losses["total_loss"] = total
 
-        # the refinement schedule, the JAX trainer's arithmetic
-        if (self.step > cfg.warmup_length and self.step % cfg.refine_every == 0
-                and self.step < cfg.stop_split_at):
-            reset_period = cfg.reset_alpha_every * cfg.refine_every
-            if self.step % reset_period > max(cfg.warmup_length, cfg.refine_every):
-                info = self.refine(refine_eps)
-                losses["num_alive"] = info["num_alive"]
-            if self.step % reset_period == 0:
-                self.reset_opacities()
-        if cfg.capacity_retune_every and self.step % cfg.capacity_retune_every == 0:
-            self.retune_capacity()
-        return {k: float(v.detach()) for k, v in losses.items()}
+            # the refinement schedule, the JAX trainer's arithmetic
+            if (self.step > cfg.warmup_length and self.step % cfg.refine_every == 0
+                    and self.step < cfg.stop_split_at):
+                reset_period = cfg.reset_alpha_every * cfg.refine_every
+                if self.step % reset_period > max(cfg.warmup_length, cfg.refine_every):
+                    info = self.refine(refine_eps)
+                    losses["num_alive"] = info["num_alive"]
+                if self.step % reset_period == 0:
+                    self.reset_opacities()
+            if cfg.capacity_retune_every and self.step % cfg.capacity_retune_every == 0:
+                self.retune_capacity()
+            return {k: float(v.detach()) for k, v in losses.items()}
 
     @torch.no_grad()
     def refine(self, eps: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
         """``refine_gaussians`` at the current step, its rows written into
         the parameters' own leaves (the optimizers hold them), then the Adam
-        moments of the slots it replaced zeroed. Returns its ``info``."""
-        params, self.splat_state, info = sf.refine_gaussians(
-            self.params, self.splat_state, self.config, self.step,
-            scene_extent=self.scene_extent, generator=self._generator,
-            eps=None if eps is None else eps.to(self.device),
-        )
-        for k, v in params.items():
-            self.params[k].copy_(v)
-        if int(info["num_dropped_capacity"]) > 0:
-            print(f"[refine] capacity overflow: dropped {int(info['num_dropped_capacity'])} new gaussians")
-        self._zero_moment_slots(info["touched_slots"])
-        return info
+        moments of the slots it replaced zeroed, in the span
+        ``ungs.splat.refine``. Returns its ``info``."""
+        with span("ungs.splat.refine", refines=1):
+            params, self.splat_state, info = sf.refine_gaussians(
+                self.params, self.splat_state, self.config, self.step,
+                scene_extent=self.scene_extent, generator=self._generator,
+                eps=None if eps is None else eps.to(self.device),
+            )
+            for k, v in params.items():
+                self.params[k].copy_(v)
+            if int(info["num_dropped_capacity"]) > 0:
+                print(f"[refine] capacity overflow: dropped {int(info['num_dropped_capacity'])} new gaussians")
+            self._zero_moment_slots(info["touched_slots"])
+            return info
 
     @torch.no_grad()
     def reset_opacities(self) -> None:
@@ -314,21 +325,23 @@ class SplatfactoTrainer:
     def retune_capacity(self) -> bool:
         """Probe the hit counts again and grow the rasterizer's budgets
         where they no longer hold; never shrink. Returns True when a budget
-        grew (there is nothing to recompile)."""
-        cfg = self.config
-        tuned = sf.tune_rasterize_capacity(cfg, self.params, self.splat_state.alive, self.cameras)
-        row_now = cfg.rasterize_row_capacity or max(4 * cfg.rasterize_capacity, 1024)
-        if (tuned.rasterize_capacity <= cfg.rasterize_capacity
-                and (tuned.rasterize_row_capacity or 0) <= row_now):
-            return False
-        self.config = dataclasses.replace(
-            cfg,
-            rasterize_capacity=max(tuned.rasterize_capacity, cfg.rasterize_capacity),
-            rasterize_row_capacity=max(tuned.rasterize_row_capacity or 0, row_now),
-        )
-        print(f"[auto-capacity] step {self.step}: grew rasterize_capacity="
-              f"{self.config.rasterize_capacity} row_capacity={self.config.rasterize_row_capacity}")
-        return True
+        grew (there is nothing to recompile). In the span
+        ``ungs.splat.retune``."""
+        with span("ungs.splat.retune", retunes=1):
+            cfg = self.config
+            tuned = sf.tune_rasterize_capacity(cfg, self.params, self.splat_state.alive, self.cameras)
+            row_now = cfg.rasterize_row_capacity or max(4 * cfg.rasterize_capacity, 1024)
+            if (tuned.rasterize_capacity <= cfg.rasterize_capacity
+                    and (tuned.rasterize_row_capacity or 0) <= row_now):
+                return False
+            self.config = dataclasses.replace(
+                cfg,
+                rasterize_capacity=max(tuned.rasterize_capacity, cfg.rasterize_capacity),
+                rasterize_row_capacity=max(tuned.rasterize_row_capacity or 0, row_now),
+            )
+            print(f"[auto-capacity] step {self.step}: grew rasterize_capacity="
+                  f"{self.config.rasterize_capacity} row_capacity={self.config.rasterize_row_capacity}")
+            return True
 
     def train(self, num_steps: int, log_every: int = 0, writer=None) -> dict[str, float]:
         """``num_steps`` steps, each under ``launch_lock`` (a live viewer

@@ -36,7 +36,8 @@ import torch.nn.functional as F
 from uncertainty_nerf_gs_torch.metrics.image_metrics import ssim
 from uncertainty_nerf_gs_torch.ops import sh as sh_ops
 from uncertainty_nerf_gs_torch.ops.gaussians import Projection, project_gaussians, quat_to_rotmat
-from uncertainty_nerf_gs_torch.ops.rasterize import TileCounts, rasterize_gaussians, tile_hit_counts
+from uncertainty_nerf_gs_torch.ops.rasterize import TILE, TileCounts, rasterize_gaussians, tile_hit_counts
+from uncertainty_nerf_gs_torch.utils.tracing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -256,13 +257,18 @@ def tune_rasterize_capacity(
 
 
 def _rasterize(proj, opac, payload, width, height, config):
-    return rasterize_gaussians(
-        proj, opac, payload, width, height,
-        capacity=config.rasterize_capacity,
-        backend=config.rasterize_backend,
-        row_capacity=config.rasterize_row_capacity,
-        pack_via=config.rasterize_pack_via,
-    )
+    """``rasterize_gaussians`` at the config's budgets, in the span
+    ``ungs.splat.rasterize`` (sort, cull, pack and K2): its tiles and their
+    slots, ``tiles`` x ``rasterize_capacity``."""
+    tiles = -(-width // TILE) * -(-height // TILE)
+    with span("ungs.splat.rasterize", tiles=tiles, tile_slots=tiles * config.rasterize_capacity):
+        return rasterize_gaussians(
+            proj, opac, payload, width, height,
+            capacity=config.rasterize_capacity,
+            backend=config.rasterize_backend,
+            row_capacity=config.rasterize_row_capacity,
+            pack_via=config.rasterize_pack_via,
+        )
 
 
 def render_splat(
@@ -286,24 +292,25 @@ def render_splat(
     ``means2d_tap``: optional (capacity, 2) zeros added to the screen
     positions; its gradient is the densification signal.
     """
-    proj = _project(params, alive, c2w, fx, fy, cx, cy, width, height, config)
-    if means2d_tap is not None:
-        proj = proj._replace(means2d=proj.means2d + means2d_tap)
+    with span("ungs.splat.project", gaussians=params["means"].shape[0]):
+        proj = _project(params, alive, c2w, fx, fy, cx, cy, width, height, config)
+        if means2d_tap is not None:
+            proj = proj._replace(means2d=proj.means2d + means2d_tap)
 
-    viewdirs = params["means"] - c2w[:3, 3][None]
-    coeffs = torch.cat([params["features_dc"][:, None, :], params["features_rest"]], dim=1)
-    if sh_deg is None:
-        sh_deg = config.sh_degree
-    rgbs = torch.clamp(
-        sh_ops.eval_sh_colors(config.sh_degree, coeffs, viewdirs, sh_deg) + 0.5, min=0.0
-    )  # (N, 3)
+        viewdirs = params["means"] - c2w[:3, 3][None]
+        coeffs = torch.cat([params["features_dc"][:, None, :], params["features_rest"]], dim=1)
+        if sh_deg is None:
+            sh_deg = config.sh_degree
+        rgbs = torch.clamp(
+            sh_ops.eval_sh_colors(config.sh_degree, coeffs, viewdirs, sh_deg) + 0.5, min=0.0
+        )  # (N, 3)
 
-    opac = torch.sigmoid(params["opacities"]) * proj.compensation
-    depth = proj.depths
-    channels = [rgbs, depth[:, None], (depth**2)[:, None]]
-    if config.uncertainty_channels:
-        unc = F.softplus(params["log_uncertainties"][:, 0]) + config.beta_min
-        channels.append(unc[:, None])
+        opac = torch.sigmoid(params["opacities"]) * proj.compensation
+        depth = proj.depths
+        channels = [rgbs, depth[:, None], (depth**2)[:, None]]
+        if config.uncertainty_channels:
+            unc = F.softplus(params["log_uncertainties"][:, 0]) + config.beta_min
+            channels.append(unc[:, None])
     out = _rasterize(proj, opac, torch.cat(channels, dim=-1), width, height, config)
     img, alpha = out.image, out.alpha
     alpha_safe = torch.clamp(alpha, min=1e-10)

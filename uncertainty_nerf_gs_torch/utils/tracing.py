@@ -35,6 +35,17 @@ spans are coarse, one a layer boundary and none a kernel call:
   ``replays``) and ``ungs.train.read`` (the host read of the losses,
   ``host_reads``); ``ungs.train.rows``: ``train``'s loop over a launch's
   rows (writer, log, callback);
+* ``ungs.splat.step``: ``engine/splat_trainer.py``'s
+  ``SplatfactoTrainer.train_step``, a whole step (``splat_steps``); inside
+  it ``ungs.splat.loss`` (``splatfacto_loss``), ``ungs.splat.backward``
+  (``total.backward()``), ``ungs.splat.update`` (the attribute Adams and
+  the camera Adam) and ``ungs.splat.stats`` (``accumulate_stats``);
+  ``ungs.splat.refine`` (``refines``) and ``ungs.splat.retune``
+  (``retunes``), from the step's schedule or called on their own;
+* ``ungs.splat.project``: ``models/splatfacto.py``'s ``render_splat``, the
+  projection and the SH colours (``gaussians``, the buffer's capacity);
+  ``ungs.splat.rasterize``: its depth sort, tile cull, pack and K2
+  (``tiles``, T; ``tile_slots``, T x ``rasterize_capacity``);
 * ``ungs.backend.build``: ``ops/backend.py``'s ``nvcc`` runs
   (``kernel_builds``, one a source compiled).
 
